@@ -1,0 +1,403 @@
+"""Serving metrics: per-request latency distributions + engine gauges.
+
+A copy of `accelerate_tpu/serving/metrics.py`; only the package differs.
+
+The serving numbers that matter are distributional (a mean TTFT hides the
+p99 a shed request would have seen). Distributions live in the shared
+`telemetry.StreamingHistogram` sketches — bounded memory however long the
+server runs, exact counts/sums, mergeable across hosts — registered on a
+`telemetry.MetricsRegistry` so the same series the `summary()` dict
+reports are also served by the Prometheus endpoint and the JSONL
+snapshot writer. Engine-level gauges (slot occupancy, queue depth,
+tokens/sec) are sampled once per engine step. The summary is a flat
+str -> float dict, so it drops straight into the existing tracking layer
+(`GeneralTracker.log`) and into `bench.py`'s one-line JSON.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+
+from ..telemetry.registry import MetricsRegistry, StreamingHistogram
+from .scheduler import Request
+
+
+def _percentiles(hist: StreamingHistogram, name: str) -> dict[str, float]:
+    if not hist.count:
+        return {}
+    return {
+        f"{name}_p50_ms": hist.quantile(0.5) * 1e3,
+        f"{name}_p99_ms": hist.quantile(0.99) * 1e3,
+        f"{name}_mean_ms": hist.mean * 1e3,
+    }
+
+
+class ServingMetrics:
+    """Aggregates finished requests + per-step engine gauges.
+
+    All series are registry-backed; pass the engine's registry so the
+    exporters see them, or omit it for a self-contained instance."""
+
+    def __init__(self, registry: MetricsRegistry | None = None):
+        self.registry = r = registry or MetricsRegistry()
+        self.ttft_s = r.histogram("serving_ttft_seconds")
+        self.tpot_s = r.histogram("serving_per_token_seconds")
+        self.queue_wait_s = r.histogram("serving_queue_wait_seconds")
+        self.occupancy = r.histogram("serving_slot_occupancy")
+        self.queue_depth = r.histogram("serving_queue_depth")
+        self._c_finished = r.counter("serving_requests_finished_total")
+        self._c_cancelled = r.counter("serving_requests_cancelled_total")
+        self._c_rejected = r.counter("serving_requests_rejected_total")
+        self._c_expired = r.counter("serving_requests_expired_total")
+        self._c_tokens = r.counter("serving_tokens_out_total")
+        self._c_decode = r.counter("serving_decode_steps_total")
+        self._c_prefill = r.counter("serving_prefill_chunks_total")
+        # paged-KV prefix reuse: lookups = admissions, hits = admissions
+        # that mapped >= 1 cached page; prompt-token totals make the
+        # cached-token fraction derivable from counters alone
+        self._c_prefix_lookups = r.counter("serving_prefix_lookups_total")
+        self._c_prefix_hits = r.counter("serving_prefix_hits_total")
+        self._c_prefix_tokens = r.counter("serving_prefix_tokens_reused_total")
+        self._c_prompt_tokens = r.counter("serving_prompt_tokens_total")
+        self._c_evictions = r.counter("serving_page_evictions_total")
+        # hierarchical KV: prefix hits split by the tier that
+        # served them (an hbm hit mapped pages in place, a host hit paid
+        # a swap-in), swap traffic in pages both directions, the host
+        # tier's occupancy, and the swap-in latency the admission paid
+        self._c_prefix_hits_hbm = r.counter("serving_prefix_hits_hbm_total")
+        self._c_prefix_hits_host = r.counter(
+            "serving_prefix_hits_host_total")
+        self._c_swap_in = r.counter("serving_swap_in_pages_total")
+        self._c_swap_out = r.counter("serving_swap_out_pages_total")
+        # in-flight prefill dedup (cache-aware scheduling): followers
+        # that waited on a leader's publish instead of duplicating it
+        self._c_dedup = r.counter("serving_prefix_dedup_hits_total")
+        self.swap_in_s = r.histogram("serving_swap_in_seconds")
+        self._g_host_pages = r.gauge("serving_host_tier_pages_in_use")
+        self._g_host_bytes = r.gauge("serving_host_tier_bytes_in_use")
+        # speculative decoding: drafted vs accepted proposal
+        # totals per slot-step; the accept-rate gauge is their running
+        # ratio and tokens-per-decode-step is the headline lever (how
+        # many tokens one MXU-occupying step now commits)
+        self._c_spec_drafted = r.counter("serving_spec_drafted_tokens_total")
+        self._c_spec_accepted = r.counter(
+            "serving_spec_accepted_tokens_total")
+        self._g_spec_accept_rate = r.gauge("serving_spec_accept_rate")
+        self._g_tokens_per_step = r.gauge("serving_tokens_per_decode_step")
+        self._g_queue_depth = r.gauge("serving_queue_depth_current")
+        self._g_occupancy = r.gauge("serving_slot_occupancy_current")
+        self._g_tokens_per_sec = r.gauge("serving_tokens_per_sec")
+        self._g_pages_in_use = r.gauge("serving_pages_in_use")
+        self._g_pages_free = r.gauge("serving_pages_free")
+        # KV HBM actually held by live slots + cached prefixes (pages in
+        # use x per-page bytes incl. int8 scales) — the series that shows
+        # kv_dtype="int8" halving the footprint for the same page count
+        self._g_kv_bytes = r.gauge("serving_kv_bytes_in_use")
+        # goodput: useful generated-token device-time / wall-time — the
+        # engine computes it from the cost table's sampled device times
+        # (Engine._goodput) and keeps this gauge live per step
+        self._g_goodput = r.gauge("serving_goodput")
+        self._c_decode_path: dict = {}
+        self.started_at: float | None = None
+        self.stopped_at: float | None = None
+
+    # -- per-tenant labeled series -------------------------------------------
+    # created lazily at first observation, so single-tenant engines keep
+    # exactly the series they always had; the registry's get-or-create
+    # makes repeat lookups cheap and exporter-visible automatically
+
+    def _tenant_hist(self, name: str, tenant: str) -> StreamingHistogram:
+        return self.registry.histogram(name, tenant=tenant)
+
+    def _tenant_counter(self, name: str, tenant: str):
+        return self.registry.counter(name, tenant=tenant)
+
+    # counters read back as ints for the summary / engine bookkeeping
+    @property
+    def finished(self) -> int:
+        return int(self._c_finished.value)
+
+    @property
+    def cancelled(self) -> int:
+        return int(self._c_cancelled.value)
+
+    @property
+    def rejected(self) -> int:
+        return int(self._c_rejected.value)
+
+    @property
+    def expired(self) -> int:
+        return int(self._c_expired.value)
+
+    @property
+    def tokens_out(self) -> int:
+        return int(self._c_tokens.value)
+
+    @property
+    def decode_steps(self) -> int:
+        return int(self._c_decode.value)
+
+    @property
+    def prefill_chunks(self) -> int:
+        return int(self._c_prefill.value)
+
+    @property
+    def prefix_lookups(self) -> int:
+        return int(self._c_prefix_lookups.value)
+
+    @property
+    def prefix_hits(self) -> int:
+        return int(self._c_prefix_hits.value)
+
+    @property
+    def prefix_tokens_reused(self) -> int:
+        return int(self._c_prefix_tokens.value)
+
+    @property
+    def prompt_tokens(self) -> int:
+        return int(self._c_prompt_tokens.value)
+
+    @property
+    def page_evictions(self) -> int:
+        return int(self._c_evictions.value)
+
+    @property
+    def prefix_hits_hbm(self) -> int:
+        return int(self._c_prefix_hits_hbm.value)
+
+    @property
+    def prefix_hits_host(self) -> int:
+        return int(self._c_prefix_hits_host.value)
+
+    @property
+    def swap_in_pages(self) -> int:
+        return int(self._c_swap_in.value)
+
+    @property
+    def swap_out_pages(self) -> int:
+        return int(self._c_swap_out.value)
+
+    @property
+    def prefix_dedup_hits(self) -> int:
+        return int(self._c_dedup.value)
+
+    def note_decode_step(self, path: str = "dense") -> None:
+        """`path` is which decode attention op served the step —
+        "kernel" (Pallas paged attention) or "dense" (gather reference)
+        — so a config regression that silently drops the kernel shows
+        up as the labeled counter going flat. The labeled counter is
+        cached per path (this runs in the per-token host hot loop —
+        same once-resolved pattern as every sibling series)."""
+        self._c_decode.inc()
+        ctr = self._c_decode_path.get(path)
+        if ctr is None:
+            ctr = self._c_decode_path[path] = self.registry.counter(
+                "serving_decode_path_total", path=path)
+        ctr.inc()
+
+    @property
+    def spec_drafted_tokens(self) -> int:
+        return int(self._c_spec_drafted.value)
+
+    @property
+    def spec_accepted_tokens(self) -> int:
+        return int(self._c_spec_accepted.value)
+
+    def note_speculation(self, drafted: int, accepted: int) -> None:
+        """One slot's speculative-step outcome: `drafted` proposals
+        (always draft_k), `accepted` of them survived verification."""
+        self._c_spec_drafted.inc(drafted)
+        self._c_spec_accepted.inc(accepted)
+        total = self.spec_drafted_tokens
+        if total:
+            self._g_spec_accept_rate.set(self.spec_accepted_tokens / total)
+
+    def note_prefill_chunk(self) -> None:
+        self._c_prefill.inc()
+
+    def note_admission(self, prompt_len: int, reused_len: int,
+                       host_pages: int = 0) -> None:
+        """One admitted request's prefix-cache outcome. `host_pages` is
+        how many of the reused pages were swapped in from the host tier
+        — any makes this a host-tier hit (the admission paid a swap-in),
+        else an HBM hit."""
+        self._c_prefix_lookups.inc()
+        self._c_prompt_tokens.inc(prompt_len)
+        if reused_len > 0:
+            self._c_prefix_hits.inc()
+            self._c_prefix_tokens.inc(reused_len)
+            if host_pages > 0:
+                self._c_prefix_hits_host.inc()
+            else:
+                self._c_prefix_hits_hbm.inc()
+
+    def note_page_evictions(self, n: int) -> None:
+        self._c_evictions.inc(n)
+
+    def note_swap_out(self, n: int) -> None:
+        self._c_swap_out.inc(n)
+
+    def note_swap_in(self, n: int, seconds: float) -> None:
+        self._c_swap_in.inc(n)
+        self.swap_in_s.record(seconds)
+
+    def note_dedup_hit(self) -> None:
+        self._c_dedup.inc()
+
+    def set_host_tier_gauges(self, pages: int, bytes_in_use: int) -> None:
+        self._g_host_pages.set(pages)
+        self._g_host_bytes.set(bytes_in_use)
+
+    def set_goodput(self, value: float) -> None:
+        self._g_goodput.set(value)
+
+    def set_page_gauges(self, in_use: int, free: int,
+                        bytes_in_use: int | None = None) -> None:
+        self._g_pages_in_use.set(in_use)
+        self._g_pages_free.set(free)
+        if bytes_in_use is not None:
+            self._g_kv_bytes.set(bytes_in_use)
+
+    def observe_step(self, live_slots: int, num_slots: int,
+                     queue_depth: int) -> None:
+        occ = live_slots / max(1, num_slots)
+        self.occupancy.record(occ)
+        self.queue_depth.record(queue_depth)
+        self._g_occupancy.set(occ)
+        self._g_queue_depth.set(queue_depth)
+        if self.decode_steps:
+            self._g_tokens_per_step.set(self.tokens_out / self.decode_steps)
+        if (self.started_at is not None and self.stopped_at is not None
+                and self.stopped_at > self.started_at):
+            self._g_tokens_per_sec.set(
+                self.tokens_out / (self.stopped_at - self.started_at))
+
+    def observe_request(self, req: Request) -> None:
+        """Fold one terminal request into the aggregates — both the
+        engine-wide series and the `{tenant=...}`-labeled copies the
+        per-tier SLO dashboards (and serve_bench --tenants) read."""
+        tenant = getattr(req, "tenant", "default")
+        # OpenMetrics exemplar: every latency sample carries its request's
+        # trace id, so a bad p99 bucket on the scrape links straight to
+        # the one trace that landed in it
+        ex = getattr(req, "trace_id", None)
+        ex = str(ex) if ex is not None else None
+        if req.status.value == "finished":
+            self._c_finished.inc()
+            self._tenant_counter("serving_requests_finished_total",
+                                 tenant).inc()
+            self._c_tokens.inc(len(req.tokens))
+            if req.ttft_s is not None:
+                self.ttft_s.record(req.ttft_s, exemplar=ex)
+                self._tenant_hist("serving_ttft_seconds",
+                                  tenant).record(req.ttft_s, exemplar=ex)
+            if req.admitted_at is not None:
+                self.queue_wait_s.record(req.admitted_at - req.submitted_at)
+            # per-token latency: gaps between consecutive decode tokens
+            # (TTFT is its own metric; the first gap is excluded)
+            tpot_t = self._tenant_hist("serving_per_token_seconds", tenant)
+            for g in np.diff(req.token_times):
+                self.tpot_s.record(float(g), exemplar=ex)
+                tpot_t.record(float(g), exemplar=ex)
+        elif req.status.value == "cancelled":
+            self._c_cancelled.inc()
+        elif req.status.value == "rejected":
+            self._c_rejected.inc()
+            self._tenant_counter("serving_requests_rejected_total",
+                                 tenant).inc()
+        elif req.status.value == "expired":
+            self._c_expired.inc()
+            self._tenant_counter("serving_requests_expired_total",
+                                 tenant).inc()
+        # SLO attainment: every terminal request with an SLO gets a
+        # verdict — finished-in-time counts as met; late, shed, and
+        # rejected count as missed. A client cancel BEFORE first token is
+        # excluded (the client walked away; no serving verdict exists).
+        # The attainment a tier reports is met/total from these series.
+        met = req.slo_met
+        if (req.status.value == "cancelled"
+                and req.first_token_at is None):
+            met = None
+        if met is not None:
+            self._tenant_counter("serving_slo_total", tenant).inc()
+            if met:
+                self._tenant_counter("serving_slo_met_total", tenant).inc()
+
+    def summary(self) -> dict[str, float]:
+        out: dict[str, float] = {
+            "requests_finished": float(self.finished),
+            "requests_rejected": float(self.rejected),
+            "requests_expired": float(self.expired),
+            "requests_cancelled": float(self.cancelled),
+            "tokens_out": float(self.tokens_out),
+            "decode_steps": float(self.decode_steps),
+            "prefill_chunks": float(self.prefill_chunks),
+            "prefix_hits": float(self.prefix_hits),
+            "prefix_tokens_reused": float(self.prefix_tokens_reused),
+            "page_evictions": float(self.page_evictions),
+            "pages_in_use": float(self._g_pages_in_use.value),
+            "pages_free": float(self._g_pages_free.value),
+            "kv_bytes_in_use": float(self._g_kv_bytes.value),
+        }
+        if self.decode_steps:
+            out["tokens_per_decode_step"] = (
+                self.tokens_out / self.decode_steps)
+        if self.spec_drafted_tokens:
+            out["spec_drafted_tokens"] = float(self.spec_drafted_tokens)
+            out["spec_accepted_tokens"] = float(self.spec_accepted_tokens)
+            out["spec_accept_rate"] = (
+                self.spec_accepted_tokens / self.spec_drafted_tokens)
+        if self.prefix_lookups:
+            out["prefix_hit_rate"] = self.prefix_hits / self.prefix_lookups
+        if self.prefix_hits:
+            out["prefix_hits_hbm"] = float(self.prefix_hits_hbm)
+            out["prefix_hits_host"] = float(self.prefix_hits_host)
+        if self.prefix_dedup_hits:
+            out["prefix_dedup_hits"] = float(self.prefix_dedup_hits)
+        if self.swap_out_pages or self.swap_in_pages:
+            out["swap_out_pages"] = float(self.swap_out_pages)
+            out["swap_in_pages"] = float(self.swap_in_pages)
+            out["host_tier_pages_in_use"] = float(self._g_host_pages.value)
+            out["host_tier_bytes_in_use"] = float(self._g_host_bytes.value)
+            out.update(_percentiles(self.swap_in_s, "swap_in"))
+        if self.prompt_tokens:
+            out["cached_token_fraction"] = (
+                self.prefix_tokens_reused / self.prompt_tokens)
+        out.update(_percentiles(self.ttft_s, "ttft"))
+        out.update(_percentiles(self.tpot_s, "per_token"))
+        out.update(_percentiles(self.queue_wait_s, "queue_wait"))
+        if self.occupancy.count:
+            out["slot_occupancy_mean"] = self.occupancy.mean
+        if self.queue_depth.count:
+            out["queue_depth_mean"] = self.queue_depth.mean
+            out["queue_depth_max"] = self.queue_depth.max
+        if (self.started_at is not None and self.stopped_at is not None
+                and self.stopped_at > self.started_at):
+            out["tokens_per_sec"] = self.tokens_out / (
+                self.stopped_at - self.started_at)
+        return out
+
+    def tenant_summary(self) -> dict[str, dict[str, float]]:
+        """Per-tenant view built from the labeled series: TTFT/per-token
+        percentiles, terminal counts, and SLO attainment (met/total).
+        Keys are tenant names; only tenants that produced observations
+        appear."""
+        out: dict[str, dict[str, float]] = {}
+        for kind, name, labels, metric in self.registry.items():
+            tenant = dict(labels).get("tenant")
+            if tenant is None:
+                continue
+            row = out.setdefault(tenant, {})
+            if kind == "histogram" and metric.count:
+                base = {"serving_ttft_seconds": "ttft",
+                        "serving_per_token_seconds": "per_token"}.get(name)
+                if base:
+                    row.update(_percentiles(metric, base))
+            elif kind == "counter":
+                short = name.replace("serving_", "").replace("_total", "")
+                row[short] = float(metric.value)
+        for row in out.values():
+            total = row.get("slo", 0.0)
+            if total:
+                row["slo_attainment"] = row.get("slo_met", 0.0) / total
+        return out

@@ -1,0 +1,837 @@
+"""Request lifecycle and slot scheduling for the serving engine.
+
+A copy of `accelerate_tpu/serving/scheduler.py`, which is framework-free;
+only the package it lives in differs.
+
+Pure host-side logic, so policy is testable without a model and the
+engine's device steps stay fixed-shape. The scheduler owns:
+
+- multi-tenant admission: per-tenant queues grouped into strict priority
+  tiers (a tier-0 request always admits before a tier-1 one), with
+  deficit-round-robin fairness *within* a tier — each tenant accrues
+  quantum proportional to its weight and spends it on its head request's
+  estimated service cost, so a chatty tenant cannot starve a quiet one
+  and weights translate into long-run service shares;
+- load shedding: a full queue or an over-long request REJECTS at submit
+  (a reported status carrying a `retry_after_s` estimate, not an OOM
+  three layers deeper); a queued request whose wait deadline lapses is
+  shed with status EXPIRED; and — TTFT-SLO-aware admission — a queued
+  request that can no longer meet its TTFT SLO *even if admitted this
+  instant* is shed as a certain miss, and under queue pressure the
+  predicted-miss victim is shed instead of the newest arrival;
+- the slot table: admit into free slots, chunked-prefill progress,
+  retirement on finish/cancel (slot reuse is a length reset — see
+  serving/cache.py);
+- the prefill/decode interleave policy: when both kinds of work exist the
+  engine alternates one prefill chunk with one batched decode step, so a
+  long prompt arriving mid-flight delays running streams by at most one
+  chunk's latency instead of its whole prefill.
+
+Everything here is host-side policy: tenants, tiers, SLO math, and DRR
+bookkeeping never reach a traced value, so the engine's three compiled
+programs are untouched by any scheduling decision.
+"""
+
+from __future__ import annotations
+
+import enum
+import itertools
+import math
+import time
+from collections import deque
+from dataclasses import dataclass, field
+from typing import Any, Callable, Iterable
+
+import numpy as np
+
+
+class RequestStatus(enum.Enum):
+    QUEUED = "queued"
+    RUNNING = "running"
+    FINISHED = "finished"
+    REJECTED = "rejected"   # refused at submit (queue full / too long)
+    EXPIRED = "expired"     # shed from the queue (deadline or certain SLO miss)
+    CANCELLED = "cancelled"
+
+
+@dataclass(frozen=True)
+class TenantSpec:
+    """One tenant's scheduling contract.
+
+    `priority` is a strict tier (lower = more important: tier 0 empties
+    before tier 1 sees a slot). `weight` is the tenant's deficit-round-
+    robin share *within* its tier. `ttft_slo_s` is the default TTFT
+    service objective for the tenant's requests — it drives SLO-aware
+    shedding and the per-tenant attainment metrics; a per-request
+    `slo_ttft_s` overrides it. `max_queue` caps this tenant's queued
+    requests on top of the scheduler-wide bound (None = global only)."""
+
+    name: str
+    priority: int = 1
+    weight: float = 1.0
+    ttft_slo_s: float | None = None
+    max_queue: int | None = None
+
+
+DEFAULT_TENANT = "default"
+
+# the machine-readable shed/reject vocabulary (Request.shed_code):
+SHED_TOO_LONG = "too_long"                  # prompt+budget exceeds max_len
+SHED_QUEUE_FULL = "queue_full"              # global queue bound hit
+SHED_TENANT_QUEUE_FULL = "tenant_queue_full"  # per-tenant cap hit
+SHED_DEADLINE = "deadline"                  # caller's queue-wait deadline
+SHED_CERTAIN_MISS = "certain_miss"          # TTFT SLO unreachable even now
+SHED_PRESSURE_VICTIM = "pressure_victim"    # worst-slack victim under pressure
+SHED_DISPLACED = "displaced_by_tier"        # bumped by a higher-tier arrival
+SHED_WORKER_DROP = "worker_drop"            # a pod worker dropped the request
+
+
+class SlotState(enum.Enum):
+    IDLE = "idle"
+    PREFILL = "prefill"
+    DECODE = "decode"
+
+
+@dataclass(eq=False)
+class Request:
+    """One generation request and its observable state. The object returned
+    by `Engine.submit` IS the handle: `tokens` fills as decode steps land,
+    `status`/`done` report lifecycle, `metrics` carries per-request timing
+    (TTFT, per-token latencies) once finished.
+
+    eq=False: requests compare by identity. The generated __eq__ would
+    compare the numpy `prompt` field element-wise, which makes
+    `queue.remove(request)` / `request in queue` raise on any queue with
+    depth > 1 — and two distinct requests with equal fields must never
+    alias in the scheduler anyway."""
+
+    prompt: np.ndarray
+    max_new_tokens: int
+    temperature: float = 0.0
+    key: Any = None                      # per-request PRNG key (optional)
+    eos_token_id: int | None = None
+    deadline_s: float | None = None      # max queue wait before shedding
+    tenant: str = DEFAULT_TENANT
+    slo_ttft_s: float | None = None      # overrides the tenant's ttft_slo_s
+    request_id: int = -1
+
+    status: RequestStatus = RequestStatus.QUEUED
+    reject_reason: str | None = None
+    # machine-readable companion to reject_reason — one of the SHED_*
+    # codes below. The HTTP layer puts THIS in the 429 envelope; the
+    # prose reason is for humans reading logs
+    shed_code: str | None = None
+    retry_after_s: float | None = None   # backoff hint on REJECTED/EXPIRED
+    # request tracing (telemetry.trace): trace_id is the id the server
+    # returns as x-request-id; trace_sampled gates span recording (head
+    # sampling — an unsampled request still keeps its id); span_id is the
+    # pre-allocated root span children parent onto; trace_parent is the
+    # inbound traceparent's span id (0 = we are the root)
+    trace_id: Any = None
+    trace_parent: Any = 0
+    trace_sampled: bool = False
+    span_id: int = 0
+    # COW forking (Engine.fork): parent_id names the request this one was
+    # forked from (None = not a fork); share_prompt marks a fork PARENT —
+    # its full prompt pages are published into the prefix tree as prefill
+    # completes them, so forks map the pages instead of re-prefilling
+    parent_id: int | None = None
+    share_prompt: bool = False
+    tokens: list[int] = field(default_factory=list)
+    # per-token logprob of each emitted token under the UNSCALED target
+    # model (log-softmax of the raw logits at the token) — temperature-
+    # independent, so greedy and sampled requests are comparable and
+    # best_of can rank by true cumulative logprob
+    logprobs: list[float] = field(default_factory=list)
+    submitted_at: float = 0.0
+    admitted_at: float | None = None
+    first_token_at: float | None = None
+    finished_at: float | None = None
+    token_times: list[float] = field(default_factory=list)
+
+    @property
+    def prompt_len(self) -> int:
+        return int(self.prompt.shape[0])
+
+    @property
+    def done(self) -> bool:
+        return self.status in (RequestStatus.FINISHED, RequestStatus.REJECTED,
+                               RequestStatus.EXPIRED, RequestStatus.CANCELLED)
+
+    @property
+    def ttft_s(self) -> float | None:
+        if self.first_token_at is None:
+            return None
+        return self.first_token_at - self.submitted_at
+
+    @property
+    def cumulative_logprob(self) -> float | None:
+        """Sum of the emitted tokens' model logprobs (None before any
+        token carries one) — the best_of ranking score."""
+        if not self.logprobs:
+            return None
+        return float(sum(self.logprobs))
+
+    @property
+    def slo_met(self) -> bool | None:
+        """True/False once an SLO verdict exists; None when no SLO applies
+        (or the request is still in flight before its first token)."""
+        if self.slo_ttft_s is None:
+            return None
+        if self.first_token_at is not None:
+            return self.ttft_s <= self.slo_ttft_s
+        return False if self.done else None
+
+
+@dataclass
+class Slot:
+    index: int
+    state: SlotState = SlotState.IDLE
+    request: Request | None = None
+    prompt_done: int = 0   # prompt tokens prefilled so far (incl. reused)
+    alloc: Any = None      # PageAllocation when a paged allocator is wired
+    # speculative decoding: prompt tokens the DRAFT model has prefilled.
+    # The draft never reuses cached pages (its K/V is a different model's),
+    # so on a prefix hit it starts at 0 while prompt_done starts at the
+    # reused length — the engine runs draft-only catch-up chunks first.
+    draft_done: int = 0
+
+    def free(self) -> None:
+        self.state = SlotState.IDLE
+        self.request = None
+        self.prompt_done = 0
+        self.alloc = None
+        self.draft_done = 0
+
+
+class Scheduler:
+    """Admission control + slot assignment + prefill/decode interleave.
+
+    With no `tenants` configured every request lands in the single
+    "default" tenant at tier 1, and admission degenerates to exactly the
+    FIFO this scheduler always had — existing single-tenant callers see
+    identical behavior."""
+
+    def __init__(
+        self,
+        num_slots: int,
+        max_len: int,
+        max_queue: int = 128,
+        clock: Callable[[], float] = time.monotonic,
+        allocator: Any = None,
+        tenants: Iterable[TenantSpec] | dict[str, TenantSpec] | None = None,
+        prefill_chunk: int = 32,
+        drr_quantum: float = 16.0,
+        max_tenants: int = 256,
+    ):
+        self.slots = [Slot(i) for i in range(num_slots)]
+        self.max_len = max_len
+        self.max_queue = max_queue
+        self.clock = clock
+        # optional paged-KV allocator (serving/cache.py PagedAllocator
+        # protocol: allocate(request) -> alloc | None, release(slot,
+        # finished)). Admission then ALSO requires pages: the policy head
+        # waits while the pool is tight (no skip-ahead — small requests
+        # must not starve a big one) and retirement returns pages.
+        self.allocator = allocator
+        self.prefill_chunk = max(1, prefill_chunk)
+        self.drr_quantum = drr_quantum
+        self.max_tenants = max_tenants
+        if isinstance(tenants, dict):
+            tenants = tenants.values()
+        self.tenants: dict[str, TenantSpec] = {
+            t.name: t for t in (tenants or ())}
+        for t in self.tenants.values():
+            if t.weight <= 0:
+                raise ValueError(
+                    f"tenant {t.name!r}: weight must be > 0 (got {t.weight})"
+                    " — a zero-weight tenant would never accrue DRR credit")
+        self.tenants.setdefault(DEFAULT_TENANT, TenantSpec(DEFAULT_TENANT))
+        # one FIFO per tenant; admission order across them is strict
+        # priority tiers, deficit-round-robin inside a tier
+        self._queues: dict[str, deque[Request]] = {
+            name: deque() for name in self.tenants}
+        self._deficit: dict[str, float] = {name: 0.0 for name in self.tenants}
+        self._rr: dict[int, deque[str]] = {}
+        for name, spec in self.tenants.items():
+            self._rr.setdefault(spec.priority, deque()).append(name)
+        self._ids = itertools.count()
+        self._last_was_prefill = False
+        # EMA of one engine step's wall time — the unit the SLO/backlog
+        # estimates are denominated in; fed by Engine.step via
+        # note_step_time (0.0 until the first step = optimistic estimates,
+        # so cold starts never shed)
+        self.step_time_ema = 0.0
+        self.rejected_full = 0
+        self.rejected_too_long = 0
+        self.expired = 0
+        self.expired_slo = 0
+        # every shed request lands here until the engine drains it into
+        # metrics — victims shed inside submit() (pressure/displacement)
+        # have no other path to observe_request
+        self.shed_log: list[Request] = []
+
+    # -- tenants / cost model ------------------------------------------------
+
+    def _spec(self, name: str) -> TenantSpec:
+        spec = self.tenants.get(name)
+        if spec is None:
+            # unknown tenants are admitted under a default-shaped contract
+            # rather than crashing the data plane; the server layer decides
+            # whether unknown tenants are a 401 instead. Auto-created
+            # state is CAPPED: tenant names arrive off the wire, and
+            # per-name queues/deficits/labeled series are otherwise an
+            # unauthenticated unbounded-memory vector — past the cap,
+            # unknown names collapse into the shared default tenant
+            # (the request's tenant field is rewritten in submit()).
+            if len(self.tenants) >= self.max_tenants:
+                return self.tenants[DEFAULT_TENANT]
+            spec = TenantSpec(name)
+            self.tenants[name] = spec
+            self._queues[name] = deque()
+            self._deficit[name] = 0.0
+            self._rr.setdefault(spec.priority, deque()).append(name)
+        return spec
+
+    def _cost(self, req: Request) -> float:
+        """Estimated engine steps a request consumes end to end: its
+        prefill chunks plus one decode step per budgeted token. The DRR
+        currency — weights buy steps, not request counts, so tenants
+        sending huge prompts pay for them."""
+        chunks = math.ceil(max(0, req.prompt_len) / self.prefill_chunk)
+        return float(chunks + req.max_new_tokens)
+
+    def _prefill_cost(self, req: Request) -> float:
+        """Steps until the request's FIRST token once admitted: prefill
+        chunks, doubled for the decode steps the interleave policy runs
+        between them (strict alternation)."""
+        chunks = math.ceil(max(1, req.prompt_len) / self.prefill_chunk)
+        return float(2 * chunks - 1)
+
+    def effective_slo(self, req: Request) -> float | None:
+        if req.slo_ttft_s is not None:
+            return req.slo_ttft_s
+        return self._spec(req.tenant).ttft_slo_s
+
+    # -- admission -----------------------------------------------------------
+
+    def submit(self, request: Request) -> Request:
+        """Queue a request, or mark it REJECTED immediately: the contract is
+        that overload is *reported* here (with a Retry-After estimate),
+        never discovered as an OOM or an unbounded queue later.
+
+        Under queue pressure the victim is SLO-chosen: if some queued
+        request is already predicted to miss its TTFT SLO, shedding *it*
+        frees the capacity — the doomed request was lost either way, the
+        new one may still make it. Only when nobody is doomed does the
+        newest arrival bounce."""
+        spec = self._spec(request.tenant)
+        if spec.name != request.tenant:
+            # tenant-cap overflow: this request rides the default contract
+            request.tenant = spec.name
+        if request.slo_ttft_s is None:
+            request.slo_ttft_s = spec.ttft_slo_s
+        request.request_id = next(self._ids)
+        request.submitted_at = self.clock()
+        if request.prompt_len + request.max_new_tokens > self.max_len:
+            request.status = RequestStatus.REJECTED
+            request.reject_reason = (
+                f"prompt_len({request.prompt_len}) + max_new_tokens"
+                f"({request.max_new_tokens}) exceeds slot max_len"
+                f"({self.max_len})"
+            )
+            request.shed_code = SHED_TOO_LONG
+            self.rejected_too_long += 1
+            return request
+        tenant_q = self._queues[request.tenant]
+        over_tenant = (spec.max_queue is not None
+                       and len(tenant_q) >= spec.max_queue)
+        if self.queue_depth >= self.max_queue or over_tenant:
+            if not over_tenant and (self._shed_predicted_miss(request)
+                                    or self._displace_lower_tier(request)):
+                tenant_q.append(request)
+                return request
+            request.status = RequestStatus.REJECTED
+            request.reject_reason = (
+                f"tenant queue full (max_queue={spec.max_queue})"
+                if over_tenant
+                else f"queue full (max_queue={self.max_queue})")
+            request.shed_code = (SHED_TENANT_QUEUE_FULL if over_tenant
+                                 else SHED_QUEUE_FULL)
+            request.retry_after_s = self.retry_after_estimate()
+            self.rejected_full += 1
+            return request
+        tenant_q.append(request)
+        return request
+
+    def note_step_time(self, dt: float) -> None:
+        """Fold one engine step's wall time into the EMA the SLO and
+        Retry-After estimates are built from."""
+        if dt <= 0.0:
+            return
+        self.step_time_ema = (dt if self.step_time_ema == 0.0
+                              else 0.9 * self.step_time_ema + 0.1 * dt)
+
+    def retry_after_estimate(self) -> float:
+        """Coarse client backoff hint: the time the current backlog needs
+        to drain through the slot lanes, clamped to something a client
+        can act on."""
+        backlog = sum(self._cost(r) for q in self._queues.values() for r in q)
+        backlog += sum(self._remaining_steps(s) for s in self.slots
+                       if s.state is not SlotState.IDLE)
+        per_step = self.step_time_ema or 0.01
+        est = backlog * per_step / max(1, len(self.slots))
+        return round(min(max(est, 0.05), 60.0), 3)
+
+    def _remaining_steps(self, slot: Slot) -> float:
+        req = slot.request
+        if req is None:
+            return 0.0
+        left_prompt = max(0, req.prompt_len - slot.prompt_done)
+        chunks = math.ceil(left_prompt / self.prefill_chunk)
+        return float(chunks + max(0, req.max_new_tokens - len(req.tokens)))
+
+    def predicted_ttft(self, req: Request, now: float | None = None) -> float:
+        """Estimated TTFT if the request stays queued: elapsed wait + the
+        backlog ahead of it draining through the slot lanes + its own
+        prefill. An *estimate* (slot retirements are stochastic), used to
+        pick shedding victims — certain misses are decided by the lower
+        bound in `shed_doomed`, not by this."""
+        now = self.clock() if now is None else now
+        ahead = 0.0
+        my_tier = self._spec(req.tenant).priority
+        for name, q in self._queues.items():
+            tier = self.tenants[name].priority
+            for other in q:
+                if other is req:
+                    continue
+                if tier < my_tier or (tier == my_tier
+                                      and other.request_id < req.request_id):
+                    ahead += self._cost(other)
+        running = sum(self._remaining_steps(s) for s in self.slots
+                      if s.state is not SlotState.IDLE)
+        per_step = self.step_time_ema
+        wait = (ahead + running) * per_step / max(1, len(self.slots))
+        return (now - req.submitted_at) + wait \
+            + self._prefill_cost(req) * per_step
+
+    # -- shedding ------------------------------------------------------------
+
+    def _shed(self, req: Request, reason: str, now: float, code: str,
+              slo_miss: bool = False) -> None:
+        self._queues[req.tenant].remove(req)
+        req.status = RequestStatus.EXPIRED
+        req.reject_reason = reason
+        req.shed_code = code
+        req.retry_after_s = self.retry_after_estimate()
+        req.finished_at = now
+        self.expired += 1
+        if slo_miss:
+            self.expired_slo += 1
+        self.shed_log.append(req)
+
+    def drain_shed(self) -> list[Request]:
+        """Shed requests not yet folded into metrics (engine-owned)."""
+        out, self.shed_log = self.shed_log, []
+        return out
+
+    def shed_expired(self, now: float | None = None) -> list[Request]:
+        """Drop queued requests whose wait deadline lapsed, plus the
+        certain SLO misses: a request whose elapsed wait + *minimum*
+        possible time-to-first-token (admitted this very step, nothing
+        ahead) already exceeds its TTFT SLO cannot be saved — serving it
+        would burn slot time on an answer the client has already written
+        off, at the expense of requests that can still hit their SLO."""
+        now = self.clock() if now is None else now
+        shed = []
+        for q in self._queues.values():
+            for r in list(q):
+                if (r.deadline_s is not None
+                        and now - r.submitted_at > r.deadline_s):
+                    shed.append((r, f"deadline_s={r.deadline_s} lapsed in "
+                                 "queue", SHED_DEADLINE, False))
+                    continue
+                slo = self.effective_slo(r)
+                if slo is None or self.step_time_ema == 0.0:
+                    continue
+                floor = (now - r.submitted_at
+                         + self._prefill_cost(r) * self.step_time_ema)
+                if floor > slo:
+                    shed.append((r, f"certain TTFT SLO miss (slo={slo}s, "
+                                 f"floor={floor:.3f}s)", SHED_CERTAIN_MISS,
+                                 True))
+        for r, reason, code, slo_miss in shed:
+            self._shed(r, reason, now, code, slo_miss=slo_miss)
+        return [r for r, _, _, _ in shed]
+
+    def _shed_predicted_miss(self, newcomer: Request) -> bool:
+        """Queue-pressure victim selection: shed the queued request most
+        certainly headed for an SLO miss (worst predicted slack, ties to
+        the lower tier) instead of bouncing the newcomer. Returns True
+        when a victim was shed (a queue position is now free).
+
+        One pass, not O(queue^2): this runs exactly at peak overload, on
+        the same event loop that streams tokens, so the backlog ahead of
+        each request comes from a prefix sum over the policy order
+        ((tier, arrival)) instead of re-scanning the queue per request —
+        the same slack predicted_ttft computes, at O(Q log Q + slots)."""
+        now = self.clock()
+        per_step = self.step_time_ema
+        running = sum(self._remaining_steps(s) for s in self.slots
+                      if s.state is not SlotState.IDLE)
+        ordered = sorted(
+            ((self.tenants[name].priority, r.request_id, r)
+             for name, q in self._queues.items() for r in q))
+        worst, worst_slack = None, 0.0
+        ahead = 0.0
+        for _, _, r in ordered:
+            slo = self.effective_slo(r)
+            if slo is not None:
+                wait = (ahead + running) * per_step / max(1, len(self.slots))
+                predicted = ((now - r.submitted_at) + wait
+                             + self._prefill_cost(r) * per_step)
+                slack = slo - predicted
+                if slack < worst_slack:
+                    worst, worst_slack = r, slack
+            ahead += self._cost(r)
+        if worst is None:
+            return False
+        self._shed(worst, "shed under pressure: predicted TTFT "
+                   f"{worst_slack:+.3f}s past SLO", now,
+                   SHED_PRESSURE_VICTIM, slo_miss=True)
+        return True
+
+    def _displace_lower_tier(self, newcomer: Request) -> bool:
+        """Strict priority must hold at the queue boundary too: a full
+        queue of tier-1 work must not 429 a tier-0 arrival. The newest
+        queued request of the strictly-lowest tier below the newcomer's
+        is shed (it has waited least, so it loses the least invested
+        time — and with a TTFT SLO it is also the likeliest eventual
+        miss once a higher-tier request is jumping it anyway)."""
+        my_tier = self._spec(newcomer.tenant).priority
+        worst = None
+        for name, q in self._queues.items():
+            tier = self.tenants[name].priority
+            if tier <= my_tier or not q:
+                continue
+            cand = q[-1]
+            if (worst is None
+                    or tier > self.tenants[worst.tenant].priority
+                    or (tier == self.tenants[worst.tenant].priority
+                        and cand.request_id > worst.request_id)):
+                worst = cand
+        if worst is None:
+            return False
+        self._shed(worst, f"displaced by a tier-{my_tier} arrival under "
+                   "queue pressure", self.clock(), SHED_DISPLACED,
+                   slo_miss=self.effective_slo(worst) is not None)
+        return True
+
+    # -- DRR tier selection ---------------------------------------------------
+
+    def _select_tenant(self) -> str | None:
+        """The tenant whose head request is next by policy: strict tiers,
+        deficit-round-robin within the winning tier. Deficits accrue in
+        whole quantum rounds until some head is affordable — bounded,
+        since costs are bounded by max_len."""
+        occupied = [p for p in sorted(self._rr)
+                    if any(self._queues[t] for t in self._rr[p])]
+        if not occupied:
+            return None
+        tier = occupied[0]
+        order = self._rr[tier]
+        active = [t for t in order if self._queues[t]]
+        for name in order:
+            if not self._queues[name]:
+                # classic DRR: an empty queue forfeits its deficit, so
+                # idle tenants can't bank unbounded credit
+                self._deficit[name] = 0.0
+        while True:
+            for name in list(order):
+                if (self._queues[name] and self._deficit[name]
+                        >= self._cost(self._queues[name][0])):
+                    return name
+            for name in active:
+                self._deficit[name] += (self.drr_quantum
+                                        * self.tenants[name].weight)
+
+    def _pop_selected(self, name: str) -> Request:
+        req = self._queues[name].popleft()
+        self._deficit[name] -= self._cost(req)
+        if not self._queues[name]:
+            self._deficit[name] = 0.0
+        # rotate the round-robin ring so the served tenant goes last —
+        # equal-weight tenants alternate instead of one head-of-ring
+        # tenant draining first
+        ring = self._rr[self.tenants[name].priority]
+        if ring[0] == name:
+            ring.rotate(-1)
+        return req
+
+    def tenant_priority(self, name: str) -> int:
+        """A tenant's strict tier (lower = more important) — policy
+        input for the engine's cache-aware admission hold (a request
+        never waits on a lower-tier leader's prefill)."""
+        return self._spec(name).priority
+
+    def _group_prefix_sharers(self, name: str, head: Request) -> None:
+        """Cache-aware admission ordering: when `head` is
+        admitted, stable-promote the queued requests of the SAME tenant
+        that share its full shareable prefix to the queue front, so the
+        wave admits while the pages are hottest (held a few steps by
+        the engine's dedup hold, then mapped — one prefill or one
+        swap-in serves all of them). Bounded on purpose: reordering
+        never crosses a tenant (tiers, DRR deficits, and per-tenant
+        caps are untouched — DRR charges costs per pop regardless of
+        intra-tenant order) and is skipped entirely without a
+        prefix-caching allocator."""
+        alloc = self.allocator
+        if alloc is None or not getattr(alloc, "prefix_cache", False):
+            return
+        k = ((head.prompt_len - 1) // alloc.page_size) * alloc.page_size
+        q = self._queues.get(name)
+        if q is None or k <= 0 or len(q) < 2:
+            return
+        key = np.ascontiguousarray(head.prompt[:k], np.int32).tobytes()
+        sharers = [
+            r for r in q
+            if r.prompt_len > k
+            and np.ascontiguousarray(r.prompt[:k], np.int32).tobytes() == key
+        ]
+        if not sharers:
+            return
+        sharer_ids = {id(r) for r in sharers}
+        rest = [r for r in q if id(r) not in sharer_ids]
+        q.clear()
+        q.extend(sharers)
+        q.extend(rest)
+
+    def admissions(self, now: float | None = None) -> list[tuple[Slot, Request]]:
+        """Pop queued requests into free slots in policy order (tiers,
+        then DRR). With a paged allocator, admission also reserves the
+        request's worst-case pages; the policy head blocks admission
+        while the pool is tight (pages free up as running slots retire).
+        A prefix hit starts `prompt_done` at the reused length — prefill
+        covers only the uncached suffix."""
+        now = self.clock() if now is None else now
+        # in-flight grouping: a request prefilling RIGHT NOW is the
+        # hottest possible head (its pages publish as it goes) — promote
+        # its queued same-tenant sharers so they admit behind it and
+        # ride the engine's dedup hold, instead of behind unrelated
+        # traffic whose admission could evict the shared pages.
+        # Idempotent: once the sharers lead the queue this is a no-op.
+        for slot in self.slots:
+            if slot.state is SlotState.PREFILL and slot.request is not None:
+                self._group_prefix_sharers(slot.request.tenant, slot.request)
+        admitted = []
+        for slot in self.slots:
+            if slot.state is not SlotState.IDLE:
+                continue
+            name = self._select_tenant()
+            if name is None:
+                break
+            alloc = None
+            if self.allocator is not None:
+                alloc = self.allocator.allocate(self._queues[name][0])
+                if alloc is None:
+                    break
+                # attach the reservation to its slot IMMEDIATELY: any
+                # raise between allocate and attachment would strand the
+                # pages outside both the slot table and the free list
+                # (the ATP201 exception-window class)
+                slot.alloc = alloc
+            req = self._pop_selected(name)
+            self._group_prefix_sharers(name, req)
+            req.status = RequestStatus.RUNNING
+            req.admitted_at = now
+            slot.request = req
+            slot.state = SlotState.PREFILL
+            slot.prompt_done = alloc.reused_len if alloc is not None else 0
+            admitted.append((slot, req))
+        return admitted
+
+    def adopt_running(self, request: Request, alloc: Any = None,
+                      now: float | None = None) -> Slot | None:
+        """Attach an externally prepared request straight into a free
+        slot, already in DECODE state with its whole prompt accounted as
+        done — the pod page-shipping path (serving/pod): prefill happened
+        on another worker and the KV pages were installed by the caller,
+        so this slot's next step is its first decode. Bypasses the queue
+        on purpose (the pod router owns admission policy; this scheduler
+        only owns the slot table). Returns the slot, or None when no slot
+        is free — the caller must NOT have allocated pages yet in that
+        case, or must release them."""
+        now = self.clock() if now is None else now
+        for slot in self.slots:
+            if slot.state is SlotState.IDLE:
+                if request.request_id < 0:
+                    request.request_id = next(self._ids)
+                request.status = RequestStatus.RUNNING
+                if request.admitted_at is None:
+                    request.admitted_at = now
+                slot.request = request
+                slot.state = SlotState.DECODE
+                slot.alloc = alloc
+                slot.prompt_done = request.prompt_len
+                return slot
+        return None
+
+    # -- the interleave policy ----------------------------------------------
+
+    def next_action(self) -> tuple[str, Any] | None:
+        """('prefill', slot) | ('decode', [slots]) | None.
+
+        Strict alternation when both kinds of work exist: a decode step
+        always runs between two prefill chunks, so running streams see at
+        most one chunk of extra latency however long the arriving prompt.
+        """
+        prefilling = [s for s in self.slots if s.state is SlotState.PREFILL]
+        decoding = [s for s in self.slots if s.state is SlotState.DECODE]
+        if prefilling:
+            # FIFO by admission, NOT by slot index: under sustained load a
+            # freed low-index slot re-fills every step, and picking by
+            # index would starve a long prompt mid-prefill in a higher
+            # slot forever (accepted request, unbounded TTFT)
+            oldest = min(prefilling, key=lambda s: s.request.admitted_at)
+        if prefilling and (not decoding or not self._last_was_prefill):
+            self._last_was_prefill = True
+            return ("prefill", oldest)
+        if decoding:
+            self._last_was_prefill = False
+            return ("decode", decoding)
+        return None
+
+    # -- progress notes from the engine --------------------------------------
+
+    def note_prefill_chunk(self, slot: Slot, n_tokens: int) -> bool:
+        """Advance a slot's prefill by `n_tokens` real prompt tokens;
+        returns True when the prompt is fully prefilled (the chunk that
+        also produced the request's first token)."""
+        slot.prompt_done += n_tokens
+        if slot.prompt_done >= slot.request.prompt_len:
+            slot.state = SlotState.DECODE
+            return True
+        return False
+
+    def note_token(self, slot: Slot, token: int,
+                   now: float | None = None,
+                   logprob: float | None = None) -> bool:
+        """Record one generated token (and, when the engine computed it,
+        the token's model logprob); retire the slot when the request hits
+        max_new_tokens or its EOS. Returns True on retirement."""
+        now = self.clock() if now is None else now
+        req = slot.request
+        req.tokens.append(int(token))
+        if logprob is not None:
+            req.logprobs.append(float(logprob))
+        req.token_times.append(now)
+        if req.first_token_at is None:
+            req.first_token_at = now
+        eos = (req.eos_token_id is not None
+               and int(token) == req.eos_token_id)
+        if eos or len(req.tokens) >= req.max_new_tokens:
+            req.status = RequestStatus.FINISHED
+            req.finished_at = now
+            self._retire(slot, finished=True)
+            return True
+        return False
+
+    def _retire(self, slot: Slot, finished: bool) -> None:
+        """Free a slot, returning its pages first when paged: a finished
+        request's full prompt pages go back into the prefix tree (reuse),
+        a cancelled one's pages to the free list."""
+        if self.allocator is not None and slot.alloc is not None:
+            self.allocator.release(slot, finished=finished)
+        slot.free()
+
+    def finish_early(self, request: Request) -> bool:
+        """Retire a RUNNING request as FINISHED before its token budget —
+        the server's stop-sequence path: the client got a complete answer,
+        so the request must count as finished (TTFT/latency samples and
+        all), and its prompt pages go back to the prefix tree exactly as
+        a natural finish would."""
+        if request.done:
+            return False
+        for slot in self.slots:
+            if slot.request is request:
+                request.status = RequestStatus.FINISHED
+                request.finished_at = self.clock()
+                self._retire(slot, finished=True)
+                return True
+        return False
+
+    def cancel(self, request: Request) -> bool:
+        """Cancel a queued or running request; no-op on finished ones."""
+        if request.done:
+            return False
+        q = self._queues.get(request.tenant)
+        if q is not None and request in q:
+            q.remove(request)
+            request.status = RequestStatus.CANCELLED
+            request.finished_at = self.clock()
+            return True
+        for slot in self.slots:
+            if slot.request is request:
+                self._retire(slot, finished=False)
+                request.status = RequestStatus.CANCELLED
+                request.finished_at = self.clock()
+                return True
+        return False
+
+    # -- introspection --------------------------------------------------------
+
+    @property
+    def queue(self) -> list[Request]:
+        """All queued requests in submit order (introspection/back-compat
+        view; mutation goes through submit/cancel/shed)."""
+        out = [r for q in self._queues.values() for r in q]
+        out.sort(key=lambda r: r.request_id)
+        return out
+
+    @property
+    def queue_depth(self) -> int:
+        return sum(len(q) for q in self._queues.values())
+
+    def tenant_queue_depth(self, tenant: str) -> int:
+        q = self._queues.get(tenant)
+        return len(q) if q is not None else 0
+
+    @property
+    def live_slots(self) -> int:
+        return sum(1 for s in self.slots if s.state is not SlotState.IDLE)
+
+    def has_work(self) -> bool:
+        return self.queue_depth > 0 or self.live_slots > 0
+
+    def running(self) -> Iterable[Request]:
+        return [s.request for s in self.slots if s.request is not None]
+
+    def debug_state(self) -> dict:
+        """JSON-safe policy-state snapshot for `/debug/scheduler` and
+        incident bundles: per-tenant queue depths + DRR deficits, tier
+        membership, the step-time EMA every SLO estimate is denominated
+        in, and the shed counters. Read-only; numbers only."""
+        tenants = {}
+        for name, spec in self.tenants.items():
+            tenants[name] = {
+                "priority": spec.priority,
+                "weight": spec.weight,
+                "ttft_slo_s": spec.ttft_slo_s,
+                "max_queue": spec.max_queue,
+                "queue_depth": len(self._queues.get(name, ())),
+                "drr_deficit": self._deficit.get(name, 0.0),
+            }
+        return {
+            "queue_depth": self.queue_depth,
+            "max_queue": self.max_queue,
+            "live_slots": self.live_slots,
+            "num_slots": len(self.slots),
+            "step_time_ema_s": self.step_time_ema,
+            "drr_quantum": self.drr_quantum,
+            "rejected_full": self.rejected_full,
+            "rejected_too_long": self.rejected_too_long,
+            "expired": self.expired,
+            "expired_slo": self.expired_slo,
+            "tiers": {str(p): list(ring) for p, ring in self._rr.items()},
+            "tenants": tenants,
+        }
