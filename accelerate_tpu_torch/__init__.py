@@ -11,9 +11,14 @@ module there runs that package's `__init__`, which imports jax). Entry
 points run on CUDA unless the caller passes `device="cpu"`; with no GPU
 and no `device="cpu"` they raise.
 
-Ported so far: the serving engine's path (`serving.Engine` over
-`models.llama`), with the paged-decode attention kernel written in CUDA
-(`csrc/paged_decode.cu`, wrapped by `ops.paged_attention`).
+Ported so far:
+- the serving engine's path (`serving.Engine` over `models.llama`), with
+  the paged-decode attention kernel written in CUDA
+  (`csrc/paged_decode.cu`, wrapped by `ops.paged_attention`);
+- the training step (`accelerator.Accelerator`, `training.TrainState`,
+  `optimizers.adamw`, `models.llama.causal_lm_loss`), with the flash
+  attention forward and backward kernels written in CUDA
+  (`csrc/flash_attention.cu`, wrapped by `ops.flash_attention`).
 """
 
 from .device import resolve_device

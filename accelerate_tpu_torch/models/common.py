@@ -140,3 +140,56 @@ def dot_product_attention(
     probs = torch.softmax(scores, dim=-1).to(q.dtype)
     return torch.einsum("bhqk,bkhd->bqhd", probs.float(),
                         v.float()).to(q.dtype)
+
+
+def layer_norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
+               eps: float = 1e-6) -> torch.Tensor:
+    dtype = x.dtype
+    xf = x.float()
+    mean = torch.mean(xf, dim=-1, keepdim=True)
+    var = torch.mean(torch.square(xf - mean), dim=-1, keepdim=True)
+    out = (xf - mean) * torch.rsqrt(var + eps)
+    return out.to(dtype) * scale + bias
+
+
+# --- losses -----------------------------------------------------------------
+
+
+def token_nll(logits: torch.Tensor, labels: torch.Tensor,
+              label_smoothing: float = 0.0) -> torch.Tensor:
+    """Per-token negative log-likelihood in f32 (stable under bf16
+    logits). Shared by the full and chunked loss paths."""
+    log_probs = torch.log_softmax(logits.float(), dim=-1)
+    nll = -torch.gather(log_probs, -1, labels.long()[..., None])[..., 0]
+    if label_smoothing > 0:
+        smooth = -torch.mean(log_probs, dim=-1)
+        nll = (1 - label_smoothing) * nll + label_smoothing * smooth
+    return nll
+
+
+def shifted_padding_masks(mask):
+    """(attention_mask, label_weights) for a next-token loss over
+    `input_ids` with a [B, S] padding mask (1 = real): the key mask for
+    the forward over input_ids[:, :-1], and f32 label weights that count
+    a label only when it AND its predicting token are real."""
+    if mask is None:
+        return None, None
+    return mask[:, :-1], (mask[:, 1:] * mask[:, :-1]).float()
+
+
+def cross_entropy_loss(logits: torch.Tensor, labels: torch.Tensor,
+                       mask: torch.Tensor | None = None,
+                       label_smoothing: float = 0.0) -> torch.Tensor:
+    """Mean token cross-entropy in f32."""
+    nll = token_nll(logits, labels, label_smoothing)
+    if mask is not None:
+        return torch.sum(nll * mask) / torch.clamp(torch.sum(mask), min=1)
+    return torch.mean(nll)
+
+
+def count_params(params) -> int:
+    if isinstance(params, dict):
+        return sum(count_params(v) for v in params.values())
+    if isinstance(params, (list, tuple)):
+        return sum(count_params(v) for v in params)
+    return int(np.prod(params.shape))

@@ -3,28 +3,40 @@
 Params are a nested dict with the reference tree's keys and its stacked
 `[L, ...]` layer shapes (`models/convert.py` moves a JAX tree across
 unchanged). The forward loops over layers, indexing views of the stacked
-tensors. This slice ports what serving runs: the cached decode/prefill
-forward, the no-cache forward on the einsum attention path, and
-`generate`. Training (remat, the flash kernels, the loss) and the
-parallel attention backends come with later slices.
+tensors. Ported: the cached decode/prefill forward and `generate`
+(serving), and the training half: the no-cache forward on the einsum or
+flash attention path (`ops/flash_attention.py`, CUDA kernels on the card),
+per-layer remat, and `causal_lm_loss` with its chunked path. The
+sequence-parallel backends ("ring", "ulysses", `sequence_parallel`) and
+fp8 state come with later slices.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Any
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import (
+    CheckpointPolicy,
+    checkpoint,
+    create_selective_checkpoint_contexts,
+)
 
 from ..device import resolve_device
+from ..ops.flash_attention import flash_attention
 from .common import (
     apply_rope,
+    cross_entropy_loss,
     dense,
     dot_product_attention,
     repeat_kv,
     rms_norm,
     rope_frequencies,
+    shifted_padding_masks,
+    token_nll,
 )
 from .decode import build_generate, decode_attention, make_kv_caches, \
     rope_table_len
@@ -71,11 +83,15 @@ class LlamaConfig:
 
     @classmethod
     def llama3_8b(cls, **overrides) -> "LlamaConfig":
-        return cls(
+        """Llama-3-8B's widths; any field, depth included, may be
+        overridden."""
+        fields = dict(
             vocab_size=128256, hidden_size=4096, intermediate_size=14336,
             num_hidden_layers=32, num_attention_heads=32, num_key_value_heads=8,
-            max_position_embeddings=8192, rope_theta=500000.0, **overrides,
+            max_position_embeddings=8192, rope_theta=500000.0,
         )
+        fields.update(overrides)
+        return cls(**fields)
 
     @classmethod
     def tiny(cls, **overrides) -> "LlamaConfig":
@@ -89,16 +105,18 @@ class LlamaConfig:
         return cls(**defaults)
 
 
-def select_attention_backend(backend: str) -> str:
-    """Resolve the no-cache attention backend. "auto" is the einsum path
-    until the flash kernel (K1) is ported; "flash" and the sequence-
-    parallel backends raise until their slices land."""
-    if backend in ("auto", "einsum"):
-        return "einsum"
-    if backend == "flash":
-        raise NotImplementedError(
-            "attention_backend='flash' needs the flash-attention kernels "
-            "(K1a-c), which the port gains with its training slice")
+def select_attention_backend(backend: str, *, on_cuda: bool, decoding: bool,
+                             seq_len: int) -> str:
+    """Resolve the no-cache attention backend, by the reference's rule:
+    "auto" is "flash" on the card when not decoding and from 1024 tokens
+    up, else "einsum" (the threshold is the reference's, not retuned
+    here). "flash" on a CPU tensor runs the kernels' plain versions; the
+    sequence-parallel backends raise until their slice lands."""
+    if backend == "auto":
+        return ("flash" if on_cuda and not decoding and seq_len >= 1024
+                else "einsum")
+    if backend in ("einsum", "flash"):
+        return backend
     if backend in ("ring", "ulysses"):
         raise NotImplementedError(
             f"attention_backend={backend!r} arrives with the port's "
@@ -161,6 +179,17 @@ def _layer_view(tree, i: int):
     return tree[i]
 
 
+def _unstack(tree, n: int) -> list:
+    """The first n layers of a stacked [L, ...] param tree, as views, by
+    one `unbind` per leaf. Its backward writes each leaf's gradient once;
+    indexing layer by layer would add a zero-padded full-size gradient
+    per layer (L times the traffic)."""
+    if isinstance(tree, dict):
+        parts = {k: _unstack(v, n) for k, v in tree.items()}
+        return [{k: p[i] for k, p in parts.items()} for i in range(n)]
+    return list(torch.unbind(tree)[:n])
+
+
 def _attention(config: LlamaConfig, layer: dict, x, cos, sin, positions,
                mask, kv_cache=None):
     b, s, _ = x.shape
@@ -188,11 +217,16 @@ def _attention(config: LlamaConfig, layer: dict, x, cos, sin, positions,
             q, k, v, kv_cache, positions, mask=mask,
             window=config.sliding_window, n_rep=nh // nkv)
     else:
-        # one backend so far: this raises for the ones not ported yet
-        select_attention_backend(config.attention_backend)
-        out = dot_product_attention(q, repeat_kv(k, nh // nkv),
-                                    repeat_kv(v, nh // nkv), mask=mask,
-                                    causal=True, window=config.sliding_window)
+        backend = select_attention_backend(
+            config.attention_backend, on_cuda=x.is_cuda, decoding=False,
+            seq_len=s)
+        k, v = repeat_kv(k, nh // nkv), repeat_kv(v, nh // nkv)
+        if backend == "flash" and (mask is None or mask.ndim == 2):
+            out = flash_attention(q, k, v, causal=True, mask=mask,
+                                  window=config.sliding_window)
+        else:
+            out = dot_product_attention(q, k, v, mask=mask, causal=True,
+                                        window=config.sliding_window)
     o = dense(out.reshape(b, s, nh * hd), attn["o_proj"]["kernel"])
     if "bias" in attn["o_proj"]:
         o = o + attn["o_proj"]["bias"].to(o.dtype)
@@ -238,10 +272,9 @@ def forward(
     if return_hidden and kv_caches is not None:
         raise ValueError("return_hidden is not supported on the decode "
                          "(kv_caches) path")
-    if config.remat or config.sequence_parallel:
+    if config.sequence_parallel:
         raise NotImplementedError(
-            "remat and sequence_parallel are training features; they arrive "
-            "with the port's training and parallelism slices")
+            "sequence_parallel arrives with the port's parallelism slice")
     x = params["embed_tokens"]["embedding"][input_ids.long()]
     if positions is None:
         positions = torch.arange(input_ids.shape[1],
@@ -269,22 +302,90 @@ def forward(
         # dense caches were extended in place
         return logits, (ck, cv, cache_len + input_ids.shape[1])
 
-    for i in range(config.num_hidden_layers):
-        x, _ = _layer_body(config, x, _layer_view(layers, i), cos, sin,
-                           positions, attention_mask)
+    body = _remat_body(config)
+    for layer in _unstack(layers, config.num_hidden_layers):
+        x = body(x, layer, cos, sin, positions, attention_mask)
     x = rms_norm(x, params["norm"]["scale"], config.rms_norm_eps)
     if return_hidden:
         return x
     return _project_out(config, params, x)
 
 
+def _layer_step(x, layer, cos, sin, positions, mask, *, config):
+    return _layer_body(config, x, layer, cos, sin, positions, mask)[0]
+
+
+def _save_matmuls(ctx, op, *args, **kwargs):
+    """Selective-checkpoint policy of remat "dots": keep the outputs of
+    products without batch dims (the projections), as the reference's
+    `dots_with_no_batch_dims_saveable`; recompute everything else,
+    attention included."""
+    if op in (torch.ops.aten.mm.default, torch.ops.aten.addmm.default):
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _remat_body(config: LlamaConfig):
+    """The per-layer step `(x, layer, cos, sin, positions, mask) -> x`,
+    under `torch.utils.checkpoint` when `config.remat`: "full" recomputes
+    the whole layer in backward, "dots" keeps the projections' outputs.
+    Either way the attention forward reruns in backward (with the flash
+    backend: K1a launches twice per layer and step), as under the
+    reference's policies."""
+    body = functools.partial(_layer_step, config=config)
+    if not config.remat:
+        return body
+    if config.remat_policy not in ("full", "dots"):
+        raise ValueError(f"unknown remat_policy {config.remat_policy!r}; "
+                         "use 'full' or 'dots'")
+    kw = {}
+    if config.remat_policy == "dots":
+        kw["context_fn"] = functools.partial(
+            create_selective_checkpoint_contexts, _save_matmuls)
+
+    def remat(*args):
+        return checkpoint(body, *args, use_reentrant=False, **kw)
+
+    return remat
+
+
+class _HeadF32(torch.autograd.Function):
+    """x2 [N, H] @ w [H, V] in bf16 with f32 logits out (cuBLAS's bf16
+    GEMM with an f32 output: exact products, f32 accumulation, no
+    rounding of the logits), differentiable.
+
+    The reference's transpose rule takes the products against the f32
+    cotangent and rounds the result to the operand's dtype. Here the
+    cotangent is rounded to bf16 first, so both gradient GEMMs stay bf16
+    tensor-core products with f32 accumulation (an f32 GEMM against an
+    upcast head would cost ~10x); dx and dw are then rounded once to
+    bf16. That one rounding of the cotangent (2^-9 relative) is where the
+    port departs from the reference."""
+
+    @staticmethod
+    def forward(ctx, x2, w):
+        ctx.save_for_backward(x2, w)
+        return torch.mm(x2, w, out_dtype=torch.float32)
+
+    @staticmethod
+    def backward(ctx, g):
+        x2, w = ctx.saved_tensors
+        gb = g.to(x2.dtype)
+        dx = dw = None
+        if ctx.needs_input_grad[0]:
+            dx = torch.mm(gb, w.t(), out_dtype=torch.float32).to(x2.dtype)
+        if ctx.needs_input_grad[1]:
+            dw = torch.mm(x2.t(), gb, out_dtype=torch.float32).to(w.dtype)
+        return dx, dw
+
+
 def _project_out(config: LlamaConfig, params: dict, x):
     """f32 logits from the head's product in x's dtype: bf16 inputs give
     exact products accumulated in f32 and are NOT rounded to bf16 first
     (a bf16 matmul followed by `.float()` would round, and flip near-tie
-    argmaxes). On CUDA that is cuBLAS's bf16 GEMM with an f32 output
-    (`out_dtype`), no upcast copy of the head; on the CPU the inputs are
-    upcast, which is exact."""
+    argmaxes). On CUDA that is `_HeadF32` (cuBLAS's bf16 GEMM with an f32
+    output, no upcast copy of the head); on the CPU the inputs are
+    upcast, which is exact, and autograd differentiates the upcast."""
     if config.tie_word_embeddings:
         w = params["embed_tokens"]["embedding"].to(x.dtype).t()
     else:
@@ -293,10 +394,77 @@ def _project_out(config: LlamaConfig, params: dict, x):
     if x.dtype == torch.float32:
         out = x2 @ w
     elif x.is_cuda:
-        out = torch.mm(x2, w, out_dtype=torch.float32)
+        out = _HeadF32.apply(x2, w)
     else:
         out = x2.float() @ w.float()
     return out.reshape(*x.shape[:-1], w.shape[-1])
+
+
+def causal_lm_loss(config: LlamaConfig, params: dict, batch: dict,
+                   loss_chunk_size: int | None = None,
+                   fp8_state: Any = None) -> torch.Tensor:
+    """Next-token loss over a batch {input_ids, attention_mask?}.
+
+    The [B, S, V] f32 logits are the largest buffer of a step, so when S
+    divides into chunks (auto-picked so a chunk's logits stay ~256 MB)
+    the projection and cross-entropy run per chunk under a checkpoint,
+    and the full logits never exist. The attention_mask is a key-padding
+    mask for the forward AND weights the loss (`shifted_padding_masks`);
+    positions stay 0..S-1, so batches should be right-padded."""
+    if fp8_state is not None:
+        raise NotImplementedError(
+            "fp8_state (mixed_precision='fp8') arrives with the port's fp8 "
+            "slice")
+    input_ids = batch["input_ids"]
+    labels = input_ids[:, 1:]
+    attn_mask, mask = shifted_padding_masks(batch.get("attention_mask"))
+    B, S = labels.shape
+
+    if loss_chunk_size is None:
+        budget = 256 * 2**20 // 4  # f32 elements per chunk of logits
+        loss_chunk_size = max(1, budget // max(1, B * config.vocab_size))
+    chunk = _pick_chunk(S, loss_chunk_size)
+    if chunk is None or chunk >= S:
+        logits = forward(config, params, input_ids[:, :-1],
+                         attention_mask=attn_mask)
+        return cross_entropy_loss(logits, labels, mask)
+
+    hidden = forward(config, params, input_ids[:, :-1],
+                     attention_mask=attn_mask, return_hidden=True)
+    if mask is None:
+        mask = torch.ones((B, S), dtype=torch.float32, device=hidden.device)
+
+    def body(h, lab, m):
+        nll = token_nll(_project_out(config, params, h), lab)
+        return torch.sum(nll * m), torch.sum(m)
+
+    loss_sum = torch.zeros((), dtype=torch.float32, device=hidden.device)
+    count = torch.zeros((), dtype=torch.float32, device=hidden.device)
+    for c in range(0, S, chunk):
+        # checkpointed: backward recomputes a chunk's logits instead of
+        # keeping every chunk's, which would rebuild the full buffer
+        part, n = checkpoint(body, hidden[:, c:c + chunk],
+                             labels[:, c:c + chunk], mask[:, c:c + chunk],
+                             use_reentrant=False)
+        loss_sum = loss_sum + part
+        count = count + n
+    return loss_sum / torch.clamp(count, min=1)
+
+
+def _pick_chunk(S: int, target: int) -> int | None:
+    """Largest divisor of S that is <= target; None when chunking is not
+    worthwhile (S already small, or the best divisor so far below the
+    target that the loop would degenerate into per-token products)."""
+    if S <= target:
+        return None
+    best = None
+    for c in range(min(target, S - 1), 0, -1):
+        if S % c == 0:
+            best = c
+            break
+    if best is None or best < max(1, target // 8):
+        return None
+    return best
 
 
 def init_kv_caches(config: LlamaConfig, batch: int, max_len: int,

@@ -8,12 +8,20 @@ script exits non-zero:
 
 1. device: the card's name, count, and nvidia-smi name + power limit;
 2. build: every CUDA source of the port, one nvcc each, all at once;
-3. kernel: each kernel against its plain PyTorch version at the serving
-   path's shapes, with its time, its bound and a library yardstick;
+3. kernel checks: the paged-decode kernel (K2) at the serving path's
+   shapes, and the flash-attention kernels (K1a forward, K1b dQ, K1c
+   dK/dV) at the training path's shapes and a matrix of masks, windows
+   and lengths, each against its plain PyTorch version, with its time,
+   its bound and a library yardstick;
 4. engine: the serving engine at llama3-8B width and depth (random bf16
    weights from a seed), 12 requests through the paged-decode kernel;
 5. parity: one decode step through the kernel path and the dense-gather
-   path from the same pool state, logits compared.
+   path from the same pool state, logits compared;
+6. train: the bf16 training step at llama3-8B width, 4 layers, remat
+   "dots": 10 steps through the flash kernels, with the launch counts,
+   step time, tokens/s, MFU, peak memory and a profiler split;
+7. train_flash_vs_einsum: one step's loss and grads through the flash
+   and einsum attention paths, 2 layers, f32 activations.
 
 The line before the last is the kernel table; the last line is
 {"ok": true, "device": {...}}. With no CUDA device the script exits
@@ -249,6 +257,191 @@ def phase_paged_kernel():
            "library_ms": library_ms}
     emit("kernel_time", **row)
     return [row]
+
+
+# ---------------------------------------------------------------------------
+# phase 3b: flash-attention kernels (K1a, K1b, K1c) against their plain
+# versions
+# ---------------------------------------------------------------------------
+
+BF16_FLOPS = 989e12         # H100 SXM bf16 dense tensor cores, data sheet
+
+# (name, B, S, H, D, causal, key-mask kind, window); the first is the
+# training slice's shape: q, k, v after repeat_kv at llama3-8B width
+FLASH_CASES = [
+    ("slice", 2, 2048, 32, 128, True, None, None),
+    ("noncausal_1024", 1, 1024, 4, 128, False, None, None),
+    ("key_mask", 2, 256, 4, 64, False, "row", None),
+    ("window_512", 1, 2048, 4, 128, True, None, 512),
+    ("irregular_1000", 1, 1000, 4, 128, True, None, None),
+    ("s_12", 2, 12, 4, 64, True, None, None),
+]
+
+
+def _flash_inputs(B, S, H, D, mask_kind, dtype, seed):
+    import torch
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(seed)
+    q, k, v, do = (torch.randn((B, S, H, D), generator=g, device=dev)
+                   .to(dtype) for _ in range(4))
+    mask = None
+    if mask_kind == "row":
+        # batch row 0 masks its first 40 keys; batch row 1 masks every key,
+        # so all of its query rows see nothing
+        mask = torch.ones((B, S), dtype=torch.int32, device=dev)
+        mask[0, :40] = 0
+        mask[1] = 0
+    return q, k, v, do, mask
+
+
+def _flash_pairs(S, causal, window):
+    """Visible (query, key) pairs of one head: the work that this data
+    needs (the kernels skip dead tiles)."""
+    if not causal:
+        return S * S
+    w = S if window is None else min(window, S)
+    return sum(min(i + 1, w) for i in range(S))
+
+
+def _flash_bounds(B, S, H, D, causal, window, elt):
+    """Least time of K1a, K1b, K1c at these shapes: operations (4, 6, 8
+    flops per visible pair and head dim: QK^T and PV; QK^T, dO V^T and
+    dS K; QK^T, dO V^T, P^T dO and dS^T Q) over the bf16 peak, or the
+    bytes each must move over HBM bandwidth, whichever is larger."""
+    pairs = B * H * _flash_pairs(S, causal, window)
+    tile = B * S * H * D * elt       # one [B, S, H, D] operand
+    row = B * H * S * 4              # one [B, H, S] f32 vector
+    work = {"flash_fwd": (4 * pairs * D, 4 * tile + row),
+            "flash_bwd_dq": (6 * pairs * D, 6 * tile + 2 * row),
+            "flash_bwd_dkv": (8 * pairs * D, 6 * tile + 2 * row)}
+    out = {}
+    for name, (flops, nbytes) in work.items():
+        t_ops, t_bytes = flops / BF16_FLOPS, nbytes / HBM_BYTES_PER_S
+        out[name] = (max(t_ops, t_bytes) * 1e3,
+                     "operations" if t_ops >= t_bytes else "bytes")
+    return out
+
+
+def phase_flash_kernel():
+    """Each case in bf16 and f32: kernel outputs (o, lse) and gradients
+    (dq, dk, dv, one random dO) against the plain versions run in f32 on
+    the same inputs. Then the slice's shape is timed."""
+    import torch
+
+    from accelerate_tpu_torch.ops import flash_attention as fa
+
+    torch.cuda.reset_peak_memory_stats()
+    failures = []
+    timing = None
+    for ci, (name, B, S, H, D, causal, mk, window) in enumerate(FLASH_CASES):
+        for dtype in (torch.bfloat16, torch.float32):
+            q, k, v, do, mask = _flash_inputs(B, S, H, D, mk, dtype, ci)
+            o, lse = fa.flash_forward(q, k, v, causal, mask, window,
+                                      save_residuals=True)
+            dq, dk, dv = fa.flash_backward(q, k, v, o, lse, do, causal,
+                                           mask, window)
+            ro, rlse = fa.flash_forward_reference(
+                q.float(), k.float(), v.float(), causal, mask, window)
+            rdq, rdk, rdv = fa.flash_backward_reference(
+                q.float(), k.float(), v.float(), ro, rlse, do.float(),
+                causal, mask, window)
+            torch.cuda.synchronize()
+            err = {"o": _max_abs(o, ro), "lse": _max_abs(lse, rlse)}
+            for n, a, b in (("dq", dq, rdq), ("dk", dk, rdk),
+                            ("dv", dv, rdv)):
+                err[n] = _max_abs(a, b)
+                err[n + "_rel_l2"] = _rel_l2(a.float(), b)
+            if dtype == torch.float32:
+                tol = {n: 1e-4 for n in ("o", "lse", "dq", "dk", "dv")}
+            else:
+                tol = {"o": 2e-2, "lse": 1e-3, "dq_rel_l2": 2e-2,
+                       "dk_rel_l2": 2e-2, "dv_rel_l2": 2e-2}
+            finite = all(bool(torch.isfinite(t.float()).all())
+                         for t in (o, lse, dq, dk, dv))
+            ok = finite and all(err[n] <= t for n, t in tol.items())
+            emit("flash_check", case=name, dtype=str(dtype)[6:], B=B, S=S,
+                 H=H, D=D, causal=causal, key_mask=mk, window=window,
+                 err=err, tol=tol, finite=finite, ok=ok)
+            if not ok:
+                failures.append(f"{name}/{dtype}")
+            if ci == 0 and dtype == torch.bfloat16:
+                timing = (q, k, v, do, o, lse, err)
+            del q, k, v, do, o, lse, dq, dk, dv, ro, rlse, rdq, rdk, rdv
+    if failures:
+        raise AssertionError(f"flash kernels disagree with their plain "
+                             f"versions: {failures}")
+    return _flash_times(*timing)
+
+
+def _flash_times(q, k, v, do, o, lse, err):
+    """Per-launch times of the three kernels at the slice's shape, their
+    plain versions, and scaled_dot_product_attention as the yardstick
+    (forward; backward alone), which the port never calls."""
+    import torch
+    import torch.nn.functional as F
+
+    from accelerate_tpu_torch.ops import flash_attention as fa
+
+    B, S, H, D = q.shape
+    _, delta = fa.flash_backward_dq(q, k, v, o, lse, do, True)
+    ms = {"flash_fwd": cuda_time_ms(
+              lambda: fa.flash_forward(q, k, v, True, save_residuals=True),
+              iters=20),
+          "flash_bwd_dq": cuda_time_ms(
+              lambda: fa.flash_backward_dq(q, k, v, o, lse, do, True),
+              iters=20),
+          "flash_bwd_dkv": cuda_time_ms(
+              lambda: fa.flash_backward_dkv(q, k, v, do, lse, delta, True),
+              iters=20)}
+    qf, kf, vf, of, dof = (t.float() for t in (q, k, v, o, do))
+    plain_fwd = cuda_time_ms(
+        lambda: fa.flash_forward_reference(qf, kf, vf, True), iters=3,
+        warmup=1)
+    plain_bwd = cuda_time_ms(
+        lambda: fa.flash_backward_reference(qf, kf, vf, of, lse, dof, True),
+        iters=3, warmup=1)
+    del qf, kf, vf, of, dof
+    qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_()
+                  for t in (q, k, v))
+    dot = do.transpose(1, 2)
+    sdpa_fwd = cuda_time_ms(
+        lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True),
+        iters=20)
+    with torch.enable_grad():
+        out = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True)
+        sdpa_bwd = cuda_time_ms(
+            lambda: torch.autograd.grad(out, (qt, kt, vt), dot,
+                                        retain_graph=True), iters=20)
+    del out
+    bounds = _flash_bounds(B, S, H, D, True, None, q.element_size())
+    emit("flash_time", shape=[B, S, H, D], causal=True, dtype="bfloat16",
+         ms=ms, plain_fwd_ms=plain_fwd, plain_bwd_ms=plain_bwd,
+         sdpa_fwd_ms=sdpa_fwd, sdpa_bwd_ms=sdpa_bwd,
+         sdpa_fwd_bwd_ms=sdpa_fwd + sdpa_bwd,
+         bounds={n: b[0] for n, b in bounds.items()},
+         max_memory_allocated_gb=torch.cuda.max_memory_allocated() / 1e9)
+    replaces = {"flash_fwd": "accelerate_tpu/ops/flash_attention.py:87",
+                "flash_bwd_dq": "accelerate_tpu/ops/flash_attention.py:204",
+                "flash_bwd_dkv": "accelerate_tpu/ops/flash_attention.py:250"}
+    errs = {"flash_fwd": err["o"], "flash_bwd_dq": err["dq"],
+            "flash_bwd_dkv": max(err["dk"], err["dv"])}
+    rows = []
+    for name in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"):
+        fwd = name == "flash_fwd"
+        rows.append({
+            "name": name, "route": "cuda",
+            "source": "accelerate_tpu_torch/csrc/flash_attention.cu",
+            "replaces": replaces[name], "launches": None,
+            "max_abs_err": errs[name], "ms": ms[name],
+            "plain_ms": plain_fwd if fwd else plain_bwd,
+            "bound_ms": bounds[name][0], "bound_by": bounds[name][1],
+            "library_ms": sdpa_fwd if fwd else sdpa_bwd})
+    return rows
+
+
+def _max_abs(a, b) -> float:
+    return float((a.float() - b.float()).abs().max())
 
 
 # ---------------------------------------------------------------------------
@@ -556,6 +749,204 @@ def _profile_step(eng, table):
             "top_kernels": kernels[:8]}
 
 
+# ---------------------------------------------------------------------------
+# phase 6: the bf16 training step at llama3-8B width
+# ---------------------------------------------------------------------------
+
+TRAIN_LAYERS = 4      # full width; 32 layers' f32 state would need 128 GB
+TRAIN_STEPS = 10
+
+
+def _train_config(layers, **kw):
+    from accelerate_tpu_torch.models import llama
+
+    return llama.LlamaConfig.llama3_8b(num_hidden_layers=layers, **kw)
+
+
+def _train_batch(cfg):
+    import numpy as np
+
+    # labels shift by one, so attention runs at S = 2048
+    return np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (2, 2049)).astype(np.int32)
+
+
+def phase_train(kernel_rows):
+    """Accelerator(bf16, clip 1.0) + prepare(TrainState(adamw(3e-4))) +
+    train_step(causal_lm_loss) at llama3-8B width with 4 layers, remat
+    "dots": 1 warm-up step, then 10 steps on the same batch, timed with
+    CUDA events. Under remat the attention forward reruns in backward, so
+    K1a launches twice per layer and step, K1b and K1c once."""
+    import numpy as np
+    import torch
+
+    from accelerate_tpu_torch.accelerator import Accelerator
+    from accelerate_tpu_torch.models import llama
+    from accelerate_tpu_torch.models.common import count_params
+    from accelerate_tpu_torch.ops import flash_attention as fa
+    from accelerate_tpu_torch.optimizers import adamw, tree_leaves
+    from accelerate_tpu_torch.state import PartialState
+    from accelerate_tpu_torch.training import TrainState
+
+    cfg = _train_config(TRAIN_LAYERS, remat=True, remat_policy="dots")
+    PartialState._reset_state()
+    torch.cuda.reset_peak_memory_stats()
+    acc = Accelerator(mixed_precision="bf16", gradient_clipping=1.0)
+    state = acc.prepare(TrainState.create(
+        apply_fn=None, params=llama.init_params(cfg, 0), tx=adamw(3e-4)))
+    n_params = count_params(state.params)
+    loader = acc.prepare([{"input_ids": _train_batch(cfg)}])
+    (batch,) = list(loader)
+    step = acc.train_step(lambda p, b: llama.causal_lm_loss(cfg, p, b))
+    state, m = step(state, batch)                     # warm-up
+    losses = [m["loss"]]
+    # the main path's run: every count at 0 just before, read just after
+    fa.flash_forward.launches = 0
+    fa.flash_backward_dq.launches = 0
+    fa.flash_backward_dkv.launches = 0
+    marks = [torch.cuda.Event(enable_timing=True)
+             for _ in range(TRAIN_STEPS + 1)]
+    marks[0].record()
+    for i in range(TRAIN_STEPS):
+        state, m = step(state, batch)
+        marks[i + 1].record()
+        losses.append(m["loss"])
+    torch.cuda.synchronize()
+    launches = {"flash_fwd": fa.flash_forward.launches,
+                "flash_bwd_dq": fa.flash_backward_dq.launches,
+                "flash_bwd_dkv": fa.flash_backward_dkv.launches}
+    step_ms = [marks[i].elapsed_time(marks[i + 1])
+               for i in range(TRAIN_STEPS)]
+    losses = [float(x) for x in losses]
+    med = float(np.median(step_ms))
+    tokens = 2 * 2048
+    tok_s = tokens / (med / 1e3)
+    # bench.py's reckoning: 6 N + 12 L h s flops per token
+    flops_per_token = 6 * n_params + 12 * cfg.num_hidden_layers * \
+        cfg.hidden_size * 2048
+    masters_f32 = all(t.dtype == torch.float32 for t in
+                      tree_leaves(state.params))
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    split = _profile_train_step(step, state, batch)
+    emit("train", config="llama3_8b", layers=cfg.num_hidden_layers,
+         remat=cfg.remat_policy, params=n_params, batch=[2, 2049],
+         mixed_precision="bf16", steps=TRAIN_STEPS, losses=losses,
+         step_ms=step_ms, step_ms_median=med, tokens_per_s=tok_s,
+         mfu=flops_per_token * tok_s / BF16_FLOPS,
+         max_memory_allocated_gb=peak_gb, master_params_f32=masters_f32,
+         launches=launches, profile=split)
+    want = {"flash_fwd": 2 * TRAIN_LAYERS * TRAIN_STEPS,
+            "flash_bwd_dq": TRAIN_LAYERS * TRAIN_STEPS,
+            "flash_bwd_dkv": TRAIN_LAYERS * TRAIN_STEPS}
+    if not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"non-finite training loss: {losses}")
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f"training loss did not fall: {losses}")
+    if not masters_f32:
+        raise AssertionError("master params left float32")
+    if launches != want:
+        raise AssertionError(f"flash launches {launches}, expected {want}")
+    for row in kernel_rows:
+        if row["name"] in launches:
+            row["launches"] = launches[row["name"]]
+    del state, step, loader, batch
+
+
+def _profile_train_step(step, state, batch):
+    """Device time of one training step by kernel class (ms), from
+    torch.profiler, with the eight costliest kernels."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    classes = {"flash_fwd": 0.0, "flash_bwd_dq": 0.0, "flash_bwd_dkv": 0.0,
+               "gemm": 0.0, "other": 0.0}
+    kernels = []
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        step(state, batch)
+        torch.cuda.synchronize()
+    for ev in prof.key_averages():
+        if str(ev.device_type) != "DeviceType.CUDA":
+            continue
+        us = float(getattr(ev, "self_device_time_total", 0.0))
+        low = ev.key.lower()
+        cls = ("flash_fwd" if "flash_fwd_kernel" in low else
+               "flash_bwd_dq" if "flash_dq_kernel" in low else
+               "flash_bwd_dkv" if "flash_dkv_kernel" in low else
+               "gemm" if any(t in low for t in ("gemm", "nvjet", "xmma",
+                                                "cutlass", "splitk"))
+               else "other")
+        classes[cls] += us / 1e3
+        kernels.append((us / 1e3, ev.count, ev.key[:90]))
+    kernels.sort(reverse=True)
+    return {"device_ms_by_class": classes,
+            "device_ms_total": sum(classes.values()),
+            "top_kernels": kernels[:8]}
+
+
+# ---------------------------------------------------------------------------
+# phase 7: flash against einsum through the whole step, f32 activations
+# ---------------------------------------------------------------------------
+
+
+def phase_train_flash_vs_einsum():
+    """One step's loss and grads at llama3-8B width, 2 layers, with
+    attention_backend "flash" and "einsum" from the same params and
+    batch. Gated in f32 activations; the same in bf16 (params cast as
+    the bf16 step casts them) is printed beside it."""
+    import dataclasses
+
+    import torch
+
+    from accelerate_tpu_torch.models import llama
+    from accelerate_tpu_torch.optimizers import tree_leaves, tree_map
+    from accelerate_tpu_torch.training import cast_floating
+
+    cfg = _train_config(2)
+    torch.cuda.reset_peak_memory_stats()
+    params = llama.init_params(cfg, 1)
+    ids = torch.from_numpy(_train_batch(cfg)).cuda()
+    leaves = tree_leaves(params)
+    out = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        for backend in ("flash", "einsum"):
+            c = dataclasses.replace(cfg, attention_backend=backend)
+            masters = [p.detach().requires_grad_() for p in leaves]
+            it = iter(masters)
+            tree = tree_map(lambda _: next(it), params)
+            with torch.enable_grad():
+                loss = llama.causal_lm_loss(
+                    c, cast_floating(tree, dtype), {"input_ids": ids})
+                grads = torch.autograd.grad(loss, masters)
+            out[(dtype, backend)] = (float(loss), grads)
+            del masters, tree, loss
+    res = {}
+    for dtype, name in ((torch.float32, "f32"), (torch.bfloat16, "bf16")):
+        lf, gf = out[(dtype, "flash")]
+        le, ge = out[(dtype, "einsum")]
+        res[name] = {"loss_flash": lf, "loss_einsum": le,
+                     "loss_rel_err": abs(lf - le) / abs(le),
+                     "grad_rel_l2_max": max(_rel_l2(a, b)
+                                            for a, b in zip(gf, ge))}
+    emit("train_flash_vs_einsum", layers=2, **res, loss_tol=1e-5,
+         grad_tol=1e-3, gated="f32",
+         max_memory_allocated_gb=torch.cuda.max_memory_allocated() / 1e9)
+    f32 = res["f32"]
+    if not (f32["loss_rel_err"] <= 1e-5 and f32["grad_rel_l2_max"] <= 1e-3):
+        raise AssertionError(f"flash step off the einsum step: {f32}")
+
+
+def _drop():
+    """Free the device memory of a finished phase."""
+    import gc
+
+    import torch
+
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
 def main() -> int:
     import torch
 
@@ -566,9 +957,15 @@ def main() -> int:
     info = phase_device()
     phase_build()
     kernels = phase_paged_kernel()
+    kernels += phase_flash_kernel()
     phase_small_parity()
-    cfg, params, eng = phase_engine(kernels)
+    cfg, params, eng = phase_engine(kernels[:1])
     phase_kernel_vs_dense(cfg, params, eng)
+    del params, eng
+    _drop()
+    phase_train(kernels)
+    _drop()
+    phase_train_flash_vs_einsum()
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": info["name"], "count": info["count"]}}),

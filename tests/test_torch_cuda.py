@@ -1,6 +1,7 @@
 """Tests of the PyTorch port that need an NVIDIA GPU: each CUDA kernel
-against its plain PyTorch version, and the engine on the card against
-the engine on the CPU.
+against its plain PyTorch version, the engine on the card against the
+engine on the CPU, the bf16 head's gradient, and a training step on the
+card against the same step on the CPU.
 
 Without a card every test here skips with a reason. The file imports
 neither jax nor the JAX package, so it also runs where those are not
@@ -13,10 +14,15 @@ import numpy as np
 import pytest
 import torch
 
+from accelerate_tpu_torch import optimizers as to
+from accelerate_tpu_torch.accelerator import Accelerator
 from accelerate_tpu_torch.models import llama
 from accelerate_tpu_torch.models.convert import params_from_numpy, \
     params_to_numpy
+from accelerate_tpu_torch.ops import flash_attention as tf
 from accelerate_tpu_torch.ops import paged_attention as tp
+from accelerate_tpu_torch.state import PartialState
+from accelerate_tpu_torch.training import TrainState
 from accelerate_tpu_torch.ops.quant import kv_quantize_rows
 from accelerate_tpu_torch.serving import Engine, EngineConfig
 
@@ -129,3 +135,136 @@ def test_engine_on_the_card_matches_the_cpu_engine(cuda):
         eng.run_until_idle()
         streams.append([r.tokens for r in reqs])
     assert streams[0] == streams[1]
+
+
+# --- flash attention (K1a, K1b, K1c) ----------------------------------------
+
+
+def _rel_l2(a, b):
+    return float(torch.linalg.vector_norm(a.float() - b.float())
+                 / torch.linalg.vector_norm(b.float()))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=str)
+@pytest.mark.parametrize("S,causal,masked,window", [
+    (64, True, False, None), (100, False, False, None),
+    (96, False, True, None), (130, True, False, 17), (12, True, True, None)])
+def test_flash_kernels_match_plain_versions(cuda, dtype, S, causal, masked,
+                                            window):
+    """f32: within 1e-4 everywhere (another f32 summation order); bf16
+    against the plain version in f32 on the same inputs: output within
+    2e-2, LSE within 1e-3, gradients within 2e-2 relative L2 (P and dS
+    are rounded to bf16 before their products)."""
+    g = torch.Generator(device=cuda).manual_seed(S)
+    B, H, D = 2, 3, 64
+    q, k, v, do = (torch.randn((B, S, H, D), generator=g, device=cuda)
+                   .to(dtype) for _ in range(4))
+    mask = None
+    if masked:
+        mask = torch.ones((B, S), dtype=torch.int32, device=cuda)
+        mask[0, : S // 3] = 0
+        mask[1] = 0                       # a batch row that sees nothing
+    launches = (tf.flash_forward.launches, tf.flash_backward_dq.launches,
+                tf.flash_backward_dkv.launches)
+    o, lse = tf.flash_forward(q, k, v, causal, mask, window,
+                              save_residuals=True)
+    dq, dk, dv = tf.flash_backward(q, k, v, o, lse, do, causal, mask,
+                                   window)
+    torch.cuda.synchronize()
+    assert (tf.flash_forward.launches, tf.flash_backward_dq.launches,
+            tf.flash_backward_dkv.launches) == tuple(n + 1 for n in launches)
+    ro, rlse = tf.flash_forward_reference(q.float(), k.float(), v.float(),
+                                          causal, mask, window)
+    grads = tf.flash_backward_reference(q.float(), k.float(), v.float(), ro,
+                                        rlse, do.float(), causal, mask,
+                                        window)
+    if dtype == torch.float32:
+        for a, b in zip((o, lse, dq, dk, dv), (ro, rlse, *grads)):
+            torch.testing.assert_close(a, b, atol=1e-4, rtol=0)
+    else:
+        torch.testing.assert_close(o.float(), ro, atol=2e-2, rtol=0)
+        torch.testing.assert_close(lse, rlse, atol=1e-3, rtol=0)
+        for a, b in zip((dq, dk, dv), grads):
+            assert _rel_l2(a, b) <= 2e-2
+    if masked:
+        assert not o[1].abs().max() and not lse[1].abs().max()
+
+
+def test_flash_attention_autograd_on_the_card_matches_the_cpu(cuda):
+    g = torch.Generator().manual_seed(0)
+    q, k, v, do = (torch.randn((1, 80, 2, 32), generator=g)
+                   for _ in range(4))
+    grads = []
+    for dev in ("cpu", cuda):
+        leaves = [t.detach().to(dev).requires_grad_() for t in (q, k, v)]
+        out = tf.flash_attention(*leaves, causal=True, window=30)
+        out.backward(do.to(dev))
+        grads.append([out.detach().cpu()] + [t.grad.cpu() for t in leaves])
+    for a, b in zip(*grads):
+        torch.testing.assert_close(a, b, atol=1e-4, rtol=0)
+
+
+def test_flash_kernels_reject_bad_inputs(cuda):
+    q = torch.zeros((1, 16, 2, 24), device=cuda)
+    with pytest.raises(ValueError, match="multiple of 16"):
+        tf.flash_forward(q, q, q, True)
+    q = torch.zeros((1, 16, 2, 32), device=cuda)
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        tf.flash_forward(q.half(), q.half(), q.half(), True)
+    with pytest.raises(ValueError, match="contiguous"):
+        tf.flash_forward(q.transpose(1, 2), q.transpose(1, 2),
+                         q.transpose(1, 2), False)
+
+
+# --- the bf16 head and a training step ---------------------------------------
+
+
+def test_bf16_head_gradient_on_the_card_matches_the_cpu_upcast(cuda):
+    """`_project_out` in bf16 is differentiable on the card; its grads are
+    the CPU upcast path's up to the one bf16 rounding of the f32
+    cotangent (relative L2 1e-2)."""
+    cfg = llama.LlamaConfig.tiny(hidden_size=128, vocab_size=512)
+    g = torch.Generator().manual_seed(0)
+    x = torch.randn((2, 7, 128), generator=g).bfloat16()
+    w = (torch.randn((128, 512), generator=g) * 0.05).bfloat16()
+    cot = torch.randn((2, 7, 512), generator=g)
+    grads = []
+    for dev in ("cpu", cuda):
+        xd, wd = (t.detach().to(dev).requires_grad_() for t in (x, w))
+        out = llama._project_out(cfg, {"lm_head": {"kernel": wd}}, xd)
+        assert out.dtype == torch.float32
+        out.backward(cot.to(dev))
+        grads.append((out.detach().cpu(), xd.grad.cpu(), wd.grad.cpu()))
+    (o_c, dx_c, dw_c), (o_g, dx_g, dw_g) = grads
+    torch.testing.assert_close(o_g, o_c, atol=1e-4, rtol=1e-4)
+    assert dx_g.dtype == torch.bfloat16 and dw_g.dtype == torch.bfloat16
+    assert _rel_l2(dx_g, dx_c) <= 1e-2 and _rel_l2(dw_g, dw_c) <= 1e-2
+
+
+@pytest.mark.parametrize("backend", ["flash", "einsum"])
+def test_train_step_on_the_card_matches_cpu(cuda, backend):
+    """Two f32 steps of a tiny llama (head_dim 32) through the Accelerator
+    on the card and with cpu=True: losses within 1e-5, params within
+    1e-4 (Adam's division by sqrt(v), as in the CPU parity tests)."""
+    cfg = llama.LlamaConfig.tiny(hidden_size=128, attention_backend=backend)
+    init = params_to_numpy(llama.init_params(cfg, 0, device="cpu"))
+    ids = np.random.default_rng(0).integers(0, 256, (4, 33)).astype(np.int32)
+    results = []
+    for cpu in (False, True):
+        PartialState._reset_state()
+        acc = Accelerator(gradient_clipping=1.0, cpu=cpu)
+        state = acc.prepare(TrainState.create(
+            apply_fn=None, params=params_from_numpy(init, device=acc.device),
+            tx=to.adamw(1e-3)))
+        step = acc.train_step(lambda p, b: llama.causal_lm_loss(cfg, p, b))
+        losses = []
+        for _ in range(2):
+            state, m = step(state, {"input_ids": ids})
+            losses.append(float(m["loss"]))
+        results.append((losses, to.tree_leaves(
+            params_to_numpy(state.params))))
+    PartialState._reset_state()
+    (l_gpu, p_gpu), (l_cpu, p_cpu) = results
+    np.testing.assert_allclose(l_gpu, l_cpu, atol=1e-5, rtol=0)
+    for a, b in zip(p_gpu, p_cpu):
+        np.testing.assert_allclose(a, b, atol=1e-4, rtol=0)

@@ -36,6 +36,9 @@ def test_port_imports_no_jax_and_no_jax_package():
     out = json.loads(proc.stdout.strip().splitlines()[-1])
     assert "accelerate_tpu_torch.serving.engine" in out["modules"]
     assert "accelerate_tpu_torch.csrc" in out["modules"]
+    for name in ("accelerator", "training", "optimizers", "state", "data",
+                 "utils.dataclasses", "ops.flash_attention"):
+        assert f"accelerate_tpu_torch.{name}" in out["modules"]
     assert out["leaked"] == []
 
 

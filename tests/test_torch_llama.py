@@ -2,6 +2,8 @@
 weights: no-cache logits, cached prefill + decode logits (f32, atol
 1e-4), greedy `generate`, and the param-tree bridge."""
 
+import dataclasses
+
 import jax
 import jax.numpy as jnp
 import ml_dtypes
@@ -190,9 +192,25 @@ def test_entry_points_need_a_gpu_unless_asked_for_the_cpu(monkeypatch):
         "norm"]["scale"].device.type == "cpu"
 
 
-@pytest.mark.parametrize("backend", ["flash", "ring", "ulysses"])
+@pytest.mark.parametrize("backend", ["ring", "ulysses"])
 def test_unported_attention_backends_raise(backend):
     cfg = tl.LlamaConfig.tiny(attention_backend=backend)
     pt = tl.init_params(cfg, 0, device="cpu")
     with pytest.raises(NotImplementedError, match="slice"):
         tl.forward(cfg, pt, torch.zeros((1, 4), dtype=torch.int64))
+
+
+@pytest.mark.parametrize("variant", ["gqa", "sliding_window"])
+def test_flash_backend_on_cpu_equals_einsum(variant):
+    """On CPU tensors "flash" runs the kernels' plain versions: the same
+    logits as the einsum path (f32, atol 1e-5), padding mask included."""
+    cfg = tl.LlamaConfig.tiny(**VARIANTS[variant])
+    pt = tl.init_params(cfg, 0, device="cpu")
+    ids = torch.tensor(_ids(np.random.default_rng(5), 2, 13))
+    mask = torch.ones((2, 13), dtype=torch.int32)
+    mask[0, 10:] = 0
+    out = {b: tl.forward(dataclasses.replace(cfg, attention_backend=b), pt,
+                         ids, attention_mask=mask)
+           for b in ("flash", "einsum")}
+    torch.testing.assert_close(out["flash"], out["einsum"], atol=1e-5,
+                               rtol=0)
