@@ -47,10 +47,9 @@ class DataLoaderShard:
     """Iterate `loader`'s batches on `device`, the next one's copy in
     flight while the current one is in use."""
 
-    def __init__(self, loader: Iterable, device, non_blocking: bool = True):
+    def __init__(self, loader: Iterable, device):
         self.loader = loader
         self.device = torch.device(device)
-        self.non_blocking = non_blocking
         self.gradient_state = GradientState()
         self.end_of_dataloader = False
 
@@ -63,13 +62,13 @@ class DataLoaderShard:
         try:
             it = iter(self.loader)
             try:
-                nxt = to_device(next(it), self.device, self.non_blocking)
+                nxt = to_device(next(it), self.device)
             except StopIteration:
                 return
             while True:
                 current = nxt
                 try:
-                    nxt = to_device(next(it), self.device, self.non_blocking)
+                    nxt = to_device(next(it), self.device)
                 except StopIteration:
                     self.end_of_dataloader = True
                     yield current

@@ -349,18 +349,33 @@ def _remat_body(config: LlamaConfig):
     return remat
 
 
+def _split_bf16(g: torch.Tensor) -> torch.Tensor:
+    """An f32 tensor [N, V] as three bf16 parts stacked to [3N, V] whose
+    sum is g exactly: each part takes the next 8 significant bits of
+    what the earlier parts left, and three hold all 24 of an f32 (for
+    |g| above 2^-110, where the third part is still a normal bf16)."""
+    parts, rest = [], g
+    for _ in range(3):
+        part = rest.to(torch.bfloat16)
+        parts.append(part)
+        rest = rest - part.float()
+    return torch.cat(parts)
+
+
 class _HeadF32(torch.autograd.Function):
-    """x2 [N, H] @ w [H, V] in bf16 with f32 logits out (cuBLAS's bf16
+    """x2 [N, H] @ w [H, V] in bf16 or f16 with f32 logits out (cuBLAS's
     GEMM with an f32 output: exact products, f32 accumulation, no
     rounding of the logits), differentiable.
 
-    The reference's transpose rule takes the products against the f32
-    cotangent and rounds the result to the operand's dtype. Here the
-    cotangent is rounded to bf16 first, so both gradient GEMMs stay bf16
-    tensor-core products with f32 accumulation (an f32 GEMM against an
-    upcast head would cost ~10x); dx and dw are then rounded once to
-    bf16. That one rounding of the cotangent (2^-9 relative) is where the
-    port departs from the reference."""
+    The backward follows the reference's transpose rule: the products are
+    taken against the f32 cotangent and rounded once, at the end, to the
+    operand's dtype. In bf16 that stays on the tensor cores: the cotangent
+    splits exactly into three bf16 parts (`_split_bf16`), whose products
+    with bf16 operands are exact and accumulate in f32, so dx and dw are
+    the f32-cotangent products up to the rounding of that accumulation
+    (the same as in any bf16 GEMM), at three times a bf16 GEMM's work.
+    f16's range cannot hold the parts, so f16 operands are upcast and
+    multiplied in f32."""
 
     @staticmethod
     def forward(ctx, x2, w):
@@ -370,12 +385,23 @@ class _HeadF32(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         x2, w = ctx.saved_tensors
-        gb = g.to(x2.dtype)
+        g = g.float()
         dx = dw = None
+        if x2.dtype != torch.bfloat16:
+            if ctx.needs_input_grad[0]:
+                dx = (g @ w.float().t()).to(x2.dtype)
+            if ctx.needs_input_grad[1]:
+                dw = (x2.float().t() @ g).to(w.dtype)
+            return dx, dw
+        parts = _split_bf16(g)
         if ctx.needs_input_grad[0]:
-            dx = torch.mm(gb, w.t(), out_dtype=torch.float32).to(x2.dtype)
+            # one GEMM over the stacked parts, f32 out, the three summed
+            dx = torch.mm(parts, w.t(), out_dtype=torch.float32).view(
+                3, *x2.shape).sum(0).to(x2.dtype)
         if ctx.needs_input_grad[1]:
-            dw = torch.mm(x2.t(), gb, out_dtype=torch.float32).to(w.dtype)
+            # the parts stacked along the contraction: one bf16 GEMM,
+            # f32 accumulation, rounded once to bf16
+            dw = torch.mm(x2.t().repeat(1, 3), parts)
         return dx, dw
 
 

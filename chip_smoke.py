@@ -21,7 +21,9 @@ script exits non-zero:
    "dots": 10 steps through the flash kernels, with the launch counts,
    step time, tokens/s, MFU, peak memory and a profiler split;
 7. train_flash_vs_einsum: one step's loss and grads through the flash
-   and einsum attention paths, 2 layers, f32 activations.
+   and einsum attention paths, 2 layers, f32 activations;
+8. head_grad: the bf16 head's gradient at the slice's shapes against
+   the exact products with the f32 cotangent, with its time.
 
 The line before the last is the kernel table; the last line is
 {"ok": true, "device": {...}}. With no CUDA device the script exits
@@ -254,7 +256,9 @@ def phase_paged_kernel():
            "replaces": "accelerate_tpu/ops/paged_attention.py:157",
            "launches": None, "max_abs_err": err, "ms": ms,
            "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
-           "library_ms": library_ms}
+           "library_ms": library_ms,
+           "library_scope": "scaled_dot_product_attention over K/V "
+                            "gathered from the pages beforehand"}
     emit("kernel_time", **row)
     return [row]
 
@@ -426,6 +430,16 @@ def _flash_times(q, k, v, do, o, lse, err):
                 "flash_bwd_dkv": "accelerate_tpu/ops/flash_attention.py:250"}
     errs = {"flash_fwd": err["o"], "flash_bwd_dq": err["dq"],
             "flash_bwd_dkv": max(err["dk"], err["dv"])}
+    # the backward's plain version and its library call each compute dq,
+    # dk and dv together, so K1b's and K1c's rows share them: they are to
+    # be read against K1b + K1c, not against one kernel
+    bwd_pair = "dq, dk and dv together (K1b + K1c)"
+    scopes = {"flash_fwd": ("o and lse", "scaled_dot_product_attention "
+                            "forward, is_causal"),
+              "flash_bwd_dq": (bwd_pair, "scaled_dot_product_attention "
+                               "backward: " + bwd_pair),
+              "flash_bwd_dkv": (bwd_pair, "scaled_dot_product_attention "
+                                "backward: " + bwd_pair)}
     rows = []
     for name in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"):
         fwd = name == "flash_fwd"
@@ -436,7 +450,12 @@ def _flash_times(q, k, v, do, o, lse, err):
             "max_abs_err": errs[name], "ms": ms[name],
             "plain_ms": plain_fwd if fwd else plain_bwd,
             "bound_ms": bounds[name][0], "bound_by": bounds[name][1],
-            "library_ms": sdpa_fwd if fwd else sdpa_bwd})
+            "library_ms": sdpa_fwd if fwd else sdpa_bwd,
+            "plain_scope": scopes[name][0],
+            "library_scope": scopes[name][1],
+            "bwd_pair_ms": None if fwd else
+            ms["flash_bwd_dq"] + ms["flash_bwd_dkv"],
+            "library_fwd_bwd_ms": sdpa_fwd + sdpa_bwd})
     return rows
 
 
@@ -937,6 +956,63 @@ def phase_train_flash_vs_einsum():
         raise AssertionError(f"flash step off the einsum step: {f32}")
 
 
+def phase_head_grad():
+    """The bf16 head's gradient (`llama._HeadF32`) at the slice's shapes:
+    one loss chunk, 2 x 256 rows at hidden 4096 against the 128256-wide
+    head. Its dx and dw against the exact products with the f32
+    cotangent (f64 GEMMs) rounded once to bf16, the reference's rule,
+    gated on the share of bit-equal elements. Beside it, the same for
+    f32 GEMMs and for products against the cotangent rounded to bf16
+    first, with the time of each variant."""
+    import torch
+
+    from accelerate_tpu_torch.models import llama
+
+    n, h, v = 512, 4096, 128256
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    x = torch.randn((n, h), generator=gen, device="cuda").bfloat16()
+    w = (torch.randn((h, v), generator=gen, device="cuda") * 0.02).bfloat16()
+    g = torch.randn((n, v), generator=gen, device="cuda") * 1e-6
+    with torch.enable_grad():
+        xg, wg = x.requires_grad_(), w.requires_grad_()
+        out = llama._HeadF32.apply(xg, wg)
+
+        def port():
+            return torch.autograd.grad(out, (xg, wg), g, retain_graph=True)
+
+        dx, dw = port()
+        ms = cuda_time_ms(port, iters=10)
+    x, w = x.detach(), w.detach()
+
+    def f32_gemm():
+        return (g @ w.float().t()).bfloat16(), (x.float().t() @ g).bfloat16()
+
+    def rounded_cotangent():
+        return g.bfloat16() @ w.t(), x.t() @ g.bfloat16()
+
+    # the exact products, from f64 GEMMs, rounded once to bf16
+    exact = ((g.double() @ w.double().t()).bfloat16(),
+             (x.double().t() @ g.double()).bfloat16())
+    res = {}
+    for name, pair in (("port", (dx, dw)), ("f32_gemm", f32_gemm()),
+                       ("rounded_cotangent", rounded_cotangent())):
+        for d, a, b in zip(("dx", "dw"), pair, exact):
+            res[f"{name}_{d}_equal"] = float((a == b).float().mean())
+            res[f"{name}_{d}_rel_l2"] = _rel_l2(a.float(), b.float())
+        del pair
+    f32_ms = cuda_time_ms(f32_gemm, iters=3)
+    rounded_ms = cuda_time_ms(rounded_cotangent, iters=10)
+    # the tensor cores' f32 accumulation over dx's 128256-long
+    # contraction tips about 5% of its roundings (an f32 GEMM's, about
+    # 0.3%); rounding the cotangent first leaves about 57% equal
+    tol = 0.9
+    emit("head_grad", rows=n, hidden=h, vocab=v, **res, ms=ms,
+         f32_gemm_ms=f32_ms, rounded_cotangent_ms=rounded_ms,
+         equal_tol=tol)
+    if not (res["port_dx_equal"] >= tol and res["port_dw_equal"] >= tol):
+        raise AssertionError(f"head gradient off the exact products: {res}")
+
+
 def _drop():
     """Free the device memory of a finished phase."""
     import gc
@@ -966,6 +1042,8 @@ def main() -> int:
     phase_train(kernels)
     _drop()
     phase_train_flash_vs_einsum()
+    _drop()
+    phase_head_grad()
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": info["name"], "count": info["count"]}}),

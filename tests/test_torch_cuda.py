@@ -220,25 +220,30 @@ def test_flash_kernels_reject_bad_inputs(cuda):
 
 
 def test_bf16_head_gradient_on_the_card_matches_the_cpu_upcast(cuda):
-    """`_project_out` in bf16 is differentiable on the card; its grads are
-    the CPU upcast path's up to the one bf16 rounding of the f32
-    cotangent (relative L2 1e-2)."""
+    """`_project_out` in bf16 (and f16) is differentiable on the card,
+    and its grads are the CPU upcast path's: products against the f32
+    cotangent, rounded once to the operands' dtype. At least 98% of dx
+    and dw are bit-equal (f32 summation order may tip a rounding);
+    rounding the cotangent to bf16 before the products would leave about
+    56% equal at these shapes."""
     cfg = llama.LlamaConfig.tiny(hidden_size=128, vocab_size=512)
-    g = torch.Generator().manual_seed(0)
-    x = torch.randn((2, 7, 128), generator=g).bfloat16()
-    w = (torch.randn((128, 512), generator=g) * 0.05).bfloat16()
-    cot = torch.randn((2, 7, 512), generator=g)
-    grads = []
-    for dev in ("cpu", cuda):
-        xd, wd = (t.detach().to(dev).requires_grad_() for t in (x, w))
-        out = llama._project_out(cfg, {"lm_head": {"kernel": wd}}, xd)
-        assert out.dtype == torch.float32
-        out.backward(cot.to(dev))
-        grads.append((out.detach().cpu(), xd.grad.cpu(), wd.grad.cpu()))
-    (o_c, dx_c, dw_c), (o_g, dx_g, dw_g) = grads
-    torch.testing.assert_close(o_g, o_c, atol=1e-4, rtol=1e-4)
-    assert dx_g.dtype == torch.bfloat16 and dw_g.dtype == torch.bfloat16
-    assert _rel_l2(dx_g, dx_c) <= 1e-2 and _rel_l2(dw_g, dw_c) <= 1e-2
+    for dtype in (torch.bfloat16, torch.float16):
+        g = torch.Generator().manual_seed(0)
+        x = torch.randn((2, 7, 128), generator=g).to(dtype)
+        w = (torch.randn((128, 512), generator=g) * 0.05).to(dtype)
+        cot = torch.randn((2, 7, 512), generator=g)
+        grads = []
+        for dev in ("cpu", cuda):
+            xd, wd = (t.detach().to(dev).requires_grad_() for t in (x, w))
+            out = llama._project_out(cfg, {"lm_head": {"kernel": wd}}, xd)
+            assert out.dtype == torch.float32
+            out.backward(cot.to(dev))
+            grads.append((out.detach().cpu(), xd.grad.cpu(), wd.grad.cpu()))
+        (o_c, dx_c, dw_c), (o_g, dx_g, dw_g) = grads
+        torch.testing.assert_close(o_g, o_c, atol=1e-4, rtol=1e-4)
+        assert dx_g.dtype == dtype and dw_g.dtype == dtype
+        assert (dx_g == dx_c).float().mean() >= 0.98
+        assert (dw_g == dw_c).float().mean() >= 0.98
 
 
 @pytest.mark.parametrize("backend", ["flash", "einsum"])

@@ -166,6 +166,35 @@ def test_pick_chunk_matches_jax():
     assert tl._pick_chunk(2048, 2**26 // (2 * 128256)) == 256
 
 
+def test_head_cotangent_splits_exactly_into_bf16_parts():
+    """The bf16 head's backward on the card (`_HeadF32`) multiplies the
+    three bf16 parts of the f32 cotangent. They sum to it exactly, so
+    their products (exact in f32, taken here on the CPU) give the
+    reference's transpose of the bf16 head, `jax.vjp` of a bf16 dot with
+    f32 output: dx and dw bit-equal after the rounding to bf16 but where
+    f32 summation order tips a rounding (at least 99% of elements)."""
+    rng = np.random.default_rng(0)
+    n, h, v = 14, 128, 512
+    g = (rng.normal(size=(n, v))
+         * np.exp2(rng.integers(-60, 10, (n, v)))).astype(np.float32)
+    parts = tl._split_bf16(torch.tensor(g))
+    assert parts.dtype == torch.bfloat16 and parts.shape == (3 * n, v)
+    assert torch.equal(parts.double().view(3, n, v).sum(0),
+                       torch.tensor(g).double())
+    g = rng.normal(size=(n, v)).astype(np.float32)
+    parts = tl._split_bf16(torch.tensor(g)).float()
+    x = jnp.asarray(rng.normal(size=(n, h)), jnp.bfloat16)
+    w = jnp.asarray(rng.normal(size=(h, v)) * 0.05, jnp.bfloat16)
+    _, vjp = jax.vjp(
+        lambda x, w: jnp.dot(x, w, preferred_element_type=jnp.float32), x, w)
+    dx_j, dw_j = (np.asarray(t.astype(jnp.float32))
+                  for t in vjp(jnp.asarray(g)))
+    xt, wt = (torch.tensor(np.asarray(t.astype(jnp.float32))) for t in (x, w))
+    dx = (parts @ wt.t()).view(3, n, h).sum(0).bfloat16().float().numpy()
+    dw = (xt.t().repeat(1, 3) @ parts).bfloat16().float().numpy()
+    assert (dx == dx_j).mean() >= 0.99 and (dw == dw_j).mean() >= 0.99
+
+
 @pytest.mark.parametrize("policy", ["full", "dots"])
 @pytest.mark.parametrize("backend", ["einsum", "flash"])
 def test_remat_equals_no_remat(policy, backend, monkeypatch):
