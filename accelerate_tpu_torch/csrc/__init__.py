@@ -2,9 +2,11 @@
 
 Each `<name>.cu` in this directory compiles with nvcc for Hopper
 (`sm_90a`) into a shared library with a plain C interface, cached under
-`_build/` by a hash of its source and flags; a second process finds the
-library there and skips the build. Nothing builds at import: the CPU
-tests import every module of the port on a machine with no nvcc.
+`_build/` by a hash of everything it compiles from: its source, every
+`*.cuh` header here, and the flags. A second process finds the library
+there and skips the build; an edit to any of them builds anew. Nothing
+builds at import: the CPU tests import every module of the port on a
+machine with no nvcc.
 """
 
 from __future__ import annotations
@@ -41,9 +43,13 @@ def _nvcc() -> str:
 
 
 def _lib_path(name: str) -> Path:
-    src = (SRC_DIR / f"{name}.cu").read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    return BUILD_DIR / f"lib{name}-{digest[:16]}.so"
+    """The library's path in the cache, keyed on the source, the headers
+    it may include (all of this directory's `*.cuh`) and the flags."""
+    h = hashlib.sha256()
+    for f in (SRC_DIR / f"{name}.cu", *sorted(SRC_DIR.glob("*.cuh"))):
+        h.update(f.name.encode() + b"\0" + f.read_bytes() + b"\0")
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
 
 
 def build(names) -> None:

@@ -27,20 +27,34 @@
 // Design (FA-2's split, no atomics):
 //   - forward and dQ: one block per (b*h, q tile), a loop over the live k
 //     tiles of the causal/window band; dK/dV: one block per (b*h, k tile),
-//     a loop over the live q tiles. Tiles are staged in shared memory
-//     with 16-byte loads; the bf16 products run on the tensor cores
-//     through WMMA (mma.sync m16n8k16 underneath) with f32 accumulators
-//     kept in shared memory, where the softmax rescale touches them.
+//     a loop over the live q tiles. Heavy (late, long causal) q tiles
+//     launch first.
+//   - the bf16 forward (flash_fwd_kernel_sm90) is built for Hopper: a
+//     128-row q tile per block, two warpgroups of 64 rows each; K/V tiles
+//     of 64 rows in a two-stage shared-memory ring filled by cp.async, the
+//     next tile's copies issued before this tile's products; S = Q K^T on
+//     wgmma from shared memory into registers; mask and online softmax in
+//     registers; P rounded to bf16 in registers and fed to the P.V wgmma
+//     as its register operand, O accumulated and rescaled in registers;
+//     the output leaves through shared memory as 16-byte stores. Head
+//     dims below a multiple of 64 are zero-padded in shared memory.
+//   - the dQ and dK/dV passes and the f32 forward stage tiles in shared
+//     memory with 16-byte loads; their bf16 products run on the tensor
+//     cores through WMMA (mma.sync m16n8k16 underneath) with f32
+//     accumulators kept in shared memory, where the softmax touches them.
+//     The f32 path runs the same kernels on CUDA cores, for tight checks.
 //   - delta = rowsum(dO * O) is computed once per q tile by the dQ pass,
 //     which writes it out for the dK/dV pass launched after it on the same
 //     stream (the reference recomputes it in both kernels).
 //
 // What bounds it: at the training shapes (S = 2048, D = 128, causal) all
 // three are bounded by tensor-core operations (4, 6 and 8 * B*H*S^2*D/2
-// flops at 989 TFLOP/s bf16), with bytes well under that line. This first
-// design is simple and right, not fast: it issues WMMA from shared memory
-// with no cp.async/TMA pipelining, keeps accumulators in shared memory
-// rather than registers, and does not use wgmma; each is later work.
+// flops at 989 TFLOP/s bf16), with bytes well under that line. The
+// forward keeps the tensor cores fed from registers and a prefetched ring;
+// it has no producer warp or TMA, so a tile's softmax still stalls its
+// warpgroup's products. The two backward passes are the first, simple
+// design: WMMA from shared memory with no pipelining, accumulators in
+// shared memory, no wgmma; each is later work.
 //
 // Each C entry point takes raw pointers and the CUDA stream, launches on
 // that stream, never synchronises, and returns cudaGetLastError() (or -1
@@ -52,6 +66,8 @@
 #include <stdint.h>
 
 #include <type_traits>
+
+#include "hopper.cuh"
 
 namespace {
 
@@ -197,7 +213,7 @@ struct Shape {
 };
 
 // ---------------------------------------------------------------------------
-// K1a: forward
+// K1a: forward, f32 on CUDA cores (bf16 runs flash_fwd_kernel_sm90 below)
 // ---------------------------------------------------------------------------
 
 template <typename T>
@@ -218,6 +234,8 @@ __global__ void __launch_bounds__(kThreads)
                      const T* __restrict__ v,
                      const uint8_t* __restrict__ kmask, T* __restrict__ o,
                      float* __restrict__ lse, Shape sh) {
+  static_assert(std::is_same<T, float>::value,
+                "the bf16 forward is flash_fwd_kernel_sm90");
   constexpr int BQ = Tiles<T>::BQ, BK = Tiles<T>::BK;
   constexpr int kPerLane = BK / 32;
   const int H = sh.H, Sq = sh.Sq, Sk = sh.Sk, D = sh.D;
@@ -321,6 +339,234 @@ __global__ void __launch_bounds__(kThreads)
     const float l = l_s[r];
     lse[(size_t)bh * Sq + q0 + r] =
         l > 0.f ? m_s[r] + logf(fmaxf(l, 1e-30f)) : 0.f;
+  }
+}
+
+// ---------------------------------------------------------------------------
+// K1a: forward, bf16 on wgmma
+// ---------------------------------------------------------------------------
+
+constexpr int kFwdBQ = 128;       // q rows of a block: two warpgroups of 64
+constexpr int kFwdBK = 64;        // k/v rows of a ring stage
+constexpr int kFwdThreads = 256;
+
+// Q tile, two K and two V stages (DP columns, bf16), two key-mask stages,
+// and 1 KB to align the tiles to the swizzle's 1024 bytes.
+template <int DP>
+constexpr size_t fwd_sm90_smem() {
+  return size_t(kFwdBQ) * DP * 2 + 4 * size_t(kFwdBK) * DP * 2 +
+         2 * kFwdBK + 1024;
+}
+
+// DP: the head dim padded to a multiple of 64 (64 or 128); columns D..DP
+// are zeros in shared memory, so they add nothing to Q K^T and their
+// output columns are dropped.
+//
+// Register fragments (wgmma's accumulator layout): in warpgroup wg, lane
+// l of warp w holds, for accumulator i, row wg*64 + w*16 + l/4 + 8*(i/2%2)
+// and column 8*(i/4) + 2*(l%4) + i%2. P's bf16 pairs in that layout are
+// exactly the register A operand of the P.V product.
+template <int DP>
+__global__ void __launch_bounds__(kFwdThreads, 1)
+    flash_fwd_kernel_sm90(const bf16* __restrict__ q,
+                          const bf16* __restrict__ k,
+                          const bf16* __restrict__ v,
+                          const uint8_t* __restrict__ kmask,
+                          bf16* __restrict__ o, float* __restrict__ lse,
+                          Shape sh) {
+  using namespace hopper;
+  constexpr int BQ = kFwdBQ, BK = kFwdBK;
+  constexpr int CH = DP / 8;            // 16-byte chunks of a tile row
+  constexpr int KV_BYTES = BK * DP * 2;
+  constexpr int NS = BK / 2;            // S accumulators of a thread
+  constexpr int NO = DP / 2;            // O accumulators of a thread
+  constexpr float kLog2e = 1.4426950408889634f;
+  constexpr float kLn2 = 0.6931471805599453f;
+  extern __shared__ char fwd_smem_raw[];
+  char* Qs = reinterpret_cast<char*>(
+      (reinterpret_cast<uintptr_t>(fwd_smem_raw) + 1023) & ~uintptr_t(1023));
+  char* Ks = Qs + BQ * DP * 2;          // two stages
+  char* Vs = Ks + 2 * KV_BYTES;         // two stages
+  uint8_t* kms = reinterpret_cast<uint8_t*>(Vs + 2 * KV_BYTES);
+
+  const int H = sh.H, Sq = sh.Sq, Sk = sh.Sk, D = sh.D;
+  const int tid = threadIdx.x, wg = tid >> 7;
+  const int warp = (tid >> 5) & 3, lane = tid & 31;
+  const int qi = gridDim.y - 1 - blockIdx.y;  // heavy q tiles launch first
+  const int bh = blockIdx.x, b = bh / H, h = bh - b * H;
+  const int q0 = qi * BQ;
+  const size_t rs = (size_t)H * D;
+  const bf16* qb = q + ((size_t)b * Sq * H + h) * D;
+  const bf16* kb = k + ((size_t)b * Sk * H + h) * D;
+  const bf16* vb = v + ((size_t)b * Sk * H + h) * D;
+  const uint8_t* mb = kmask ? kmask + (size_t)b * Sk : nullptr;
+  const bool causal = sh.causal != 0;
+  const int window = sh.window;
+
+  // rows x DP of `src` (rows rs apart) into swizzled panels; rows at or
+  // past `valid` and columns at or past D are zero-filled
+  auto load = [&](char* dst, const bf16* src, int rows, int valid) {
+    for (int idx = tid; idx < rows * CH; idx += kFwdThreads) {
+      const int r = idx / CH, c = idx - r * CH;
+      const bool in = r < valid && c * 8 < D;
+      cp_async16(dst + swz128(r, c, rows), in ? src + r * rs + c * 8 : src,
+                 in ? 16 : 0);
+    }
+  };
+  auto load_kv = [&](int kj, int st) {
+    const int k0 = kj * BK;
+    load(Ks + st * KV_BYTES, kb + (size_t)k0 * rs, BK, Sk - k0);
+    load(Vs + st * KV_BYTES, vb + (size_t)k0 * rs, BK, Sk - k0);
+    if (mb && tid < BK) kms[st * BK + tid] = k0 + tid < Sk ? mb[k0 + tid] : 0;
+  };
+
+  const int nk = (Sk + BK - 1) / BK;
+  const int q_last = min(q0 + BQ, Sq) - 1;
+  const int kj_end = causal ? min(nk, q_last / BK + 1) : nk;
+  const int kj_begin = window > 0 ? max(0, q0 - window + 1) / BK : 0;
+
+  float oacc[NO];
+#pragma unroll
+  for (int i = 0; i < NO; ++i) oacc[i] = 0.f;
+  float m_r[2] = {kNegInf, kNegInf}, l_r[2] = {0.f, 0.f};  // log2 units
+  const int row0 = q0 + wg * 64 + warp * 16 + (lane >> 2);  // and row0 + 8
+  const bool wg_rows = q0 + wg * 64 < Sq;
+  const float scale2 = sh.scale * kLog2e;
+
+  load(Qs, qb + (size_t)q0 * rs, BQ, Sq - q0);
+  if (kj_begin < kj_end) load_kv(kj_begin, 0);
+  cp_async_commit();
+  for (int kj = kj_begin, st = 0; kj < kj_end; ++kj, st ^= 1) {
+    cp_async_wait<0>();  // this tile, the one group in flight, has landed
+    fence_proxy_async();
+    // one barrier a tile: past it, every warpgroup is done with the other
+    // stage, so the next tile's copies go there and fly while this one is
+    // multiplied
+    __syncthreads();
+    if (kj + 1 < kj_end) load_kv(kj + 1, st ^ 1);
+    cp_async_commit();
+    const int k0 = kj * BK;
+    if (wg_rows && band_live(q0 / 64 + wg, kj, 64, BK, causal, window)) {
+      // S = Q K^T, both K-major in shared memory
+      float s[NS];
+#pragma unroll
+      for (int i = 0; i < NS; ++i) s[i] = 0.f;
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < DP / 16; ++kk) {
+        const uint64_t da = wgmma_desc(
+            Qs + (kk >> 2) * BQ * 128 + wg * 64 * 128 + (kk & 3) * 32, 16,
+            1024);
+        const uint64_t db = wgmma_desc(
+            Ks + st * KV_BYTES + (kk >> 2) * BK * 128 + (kk & 3) * 32, 16,
+            1024);
+        wgmma_ss_n64(s, da, db, kk > 0);
+      }
+      wgmma_commit();
+      wgmma_wait<0>();
+      reg_fence(s);
+
+      // mask and online softmax; a row's 64 columns sit in the 4 lanes
+      // that share l/4. A tile that every row of the warpgroup sees whole
+      // (most of a long causal band) skips the mask.
+      const int wr0 = q0 + wg * 64;
+      const bool whole = mb == nullptr && k0 + BK <= Sk && wr0 + 64 <= Sq &&
+                         (!causal || k0 + BK - 1 <= wr0) &&
+                         (window <= 0 || wr0 + 63 - k0 < window);
+      if (!whole) {
+#pragma unroll
+        for (int i = 0; i < NS; ++i) {
+          const int col = k0 + (i >> 2) * 8 + (lane & 3) * 2 + (i & 1);
+          if (!visible(row0 + 8 * ((i >> 1) & 1), col, Sq, Sk, causal,
+                       window, mb ? kms + st * BK : nullptr, col - k0))
+            s[i] = kNegInf;
+        }
+      }
+      float mx[2] = {kNegInf, kNegInf};
+#pragma unroll
+      for (int i = 0; i < NS; ++i)
+        mx[(i >> 1) & 1] = fmaxf(mx[(i >> 1) & 1], s[i]);
+      float alpha[2], m_use[2], sum[2] = {0.f, 0.f};
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+        mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+        // scores in log2 units: dot * sm_scale * log2(e)
+        const float m_new =
+            mx[r] <= kNegInf * 0.5f ? m_r[r] : fmaxf(m_r[r], mx[r] * scale2);
+        alpha[r] = fast_exp2(m_r[r] - m_new);
+        m_r[r] = m_new;
+        // masked keys must give 0: against a row that has seen nothing (m
+        // still kNegInf) exp2(s - m) would be 1, so subtract 0 there
+        m_use[r] = m_new <= kNegInf * 0.5f ? 0.f : m_new;
+      }
+      uint32_t pa[BK / 16][4];
+#pragma unroll
+      for (int i = 0; i < NS; i += 2) {
+        const int hi = (i >> 1) & 1;
+        const float p0 = fast_exp2(fmaf(s[i], scale2, -m_use[hi]));
+        const float p1 = fast_exp2(fmaf(s[i + 1], scale2, -m_use[hi]));
+        sum[hi] += p0 + p1;
+        pa[i >> 3][(i >> 1) & 3] = pack_bf16(p0, p1);
+      }
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        sum[r] += __shfl_xor_sync(0xffffffffu, sum[r], 1);
+        sum[r] += __shfl_xor_sync(0xffffffffu, sum[r], 2);
+        l_r[r] = l_r[r] * alpha[r] + sum[r];
+      }
+#pragma unroll
+      for (int i = 0; i < NO; ++i) oacc[i] *= alpha[(i >> 1) & 1];
+
+      // O += P V: P from registers, V MN-major in shared memory
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < BK / 16; ++kk) {
+        const uint64_t db =
+            wgmma_desc(Vs + st * KV_BYTES + kk * 16 * 128, BK * 128, 1024);
+        if constexpr (DP == 128)
+          wgmma_rs_n128(oacc, pa[kk], db, 1);
+        else
+          wgmma_rs_n64(oacc, pa[kk], db, 1);
+      }
+      wgmma_commit();
+      wgmma_wait<0>();
+      reg_fence(oacc);
+    }
+  }
+  cp_async_wait<0>();  // with no live tile, Q's copies may still fly
+  __syncthreads();
+
+  // epilogue: O / l in bf16, staged in shared memory (rows padded against
+  // bank conflicts), then 16-byte stores of the valid rows and columns
+  constexpr int LDO = DP + 8;
+  bf16* Os = reinterpret_cast<bf16*>(Qs);
+#pragma unroll
+  for (int i = 0; i < NO; i += 2) {
+    const int hi = (i >> 1) & 1;
+    const int row = wg * 64 + warp * 16 + (lane >> 2) + 8 * hi;
+    const int col = (i >> 2) * 8 + (lane & 3) * 2;
+    const float l = fmaxf(l_r[hi], 1e-30f);
+    *reinterpret_cast<__nv_bfloat162*>(Os + row * LDO + col) =
+        __floats2bfloat162_rn(oacc[i] / l, oacc[i + 1] / l);
+  }
+  if (wg_rows && (lane & 3) == 0) {
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int row = row0 + 8 * r;
+      if (row < Sq)
+        lse[(size_t)bh * Sq + row] =
+            l_r[r] > 0.f ? (m_r[r] + log2f(l_r[r])) * kLn2 : 0.f;
+    }
+  }
+  __syncthreads();
+  bf16* ob = o + ((size_t)b * Sq * H + h) * D;
+  const int och = D / 8;
+  for (int idx = tid; idx < BQ * och; idx += kFwdThreads) {
+    const int r = idx / och, c = idx - r * och;
+    if (q0 + r < Sq)
+      *reinterpret_cast<uint4*>(ob + (size_t)(q0 + r) * rs + c * 8) =
+          *reinterpret_cast<const uint4*>(Os + r * LDO + c * 8);
   }
 }
 
@@ -582,6 +828,21 @@ int launch_fwd(const void* q, const void* k, const void* v,
   return static_cast<int>(cudaGetLastError());
 }
 
+template <int DP>
+int launch_fwd_sm90(const void* q, const void* k, const void* v,
+                    const uint8_t* kmask, void* o, float* lse, int B,
+                    Shape sh, cudaStream_t st) {
+  constexpr size_t smem = fwd_sm90_smem<DP>();
+  if (int e = set_smem(flash_fwd_kernel_sm90<DP>, smem)) return e;
+  const int nq = (sh.Sq + kFwdBQ - 1) / kFwdBQ;
+  if (nq > 65535) return -1;
+  dim3 grid(B * sh.H, nq);
+  flash_fwd_kernel_sm90<DP><<<grid, kFwdThreads, smem, st>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+      static_cast<const bf16*>(v), kmask, static_cast<bf16*>(o), lse, sh);
+  return static_cast<int>(cudaGetLastError());
+}
+
 template <typename T>
 int launch_dq(const void* q, const void* k, const void* v, const void* o,
               const void* dout, const float* lse, const uint8_t* kmask,
@@ -628,7 +889,10 @@ extern "C" int flash_fwd(int dtype, const void* q, const void* k,
   auto km = static_cast<const uint8_t*>(kmask);
   auto ls = static_cast<float*>(lse);
   if (dtype == 0) return launch_fwd<float>(q, k, v, km, o, ls, B, sh, st);
-  if (dtype == 1) return launch_fwd<bf16>(q, k, v, km, o, ls, B, sh, st);
+  if (dtype == 1)
+    return sh.D <= 64
+               ? launch_fwd_sm90<64>(q, k, v, km, o, ls, B, sh, st)
+               : launch_fwd_sm90<128>(q, k, v, km, o, ls, B, sh, st);
   return -1;
 }
 

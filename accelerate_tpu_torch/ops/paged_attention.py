@@ -5,8 +5,10 @@ decode step attends one new token per slot against that slot's pages of
 the paged KV pool, in place: no dense gather of the pool, only a slot's
 live pages are read, and the GQA group broadcast happens in the kernel.
 On a CUDA tensor `paged_decode_attention` launches the hand-written
-Hopper kernel `csrc/paged_decode.cu` (or raises); on a CPU tensor it runs
-`paged_decode_reference`, the plain version with identical semantics.
+Hopper kernels of `csrc/paged_decode.cu` (or raises): each slot's pages
+split across blocks of about 128 rows, then a combine pass over the
+splits (flash-decoding); on a CPU tensor it runs `paged_decode_reference`,
+the plain version with identical semantics.
 
 Layout (per layer, as the family forward's layer loop hands it over):
 
@@ -45,7 +47,8 @@ __all__ = [
 # the kernel's dtype codes (csrc/paged_decode.cu)
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
 _MAX_GROUP = 16
-_SMEM_LIMIT = 48 * 1024
+_SMEM_LIMIT = 232448      # a block's shared memory on an H100
+_SPLIT_ROWS = 128         # pool rows of one split (one block)
 
 
 class PagedKV:
@@ -115,10 +118,35 @@ def _lib():
     fn = lib.paged_decode
     if fn.argtypes is None:
         vp, ci = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [ci, ci, ci] + [vp] * 10 + [ci] * 7 + [
+        fn.argtypes = [ci, ci, ci] + [vp] * 13 + [ci] * 9 + [
             ctypes.c_float, vp]
         fn.restype = ci
     return lib
+
+
+def _split_plan(pages_per_slot: int, page_size: int) -> tuple[int, int]:
+    """(pages per split, splits per slot): a split owns a fixed run of
+    about `_SPLIT_ROWS` rows (at least one page) of the slot's table row.
+    Both come from shapes, so sizing the kernel's scratch reads nothing
+    from the device."""
+    pps = max(1, _SPLIT_ROWS // page_size)
+    return pps, -(-pages_per_slot // pps)
+
+
+def _split_smem(page_size: int, D: int, elt: int, G: int,
+                stages: int = 2) -> int:
+    """Shared memory of a split block (`csrc/paged_decode.cu`
+    `split_smem`): a ring of `stages` pages, q in f32, the split's
+    scores, m and l per query head, the split's page ids, and the P.V
+    sums of all but one row group of threads; the group is G rounded up
+    to the kernel's width (4, 8 or 16). The kernel deepens the ring to
+    four pages where that fits."""
+    kg = 16 if D > 256 or G > 8 else 8 if G > 4 else 4
+    groups = max(D, 256) // D
+    pps, _ = _split_plan(1, page_size)
+    rows = pps * page_size
+    return stages * page_size * D * elt + 4 * (
+        kg * D + kg * rows + 2 * kg + pps + (groups - 1) * kg * D)
 
 
 def _check_kernel_inputs(q4, k_row, pk: PagedKV, pv: PagedKV,
@@ -134,6 +162,9 @@ def _check_kernel_inputs(q4, k_row, pk: PagedKV, pv: PagedKV,
             raise ValueError(f"{what} is on {t.device}, q on {dev}")
         if not t.is_contiguous():
             raise ValueError(f"{what} must be contiguous")
+    for what in ("pool K", "pool V"):
+        if tensors[what].data_ptr() % 16:
+            raise ValueError(f"{what} must be 16-byte aligned")
     if q4.dtype not in (torch.float32, torch.bfloat16):
         raise ValueError(f"q dtype {q4.dtype} not supported")
     if k_row.dtype not in (torch.float32, torch.bfloat16):
@@ -164,7 +195,7 @@ def _check_kernel_inputs(q4, k_row, pk: PagedKV, pv: PagedKV,
             f"kernel takes a GQA group <= {_MAX_GROUP} and head_dim a "
             f"multiple of 32 in [32, 1024]; got group {G}, head_dim {D}")
     ps = pk.data.shape[1]
-    smem = 4 * (G * D + 2 * ps * D + G * ps + 3 * G)
+    smem = _split_smem(ps, D, pk.data.element_size(), G)
     if smem > _SMEM_LIMIT:
         raise ValueError(f"page of {ps} rows needs {smem} B of shared "
                          f"memory, over {_SMEM_LIMIT}")
@@ -186,9 +217,9 @@ def paged_decode_attention(
     (cast to the pool's row dtype) for the engine to append.
     Returns (out [S, 1, H, D], (k_row, v_row) both [S, 1, Hkv, D]).
 
-    A CUDA tensor launches `csrc/paged_decode.cu` (and adds one to
-    `paged_decode_attention.launches`); a CPU tensor runs
-    `paged_decode_reference`."""
+    A CUDA tensor launches `csrc/paged_decode.cu`, its split and combine
+    kernels (and adds one to `paged_decode_attention.launches`); a CPU
+    tensor runs `paged_decode_reference`."""
     S, sq, H, D = q.shape
     if sq != 1:
         raise ValueError(
@@ -212,12 +243,19 @@ def paged_decode_attention(
     # later step reading the row from the pool agrees with this step
     k_row = k_new.to(row_dtype)
     v_row = v_new.to(row_dtype)
-    q4 = q[:, 0].reshape(S, Hkv, G, D).contiguous()
-    kr = k_row[:, 0].contiguous()
-    vr = v_row[:, 0].contiguous()
+    q4 = q.reshape(S, Hkv, G, D).contiguous()
+    kr = k_row.reshape(S, Hkv, D).contiguous()
+    vr = v_row.reshape(S, Hkv, D).contiguous()
     _check_kernel_inputs(q4, kr, pk, pv, meta)
     if kr.device != q4.device or vr.device != q4.device:
         raise ValueError("new K/V rows must be on q's device")
+    P, ps = meta.table.shape[1], pk.data.shape[1]
+    pps, nsplit = _split_plan(P, ps)
+    # one f32 scratch for the splits' partials: m [S, Hkv, nsplit, G],
+    # then l, then the unnormalised P.V rows [S, Hkv, nsplit, G, D]
+    n = S * Hkv * nsplit * G
+    part = torch.empty(n * (2 + D), dtype=torch.float32, device=q4.device)
+    scratch = part.data_ptr()
     out = torch.empty_like(q4)
     rc = _lib().paged_decode(
         _DTYPE_CODE[q4.dtype], _DTYPE_CODE[pk.data.dtype],
@@ -225,10 +263,11 @@ def paged_decode_attention(
         pk.data.data_ptr(), pv.data.data_ptr(),
         pk.scales.data_ptr() if pk.quantized else None,
         pv.scales.data_ptr() if pv.quantized else None,
-        meta.table.data_ptr(), meta.lengths.data_ptr(), out.data_ptr(),
-        S, Hkv, G, D, meta.table.shape[1], pk.data.shape[1],
+        meta.table.data_ptr(), meta.lengths.data_ptr(), scratch,
+        scratch + 4 * n, scratch + 8 * n, out.data_ptr(),
+        S, Hkv, G, D, P, ps, pps, nsplit,
         0 if window is None else int(window), 1.0 / math.sqrt(D),
-        torch.cuda.current_stream(q4.device).cuda_stream)
+        torch._C._cuda_getCurrentRawStream(q4.device.index))
     if rc != 0:
         raise RuntimeError(f"paged_decode kernel launch failed: error {rc}")
     paged_decode_attention.launches += 1

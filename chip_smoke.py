@@ -8,11 +8,13 @@ script exits non-zero:
 
 1. device: the card's name, count, and nvidia-smi name + power limit;
 2. build: every CUDA source of the port, one nvcc each, all at once;
-3. kernel checks: the paged-decode kernel (K2) at the serving path's
-   shapes, and the flash-attention kernels (K1a forward, K1b dQ, K1c
-   dK/dV) at the training path's shapes and a matrix of masks, windows
-   and lengths, each against its plain PyTorch version, with its time,
-   its bound and a library yardstick;
+3. kernel checks: the paged-decode kernels (K2, split and combine) at
+   the serving path's shapes, split boundaries, a window that drops
+   whole splits and head dims 32 and 96, and the flash-attention kernels
+   (K1a forward, K1b dQ, K1c dK/dV) at the training path's shapes and a
+   matrix of masks, windows, lengths and head dims, each against its
+   plain PyTorch version, with its time, its bound and a library
+   yardstick;
 4. engine: the serving engine at llama3-8B width and depth (random bf16
    weights from a seed), 12 requests through the paged-decode kernel;
 5. parity: one decode step through the kernel path and the dense-gather
@@ -113,8 +115,14 @@ def phase_build():
 # ---------------------------------------------------------------------------
 
 
+# lengths at the split kernel's corners (a split is 128 rows of 16-row
+# pages): exactly one, two and three splits, one row either side of a
+# boundary, a slot filling its table
+SPLIT_LENGTHS = [0, 128, 256, 384, 129, 127, 1024, 2175]
+
+
 def _paged_inputs(pool_dtype, S=8, Hkv=8, G=4, D=128, ps=16, P=136,
-                  seed=0):
+                  seed=0, lengths=None):
     """Pool, page table and lengths at the serving path's shapes, with
     the engine's corner cases: empty, sub-page, page-boundary and full
     slots, stale rows past every length, pages shared between two slots,
@@ -127,7 +135,7 @@ def _paged_inputs(pool_dtype, S=8, Hkv=8, G=4, D=128, ps=16, P=136,
 
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(seed)
-    lengths = [0, 1, 15, 16, 17, 1000, P * ps - 1, 600]
+    lengths = lengths or [0, 1, 15, 16, 17, 1000, P * ps - 1, 600]
     num_pages = S * P
     trash = num_pages
     table = torch.full((S, P), trash, dtype=torch.int32)
@@ -212,6 +220,11 @@ def _sdpa_yardstick(q, kn, vn, pk, pv, meta, lengths):
 
 
 def phase_paged_kernel():
+    """K2 against its plain version: the serving shapes in each pool
+    dtype, with and without a window (300 rows leave the first 14 splits
+    of the 2175-row slot empty), then lengths at split boundaries, a
+    window of 129 that drops whole splits of every long slot, and head
+    dims 32 and 96."""
     import torch
 
     from accelerate_tpu_torch.ops.paged_attention import (
@@ -220,32 +233,48 @@ def phase_paged_kernel():
     tol = {torch.float32: 1e-4, torch.bfloat16: 2e-2, torch.int8: 2e-2}
     ps, G = 16, 4
     timing = None
-    for pool_dtype in (torch.float32, torch.bfloat16, torch.int8):
-        q, kn, vn, pk, pv, meta, lengths = _paged_inputs(pool_dtype)
-        for window in (None, 300):
-            out, (kr, vr) = paged_decode_attention(q, kn, vn, pk, pv, meta,
-                                                   window=window)
-            ref, (rk, rv) = paged_decode_reference(q, kn, vn, pk, pv, meta,
-                                                   window=window)
-            torch.cuda.synchronize()
-            err = float((out.float() - ref.float()).abs().max())
-            rows_equal = bool(torch.equal(kr, rk) and torch.equal(vr, rv))
-            ok = err <= tol[pool_dtype] and rows_equal and bool(
-                torch.isfinite(out.float()).all())
-            emit("kernel_check", kernel="paged_decode",
-                 pool=str(pool_dtype).replace("torch.", ""),
-                 window=window, max_abs_err=err, tol=tol[pool_dtype],
-                 rows_identical=rows_equal, ok=ok)
-            if not ok:
-                raise AssertionError(
-                    f"paged_decode disagrees with its plain version: pool "
-                    f"{pool_dtype} window {window} err {err}")
-            if pool_dtype == torch.bfloat16 and window is None:
-                timing = (q, kn, vn, pk, pv, meta, lengths, err)
+    bf16 = torch.bfloat16
+    cases = [("serving", dt, window, {})
+             for dt in (torch.float32, bf16, torch.int8)
+             for window in (None, 300)]
+    cases += [("split_boundary", bf16, None, {"lengths": SPLIT_LENGTHS}),
+              ("split_boundary", torch.float32, 128,
+               {"lengths": SPLIT_LENGTHS}),
+              ("window_drops_splits", bf16, 129, {}),
+              ("head_dim_32", bf16, None, {"D": 32}),
+              ("head_dim_96", bf16, 300, {"D": 96})]
+    for case, pool_dtype, window, kw in cases:
+        q, kn, vn, pk, pv, meta, lengths = _paged_inputs(pool_dtype, **kw)
+        out, (kr, vr) = paged_decode_attention(q, kn, vn, pk, pv, meta,
+                                               window=window)
+        ref, (rk, rv) = paged_decode_reference(q, kn, vn, pk, pv, meta,
+                                               window=window)
+        torch.cuda.synchronize()
+        err = float((out.float() - ref.float()).abs().max())
+        rows_equal = bool(torch.equal(kr, rk) and torch.equal(vr, rv))
+        ok = err <= tol[pool_dtype] and rows_equal and bool(
+            torch.isfinite(out.float()).all())
+        emit("kernel_check", kernel="paged_decode", case=case,
+             pool=str(pool_dtype).replace("torch.", ""), D=q.shape[-1],
+             lengths=lengths, window=window, max_abs_err=err,
+             tol=tol[pool_dtype], rows_identical=rows_equal, ok=ok)
+        if not ok:
+            raise AssertionError(
+                f"paged_decode disagrees with its plain version: {case} "
+                f"pool {pool_dtype} window {window} err {err}")
+        if case == "serving" and pool_dtype == bf16 and window is None:
+            timing = (q, kn, vn, pk, pv, meta, lengths, err)
     # timed at the engine's configuration: bf16 pool, no window
     q, kn, vn, pk, pv, meta, lengths, err = timing
     ms = cuda_time_ms(
         lambda: paged_decode_attention(q, kn, vn, pk, pv, meta), iters=200)
+    # back to back, a call costs the larger of the wrapper's host time and
+    # the kernels' device time: both are reported beside it
+    device_ms = _device_ms(
+        lambda: paged_decode_attention(q, kn, vn, pk, pv, meta),
+        "paged_decode", calls=20)
+    host_us = _host_us(
+        lambda: paged_decode_attention(q, kn, vn, pk, pv, meta), calls=200)
     plain_ms = cuda_time_ms(
         lambda: paged_decode_reference(q, kn, vn, pk, pv, meta), iters=20)
     library_ms = cuda_time_ms(
@@ -258,9 +287,40 @@ def phase_paged_kernel():
            "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
            "library_ms": library_ms,
            "library_scope": "scaled_dot_product_attention over K/V "
-                            "gathered from the pages beforehand"}
+                            "gathered from the pages beforehand",
+           "device_ms": device_ms, "wrapper_host_us": host_us}
     emit("kernel_time", **row)
     return [row]
+
+
+def _device_ms(fn, substring, calls):
+    """Device time per call of the kernels whose names hold `substring`,
+    from torch.profiler over `calls` calls."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(float(getattr(ev, "self_device_time_total", 0.0))
+             for ev in prof.key_averages() if substring in ev.key)
+    return us / calls / 1e3
+
+
+def _host_us(fn, calls):
+    """Host time per call, the device left to run behind."""
+    import torch
+
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    us = (time.perf_counter() - t) / calls * 1e6
+    torch.cuda.synchronize()
+    return us
 
 
 # ---------------------------------------------------------------------------
@@ -279,6 +339,8 @@ FLASH_CASES = [
     ("window_512", 1, 2048, 4, 128, True, None, 512),
     ("irregular_1000", 1, 1000, 4, 128, True, None, None),
     ("s_12", 2, 12, 4, 64, True, None, None),
+    ("head_dim_32", 1, 1000, 4, 32, True, None, None),
+    ("head_dim_96", 2, 2048, 4, 96, True, "row", 300),
 ]
 
 
@@ -765,6 +827,7 @@ def _profile_step(eng, table):
     kernels.sort(reverse=True)
     return {"device_ms_by_class": classes,
             "device_ms_total": sum(classes.values()),
+            "kernel_launches": sum(n for _, n, _ in kernels),
             "top_kernels": kernels[:8]}
 
 

@@ -87,6 +87,73 @@ def test_paged_decode_kernel_matches_plain_version(cuda, pool_dtype, window,
     assert all(torch.equal(a, b) for a, b in zip(rows, ref_rows))
 
 
+def _split_inputs(dev, pool_dtype, G, ps, D=64, Hkv=2, seed=0):
+    """Slots at the split kernel's corners (a split is 128 rows here):
+    empty; exactly one and two splits; one row past a split boundary; a
+    short slot; and a long slot whose first pages a last slot shares."""
+    g = torch.Generator().manual_seed(seed)
+    P = -(-1024 // ps)
+    lengths = [0, 128, 256, 129, 5, 700, 700]
+    S = len(lengths)
+    num_pages = S * P
+    table = torch.full((S, P), num_pages, dtype=torch.int32)
+    nxt = 0
+    for s, n in enumerate(lengths):
+        live = -(-n // ps)
+        table[s, :live] = torch.arange(nxt, nxt + live)
+        nxt += live
+    table[6, :300 // ps] = table[5, :300 // ps]   # a shared prompt prefix
+    shape = (num_pages + 1, ps, Hkv, D)
+    k = torch.randn(shape, generator=g)
+    v = torch.randn(shape, generator=g)
+    q_dtype = torch.float32 if pool_dtype == torch.float32 else \
+        torch.bfloat16
+    q = torch.randn((S, 1, Hkv * G, D), generator=g).to(q_dtype)
+    kn = torch.randn((S, 1, Hkv, D), generator=g).to(q_dtype)
+    vn = torch.randn((S, 1, Hkv, D), generator=g).to(q_dtype)
+    if pool_dtype == torch.int8:
+        (ck, sk), (cv, sv) = kv_quantize_rows(k), kv_quantize_rows(v)
+        pk = tp.PagedKV(ck.to(dev), sk.to(dev), compute_dtype=q_dtype)
+        pv = tp.PagedKV(cv.to(dev), sv.to(dev), compute_dtype=q_dtype)
+    else:
+        pk = tp.PagedKV(k.to(dev, pool_dtype))
+        pv = tp.PagedKV(v.to(dev, pool_dtype))
+    meta = tp.PagedDecodeMeta(table.to(dev), torch.tensor(
+        lengths, dtype=torch.int32, device=dev), rows=P * ps)
+    return q.to(dev), kn.to(dev), vn.to(dev), pk, pv, meta
+
+
+@pytest.mark.parametrize("pool_dtype", [torch.float32, torch.bfloat16,
+                                        torch.int8], ids=str)
+@pytest.mark.parametrize("window", [None, 200])
+@pytest.mark.parametrize("ps", [8, 16, 32])
+@pytest.mark.parametrize("G", [1, 4, 8, 16])
+def test_paged_decode_splits_match_plain_version(cuda, pool_dtype, window,
+                                                 ps, G):
+    """The split kernel and its combine at the corners: a length-0 slot
+    (only the new token counts), lengths exactly at a split boundary and
+    one past it, a window of 200 that leaves whole splits of the 700-row
+    slots empty, and pages shared between two slots."""
+    args = _split_inputs(cuda, pool_dtype, G, ps)
+    before = tp.paged_decode_attention.launches
+    out, rows = tp.paged_decode_attention(*args, window=window)
+    ref, ref_rows = tp.paged_decode_reference(*args, window=window)
+    torch.cuda.synchronize()
+    assert tp.paged_decode_attention.launches == before + 1
+    assert bool(torch.isfinite(out.float()).all())
+    torch.testing.assert_close(out.float(), ref.float(),
+                               atol=TOL[pool_dtype], rtol=0)
+    assert all(torch.equal(a, b) for a, b in zip(rows, ref_rows))
+
+
+@pytest.mark.parametrize("D", [32, 96, 128, 256, 512])
+def test_paged_decode_splits_head_dims(cuda, D):
+    args = _split_inputs(cuda, torch.bfloat16, 4, 16, D=D)
+    out, _ = tp.paged_decode_attention(*args, window=200)
+    ref, _ = tp.paged_decode_reference(*args, window=200)
+    torch.testing.assert_close(out.float(), ref.float(), atol=2e-2, rtol=0)
+
+
 def test_paged_decode_kernel_length_zero_slot(cuda):
     q, kn, vn, pk, pv, meta = _inputs(cuda)
     meta = tp.PagedDecodeMeta(meta.table, torch.zeros_like(meta.lengths),
@@ -188,6 +255,54 @@ def test_flash_kernels_match_plain_versions(cuda, dtype, S, causal, masked,
             assert _rel_l2(a, b) <= 2e-2
     if masked:
         assert not o[1].abs().max() and not lse[1].abs().max()
+
+
+@pytest.mark.parametrize("mode", ["causal", "noncausal", "window",
+                                  "key_mask"])
+@pytest.mark.parametrize("S", [12, 1000, 2048])
+@pytest.mark.parametrize("D", list(range(16, 129, 16)))
+def test_flash_forward_bf16_every_head_dim(cuda, D, S, mode):
+    """The bf16 forward (wgmma) at every head dim it takes, ragged and
+    tile-multiple lengths: o within 2e-2 and the LSE within 1e-3 of the
+    plain version in f32 on the same inputs (P is rounded to bf16 before
+    P.V in both)."""
+    g = torch.Generator(device=cuda).manual_seed(D * 10000 + S)
+    B, H = 2, 2
+    q, k, v = (torch.randn((B, S, H, D), generator=g, device=cuda)
+               .bfloat16() for _ in range(3))
+    causal = mode != "noncausal"
+    window = 100 if mode == "window" else None
+    mask = None
+    if mode == "key_mask":
+        mask = torch.ones((B, S), dtype=torch.int32, device=cuda)
+        mask[0, : S // 3] = 0
+        mask[1] = 0                       # a batch row that sees nothing
+    before = tf.flash_forward.launches
+    o, lse = tf.flash_forward(q, k, v, causal, mask, window,
+                              save_residuals=True)
+    ro, rlse = tf.flash_forward_reference(q.float(), k.float(), v.float(),
+                                          causal, mask, window)
+    torch.cuda.synchronize()
+    assert tf.flash_forward.launches == before + 1
+    assert o.dtype == torch.bfloat16 and lse.dtype == torch.float32
+    torch.testing.assert_close(o.float(), ro, atol=2e-2, rtol=0)
+    torch.testing.assert_close(lse, rlse, atol=1e-3, rtol=0)
+    if mask is not None:
+        assert not o[1].abs().max() and not lse[1].abs().max()
+
+
+@pytest.mark.parametrize("Sq,Sk", [(100, 300), (300, 100)])
+def test_flash_forward_bf16_cross_lengths(cuda, Sq, Sk):
+    """Non-causal attention with more or fewer keys than queries."""
+    g = torch.Generator(device=cuda).manual_seed(Sq)
+    q = torch.randn((2, Sq, 3, 128), generator=g, device=cuda).bfloat16()
+    k, v = (torch.randn((2, Sk, 3, 128), generator=g, device=cuda)
+            .bfloat16() for _ in range(2))
+    o, lse = tf.flash_forward(q, k, v, False, save_residuals=True)
+    ro, rlse = tf.flash_forward_reference(q.float(), k.float(), v.float(),
+                                          False)
+    torch.testing.assert_close(o.float(), ro, atol=2e-2, rtol=0)
+    torch.testing.assert_close(lse, rlse, atol=1e-3, rtol=0)
 
 
 def test_flash_attention_autograd_on_the_card_matches_the_cpu(cuda):

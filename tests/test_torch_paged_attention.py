@@ -167,3 +167,35 @@ def test_rejects_multi_token_queries():
     q, kn, vn, pk, pv, meta = _torch_inputs(_geometry())
     with pytest.raises(ValueError, match="one token per slot"):
         tp.paged_decode_attention(q.repeat(1, 2, 1, 1), kn, vn, pk, pv, meta)
+
+
+@pytest.mark.parametrize("P,ps", [(136, 16), (64, 8), (32, 32), (5, 256),
+                                  (1, 16), (9, 16)])
+def test_split_plan_covers_every_table_column_once(P, ps):
+    """The kernel's splits: runs of about 128 rows (at least one page)
+    that tile the table row with no split wholly past it, sized from
+    shapes alone (the scratch is allocated without reading lengths)."""
+    pps, nsplit = tp._split_plan(P, ps)
+    assert pps * ps == max(128, ps) and pps >= 1
+    assert (nsplit - 1) * pps < P <= nsplit * pps
+
+
+def test_kernel_checks_follow_the_split_kernels_shared_memory():
+    """Page sizes the engine uses pass the checks (up to the card's 227 KB
+    per block, opted into above 48 KB); a page too large for a two-page
+    ring is refused before any launch."""
+    S, Hkv, G, D, P = 2, 2, 16, 128, 4
+
+    def check(ps, dtype=torch.float32):
+        q4 = torch.zeros(S, Hkv, G, D)
+        pool = torch.zeros(9, ps, Hkv, D, dtype=dtype)
+        meta = tp.PagedDecodeMeta(torch.zeros(S, P, dtype=torch.int32),
+                                  torch.zeros(S, dtype=torch.int32), P * ps)
+        tp._check_kernel_inputs(q4, torch.zeros(S, Hkv, D), tp.PagedKV(pool),
+                                tp.PagedKV(pool.clone()), meta)
+
+    for ps in (8, 16, 32, 64):    # 64 f32 rows need the opt-in
+        check(ps)
+    assert tp._split_smem(64, D, 4, G) > 48 * 1024
+    with pytest.raises(ValueError, match="shared memory"):
+        check(256)
