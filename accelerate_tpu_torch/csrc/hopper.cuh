@@ -32,6 +32,17 @@ __device__ __forceinline__ void cp_async16(void* smem, const void* gmem,
                : "memory");
 }
 
+// 4 bytes from global to shared memory, asynchronously (through L1, for
+// addresses that need not be 16-byte aligned); `src_bytes` of 0 writes a
+// zero and reads nothing.
+__device__ __forceinline__ void cp_async4(void* smem, const void* gmem,
+                                          int src_bytes = 4) {
+  const uint32_t s = static_cast<uint32_t>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(s),
+               "l"(gmem), "r"(src_bytes)
+               : "memory");
+}
+
 __device__ __forceinline__ void cp_async_commit() {
   asm volatile("cp.async.commit_group;\n" ::: "memory");
 }

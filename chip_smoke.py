@@ -7,7 +7,9 @@ Phases, each printing one JSON line; a failing phase raises and the
 script exits non-zero:
 
 1. device: the card's name, count, and nvidia-smi name + power limit;
-2. build: every CUDA source of the port, one nvcc each, all at once;
+2. build: every CUDA source of the port, one nvcc each, all at once,
+   with each kernel's registers and spills (ptxas) and the wgmma flash
+   kernels' shared memory; a kernel that spills fails the phase;
 3. kernel checks: the paged-decode kernels (K2, split and combine) at
    the serving path's shapes, split boundaries, a window that drops
    whole splits and head dims 32 and 96, and the flash-attention kernels
@@ -94,20 +96,84 @@ def phase_device():
 
 
 def phase_build():
+    """Builds every CUDA source and reports, per kernel, what ptxas
+    says of it (registers, spills) and the dynamic shared memory of the
+    wgmma flash kernels. Fails if any kernel spills."""
     from accelerate_tpu_torch import csrc
 
     names = csrc.sources()
     t0 = time.perf_counter()
     csrc.build(names)
     wall = time.perf_counter() - t0
+    smem = _flash_sm90_smem()
+    spilled = []
     for name in names:
         info = csrc.build_info[name]
-        ptxas = [ln.strip() for ln in info["log"].splitlines()
-                 if "registers" in ln or "spill" in ln
-                 or "Compiling entry" in ln]
+        kernels = _ptxas_kernels(info["log"])
+        for kern in kernels:
+            if kern["name"] in smem:
+                kern["dynamic_smem_bytes"] = smem[kern["name"]]
+            if kern["spill_stores"] or kern["spill_loads"]:
+                spilled.append(kern["name"])
+        warnings = [ln.strip() for ln in info["log"].splitlines()
+                    if "warning" in ln.lower()]
         emit("build", source=f"accelerate_tpu_torch/csrc/{name}.cu",
-             arch="sm_90a", seconds=info["seconds"], ptxas=ptxas)
+             arch="sm_90a", seconds=info["seconds"], kernels=kernels,
+             warnings=warnings)
     emit("build_all", sources=names, wall_seconds=wall)
+    if spilled:
+        raise AssertionError(f"ptxas spills registers in {spilled}")
+
+
+def _ptxas_kernels(log: str) -> list:
+    """One entry per kernel of `nvcc -Xptxas -v`'s output: its name
+    (demangled by c++filt where the toolkit's host has it), registers,
+    and spill stores and loads in bytes. An entry is only filled in when
+    its build reports it (a cache hit reports nothing)."""
+    import re
+
+    out, cur = [], None
+    for ln in log.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", ln)
+        if m:
+            cur = {"name": m.group(1), "registers": None,
+                   "spill_stores": 0, "spill_loads": 0}
+            out.append(cur)
+            continue
+        if cur is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      ln)
+        if m:
+            cur["spill_stores"], cur["spill_loads"] = map(int, m.groups())
+        m = re.search(r"Used (\d+) registers", ln)
+        if m:
+            cur["registers"] = int(m.group(1))
+    try:
+        names = subprocess.run(
+            ["c++filt"], input="\n".join(k["name"] for k in out),
+            capture_output=True, text=True, timeout=60,
+            check=True).stdout.splitlines()
+    except (OSError, subprocess.SubprocessError):
+        names = [k["name"] for k in out]
+    for kern, name in zip(out, names):
+        # "void (anonymous namespace)::flash_dkv_kernel_sm90<128>(...)"
+        name = name.replace("(anonymous namespace)::", "").split("(")[0]
+        kern["name"] = name[5:] if name.startswith("void ") else name
+    return out
+
+
+def _flash_sm90_smem() -> dict:
+    """Dynamic shared memory in bytes of each wgmma flash kernel
+    instance, as its launcher requests it."""
+    from accelerate_tpu_torch.csrc import load
+
+    lib = load("flash_attention")
+    return {f"{kernel}<{dp}>": lib.flash_sm90_smem(i, dp)
+            for i, kernel in enumerate(("flash_fwd_kernel_sm90",
+                                        "flash_dq_kernel_sm90",
+                                        "flash_dkv_kernel_sm90"))
+            for dp in (64, 128)}
 
 
 # ---------------------------------------------------------------------------
@@ -294,7 +360,8 @@ def phase_paged_kernel():
 
 
 def _device_ms(fn, substring, calls):
-    """Device time per call of the kernels whose names hold `substring`,
+    """Device time per call of the kernels whose names hold `substring`
+    (every kernel, memset and copy that `fn` puts on the device for ""),
     from torch.profiler over `calls` calls."""
     import torch
     from torch.profiler import ProfilerActivity, profile
@@ -306,7 +373,9 @@ def _device_ms(fn, substring, calls):
             fn()
         torch.cuda.synchronize()
     us = sum(float(getattr(ev, "self_device_time_total", 0.0))
-             for ev in prof.key_averages() if substring in ev.key)
+             for ev in prof.key_averages()
+             if str(ev.device_type) == "DeviceType.CUDA"
+             and substring in ev.key)
     return us / calls / 1e3
 
 
@@ -443,7 +512,12 @@ def phase_flash_kernel():
 def _flash_times(q, k, v, do, o, lse, err):
     """Per-launch times of the three kernels at the slice's shape, their
     plain versions, and scaled_dot_product_attention as the yardstick
-    (forward; backward alone), which the port never calls."""
+    (forward; backward alone), which the port never calls. The kernels
+    are timed back to back with CUDA events (`ms`) and by the profiler
+    (`device_ms`); SDPA's backward call by the profiler as the device
+    time of every kernel it launches, whichever backend it picks
+    (`library_ms`), with the CUDA-event time around the autograd call,
+    host and autograd included, beside it."""
     import torch
     import torch.nn.functional as F
 
@@ -451,15 +525,15 @@ def _flash_times(q, k, v, do, o, lse, err):
 
     B, S, H, D = q.shape
     _, delta = fa.flash_backward_dq(q, k, v, o, lse, do, True)
-    ms = {"flash_fwd": cuda_time_ms(
-              lambda: fa.flash_forward(q, k, v, True, save_residuals=True),
-              iters=20),
-          "flash_bwd_dq": cuda_time_ms(
-              lambda: fa.flash_backward_dq(q, k, v, o, lse, do, True),
-              iters=20),
-          "flash_bwd_dkv": cuda_time_ms(
-              lambda: fa.flash_backward_dkv(q, k, v, do, lse, delta, True),
-              iters=20)}
+    calls = {"flash_fwd": (lambda: fa.flash_forward(
+                 q, k, v, True, save_residuals=True), "flash_fwd_kernel"),
+             "flash_bwd_dq": (lambda: fa.flash_backward_dq(
+                 q, k, v, o, lse, do, True), "flash_dq_kernel"),
+             "flash_bwd_dkv": (lambda: fa.flash_backward_dkv(
+                 q, k, v, do, lse, delta, True), "flash_dkv_kernel")}
+    ms = {n: cuda_time_ms(fn, iters=20) for n, (fn, _) in calls.items()}
+    device_ms = {n: _device_ms(fn, kernel, calls=10)
+                 for n, (fn, kernel) in calls.items()}
     qf, kf, vf, of, dof = (t.float() for t in (q, k, v, o, do))
     plain_fwd = cuda_time_ms(
         lambda: fa.flash_forward_reference(qf, kf, vf, True), iters=3,
@@ -476,14 +550,21 @@ def _flash_times(q, k, v, do, o, lse, err):
         iters=20)
     with torch.enable_grad():
         out = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True)
-        sdpa_bwd = cuda_time_ms(
-            lambda: torch.autograd.grad(out, (qt, kt, vt), dot,
-                                        retain_graph=True), iters=20)
+
+        def sdpa_backward():
+            return torch.autograd.grad(out, (qt, kt, vt), dot,
+                                       retain_graph=True)
+
+        sdpa_bwd_host = cuda_time_ms(sdpa_backward, iters=20)
+        sdpa_bwd = _device_ms(sdpa_backward, "", calls=10)
     del out
     bounds = _flash_bounds(B, S, H, D, True, None, q.element_size())
+    bwd_pair_ms = ms["flash_bwd_dq"] + ms["flash_bwd_dkv"]
     emit("flash_time", shape=[B, S, H, D], causal=True, dtype="bfloat16",
-         ms=ms, plain_fwd_ms=plain_fwd, plain_bwd_ms=plain_bwd,
-         sdpa_fwd_ms=sdpa_fwd, sdpa_bwd_ms=sdpa_bwd,
+         ms=ms, device_ms=device_ms, bwd_pair_ms=bwd_pair_ms,
+         plain_fwd_ms=plain_fwd, plain_bwd_ms=plain_bwd,
+         sdpa_fwd_ms=sdpa_fwd, sdpa_bwd_device_ms=sdpa_bwd,
+         sdpa_bwd_host_clock_ms=sdpa_bwd_host,
          sdpa_fwd_bwd_ms=sdpa_fwd + sdpa_bwd,
          bounds={n: b[0] for n, b in bounds.items()},
          max_memory_allocated_gb=torch.cuda.max_memory_allocated() / 1e9)
@@ -514,9 +595,11 @@ def _flash_times(q, k, v, do, o, lse, err):
             "bound_ms": bounds[name][0], "bound_by": bounds[name][1],
             "library_ms": sdpa_fwd if fwd else sdpa_bwd,
             "plain_scope": scopes[name][0],
-            "library_scope": scopes[name][1],
-            "bwd_pair_ms": None if fwd else
-            ms["flash_bwd_dq"] + ms["flash_bwd_dkv"],
+            "library_scope": scopes[name][1] + ("" if fwd else
+                                                ", device time"),
+            "device_ms": device_ms[name],
+            "bwd_pair_ms": None if fwd else bwd_pair_ms,
+            "library_host_clock_ms": None if fwd else sdpa_bwd_host,
             "library_fwd_bwd_ms": sdpa_fwd + sdpa_bwd})
     return rows
 

@@ -305,6 +305,104 @@ def test_flash_forward_bf16_cross_lengths(cuda, Sq, Sk):
     torch.testing.assert_close(lse, rlse, atol=1e-3, rtol=0)
 
 
+def _flash_grads(q, k, v, do, causal, mask, window):
+    """Kernel forward and backward on the card, and the plain versions in
+    f32 on the same inputs: ((dq, dk, dv), (rdq, rdk, rdv))."""
+    o, lse = tf.flash_forward(q, k, v, causal, mask, window,
+                              save_residuals=True)
+    grads = tf.flash_backward(q, k, v, o, lse, do, causal, mask, window)
+    ro, rlse = tf.flash_forward_reference(q.float(), k.float(), v.float(),
+                                          causal, mask, window)
+    ref = tf.flash_backward_reference(q.float(), k.float(), v.float(), ro,
+                                      rlse, do.float(), causal, mask, window)
+    torch.cuda.synchronize()
+    return grads, ref
+
+
+@pytest.mark.parametrize("mode", ["causal", "noncausal", "window",
+                                  "key_mask"])
+@pytest.mark.parametrize("S", [12, 1000, 2048])
+@pytest.mark.parametrize("D", list(range(16, 129, 16)))
+def test_flash_backward_bf16_every_head_dim(cuda, D, S, mode):
+    """The bf16 backward (wgmma dQ and dK/dV) at every head dim it takes,
+    ragged and tile-multiple lengths: dq, dk and dv within 2e-2 relative
+    L2 of the plain version in f32 on the same inputs (P and dS are
+    rounded to bf16 before their products in both); a batch row that
+    sees no key gets zero gradients."""
+    g = torch.Generator(device=cuda).manual_seed(D * 10000 + S + 7)
+    B, H = 2, 2
+    q, k, v, do = (torch.randn((B, S, H, D), generator=g, device=cuda)
+                   .bfloat16() for _ in range(4))
+    causal = mode != "noncausal"
+    window = 100 if mode == "window" else None
+    mask = None
+    if mode == "key_mask":
+        mask = torch.ones((B, S), dtype=torch.int32, device=cuda)
+        mask[0, : S // 3] = 0
+        mask[1] = 0                       # a batch row that sees nothing
+    grads, ref = _flash_grads(q, k, v, do, causal, mask, window)
+    for a, b in zip(grads, ref):
+        assert a.dtype == torch.bfloat16 and a.shape == b.shape
+        assert bool(torch.isfinite(a.float()).all())
+        assert _rel_l2(a, b) <= 2e-2
+    if mask is not None:
+        assert not any(t[1].abs().max() for t in grads)
+
+
+@pytest.mark.parametrize("Sq,Sk", [(100, 300), (300, 100), (1000, 130)])
+def test_flash_backward_bf16_cross_lengths(cuda, Sq, Sk):
+    """Non-causal gradients with more or fewer keys than queries."""
+    g = torch.Generator(device=cuda).manual_seed(Sq + Sk)
+    q, do = (torch.randn((2, Sq, 3, 128), generator=g, device=cuda)
+             .bfloat16() for _ in range(2))
+    k, v = (torch.randn((2, Sk, 3, 128), generator=g, device=cuda)
+            .bfloat16() for _ in range(2))
+    grads, ref = _flash_grads(q, k, v, do, False, None, None)
+    for a, b in zip(grads, ref):
+        assert a.shape == b.shape
+        assert _rel_l2(a, b) <= 2e-2
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=str)
+def test_flash_backward_is_deterministic_and_counts_launches(cuda, dtype):
+    """The FA-2 split has no atomics: two calls on the same inputs give
+    bit-identical dq, dk and dv; each call adds one launch to K1b's and
+    one to K1c's counter."""
+    g = torch.Generator(device=cuda).manual_seed(3)
+    q, k, v, do = (torch.randn((2, 1000, 4, 128), generator=g, device=cuda)
+                   .to(dtype) for _ in range(4))
+    o, lse = tf.flash_forward(q, k, v, True, save_residuals=True)
+    runs = []
+    for _ in range(2):
+        before = (tf.flash_backward_dq.launches,
+                  tf.flash_backward_dkv.launches)
+        runs.append(tf.flash_backward(q, k, v, o, lse, do, True))
+        assert (tf.flash_backward_dq.launches,
+                tf.flash_backward_dkv.launches) == (before[0] + 1,
+                                                    before[1] + 1)
+    torch.cuda.synchronize()
+    for a, b in zip(*runs):
+        assert torch.equal(a, b)
+
+
+def test_flash_backward_row_that_sees_no_key_has_zero_gradients(cuda):
+    """A key mask that hides every key of one batch row pins that row's
+    LSE to 0 in the forward; the backward gives it zero dq, and zero dk
+    and dv for its (hidden) keys, in both dtypes, with a window."""
+    g = torch.Generator(device=cuda).manual_seed(5)
+    for dtype in (torch.float32, torch.bfloat16):
+        q, k, v, do = (torch.randn((2, 300, 2, 64), generator=g,
+                                   device=cuda).to(dtype) for _ in range(4))
+        mask = torch.ones((2, 300), dtype=torch.int32, device=cuda)
+        mask[1] = 0
+        (dq, dk, dv), ref = _flash_grads(q, k, v, do, True, mask, 64)
+        for t in (dq, dk, dv):
+            assert not t[1].abs().max()
+            assert t[0].abs().max() > 0
+        for a, b in zip((dq, dk, dv), ref):
+            assert _rel_l2(a, b) <= 2e-2
+
+
 def test_flash_attention_autograd_on_the_card_matches_the_cpu(cuda):
     g = torch.Generator().manual_seed(0)
     q, k, v, do = (torch.randn((1, 80, 2, 32), generator=g)
