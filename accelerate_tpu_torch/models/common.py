@@ -54,7 +54,10 @@ def rope_frequencies(head_dim: int, max_len: int, theta: float = 10000.0,
                         str(torch.device("cpu" if device is None else device)))
 
 
-@functools.lru_cache(maxsize=16)
+# never evicted: a captured CUDA graph (serving/graphs.py) reads the
+# tables by address, so they must outlive every graph that captured them;
+# one entry per (head_dim, table length, theta, scaling, device)
+@functools.cache
 def _rope_tables(head_dim: int, max_len: int, theta: float, items,
                  device: str) -> tuple:
     inv_freq = 1.0 / (theta ** (np.arange(0, head_dim, 2) / head_dim))

@@ -176,16 +176,47 @@ def derive_key(seed: int, index: int) -> tuple[int, int]:
             _mix32_int(k1 ^ _mix32_int(index ^ 0x9E3779B9)))
 
 
-def gumbel_noise(keys: torch.Tensor, positions: torch.Tensor,
-                 vocab: int) -> torch.Tensor:
-    """[B, vocab] f32 Gumbel noise, a pure function of (key, position,
-    token id): `keys` [B, 2] int64 (uint32 words), `positions` [B]."""
+def _row_hash(keys: torch.Tensor, positions: torch.Tensor,
+              tag: int | None = None) -> torch.Tensor:
+    """uint32 hash (int64) of (key, position[, tag]): `keys` [B, 2] int64
+    (uint32 words), `positions` [B] or [B, ...], broadcast over the
+    trailing dims. A tag salts the hash once more, so each tag is an
+    independent stream; no tag is the engine's one-draw-per-position
+    stream, bit for bit as it always was."""
     k = keys.long()
-    row = _mix32(_mix32(_mix32(k[:, 0]) ^ k[:, 1]) ^ (positions.long() & _M32))
+    k0, k1 = k[:, 0], k[:, 1]
+    trail = (1,) * (positions.dim() - 1)
+    k0, k1 = k0.reshape(k0.shape + trail), k1.reshape(k1.shape + trail)
+    row = _mix32(_mix32(_mix32(k0) ^ k1) ^ (positions.long() & _M32))
+    if tag is not None:
+        row = _mix32(row ^ _mix32_int(_TAG_SALT ^ int(tag)))
+    return row
+
+
+# salts a tagged draw's stream (the reference folds tags 1/2/3 into the
+# per-position key: fold_in(fold_in(key, position), tag))
+_TAG_SALT = 0x632BE5AB
+
+
+def gumbel_noise(keys: torch.Tensor, positions: torch.Tensor,
+                 vocab: int, tag: int | None = None) -> torch.Tensor:
+    """[B, vocab] f32 Gumbel noise, a pure function of (key, position,
+    tag, token id): `keys` [B, 2] int64 (uint32 words), `positions` [B].
+    Distinct tags give independent draws at one position (speculative
+    decoding takes three: draft, accept, residual)."""
+    row = _row_hash(keys, positions, tag)
     ids = torch.arange(vocab, device=keys.device, dtype=torch.int64)
     h = _mix32(row[:, None] ^ _mix32((ids + 0x9E3779B9) & _M32))
     u = ((h >> 8).float() + 0.5) * (1.0 / (1 << 24))   # in (0, 1)
     return -torch.log(-torch.log(u))
+
+
+def uniform(keys: torch.Tensor, positions: torch.Tensor,
+            tag: int | None = None) -> torch.Tensor:
+    """f32 uniforms in (0, 1) of `positions`' shape ([B] or [B, ...]),
+    one per (key, position, tag), from the same hash as `gumbel_noise`."""
+    h = _mix32(_row_hash(keys, positions, tag) ^ 0x5BD1E995)
+    return ((h >> 8).float() + 0.5) * (1.0 / (1 << 24))
 
 
 def sample_token(logits, keys, temperature: float, positions=None):

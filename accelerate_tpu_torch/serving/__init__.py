@@ -1,8 +1,12 @@
 """Continuous-batching serving (port of `accelerate_tpu.serving`):
 `Engine` multiplexes concurrent generation requests through a paged KV
 pool (`PagedKVCache`, with prompt-prefix reuse via the `PrefixIndex`
-radix tree) and a `Scheduler` that admits, sheds and retires requests and
-interleaves chunked prefill with batched decode."""
+radix tree and an optional host-memory tier) and a `Scheduler` that
+admits, sheds and retires requests and interleaves chunked prefill with
+batched decode, optionally speculative. On a CUDA engine every device
+step is one captured CUDA graph (`GraphRunner`). `SlotKVCache` is the
+dense slot layout (the speculative draft model's cache);
+`SanitizerViolation` is what `EngineConfig(sanitize=True)` raises."""
 
 from .cache import (
     PagedAllocator,
@@ -10,9 +14,12 @@ from .cache import (
     PageAllocation,
     PagePool,
     PrefixIndex,
+    SlotKVCache,
 )
 from .engine import Engine, EngineConfig
+from .graphs import GraphRunner
 from .metrics import ServingMetrics
+from .sanitizer import SanitizerViolation
 from .scheduler import (
     Request,
     RequestStatus,
@@ -21,6 +28,7 @@ from .scheduler import (
     SlotState,
     TenantSpec,
 )
+from .transfer import PageTransport
 
 # unambiguous name for the top-level package namespace
 ServingEngine = Engine
@@ -29,11 +37,15 @@ __all__ = [
     "Engine",
     "ServingEngine",
     "EngineConfig",
+    "GraphRunner",
+    "SlotKVCache",
     "PagedKVCache",
     "PagedAllocator",
     "PageAllocation",
     "PagePool",
+    "PageTransport",
     "PrefixIndex",
+    "SanitizerViolation",
     "ServingMetrics",
     "Scheduler",
     "Request",

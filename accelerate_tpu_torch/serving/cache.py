@@ -51,6 +51,112 @@ from ..ops.quant import kv_dequantize_rows, kv_quantize_rows
 
 
 # ---------------------------------------------------------------------------
+# dense slot cache (the speculative draft model's state)
+# ---------------------------------------------------------------------------
+
+
+def _slot_index(slot, device) -> torch.Tensor:
+    """A slot as a [1] int64 index tensor: the engine's captured programs
+    take the slot as device data (one program for every slot); a python
+    int is accepted for eager callers."""
+    if isinstance(slot, torch.Tensor):
+        return slot.reshape(1).long()
+    return torch.tensor([slot], dtype=torch.int64, device=device)
+
+
+@dataclasses.dataclass(frozen=True)
+class SlotKVCache:
+    """Fixed-shape slot-indexed decode cache.
+
+    k/v: [num_layers, num_slots, max_len + pad_slack, num_kv_heads,
+    head_dim]; lengths: [num_slots] int32, the per-slot decode depth. The
+    port updates k, v and lengths in place."""
+
+    k: torch.Tensor
+    v: torch.Tensor
+    lengths: torch.Tensor
+    max_len: int
+    pad_slack: int
+
+    @classmethod
+    def create(
+        cls,
+        num_layers: int,
+        num_slots: int,
+        max_len: int,
+        num_kv_heads: int,
+        head_dim: int,
+        dtype: Any = torch.bfloat16,
+        pad_slack: int = 0,
+        device=None,
+    ) -> "SlotKVCache":
+        dev = resolve_device(device)
+        shape = (num_layers, num_slots, max_len + pad_slack, num_kv_heads,
+                 head_dim)
+        return cls(
+            k=torch.zeros(shape, dtype=dtype, device=dev),
+            v=torch.zeros(shape, dtype=dtype, device=dev),
+            lengths=torch.zeros((num_slots,), dtype=torch.int32, device=dev),
+            max_len=max_len,
+            pad_slack=pad_slack,
+        )
+
+    @property
+    def num_layers(self) -> int:
+        return self.k.shape[0]
+
+    @property
+    def num_slots(self) -> int:
+        return self.k.shape[1]
+
+    @property
+    def rows(self) -> int:
+        """Physical rows per slot (max_len + pad_slack)."""
+        return self.k.shape[2]
+
+    def nbytes(self) -> int:
+        return self.k.nbytes + self.v.nbytes
+
+
+def slot_caches(cache: SlotKVCache, slot):
+    """One slot's caches in `models/decode.py` layout: (k [L, 1, M, H, D],
+    v [L, 1, M, H, D], cache_len [1]), copies, so a forward may extend
+    them in place. `slot` is a [1] (or 0-dim) index tensor or an int."""
+    idx = _slot_index(slot, cache.k.device)
+    return (cache.k.index_select(1, idx), cache.v.index_select(1, idx),
+            cache.lengths.index_select(0, idx))
+
+
+def write_slot(cache: SlotKVCache, slot, new_k: torch.Tensor,
+               new_v: torch.Tensor, advance) -> SlotKVCache:
+    """Write one slot's updated [L, 1, M, H, D] buffers back and advance
+    its length by `advance` REAL tokens (chunk padding excluded by the
+    caller, per the module invariant)."""
+    idx = _slot_index(slot, cache.k.device)
+    cache.k.index_copy_(1, idx, new_k.to(cache.k.dtype))
+    cache.v.index_copy_(1, idx, new_v.to(cache.v.dtype))
+    _advance(cache.lengths, idx, advance)
+    return cache
+
+
+def _advance(lengths: torch.Tensor, idx: torch.Tensor, advance) -> None:
+    """lengths[idx] += advance, for an int or a device tensor (which a
+    captured program passes: building one from an int there would copy
+    from the host)."""
+    if isinstance(advance, torch.Tensor):
+        lengths.index_add_(0, idx, advance.reshape(1).to(torch.int32))
+    else:
+        lengths[idx] += advance
+
+
+def reset_slot(cache: SlotKVCache, slot) -> SlotKVCache:
+    """Admit a new request into `slot`: length back to zero. The stale
+    K/V rows stay in place; the position mask hides them."""
+    cache.lengths[slot] = 0
+    return cache
+
+
+# ---------------------------------------------------------------------------
 # paged pool (device side)
 # ---------------------------------------------------------------------------
 
@@ -190,39 +296,42 @@ def _dense_pages(codes: torch.Tensor, scales: torch.Tensor | None,
     return kv_dequantize_rows(pages, scales[:, idx], dtype)
 
 
-def paged_slot_view(cache: PagedKVCache, table_row: torch.Tensor,
-                    slot: int):
+def paged_slot_view(cache: PagedKVCache, table_row: torch.Tensor, slot):
     """One slot's pages gathered into `models/decode.py` layout:
-    (k [L, 1, R, H, D], v [L, 1, R, H, D], length 0-dim), R =
+    (k [L, 1, R, H, D], v [L, 1, R, H, D], length [1]), R =
     pages_per_slot * page_size, dequantized to `compute_dtype` on an int8
-    pool. The views are copies: writing them leaves the pool alone."""
+    pool. `slot` is a [1] (or 0-dim) index tensor, or an int. The views
+    are copies: writing them leaves the pool alone."""
     L, _, ps, H, D = cache.k.shape
     P = cache.pages_per_slot
     ks = _dense_pages(cache.k, cache.k_scale, table_row,
                       cache.compute_dtype).reshape(L, 1, P * ps, H, D)
     vs = _dense_pages(cache.v, cache.v_scale, table_row,
                       cache.compute_dtype).reshape(L, 1, P * ps, H, D)
-    return ks, vs, cache.lengths[slot].clone()
+    idx = _slot_index(slot, cache.k.device)
+    return ks, vs, cache.lengths.index_select(0, idx)
 
 
 def paged_write_slot(cache: PagedKVCache, table_row: torch.Tensor,
-                     slot: int, new_k: torch.Tensor, new_v: torch.Tensor,
-                     advance: int, chunk: int) -> PagedKVCache:
+                     slot, new_k: torch.Tensor, new_v: torch.Tensor,
+                     advance, chunk: int) -> PagedKVCache:
     """Scatter the rows a prefill chunk wrote ([length, length + chunk)
     of the slot's [L, 1, R, H, D] view) back to their pages and advance
-    the slot's length by `advance` REAL tokens. Row granularity keeps the
-    int8 mode safe: every written row is at or past `length`, hence in a
-    PRIVATE page, so shared copy-on-write pages are never re-encoded."""
+    the slot's length by `advance` REAL tokens (an int or a [1] tensor).
+    Row granularity keeps the int8 mode safe: every written row is at or
+    past `length`, hence in a PRIVATE page, so shared copy-on-write pages
+    are never re-encoded. Reads no device value: a captured program."""
     L, _, ps, H, D = cache.k.shape
     R = cache.rows
-    length = cache.lengths[slot].long()
+    idx = _slot_index(slot, cache.k.device)
+    length = cache.lengths.index_select(0, idx).long()
     rows = length + torch.arange(chunk, device=cache.k.device)
     pages = table_row.long()[rows // ps]
     offs = rows % ps
     win_k = new_k.reshape(L, R, H, D)[:, rows]
     win_v = new_v.reshape(L, R, H, D)[:, rows]
     _scatter_rows(cache, pages, offs, win_k, win_v)
-    cache.lengths[slot] += advance
+    _advance(cache.lengths, idx, advance)
     return cache
 
 
@@ -290,8 +399,34 @@ def paged_append_batch(cache: PagedKVCache, table: torch.Tensor,
                              new_v[:, slots, row], live)
 
 
-def paged_admit_slot(cache: PagedKVCache, slot: int,
-                     reused_len: int) -> PagedKVCache:
+def paged_append_window(cache: PagedKVCache, table: torch.Tensor,
+                        win_k: torch.Tensor, win_v: torch.Tensor,
+                        counts: torch.Tensor,
+                        live: torch.Tensor) -> PagedKVCache:
+    """Write each slot's next `counts[s]` rows from a fixed-width window
+    ([L, S, W, H, D], view rows [length, length + W)) and advance live
+    lanes' lengths by their count: the speculative-decoding commit. Rows
+    at or past a slot's count, and every row of a dead lane, are routed
+    to the trash page, so the scatter keeps one shape whatever the accept
+    counts. Every written row is at or past `length`, hence in a PRIVATE
+    page: shared copy-on-write pages are untouched."""
+    ps = cache.page_size
+    S, W = win_k.shape[1], win_k.shape[2]
+    j = torch.arange(W, device=win_k.device)
+    rows = cache.lengths.long()[:, None] + j                    # [S, W]
+    valid = (j[None, :] < counts[:, None]) & live[:, None]
+    page_idx = (rows // ps).clamp(max=cache.pages_per_slot - 1)
+    pages = table.long().gather(1, page_idx)
+    pages = torch.where(valid, pages, cache.trash_page)
+    L, H, D = win_k.shape[0], win_k.shape[3], win_k.shape[4]
+    _scatter_rows(cache, pages.reshape(S * W), (rows % ps).reshape(S * W),
+                  win_k.reshape(L, S * W, H, D),
+                  win_v.reshape(L, S * W, H, D))
+    cache.lengths.add_(torch.where(live, counts, 0).to(torch.int32))
+    return cache
+
+
+def paged_admit_slot(cache: PagedKVCache, slot, reused_len) -> PagedKVCache:
     """Admit a request into `slot`: length starts at the reused prefix
     length (0 on a cold miss). Nothing is wiped — reused pages carry the
     prefix K/V, rows past `length` are masked until overwritten."""

@@ -2,7 +2,7 @@
 `accelerate_tpu/serving/engine.py`): many requests, one fixed-shape
 decode step.
 
-The engine runs three device steps whatever the request mix:
+Every device step is one fixed-shape program, whatever the request mix:
 
 - admit:   set a slot's length to the reused prefix length (0 on a cold
            miss), install the request's sampling key and temperature;
@@ -12,11 +12,23 @@ The engine runs three device steps whatever the request mix:
            lengths and positions. Retired or prefilling slots ride along
            as masked lanes.
 
+The reference compiles each once with `jax.jit`; the port's counterpart
+is a CUDA graph (`serving/graphs.py`): on a CUDA engine each program
+runs eagerly once (its warm-up), is captured once, and is replayed from
+then on; `compile_stats()` counts the captures, each 1 for good. The
+programs read the slot index, the chunk, the page table and the live
+mask from static device buffers the host refills before a step, and
+update the pool and the per-slot state in place. Admit (three scalar
+writes) stays eager and counts 1. A CPU engine, or a CUDA engine built
+with `_graphs=False`, runs the same program bodies directly.
+
 The KV store is the paged pool of `serving/cache.py`. Page tables are
 host-side numpy ([slots, pages_per_slot] int32, trash-padded), uploaded
 with each step. At admission the longest cached prompt prefix is mapped
 copy-on-write from the radix tree, so prefill runs only on the uncached
-suffix.
+suffix; with `host_tier_bytes` set, evicted prefix pages swap out to host
+memory and back in at admission (`serving/host_tier.py`, through the
+extract/install programs of `serving/transfer.py`).
 
 Decode attention has two modes (`EngineConfig.paged_attention`): the
 paged-decode kernel (`ops/paged_attention.py`, CUDA on the card) walks
@@ -24,44 +36,73 @@ each slot's live pages in place and hands back the new K/V rows; the
 dense-gather reference path gathers every slot's pages into one [L, S,
 R, H, D] view first and runs the same forward with per-slot lengths.
 
+Speculative decoding (`EngineConfig(speculative=(family, config,
+params), draft_k=K)`) replaces the decode program with three: the draft
+model's chunked prompt prefill into its own dense slot cache
+(`draft_prefill`), K draft steps for every slot in one program
+(`draft`), and one K-token target forward over every slot's pages with
+the accept rule and the commit (`verify`): exact match for greedy
+requests (output identical to the plain engine's), rejection sampling
+for sampled ones (the committed tokens follow the target distribution).
+The verify runs the dense-gather path: the paged kernel folds exactly
+one new token.
+
 Sampling is per slot: a request's key is installed at admit and the
 token at position p is drawn with Gumbel noise hashed from (key, p)
 (`models/decode.py`), so a request's stream never depends on how
-prefills and decodes interleave. Temperature is per slot too (greedy and
-sampled requests share the step). Each decode step ends in one read of
-the [S] token vector (and its logprobs) to the host; a finished prefill
-reads one token.
+prefills and decodes interleave; speculation draws three independent
+tagged streams per position. Temperature is per slot too. Each decode
+step ends in one read of the [S] token vector (and its logprobs) to the
+host; a finished prefill reads one token.
 
-The port updates the pool and the per-slot state in place.
+`EngineConfig(sanitize=True)` checks the cross-structure invariants of
+`serving/sanitizer.py` after every step.
 """
 
 from __future__ import annotations
 
+import asyncio
 import dataclasses
 import time
-from typing import Any, Iterator
+from typing import Any, AsyncIterator, Iterator
 
 import numpy as np
 import torch
 
 from ..device import resolve_device
-from ..models.decode import derive_key, sample_token, stream_key
+from ..models.decode import derive_key, gumbel_noise, sample_token, \
+    stream_key, uniform
+from ..ops import paged_attention as _paged
 from ..ops.paged_attention import PagedDecodeMeta, PagedKV
 from ..telemetry.registry import MetricsRegistry
 from .cache import (
     PagedAllocator,
     PagedKVCache,
+    SlotKVCache,
     paged_admit_slot,
     paged_append_batch,
     paged_append_rows,
+    paged_append_window,
     paged_batch_view,
     paged_slot_view,
     paged_write_slot,
+    reset_slot,
+    slot_caches,
+    write_slot,
 )
+from .graphs import GraphRunner
 from .metrics import ServingMetrics
+from .sanitizer import check_engine, resolve_sanitize
 from .scheduler import Request, Scheduler, Slot, SlotState
 
 __all__ = ["Engine", "EngineConfig"]
+
+# the kernel wrappers whose launch counters count through graph replays
+_KERNEL_COUNTERS = ((_paged, "paged_decode_attention"),)
+
+# speculative decoding's three draws per position (the reference's
+# fold_in tags)
+DRAFT_TAG, ACCEPT_TAG, RESID_TAG = 1, 2, 3
 
 
 @dataclasses.dataclass(frozen=True)
@@ -90,15 +131,18 @@ class EngineConfig:
     page_size: int = 16
     num_pages: int | None = None
     prefix_cache: bool = True
+    # host-DRAM overflow tier for evicted prefix pages, in bytes (0 = off)
     host_tier_bytes: int = 0
     # decode attention op. True: the paged-decode kernel walks the page
     # table inside attention (on a CPU engine its plain version runs).
     # False: the dense-gather reference path. "auto": the kernel on a
-    # CUDA engine, the dense path on the CPU.
+    # CUDA engine without speculation, else the dense path.
     paged_attention: Any = "auto"
     # KV pool storage: None stores pages in `cache_dtype`; "int8" stores
     # int8 codes + per-row-per-head bf16 scales (half the bytes per page)
     kv_dtype: Any = None
+    # speculative decoding: a (family, config, params) draft model
+    # proposing `draft_k` tokens per slot and step
     speculative: Any = None
     draft_k: int = 4
     # multi-tenant scheduling: scheduler.TenantSpec entries (priority
@@ -110,14 +154,13 @@ class EngineConfig:
     incident_dir: str | None = None
     strict: str | None = None
     contracts: Any = None
+    # the serving-state sanitizer after every step (None = off)
     sanitize: Any = None
     mesh: Any = None
 
 
 # field -> (is it set?, the part of the port that will bring it)
 _UNPORTED = {
-    "speculative": (lambda v: v is not None, "speculative decoding"),
-    "host_tier_bytes": (lambda v: v > 0, "the host KV tier"),
     "mesh": (lambda v: v is not None, "sharded (pod) serving"),
     "strict": (lambda v: v is not None, "the static-analysis audits"),
     "contracts": (lambda v: v is not None, "the static-analysis audits"),
@@ -127,7 +170,6 @@ _UNPORTED = {
     "cost_sample_every": (lambda v: v is not None,
                           "the device-cost table"),
     "incident_dir": (lambda v: v is not None, "incident bundles"),
-    "sanitize": (lambda v: bool(v), "the serving-state sanitizer"),
 }
 
 
@@ -137,6 +179,22 @@ def _check_ported(ec: EngineConfig) -> None:
             raise NotImplementedError(
                 f"EngineConfig.{name} needs {part}, which a later slice of "
                 "the PyTorch port brings; leave it at its default")
+
+
+def _resolve_paged_attention(setting, device: torch.device,
+                             speculative) -> bool:
+    """EngineConfig.paged_attention -> use-the-kernel bool."""
+    if setting == "auto":
+        return device.type == "cuda" and speculative is None
+    use = bool(setting)
+    if use and speculative is not None:
+        raise ValueError(
+            "paged_attention=True is not supported with speculative "
+            "decoding: the paged kernel folds exactly ONE new token's K/V "
+            "as its final online-softmax update, but the verify step is a "
+            "draft_k-token forward. Leave paged_attention='auto' (the "
+            "speculative verify uses the dense-gather path).")
+    return use
 
 
 def _cache_spec(config) -> tuple[int, int, int]:
@@ -154,16 +212,18 @@ def _first_tensor(tree):
 
 
 class Engine:
-    """Front-end: `submit()` -> request handle, `stream()` for tokens as
-    they land, `cancel()`/`finish()`/`fork()`, `step()`/`run_until_idle()`
-    to drive. `family` is a model module with the uniform decode contract
-    (`forward(config, params, ids, positions=..., kv_caches=...) ->
-    (logits, new_caches)`) or that forward callable. The engine runs on
-    `device` (CUDA unless "cpu"), where `params` must already live."""
+    """Front-end: `submit()` -> request handle, `stream()`/`astream()`
+    for tokens as they land, `cancel()`/`finish()`/`fork()`, `step()`/
+    `run_until_idle()` to drive. `family` is a model module with the
+    uniform decode contract (`forward(config, params, ids,
+    positions=..., kv_caches=...) -> (logits, new_caches)`) or that
+    forward callable. The engine runs on `device` (CUDA unless "cpu"),
+    where `params` must already live. `_graphs=False` keeps a CUDA
+    engine's programs eager (for comparing the two)."""
 
     def __init__(self, family, config, params,
                  engine_config: EngineConfig | None = None, device=None,
-                 clock=time.monotonic):
+                 clock=time.monotonic, _graphs: bool = True):
         self.config = config
         self.params = params
         self.engine_config = ec = engine_config or EngineConfig()
@@ -175,21 +235,56 @@ class Engine:
                              f"{dev}")
         self._forward = family if callable(family) else family.forward
         self._clock = clock
-        self._use_paged_kernel = (dev.type == "cuda"
-                                  if ec.paged_attention == "auto"
-                                  else bool(ec.paged_attention))
+        self._spec = ec.speculative is not None
+        if self._spec:
+            if ec.draft_k < 1:
+                raise ValueError(f"draft_k must be >= 1, got {ec.draft_k}")
+            try:
+                dfam, dcfg, dparams = ec.speculative
+            except (TypeError, ValueError):
+                raise ValueError(
+                    "speculative must be a (family, config, params) triple "
+                    "for the draft model") from None
+            if getattr(dcfg, "vocab_size", None) != config.vocab_size:
+                raise ValueError(
+                    f"draft vocab_size ({getattr(dcfg, 'vocab_size', None)})"
+                    f" must match the target's ({config.vocab_size}): "
+                    "drafted tokens are verified by id")
+            if _first_tensor(dparams).device.type != dev.type:
+                raise ValueError("draft params live on "
+                                 f"{_first_tensor(dparams).device}, the "
+                                 f"engine runs on {dev}")
+            self._draft_forward = dfam if callable(dfam) else dfam.forward
+            self._draft_config = dcfg
+            self._draft_params = dparams
+        self._use_paged_kernel = _resolve_paged_attention(
+            ec.paged_attention, dev, ec.speculative)
+        self._sanitize = resolve_sanitize(ec.sanitize)
 
         num_layers, num_kv, head_dim = _cache_spec(config)
-        # chunk padding can spill chunk-1 rows past max_len
-        self._pad_slack = ec.prefill_chunk
+        # pad_slack covers both overshoot sources: chunk padding can
+        # spill chunk-1 rows past max_len, and a speculative verify can
+        # write up to draft_k candidate rows past the last budgeted token
+        self._pad_slack = max(ec.prefill_chunk,
+                              ec.draft_k if self._spec else 0)
         self.cache = PagedKVCache.create(
             num_layers, ec.num_slots, ec.max_len, num_kv, head_dim,
             dtype=ec.cache_dtype, page_size=ec.page_size,
             pad_slack=self._pad_slack, num_pages=ec.num_pages,
             kv_dtype=ec.kv_dtype, device=dev,
         )
+        if self._spec:
+            # the draft's own state is a DENSE slot cache: cached target
+            # pages hold another model's K/V, so prefix hits run
+            # draft-only catch-up chunks
+            dl, dkv, dhd = _cache_spec(self._draft_config)
+            self._draft_cache = SlotKVCache.create(
+                dl, ec.num_slots, ec.max_len, dkv, dhd,
+                dtype=ec.cache_dtype, pad_slack=self._pad_slack, device=dev)
         self.registry = MetricsRegistry()
         self.metrics = ServingMetrics(registry=self.registry)
+        # host-side page accounting; the lambdas read self.metrics at call
+        # time, so reset_metrics()'s replacement keeps receiving events
         self.allocator = PagedAllocator(
             page_size=ec.page_size,
             num_pages=self.cache.num_pages,
@@ -206,6 +301,20 @@ class Engine:
         self._dedup_held: set[int] = set()
         if ec.prefix_cache:
             self.allocator.hold_admission = self._hold_admission
+        self._graphs = GraphRunner(dev, graphs=_graphs,
+                                   counters=_KERNEL_COUNTERS)
+        # hierarchical KV: the host tier and its extract/install pair
+        self._host_tier = None
+        self._swap_transport = None
+        if ec.host_tier_bytes > 0:
+            from .host_tier import HostTier
+            from .transfer import PageTransport
+
+            self._swap_transport = PageTransport(self)
+            self._host_tier = HostTier(self, ec.host_tier_bytes)
+            self.allocator.swap_out = self._host_tier.offer
+            self.allocator.swap_stall = self._host_tier.would_stall
+            self.allocator.index.drop_host = self._host_tier.discard
         self.scheduler = Scheduler(ec.num_slots, ec.max_len,
                                    max_queue=ec.max_queue, clock=clock,
                                    allocator=self.allocator,
@@ -216,26 +325,43 @@ class Engine:
         self._table = np.full(
             (ec.num_slots, self.cache.pages_per_slot),
             self.cache.trash_page, np.int32)
-        self._tokens = torch.zeros((ec.num_slots,), dtype=torch.int32,
-                                   device=dev)
-        self._slot_keys = torch.zeros((ec.num_slots, 2), dtype=torch.int64,
-                                      device=dev)
-        self._temps = torch.zeros((ec.num_slots,), dtype=torch.float32,
-                                  device=dev)
+        S = ec.num_slots
+        self._tokens = torch.zeros((S,), dtype=torch.int32, device=dev)
+        self._slot_keys = torch.zeros((S, 2), dtype=torch.int64, device=dev)
+        self._temps = torch.zeros((S,), dtype=torch.float32, device=dev)
+        self._build_programs()
         # admission hook: on_admit(slot, request) at the end of every
         # admission, after the slot's page table and state are installed
         self.on_admit: Any = None
 
-    # -- device steps ------------------------------------------------------
+    # -- device programs -----------------------------------------------------
 
-    def _upload(self, a: np.ndarray) -> torch.Tensor:
-        """A host array on the engine's device. On CUDA it is staged in
-        pinned memory and copied asynchronously: an upload never waits
-        for the device."""
-        t = torch.from_numpy(np.ascontiguousarray(a))
-        if self.device.type == "cuda":
-            return t.pin_memory().to(self.device, non_blocking=True)
-        return t.clone()
+    def _build_programs(self) -> None:
+        ec, g = self.engine_config, self._graphs
+        S, P = ec.num_slots, self.cache.pages_per_slot
+        # the programs' inputs: refilled by the host before each run
+        self._in_table = g.buffer("table", (S, P), torch.int32)
+        self._in_live = g.buffer("live", (S,), torch.bool)
+        self._in_slot = g.buffer("slot", (1,), torch.int64)
+        self._in_ids = g.buffer("ids", (ec.prefill_chunk,), torch.int32)
+        self._in_real = g.buffer("real_len", (1,), torch.int64)
+        g.add("admit", self._admit, capture=False)
+        g.add("prefill", self._prefill)
+        if self._spec:
+            K = ec.draft_k
+            self._in_restore = g.buffer("restore", (S,), torch.int32)
+            # the draft's proposals and logits, at fixed addresses: the
+            # draft program writes them, the verify program reads them
+            self._d_toks = torch.zeros((S, K), dtype=torch.int32,
+                                       device=self.device)
+            self._d_logits = torch.zeros((S, K, self.config.vocab_size),
+                                         dtype=torch.float32,
+                                         device=self.device)
+            g.add("draft_prefill", self._draft_prefill)
+            g.add("draft", self._draft)
+            g.add("verify", self._verify)
+        else:
+            g.add("decode", self._decode)
 
     def _sample(self, logits, keys, positions, temps):
         """Next tokens [B] int32 and their logprobs [B] from f32 logits
@@ -252,33 +378,36 @@ class Engine:
 
     def _admit(self, slot: int, key: tuple[int, int], temp: float,
                reused_len: int) -> None:
-        # a prefix hit starts the slot's length at the reused prefix
-        # (those pages already hold its K/V); a miss starts at zero
+        # a prefix hit starts the TARGET slot's length at the reused
+        # prefix (those pages already hold its K/V); the draft always
+        # starts cold (catch-up chunks rebuild it)
         paged_admit_slot(self.cache, slot, reused_len)
         self._slot_keys[slot, 0] = key[0]
         self._slot_keys[slot, 1] = key[1]
         self._temps[slot] = temp
+        if self._spec:
+            reset_slot(self._draft_cache, slot)
 
-    def _prefill(self, slot: int, table_row: np.ndarray, ids: np.ndarray,
-                 real_len: int) -> torch.Tensor:
-        """One prompt chunk into `slot`; samples the token after the
-        chunk into the slot's token register and returns its logprob."""
+    def _prefill(self):
+        """One prompt chunk (`ids`, `real_len` real tokens) into `slot`;
+        samples the token after the chunk into the slot's token register
+        and returns its logprob [1]."""
         chunk = self.engine_config.prefill_chunk
-        cache = self.cache
-        row = self._upload(table_row)
-        ids = self._upload(ids)
+        cache, slot = self.cache, self._in_slot
+        row = self._in_table.index_select(0, slot)[0]
         ks, vs, length = paged_slot_view(cache, row, slot)
         positions = (length + torch.arange(chunk, device=self.device))[None]
         logits, (nk, nv, _) = self._forward(
-            self.config, self.params, ids[None, :], positions=positions,
-            kv_caches=(ks, vs, length))
-        paged_write_slot(cache, row, slot, nk, nv, real_len, chunk)
-        last = logits[0, real_len - 1].float()
-        tok, lp = self._sample(last[None], self._slot_keys[slot][None],
-                               (length + real_len)[None],
-                               self._temps[slot][None])
-        self._tokens[slot] = tok[0]
-        return lp[0]
+            self.config, self.params, self._in_ids[None],
+            positions=positions, kv_caches=(ks, vs, length))
+        real = self._in_real
+        paged_write_slot(cache, row, slot, nk, nv, real, chunk)
+        last = logits[0].float().index_select(0, real - 1)
+        tok, lp = self._sample(last, self._slot_keys.index_select(0, slot),
+                               length + real,
+                               self._temps.index_select(0, slot))
+        self._tokens.index_copy_(0, slot, tok)
+        return lp
 
     def _decode_forward(self, use_kernel: bool, table: torch.Tensor):
         """One decode forward for every slot from the current pool
@@ -301,6 +430,144 @@ class Engine:
             self.config, self.params, ids, positions=positions,
             kv_caches=(k_all, v_all, cache.lengths))
         return logits[:, 0].float(), nk, nv
+
+    def _decode(self):
+        """One token for every slot; live lanes keep theirs and advance.
+        Returns the logprobs [S]."""
+        table, live = self._in_table, self._in_live
+        last, new_k, new_v = self._decode_forward(self._use_paged_kernel,
+                                                  table)
+        next_tok, lps = self._sample(last, self._slot_keys,
+                                     self.cache.lengths + 1, self._temps)
+        self._tokens.copy_(torch.where(live, next_tok, self._tokens))
+        if self._use_paged_kernel:
+            paged_append_rows(self.cache, table, new_k, new_v, live)
+        else:
+            paged_append_batch(self.cache, table, new_k, new_v, live)
+        return lps
+
+    def _draft_prefill(self):
+        """One chunk of the DRAFT model's prompt into its dense slot
+        cache (the draft re-reads the whole prompt, the target's reused
+        prefix included)."""
+        chunk = self.engine_config.prefill_chunk
+        dc, slot = self._draft_cache, self._in_slot
+        ks, vs, length = slot_caches(dc, slot)
+        positions = (length + torch.arange(chunk, device=self.device))[None]
+        _, (nk, nv, _) = self._draft_forward(
+            self._draft_config, self._draft_params, self._in_ids[None],
+            positions=positions, kv_caches=(ks, vs, length))
+        write_slot(dc, slot, nk, nv, self._in_real)
+
+    def _propose(self, logits, positions):
+        """A draft proposal per slot from its f32 logits [S, V]: argmax
+        for greedy slots, else Gumbel-max over logits/temp with the
+        DRAFT-tagged draw at `positions`."""
+        temps = self._temps
+        greedy = torch.argmax(logits, dim=-1)
+        noise = gumbel_noise(self._slot_keys, positions, logits.shape[-1],
+                             tag=DRAFT_TAG)
+        sampled = torch.argmax(
+            logits / torch.clamp(temps, min=1e-6)[:, None] + noise, dim=-1)
+        return torch.where(temps > 0.0, sampled, greedy).to(torch.int32)
+
+    def _draft(self):
+        """K sequential one-token draft steps for every slot in one
+        program: proposals into `_d_toks` [S, K], the draft's full f32
+        logits into `_d_logits` [S, K, V]; every lane's draft length
+        advances by K (the verify program sets the real lengths)."""
+        dc, K = self._draft_cache, self.engine_config.draft_k
+        tok, length = self._tokens, dc.lengths
+        for j in range(K):
+            logits, _ = self._draft_forward(
+                self._draft_config, self._draft_params, tok[:, None],
+                positions=length[:, None], kv_caches=(dc.k, dc.v, length))
+            lg = logits[:, 0].float()
+            tok = self._propose(lg, length + 1)
+            self._d_logits[:, j].copy_(lg)
+            self._d_toks[:, j].copy_(tok)
+            length = length + 1
+        dc.lengths.add_(K)
+
+    def _verify(self):
+        """ONE batched K-token target forward over every slot's pages,
+        the accept rule, and the fixed-shape commit. Returns (committed
+        [S, K] int32, counts [S], accepted [S], logprobs [S, K])."""
+        cache, K = self.cache, self.engine_config.draft_k
+        S = self.engine_config.num_slots
+        table, live = self._in_table, self._in_live
+        d_toks, d_logits = self._d_toks, self._d_logits
+        temps, keys = self._temps, self._slot_keys
+        dev = self.device
+        # inputs per slot: [t0, d1..d_{K-1}] at positions L..L+K-1; row
+        # j's logits judge proposal d_{j+1}
+        ids = torch.cat([self._tokens[:, None], d_toks[:, :K - 1]], dim=1)
+        j = torch.arange(K, device=dev)
+        base = cache.lengths.long()
+        k_all, v_all = paged_batch_view(cache, table)
+        logits, (nk, nv, _) = self._forward(
+            self.config, self.params, ids, positions=base[:, None] + j,
+            kv_caches=(k_all, v_all, cache.lengths))
+        tl = logits.float()                                    # [S, K, V]
+        greedy_ok = d_toks == torch.argmax(tl, dim=-1)
+        t = torch.clamp(temps, min=1e-6)[:, None, None]
+        p = torch.softmax(tl / t, dim=-1)
+        q = torch.softmax(d_logits / t, dim=-1)
+        idx = d_toks.long()[..., None]
+        p_tok = p.gather(2, idx)[..., 0]
+        q_tok = q.gather(2, idx)[..., 0]
+        # accept d_i with prob min(1, p(d_i)/q(d_i)), spelled u*q < p so
+        # a proposal the draft could not have sampled (q=0) rejects
+        u = uniform(keys, base[:, None] + 1 + j, tag=ACCEPT_TAG)
+        sampled_ok = u * q_tok < p_tok
+        ok = torch.where(temps[:, None] > 0.0, sampled_ok, greedy_ok)
+        n_acc = torch.cumprod(ok.to(torch.int32), dim=1).sum(dim=1)
+        counts = torch.where(n_acc == K, K, n_acc + 1)
+        # correction at the first rejected position: the residual
+        # max(p - q, 0)/Z, which with the accepts reproduces p exactly
+        r = torch.clamp(n_acc, max=K - 1)
+        lanes = torch.arange(S, device=dev)
+        p_r, q_r = p[lanes, r], q[lanes, r]
+        resid = torch.clamp(p_r - q_r, min=0.0)
+        resid = torch.where(resid.sum(-1, keepdim=True) > 1e-9, resid, p_r)
+        noise = gumbel_noise(keys, base + 1 + r, tl.shape[-1], tag=RESID_TAG)
+        corr_sampled = torch.argmax(torch.log(resid + 1e-30) + noise, dim=-1)
+        corr_greedy = torch.argmax(tl[lanes, r], dim=-1)
+        corr = torch.where(temps > 0.0, corr_sampled, corr_greedy)
+        committed = torch.where(j[None] < n_acc[:, None], d_toks,
+                                corr[:, None].to(torch.int32))
+        lps = torch.log_softmax(tl, dim=-1).gather(
+            2, committed.long()[..., None])[..., 0]
+        counts = torch.where(live, counts, 0)
+        n_acc = torch.where(live, n_acc, 0)
+        new_tok = committed[lanes, torch.clamp(counts, min=1) - 1]
+        self._tokens.copy_(torch.where(live, new_tok, self._tokens))
+        # keep exactly the accepted inputs' K/V rows (t0..d_{c-1});
+        # rejected candidates' rows route to trash in the window scatter
+        rows = base[:, None] + j
+        win_k = nk[:, lanes[:, None], rows]
+        win_v = nv[:, lanes[:, None], rows]
+        paged_append_window(cache, table, win_k, win_v, counts, live)
+        # the draft's valid rows now equal the target's for live lanes;
+        # a non-live lane holding a request is mid-prefill, where the
+        # draft lags the target: it keeps its host-tracked progress
+        self._draft_cache.lengths.copy_(
+            torch.where(live, cache.lengths, self._in_restore))
+        return committed, counts, n_acc, lps
+
+    def compile_stats(self) -> dict[str, int]:
+        """Captures per engine program (first eager builds on a CPU
+        engine): the recompile guard, each 1 however the request mix
+        changes. Speculative engines report their five programs, classic
+        engines admit/prefill/decode; with a host tier, the
+        extract/install pair too."""
+        stats = self._graphs.captures()
+        names = ["admit", "prefill"]
+        names += (["draft_prefill", "draft", "verify"] if self._spec
+                  else ["decode"])
+        if self._swap_transport is not None:
+            names += ["extract", "install"]
+        return {n: stats[n] for n in names}
 
     # -- request API -------------------------------------------------------
 
@@ -411,6 +678,20 @@ class Engine:
                 break
         yield from request.tokens[sent:]
 
+    async def astream(self, request: Request) -> AsyncIterator[int]:
+        """`stream()` for asyncio callers: yields control to the loop
+        between engine steps so concurrent coroutines interleave."""
+        sent = 0
+        while True:
+            while sent < len(request.tokens):
+                yield request.tokens[sent]
+                sent += 1
+            if request.done or not self.step():
+                break
+            await asyncio.sleep(0)
+        for tok in request.tokens[sent:]:
+            yield tok
+
     # -- the drive loop ----------------------------------------------------
 
     def step(self) -> bool:
@@ -422,6 +703,8 @@ class Engine:
         action = self.scheduler.next_action()
         if action is None:
             self.metrics.stopped_at = self._clock()
+            if self._sanitize:
+                check_engine(self)
             return False
         t0 = self._clock()
         if action[0] == "prefill":
@@ -433,6 +716,8 @@ class Engine:
         self.metrics.observe_step(self.scheduler.live_slots,
                                   self.engine_config.num_slots,
                                   self.scheduler.queue_depth)
+        if self._sanitize:
+            check_engine(self)
         return True
 
     def run_until_idle(self) -> None:
@@ -521,6 +806,23 @@ class Engine:
             self.allocator.pages_in_use, self.allocator.pages_free,
             self.allocator.pages_in_use * self.cache.page_nbytes)
 
+    def _run_swap_in(self, slot: Slot, req: Request, alloc) -> None:
+        """Install a host-resident prefix's bytes into the pages the
+        allocator reserved for it, through the install program (one
+        fixed [pages_per_slot] block, trash-padded, for every swap mix).
+        int8 pools land codes + scales verbatim: byte-identical to what
+        swap-out extracted. One install covers the whole admission: a
+        matched prefix is at most pages_per_slot - 1 pages."""
+        t0 = self._clock()
+        rows = np.full((self.cache.pages_per_slot,), self.cache.trash_page,
+                       np.int32)
+        pages = []
+        for i, (node, page) in enumerate(alloc.swap_ins):
+            pages.append(self._host_tier.fetch(node))
+            rows[i] = page
+        self._swap_transport.install(rows, pages)
+        self.metrics.note_swap_in(len(alloc.swap_ins), self._clock() - t0)
+
     def _run_admit(self, slot: Slot, req: Request) -> None:
         key = (derive_key(self.engine_config.seed, req.request_id)
                if req.key is None else stream_key(req.key))
@@ -528,21 +830,60 @@ class Engine:
         row = self._table[slot.index]
         row[:] = self.cache.trash_page
         row[:len(alloc.pages)] = alloc.pages
-        self.metrics.note_admission(req.prompt_len, alloc.reused_len)
+        if alloc.swap_ins:
+            # host-resident prefix: land its bytes in the freshly reserved
+            # pages BEFORE admit publishes the reused length
+            self._run_swap_in(slot, req, alloc)
+        self.metrics.note_admission(req.prompt_len, alloc.reused_len,
+                                    host_pages=len(alloc.swap_ins or ()))
         self._set_page_gauges()
-        self._admit(slot.index, key, req.temperature, alloc.reused_len)
+        if self._spec:
+            slot.draft_done = 0
+        self._graphs("admit", slot.index, key, req.temperature,
+                     alloc.reused_len)
         if self.on_admit is not None:
             self.on_admit(slot, req)
+
+    def _upload_chunk(self, slot: Slot, start: int, real: int) -> None:
+        chunk = self.engine_config.prefill_chunk
+        ids = np.zeros((chunk,), np.int32)
+        ids[:real] = slot.request.prompt[start:start + real]
+        g = self._graphs
+        g.upload("slot", np.array([slot.index], np.int64))
+        g.upload("ids", ids)
+        g.upload("real_len", np.array([real], np.int64))
+
+    def _run_draft_chunk(self, slot: Slot, upto: int) -> None:
+        """One draft-model prefill chunk over [draft_done, upto). Capped
+        at `upto` (the target's prompt_done) so a catch-up over a reused
+        prefix lands EXACTLY where the target sits."""
+        start = slot.draft_done
+        real = min(self.engine_config.prefill_chunk, upto - start)
+        self._upload_chunk(slot, start, real)
+        self._graphs("draft_prefill")
+        slot.draft_done += real
 
     def _run_prefill_chunk(self, slot: Slot) -> None:
         chunk = self.engine_config.prefill_chunk
         req = slot.request
+        if self._spec and slot.draft_done < slot.prompt_done:
+            # the draft has no cached prefix to reuse: draft-only
+            # catch-up chunks rebuild its prompt state up to the target's
+            # reused length before the joint chunks begin (not counted in
+            # prefill_chunks, which prices TARGET prefill work)
+            self._run_draft_chunk(slot, slot.prompt_done)
+            return
         start = slot.prompt_done  # includes the reused prefix on a hit
         real = min(chunk, req.prompt_len - start)
-        ids = np.zeros((chunk,), np.int32)
-        ids[:real] = req.prompt[start:start + real]
-        lp = self._prefill(slot.index, self._table[slot.index], ids, real)
+        self._upload_chunk(slot, start, real)
+        self._graphs.upload("table", self._table)
+        lp = self._graphs("prefill")
         self.metrics.note_prefill_chunk()
+        if self._spec:
+            # joint chunk: the draft processes the same window (the
+            # buffers still hold it), so both prompts complete together
+            self._graphs("draft_prefill")
+            slot.draft_done += real
         done = self.scheduler.note_prefill_chunk(slot, real)
         if req.share_prompt:
             # fork parent: every full prompt page this chunk completed
@@ -552,24 +893,23 @@ class Engine:
             # the chunk that completed the prompt also produced the
             # request's first token: one element crosses to the host
             tok = int(self._tokens[slot.index])
-            if self.scheduler.note_token(slot, tok, logprob=float(lp)):
+            if self.scheduler.note_token(slot, tok, logprob=float(lp[0])):
                 self._finalize_request(req)
 
-    def _run_decode(self, slots: list[Slot]) -> None:
+    def _upload_step(self, slots: list[Slot]) -> np.ndarray:
         live = np.zeros((self.engine_config.num_slots,), bool)
         for s in slots:
             live[s.index] = True
-        table = self._upload(self._table)
-        live = self._upload(live)
-        last, new_k, new_v = self._decode_forward(self._use_paged_kernel,
-                                                  table)
-        next_tok, lps = self._sample(last, self._slot_keys,
-                                     self.cache.lengths + 1, self._temps)
-        self._tokens = torch.where(live, next_tok, self._tokens)
-        if self._use_paged_kernel:
-            paged_append_rows(self.cache, table, new_k, new_v, live)
-        else:
-            paged_append_batch(self.cache, table, new_k, new_v, live)
+        self._graphs.upload("table", self._table)
+        self._graphs.upload("live", live)
+        return live
+
+    def _run_decode(self, slots: list[Slot]) -> None:
+        if self._spec:
+            self._run_spec_decode(slots)
+            return
+        self._upload_step(slots)
+        lps = self._graphs("decode")
         toks = self._tokens.cpu().numpy()  # the per-step host read
         lps = lps.cpu().numpy()
         self.metrics.note_decode_step(
@@ -580,16 +920,161 @@ class Engine:
                                          logprob=float(lps[s.index])):
                 self._finalize_request(req)
 
+    def _run_spec_decode(self, slots: list[Slot]) -> None:
+        """One speculative step for every decoding slot: draft K
+        proposals per slot, verify them in ONE batched K-token target
+        forward, commit the accepted prefix plus the correction token —
+        between 1 and K tokens land per slot per step. The verify program
+        hands the draft cache the committed lengths for live lanes; a
+        non-live lane holding a request (mid-prefill) keeps its
+        host-tracked draft progress, idle lanes restart at 0."""
+        K = self.engine_config.draft_k
+        live = self._upload_step(slots)
+        restore = np.zeros((self.engine_config.num_slots,), np.int32)
+        for s in self.scheduler.slots:
+            if s.request is not None and not live[s.index]:
+                restore[s.index] = s.draft_done
+        self._graphs.upload("restore", restore)
+        self._graphs("draft")
+        committed, counts, n_acc, lps = self._graphs("verify")
+        toks = committed.cpu().numpy()   # [S, K]: the per-step host read
+        cnts = counts.cpu().numpy()
+        accs = n_acc.cpu().numpy()
+        lps = lps.cpu().numpy()
+        self.metrics.note_decode_step("speculative")
+        for s in slots:
+            self.metrics.note_speculation(K, int(accs[s.index]))
+            req = s.request
+            for j in range(int(cnts[s.index])):
+                if self.scheduler.note_token(
+                        s, int(toks[s.index, j]),
+                        logprob=float(lps[s.index, j])):
+                    # retired mid-window (budget or EOS): the remaining
+                    # committed tokens are discarded; their rows sit past
+                    # the slot's final length and are never attended
+                    self._finalize_request(req)
+                    break
+
     def _finalize_request(self, req: Request) -> None:
         """The one terminal path: fold the request into the metrics."""
         self._fork_parents.pop(req.request_id, None)
         self.metrics.observe_request(req)
 
+    # -- live introspection ------------------------------------------------
+
+    @staticmethod
+    def _request_info(req: Request, now: float) -> dict:
+        info = {
+            "request_id": req.request_id,
+            "trace_id": req.trace_id,
+            "tenant": req.tenant,
+            "status": req.status.value,
+            "prompt_len": req.prompt_len,
+            "max_new_tokens": req.max_new_tokens,
+            "tokens": len(req.tokens),
+            "age_s": round(now - req.submitted_at, 6),
+        }
+        if req.ttft_s is not None:
+            info["ttft_s"] = round(req.ttft_s, 6)
+        if req.slo_ttft_s is not None:
+            info["slo_ttft_s"] = req.slo_ttft_s
+        if req.deadline_s is not None:
+            info["deadline_s"] = req.deadline_s
+        if req.parent_id is not None:
+            info["forked_from"] = req.parent_id
+        if req.share_prompt:
+            info["fork_parent"] = True
+        return info
+
+    def debug_requests(self) -> dict:
+        """In-flight request state, queued and running. Read-only and
+        JSON-safe."""
+        now = self._clock()
+        return {
+            "queued": [self._request_info(r, now)
+                       for r in self.scheduler.queue],
+            "running": [self._request_info(s.request, now)
+                        for s in self.scheduler.slots
+                        if s.request is not None],
+        }
+
+    def debug_slots(self) -> list[dict]:
+        """Slot occupancy: state, owning request, prefill progress, and
+        how many pool pages each slot maps."""
+        out = []
+        for s in self.scheduler.slots:
+            entry: dict[str, Any] = {"index": s.index,
+                                     "state": s.state.value}
+            if s.request is not None:
+                entry.update({
+                    "request_id": s.request.request_id,
+                    "trace_id": s.request.trace_id,
+                    "tenant": s.request.tenant,
+                    "prompt_done": s.prompt_done,
+                    "prompt_len": s.request.prompt_len,
+                    "tokens": len(s.request.tokens),
+                })
+                if s.alloc is not None:
+                    entry["pages"] = len(s.alloc.pages)
+                    entry["reused_len"] = s.alloc.reused_len
+            out.append(entry)
+        return out
+
+    def debug_pages(self) -> dict:
+        """Page-pool and radix-tree state: capacity, occupancy, and the
+        prefix-reuse counters (host-side totals, exact)."""
+        alloc = self.allocator
+        return {
+            "page_size": alloc.page_size,
+            "num_pages": self.cache.num_pages,
+            "pages_in_use": alloc.pages_in_use,
+            "pages_free": alloc.pages_free,
+            "prefix_cache": alloc.prefix_cache,
+            "cached_pages": alloc.index.cached_pages,
+            "mapped_pages": alloc.index.mapped_pages,
+            "prefix_lookups": alloc.lookups,
+            "prefix_hits": alloc.hits,
+            "tokens_reused": alloc.tokens_reused,
+            "evictions": alloc.evictions,
+            "host_pages": alloc.index.host_pages,
+            **({"host_tier": self._host_tier.stats()}
+               if self._host_tier is not None else {}),
+        }
+
+    def debug_scheduler(self) -> dict:
+        """The scheduler's policy state (per-tenant queues, DRR deficits,
+        SLO EMA, shed counters)."""
+        return self.scheduler.debug_state()
+
     # -- metrics -----------------------------------------------------------
+
+    def reset_metrics(self) -> None:
+        """Drop accumulated samples (e.g. after a warm-up pass). Captured
+        programs, slot state and in-flight requests are untouched. The
+        registry's series objects survive (zeroed in place)."""
+        self.registry.reset()
+        self.metrics = ServingMetrics(registry=self.registry)
+        # page-pool gauges reflect CURRENT state, not a window: re-sync
+        self._set_page_gauges()
+        if self._host_tier is not None:
+            self.metrics.set_host_tier_gauges(self._host_tier.pages_in_use,
+                                              self._host_tier.bytes_in_use)
+        # a warm-up pass's capture-heavy steps would otherwise inflate the
+        # scheduler's step-time EMA (and every SLO / Retry-After estimate)
+        self.scheduler.step_time_ema = 0.0
 
     def metrics_summary(self) -> dict[str, float]:
         """Flat serving metrics (TTFT/per-token percentiles, occupancy,
-        queue depth, tokens/sec, prefix reuse) plus the pool capacity."""
+        queue depth, tokens/sec, prefix reuse) plus the pool capacity and
+        the program capture counts."""
         out = self.metrics.summary()
         out["pages_capacity"] = float(self.cache.num_pages)
+        out.update({f"compiles_{k}": float(v)
+                    for k, v in self.compile_stats().items()})
         return out
+
+    def close(self) -> None:
+        """Stop the host tier's drain thread. Idempotent; the engine
+        itself stays usable (evictions then destroy pages)."""
+        if self._host_tier is not None:
+            self._host_tier.close()

@@ -18,9 +18,19 @@ script exits non-zero:
    plain PyTorch version, with its time, its bound and a library
    yardstick;
 4. engine: the serving engine at llama3-8B width and depth (random bf16
-   weights from a seed), 12 requests through the paged-decode kernel;
+   weights from a seed), its programs captured as CUDA graphs, 12
+   requests through the paged-decode kernel (launches counted through
+   replays), then the same 12 with the programs eager: greedy streams
+   identical, every program captured once;
 5. parity: one decode step through the kernel path and the dense-gather
-   path from the same pool state, logits compared;
+   path from the same pool state, logits compared; the eager forward's
+   device time beside the captured decode step's;
+5b. speculative: a 2-layer draft, draft_k 4: greedy streams equal to
+   the plain engine's in f32 at 4 layers, then the bf16 32-layer engine
+   with its accept rate and the draft and verify programs' times;
+5c. host_tier: a pool too small for the traffic swaps a 512-token
+   prefix out to host memory and back in, bf16 and int8 pools, streams
+   equal to an ample pool's;
 6. train: the bf16 training step at llama3-8B width, 4 layers, remat
    "dots": 10 steps through the flash kernels, with the launch counts,
    step time, tokens/s, MFU, peak memory and a profiler split;
@@ -678,34 +688,20 @@ def _prompts(rng, vocab):
     return out
 
 
-def phase_engine(kernel_rows):
-    import numpy as np
+ENGINE_CONFIG = dict(num_slots=8, max_len=2048, prefill_chunk=128,
+                     page_size=16)
+
+
+def _drive(eng, prompts, temps, max_new=32):
+    """Submit every request, then step the engine to idle with a
+    synchronise around each step: (requests, decode step seconds,
+    prefill step seconds, run seconds)."""
     import torch
 
-    from accelerate_tpu_torch.models import llama
-    from accelerate_tpu_torch.ops.paged_attention import \
-        paged_decode_attention
-    from accelerate_tpu_torch.serving import Engine, EngineConfig, \
-        RequestStatus
-
-    cfg = llama.LlamaConfig.llama3_8b()
-    t0 = time.perf_counter()
-    params = llama.init_params(cfg, 0, dtype=torch.bfloat16)
-    torch.cuda.synchronize()
-    init_s = time.perf_counter() - t0
-    ec = EngineConfig(num_slots=8, max_len=2048, prefill_chunk=128,
-                      page_size=16, cache_dtype=torch.bfloat16,
-                      paged_attention=True)
-    eng = Engine(llama, cfg, params, ec)
-    prompts = _prompts(np.random.default_rng(0), cfg.vocab_size)
-    temps = [0.0 if i % 2 == 0 else 0.8 for i in range(12)]
-    torch.cuda.reset_peak_memory_stats()
-    decode_s, prefill_s = [], []
-    # the main path's run: every count at 0 just before, read just after
-    paged_decode_attention.launches = 0
     t_run = time.perf_counter()
-    reqs = [eng.submit(p, max_new_tokens=32, temperature=t, key=1000 + i)
+    reqs = [eng.submit(p, max_new_tokens=max_new, temperature=t, key=1000 + i)
             for i, (p, t) in enumerate(zip(prompts, temps))]
+    decode_s, prefill_s = [], []
     while True:
         steps = eng.metrics.decode_steps
         torch.cuda.synchronize()
@@ -715,32 +711,94 @@ def phase_engine(kernel_rows):
         torch.cuda.synchronize()
         (decode_s if eng.metrics.decode_steps > steps
          else prefill_s).append(time.perf_counter() - t)
-    run_s = time.perf_counter() - t_run
+    return reqs, decode_s, prefill_s, time.perf_counter() - t_run
+
+
+def _finished(reqs, vocab, max_new=32) -> list:
+    """Indices of requests that did not finish with `max_new` valid
+    tokens and finite logprobs."""
+    from accelerate_tpu_torch.serving import RequestStatus
+
+    return [i for i, r in enumerate(reqs)
+            if r.status is not RequestStatus.FINISHED
+            or len(r.tokens) != max_new
+            or not all(0 <= t < vocab for t in r.tokens)
+            or not all(math.isfinite(x) for x in r.logprobs)]
+
+
+def phase_engine(kernel_rows):
+    """The serving engine at llama3-8B width and depth with its programs
+    captured as CUDA graphs: 12 requests through the paged-decode kernel,
+    then the same 12 on an engine whose programs stay eager. Gated:
+    every request finishes, a prefix hit, the kernel's launches equal
+    decode steps x layers (counted through replays), every program
+    captured once, and greedy streams identical between the two runs
+    (the same kernels see the same data)."""
+    import numpy as np
+    import torch
+
+    from accelerate_tpu_torch.models import llama
+    from accelerate_tpu_torch.ops.paged_attention import \
+        paged_decode_attention
+    from accelerate_tpu_torch.serving import Engine, EngineConfig
+
+    cfg = llama.LlamaConfig.llama3_8b()
+    t0 = time.perf_counter()
+    params = llama.init_params(cfg, 0, dtype=torch.bfloat16)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    ec = EngineConfig(cache_dtype=torch.bfloat16, paged_attention=True,
+                      **ENGINE_CONFIG)
+    eng = Engine(llama, cfg, params, ec)
+    prompts = _prompts(np.random.default_rng(0), cfg.vocab_size)
+    temps = [0.0 if i % 2 == 0 else 0.8 for i in range(12)]
+    torch.cuda.reset_peak_memory_stats()
+    # the main path's run: every count at 0 just before, read just after
+    paged_decode_attention.launches = 0
+    reqs, decode_s, prefill_s, run_s = _drive(eng, prompts, temps)
     launches = paged_decode_attention.launches
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
     summary = eng.metrics_summary()
     steps = eng.metrics.decode_steps
+    stats = eng.compile_stats()
+    eager = Engine(llama, cfg, params, ec, _graphs=False)
+    ereqs, edecode_s, eprefill_s, erun_s = _drive(eager, prompts, temps)
+    prefill_profile = _profile_prefill(eager, cfg.vocab_size)
+    del eager
+    greedy = [i for i, t in enumerate(temps) if t == 0.0]
+    greedy_same = all(reqs[i].tokens == ereqs[i].tokens for i in greedy)
+    all_same = all(a.tokens == b.tokens for a, b in zip(reqs, ereqs))
+    lp_diff = max(abs(x - y) for a, b in zip(reqs, ereqs)
+                  for x, y in zip(a.logprobs, b.logprobs))
     decode_tokens = sum(len(r.tokens) for r in reqs) - len(reqs)
     emit("engine", config="llama3_8b", layers=cfg.num_hidden_layers,
-         params_init_s=init_s, requests=len(reqs),
+         graphs=True, params_init_s=init_s, requests=len(reqs),
          prompt_tokens=int(sum(len(p) for p in prompts)),
-         finished=sum(r.status is RequestStatus.FINISHED for r in reqs),
+         finished=len(reqs) - len(_finished(reqs, cfg.vocab_size)),
          tokens=[len(r.tokens) for r in reqs], decode_steps=steps,
-         paged_decode_launches=launches,
+         paged_decode_launches=launches, compile_stats=stats,
+         capture_s=eng._graphs.capture_seconds(),
          prefill_chunks=summary["prefill_chunks"],
          prefix_hit_rate=summary.get("prefix_hit_rate"),
          ttft_p50_ms=summary.get("ttft_p50_ms"),
          ttft_p99_ms=summary.get("ttft_p99_ms"),
          decode_step_ms_median=float(np.median(decode_s)) * 1e3,
          decode_step_ms_mean=float(np.mean(decode_s)) * 1e3,
+         first_decode_step_ms=decode_s[0] * 1e3,
          prefill_chunk_ms_median=float(np.median(prefill_s)) * 1e3,
          decode_tokens_per_s=decode_tokens / sum(decode_s),
          tokens_per_s=sum(len(r.tokens) for r in reqs) / run_s,
          run_s=run_s,
-         max_memory_allocated_gb=torch.cuda.max_memory_allocated() / 1e9)
-    bad = [i for i, r in enumerate(reqs)
-           if r.status is not RequestStatus.FINISHED or len(r.tokens) != 32
-           or not all(0 <= t < cfg.vocab_size for t in r.tokens)
-           or not all(math.isfinite(x) for x in r.logprobs)]
+         eager_decode_step_ms_median=float(np.median(edecode_s)) * 1e3,
+         eager_prefill_chunk_ms_median=float(np.median(eprefill_s)) * 1e3,
+         eager_decode_tokens_per_s=decode_tokens / sum(edecode_s),
+         eager_run_s=erun_s,
+         prefill_profile=prefill_profile,
+         greedy_streams_identical=greedy_same,
+         all_streams_identical=all_same,
+         logprob_max_abs_diff=lp_diff,
+         max_memory_allocated_gb=peak_gb)
+    bad = _finished(reqs, cfg.vocab_size) + _finished(ereqs, cfg.vocab_size)
     if bad:
         raise AssertionError(f"requests {bad} did not finish with 32 tokens")
     if not summary.get("prefix_hit_rate", 0.0) > 0:
@@ -748,9 +806,62 @@ def phase_engine(kernel_rows):
     if launches != steps * cfg.num_hidden_layers or launches == 0:
         raise AssertionError(f"paged_decode launched {launches} times for "
                              f"{steps} decode steps x 32 layers")
+    if stats != {"admit": 1, "prefill": 1, "decode": 1}:
+        raise AssertionError(f"programs not captured once each: {stats}")
+    if not greedy_same:
+        raise AssertionError("graphed greedy streams differ from eager")
     for row in kernel_rows:
         row["launches"] = launches
-    return cfg, params, eng
+    engine_numbers = {"decode_step_ms_median":
+                      float(np.median(decode_s)) * 1e3,
+                      "greedy": {i: reqs[i].tokens for i in greedy}}
+    return cfg, params, eng, prompts, temps, engine_numbers
+
+
+def _profile_prefill(eng, vocab):
+    """Device time of one eager 128-token prefill chunk (the fifth of a
+    1000-token prompt) by kernel class, from torch.profiler (ms): the
+    bf16 GEMMs, the f32 GEMMs of the einsum attention over the slot's
+    view, copies and casts, the softmax, the rest."""
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    prompt = np.random.default_rng(3).integers(0, vocab, 1000)
+    req = eng.submit(prompt.astype(np.int32), max_new_tokens=1)
+    for _ in range(4):
+        eng.step()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        eng.step()
+        torch.cuda.synchronize()
+    eng.cancel(req)
+    classes = {"gemm_bf16": 0.0, "gemm_f32": 0.0, "copy": 0.0,
+               "softmax": 0.0, "other": 0.0}
+    launches = 0
+    for ev in prof.key_averages():
+        if str(ev.device_type) != "DeviceType.CUDA":
+            continue
+        ms = float(getattr(ev, "self_device_time_total", 0.0)) / 1e3
+        low = ev.key.lower()
+        cls = ("gemm_f32" if "f32f32" in low else
+               "gemm_bf16" if any(t in low for t in ("gemm", "nvjet",
+                                                     "splitk")) else
+               "copy" if "copy" in low else
+               "softmax" if "softmax" in low else "other")
+        classes[cls] += ms
+        launches += ev.count
+    return {"device_ms_by_class": classes,
+            "device_ms_total": sum(classes.values()),
+            "kernel_launches": launches}
+
+
+def _device_table(eng):
+    """The engine's host page table as a device tensor."""
+    import torch
+
+    return torch.from_numpy(eng._table).to(eng.device)
 
 
 def _rel_l2(a, b) -> float:
@@ -760,7 +871,7 @@ def _rel_l2(a, b) -> float:
                  / torch.linalg.vector_norm(b))
 
 
-def phase_kernel_vs_dense(cfg, params, eng):
+def phase_kernel_vs_dense(cfg, params, eng, engine_numbers):
     """From one pool state (8 slots at 265-1800 rows), one decode step
     through the kernel path and through the dense-gather path.
 
@@ -782,7 +893,7 @@ def phase_kernel_vs_dense(cfg, params, eng):
             for n in (200, 400, 700, 900, 1100, 1300, 1500, 1800)]
     while not all(s.state is SlotState.DECODE for s in eng.scheduler.slots):
         eng.step()
-    table = eng._upload(eng._table)
+    table = _device_table(eng)
     kern, _, _ = eng._decode_forward(True, table)
     dense, _, _ = eng._decode_forward(False, table)
     launch = paged.paged_decode_attention
@@ -810,7 +921,7 @@ def phase_kernel_vs_dense(cfg, params, eng):
          finite=finite)
     if not rel <= 2e-2 or not finite:
         raise AssertionError(f"kernel path logits off the dense path: {rel}")
-    _decode_breakdown(eng, table)
+    _decode_breakdown(eng, table, engine_numbers, reqs)
     for r in reqs:
         eng.cancel(r)
 
@@ -840,10 +951,12 @@ def _drift_by_depth(eng, cfg, table):
     return out
 
 
-def _decode_breakdown(eng, table):
+def _decode_breakdown(eng, table, engine_numbers, reqs):
     """Where one decode step's device time goes at this pool state: the
-    whole forward through each path, and the kernel alone on layer 0's
-    inputs (it runs once per layer)."""
+    whole eager forward through each path, the kernel alone on layer 0's
+    inputs (it runs once per layer), and the captured decode step (the
+    forward, sampling and the append) replayed back to back, beside the
+    engine phase's decode step by the host clock."""
     import accelerate_tpu_torch.ops.paged_attention as paged
 
     launch = paged.paged_decode_attention
@@ -868,6 +981,15 @@ def _decode_breakdown(eng, table):
          elements=kern.numel(),
          max_abs_err=float((kern.float() - plain.float()).abs().max()))
     lengths = eng.cache.lengths.tolist()
+    profile = _profile_step(eng, table)
+    forward_device_ms = profile["device_ms_total"]
+    # the captured decode program, replayed back to back: each replay is
+    # a real step for the 8 live lanes (lengths advance by one)
+    eng._upload_step([s for s in eng.scheduler.slots
+                      if s.request in reqs])
+    graph_ms = cuda_time_ms(lambda: eng._graphs("decode"), iters=5,
+                            warmup=1)
+    host_ms = engine_numbers["decode_step_ms_median"]
     G = args[0].shape[2] // args[1].shape[2]
     bound_ms, bound_by = _paged_bound(args[0], args[3], lengths,
                                       eng.cache.page_size, G)
@@ -878,7 +1000,10 @@ def _decode_breakdown(eng, table):
              lambda: eng._decode_forward(False, table), iters=5, warmup=1),
          paged_decode_ms=cuda_time_ms(lambda: launch(*args, **kw), iters=50),
          paged_decode_bound_ms=bound_ms, bound_by=bound_by,
-         layers=eng.cache.num_layers, profile=_profile_step(eng, table))
+         layers=eng.cache.num_layers, profile=profile,
+         graph_decode_step_ms=graph_ms,
+         engine_decode_step_ms_median=host_ms,
+         step_over_forward_device=host_ms / forward_device_ms)
 
 
 def _profile_step(eng, table):
@@ -912,6 +1037,238 @@ def _profile_step(eng, table):
             "device_ms_total": sum(classes.values()),
             "kernel_launches": sum(n for _, n, _ in kernels),
             "top_kernels": kernels[:8]}
+
+
+# ---------------------------------------------------------------------------
+# phase 5b: speculative decoding
+# ---------------------------------------------------------------------------
+
+
+class _TimedPrograms:
+    """Stands in for an engine's GraphRunner: CUDA events around every
+    run of the named programs, every other attribute the runner's own."""
+
+    def __init__(self, runner, names):
+        self._runner, self._names = runner, names
+        self.events = {n: [] for n in names}
+
+    def __call__(self, name, *args):
+        import torch
+
+        if name not in self._names:
+            return self._runner(name, *args)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = self._runner(name, *args)
+        end.record()
+        self.events[name].append((start, end))
+        return out
+
+    def __getattr__(self, attr):
+        return getattr(self._runner, attr)
+
+    def medians_ms(self) -> dict:
+        """Median ms of each program's runs after its first (capture)."""
+        import numpy as np
+        import torch
+
+        torch.cuda.synchronize()
+        return {n: float(np.median([a.elapsed_time(b) for a, b in ev[1:]]))
+                for n, ev in self.events.items() if len(ev) > 1}
+
+
+SPEC_PROGRAMS = {"admit": 1, "prefill": 1, "draft_prefill": 1, "draft": 1,
+                 "verify": 1}
+
+
+def phase_speculative(cfg, params, prompts, temps, engine_numbers):
+    """Speculative decoding at llama3-8B width, the draft the same width
+    with 2 layers and its own seed, draft_k 4, 8 slots, the engine
+    phase's 12 prompts. Gated in f32 activations at 4 layers: greedy
+    streams identical to the plain engine's (bf16 paths drift apart at
+    depth, as kernel_vs_dense shows). Then the bf16 32-layer target of
+    the engine phase: every request finishes; reported are the accept
+    rate, tokens per verify step, the draft and verify programs' device
+    times, and the share of greedy tokens equal to the plain engine's."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from accelerate_tpu_torch.models import llama
+    from accelerate_tpu_torch.serving import Engine, EngineConfig
+
+    cfg4 = dataclasses.replace(cfg, num_hidden_layers=4)
+    dcfg = dataclasses.replace(cfg, num_hidden_layers=2)
+    p4 = llama.init_params(cfg4, 0, dtype=torch.float32)
+    d4 = llama.init_params(dcfg, 1, dtype=torch.float32)
+    ec = EngineConfig(cache_dtype=torch.float32, **ENGINE_CONFIG)
+    greedy_temps = [0.0] * len(prompts)
+    plain, *_ = _drive(Engine(llama, cfg4, p4, ec), prompts, greedy_temps)
+    spec_eng = Engine(llama, cfg4, p4, dataclasses.replace(
+        ec, speculative=(llama, dcfg, d4), draft_k=4))
+    spec, *_ = _drive(spec_eng, prompts, greedy_temps)
+    f32_same = [a.tokens == b.tokens for a, b in zip(spec, plain)]
+    f32_stats = spec_eng.compile_stats()
+    f32_accept = spec_eng.metrics_summary().get("spec_accept_rate")
+    bad = _finished(plain, cfg.vocab_size) + _finished(spec, cfg.vocab_size)
+    del spec_eng, p4, d4, plain, spec
+    _drop()
+
+    draft = llama.init_params(dcfg, 1, dtype=torch.bfloat16)
+    eng = Engine(llama, cfg, params, EngineConfig(
+        cache_dtype=torch.bfloat16, speculative=(llama, dcfg, draft),
+        draft_k=4, **ENGINE_CONFIG))
+    timed = _TimedPrograms(eng._graphs, ("draft", "verify"))
+    eng._graphs = timed
+    reqs, decode_s, prefill_s, run_s = _drive(eng, prompts, temps)
+    summary = eng.metrics_summary()
+    stats = eng.compile_stats()
+    # committed tokens per live slot and verify step (each request's
+    # first token comes from its prefill)
+    decode_tokens = sum(len(r.tokens) for r in reqs) - len(reqs)
+    slot_steps = eng.metrics.spec_drafted_tokens / 4
+    ref = engine_numbers["greedy"]
+    agree = sum(sum(a == b for a, b in zip(reqs[i].tokens, toks))
+                for i, toks in ref.items())
+    total = sum(len(t) for t in ref.values())
+    emit("speculative", config="llama3_8b", draft_layers=2, draft_k=4,
+         f32_layers=4, f32_greedy_streams_identical=all(f32_same),
+         f32_identical_per_request=f32_same, f32_compile_stats=f32_stats,
+         f32_accept_rate=f32_accept,
+         layers=cfg.num_hidden_layers, compile_stats=stats,
+         finished=len(reqs) - len(_finished(reqs, cfg.vocab_size)),
+         accept_rate=summary.get("spec_accept_rate"),
+         tokens_per_decode_step=summary.get("tokens_per_decode_step"),
+         tokens_per_slot_step=decode_tokens / slot_steps,
+         verify_steps=eng.metrics.decode_steps,
+         program_ms_median=timed.medians_ms(),
+         capture_s=timed.capture_seconds(),
+         spec_step_ms_median=float(np.median(decode_s)) * 1e3,
+         prefill_step_ms_median=float(np.median(prefill_s)) * 1e3,
+         decode_tokens_per_s=decode_tokens / sum(decode_s),
+         run_s=run_s, greedy_tokens_equal_to_plain=agree,
+         greedy_tokens=total, greedy_agreement=agree / total)
+    bad += _finished(reqs, cfg.vocab_size)
+    if bad:
+        raise AssertionError(f"speculative requests {bad} did not finish")
+    if not all(f32_same):
+        raise AssertionError("f32 speculative greedy streams differ from "
+                             f"the plain engine's: {f32_same}")
+    if stats != SPEC_PROGRAMS or f32_stats != SPEC_PROGRAMS:
+        raise AssertionError(f"programs not captured once: {stats}, "
+                             f"{f32_stats}")
+
+
+# ---------------------------------------------------------------------------
+# phase 5c: the host KV tier
+# ---------------------------------------------------------------------------
+
+
+def phase_host_tier(cfg, params):
+    """The host KV tier at llama3-8B width and depth: 2 slots and a pool
+    of one slot's pages (136), too small for the traffic: a request on
+    the 512-token shared prefix, two 1500-token requests that evict its
+    pages to host memory, then a second request on the prefix, which
+    swaps them back in. Gated, in a bf16 and an int8 pool: swap-ins, and
+    greedy streams identical to an engine whose pool holds everything.
+    Reported: pages and bytes each way, and the transfer times."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from accelerate_tpu_torch.models import llama
+    from accelerate_tpu_torch.serving import Engine, EngineConfig
+
+    rng = np.random.default_rng(2)
+    prefix = rng.integers(0, cfg.vocab_size, 512)
+    waves = [np.concatenate([prefix, rng.integers(0, cfg.vocab_size, 100)]),
+             rng.integers(0, cfg.vocab_size, 1500),
+             rng.integers(0, cfg.vocab_size, 1500),
+             np.concatenate([prefix, rng.integers(0, cfg.vocab_size, 100)])]
+    waves = [w.astype(np.int32) for w in waves]
+    base = EngineConfig(num_slots=2, max_len=2048, prefill_chunk=128,
+                        page_size=16, cache_dtype=torch.bfloat16)
+    rows, failed = [], []
+    for kv_dtype in (None, "int8"):
+        streams = {}
+        for name, kw in (("tier", dict(num_pages=136,
+                                       host_tier_bytes=1 << 30)),
+                         ("ample", {})):
+            eng = Engine(llama, cfg, params, dataclasses.replace(
+                base, kv_dtype=kv_dtype, **kw))
+            out = []
+            t0 = time.perf_counter()
+            for w in waves:
+                r = eng.submit(w, max_new_tokens=32)
+                eng.run_until_idle()
+                out.append(r)
+            run_s = time.perf_counter() - t0
+            streams[name] = [r.tokens for r in out]
+            if name == "tier":
+                tier_eng, tier_run_s = eng, run_s
+                bad = _finished(out, cfg.vocab_size)
+            else:
+                del eng
+        m = tier_eng.metrics
+        nbytes = tier_eng.cache.page_nbytes
+        row = dict(kv_dtype=kv_dtype or "bfloat16",
+                   swap_out_pages=m.swap_out_pages,
+                   swap_in_pages=m.swap_in_pages,
+                   swap_out_bytes=m.swap_out_pages * nbytes,
+                   swap_in_bytes=m.swap_in_pages * nbytes,
+                   prefix_hits_host=m.prefix_hits_host,
+                   # one host hit a run: its swap-in includes the
+                   # install program's warm-up and capture
+                   first_swap_in_host_ms=m.swap_in_s.mean * 1e3,
+                   compile_stats=tier_eng.compile_stats(),
+                   streams_identical=streams["tier"] == streams["ample"],
+                   run_s=tier_run_s, **_transfer_times(tier_eng))
+        tier_eng.close()
+        del tier_eng
+        _drop()
+        emit("host_tier", config="llama3_8b", layers=cfg.num_hidden_layers,
+             page_nbytes=nbytes, **row)
+        rows.append(row)
+        if bad or not row["swap_in_pages"] or not row["streams_identical"] \
+                or set(row["compile_stats"].values()) != {1}:
+            failed.append(row["kv_dtype"])
+    if failed:
+        raise AssertionError(f"host tier failed its gates in {failed}")
+
+
+def _transfer_times(eng) -> dict:
+    """The transport's two directions on this engine, by the host clock
+    around work that ends in a synchronise: one page out (extract, then
+    the copy to pinned host memory) and a 32-page block in (staging,
+    copy to the device, install)."""
+    import numpy as np
+    import torch
+
+    tp, cache = eng._swap_transport, eng.cache
+    torch.cuda.synchronize()
+    out_s = []
+    for page in range(8):
+        t0 = time.perf_counter()
+        host, done = tp.copy_out(tp.extract([page]), 1)
+        done.synchronize()
+        out_s.append(time.perf_counter() - t0)
+    pages = [{name: t[0] for name, t in host.items()}] * 32
+    rows = np.full((cache.pages_per_slot,), cache.trash_page, np.int32)
+    in_s = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        tp.install(rows, pages)   # every page to the trash page
+        torch.cuda.synchronize()
+        in_s.append(time.perf_counter() - t0)
+    nbytes = cache.page_nbytes
+    return {"swap_out_ms_per_page": float(np.median(out_s)) * 1e3,
+            "swap_out_gb_per_s": nbytes / float(np.median(out_s)) / 1e9,
+            "swap_in_32_pages_ms": float(np.median(in_s)) * 1e3,
+            "swap_in_gb_per_s": 32 * nbytes / float(np.median(in_s)) / 1e9}
 
 
 # ---------------------------------------------------------------------------
@@ -1181,9 +1538,14 @@ def main() -> int:
     kernels = phase_paged_kernel()
     kernels += phase_flash_kernel()
     phase_small_parity()
-    cfg, params, eng = phase_engine(kernels[:1])
-    phase_kernel_vs_dense(cfg, params, eng)
-    del params, eng
+    cfg, params, eng, prompts, temps, numbers = phase_engine(kernels[:1])
+    phase_kernel_vs_dense(cfg, params, eng, numbers)
+    del eng
+    _drop()
+    phase_speculative(cfg, params, prompts, temps, numbers)
+    _drop()
+    phase_host_tier(cfg, params)
+    del params
     _drop()
     phase_train(kernels)
     _drop()

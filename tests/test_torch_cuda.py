@@ -1,7 +1,9 @@
 """Tests of the PyTorch port that need an NVIDIA GPU: each CUDA kernel
 against its plain PyTorch version, the engine on the card against the
-engine on the CPU, the bf16 head's gradient, and a training step on the
-card against the same step on the CPU.
+engine on the CPU, the engine's programs as CUDA graphs against the same
+programs run eagerly (plain, speculative, with the host KV tier), the
+bf16 head's gradient, and a training step on the card against the same
+step on the CPU.
 
 Without a card every test here skips with a reason. The file imports
 neither jax nor the JAX package, so it also runs where those are not
@@ -202,6 +204,167 @@ def test_engine_on_the_card_matches_the_cpu_engine(cuda):
         eng.run_until_idle()
         streams.append([r.tokens for r in reqs])
     assert streams[0] == streams[1]
+
+
+# --- the engine's programs as CUDA graphs -------------------------------------
+
+
+def _graph_cfg():
+    # head_dim 32: the paged kernel takes multiples of 32
+    return llama.LlamaConfig.tiny(hidden_size=128, num_attention_heads=4,
+                                  num_key_value_heads=2)
+
+
+def _serve_mix(eng, seed=0, forks=True, cancel=True):
+    """Cold prompts, a prefix hit, a fork, a cancel mid-decode, greedy
+    and sampled: every request's (tokens, logprobs)."""
+    rng = np.random.default_rng(seed)
+    shared = rng.integers(0, 256, 20).astype(np.int32)
+    reqs = [eng.submit(rng.integers(0, 256, n).astype(np.int32),
+                       max_new_tokens=6, temperature=t, key=i)
+            for i, (n, t) in enumerate(((6, 0.0), (13, 0.8), (9, 0.0)))]
+    reqs.append(eng.submit(shared, max_new_tokens=5))
+    victim = eng.submit(rng.integers(0, 256, 7).astype(np.int32),
+                        max_new_tokens=40)
+    if forks:
+        reqs.append(eng.fork(reqs[-1], key=99))
+    for _ in range(8):
+        eng.step()
+    if cancel:
+        eng.cancel(victim)
+    eng.run_until_idle()
+    late = eng.submit(np.concatenate([shared, [1, 2, 3]]).astype(np.int32),
+                      max_new_tokens=6)
+    eng.run_until_idle()
+    reqs.append(late)
+    assert all(r.status.value == "finished" for r in reqs)
+    return [(r.tokens, r.logprobs) for r in reqs]
+
+
+def _graph_engine(params, cfg, graphs, **kw):
+    ec = dict(num_slots=3, max_len=96, prefill_chunk=8, page_size=8,
+              cache_dtype=torch.float32, sanitize=True)
+    ec.update(kw)
+    return Engine(llama, cfg, params, EngineConfig(**ec), _graphs=graphs)
+
+
+@pytest.mark.parametrize("kv_dtype", [None, "int8"])
+@pytest.mark.parametrize("paged_attention", [True, False])
+def test_graph_engine_matches_the_eager_engine(cuda, paged_attention,
+                                               kv_dtype):
+    """Captured programs replay the eager engine's work: the same
+    streams, the same logprobs, each program captured once whatever the
+    mix (forks, a cancel, prefix hits, int8 pages)."""
+    cfg = _graph_cfg()
+    params = llama.init_params(cfg, 0)
+    out = {}
+    for graphs in (True, False):
+        eng = _graph_engine(params, cfg, graphs, kv_dtype=kv_dtype,
+                            paged_attention=paged_attention)
+        out[graphs] = _serve_mix(eng)
+        assert eng.compile_stats() == {"admit": 1, "prefill": 1,
+                                       "decode": 1}
+    assert [t for t, _ in out[True]] == [t for t, _ in out[False]]
+    for (_, a), (_, b) in zip(out[True], out[False]):
+        np.testing.assert_allclose(a, b, atol=1e-6)
+
+
+def test_kernel_launches_count_through_replays(cuda):
+    """The wrapper is the only counting site and never runs in a replay:
+    the runner adds each replay's launches, so the count is the decode
+    steps times the layers, as an eager engine counts it."""
+    cfg = _graph_cfg()
+    params = llama.init_params(cfg, 0)
+    counts = {}
+    for graphs in (True, False):
+        eng = _graph_engine(params, cfg, graphs, paged_attention=True)
+        tp.paged_decode_attention.launches = 0
+        _serve_mix(eng, seed=1)
+        steps = eng.metrics.decode_steps
+        counts[graphs] = tp.paged_decode_attention.launches
+        assert counts[graphs] == steps * cfg.num_hidden_layers > 0
+    assert counts[True] == counts[False]
+
+
+def test_speculative_engine_on_graphs_matches_eager_and_plain(cuda):
+    cfg = _graph_cfg()
+    params = llama.init_params(cfg, 0)
+    draft_cfg = llama.LlamaConfig.tiny(hidden_size=128, num_attention_heads=4,
+                                       num_key_value_heads=2,
+                                       num_hidden_layers=1)
+    draft = llama.init_params(draft_cfg, 7)
+    out = {}
+    for graphs in (True, False):
+        eng = _graph_engine(params, cfg, graphs,
+                            speculative=(llama, draft_cfg, draft), draft_k=3)
+        out[graphs] = _serve_mix(eng, seed=2)
+        assert eng.compile_stats() == {"admit": 1, "prefill": 1,
+                                       "draft_prefill": 1, "draft": 1,
+                                       "verify": 1}
+    plain = _serve_mix(_graph_engine(params, cfg, True), seed=2)
+    assert [t for t, _ in out[True]] == [t for t, _ in out[False]]
+    greedy = [i for i in (0, 2, 3, 5)]
+    assert [out[True][i][0] for i in greedy] == [plain[i][0] for i in greedy]
+
+
+@pytest.mark.parametrize("kv_dtype", [None, "int8"])
+def test_host_tier_on_graphs_swaps_back_the_cold_tokens(cuda, kv_dtype):
+    cfg = _graph_cfg()
+    params = llama.init_params(cfg, 0)
+    eng = _graph_engine(params, cfg, True, num_slots=2, max_len=64,
+                        page_size=4, num_pages=18, host_tier_bytes=1 << 28,
+                        kv_dtype=kv_dtype)
+    rng = np.random.default_rng(3)
+    prompt = rng.integers(0, 256, 33).astype(np.int32)
+
+    def serve(p):
+        r = eng.submit(p, max_new_tokens=6)
+        eng.run_until_idle()
+        return r.tokens
+
+    cold = serve(prompt)
+    for _ in range(3):
+        serve(rng.integers(0, 256, 33).astype(np.int32))
+    assert eng.allocator.index.host_pages > 0
+    assert serve(prompt) == cold
+    assert eng.metrics.swap_in_pages > 0
+    assert eng.compile_stats() == {"admit": 1, "prefill": 1, "decode": 1,
+                                   "extract": 1, "install": 1}
+    eng.close()
+
+
+def test_a_capture_that_fails_raises(cuda):
+    """A program that reads a device value on the host cannot be
+    captured: the runner raises naming it, and does not fall back."""
+    from accelerate_tpu_torch.serving import GraphRunner
+
+    runner = GraphRunner(cuda)
+    x = runner.buffer("x", (4,), torch.float32)
+    runner.upload("x", np.arange(4, dtype=np.float32))
+    runner.add("syncs", lambda: x * float(x.sum()))
+    with pytest.raises(RuntimeError, match="syncs"):
+        runner("syncs")
+    assert runner.captures() == {"syncs": 0}
+
+
+def test_graph_runner_replays_on_fresh_inputs(cuda):
+    from accelerate_tpu_torch.serving import GraphRunner
+
+    runner = GraphRunner(cuda)
+    x = runner.buffer("x", (3,), torch.int64)
+    state = torch.zeros(3, dtype=torch.int64, device=cuda)
+
+    def body():
+        state.add_(x)
+        return state * 2
+
+    runner.add("acc", body)
+    seen = []
+    for i in range(4):
+        runner.upload("x", np.full(3, i + 1, np.int64))
+        seen.append(runner("acc").tolist())
+    assert seen == [[2] * 3, [6] * 3, [12] * 3, [20] * 3]
+    assert runner.captures() == {"acc": 1}
 
 
 # --- flash attention (K1a, K1b, K1c) ----------------------------------------

@@ -178,8 +178,6 @@ def test_auto_decode_path_is_dense_on_the_cpu(weights):
 
 
 @pytest.mark.parametrize("field,value", [
-    ("speculative", ("family", "config", "params")),
-    ("host_tier_bytes", 1 << 20),
     ("mesh", object()),
     ("strict", "error"),
     ("contracts", {}),
@@ -187,7 +185,6 @@ def test_auto_decode_path_is_dense_on_the_cpu(weights):
     ("watchdog_timeout_s", 30.0),
     ("cost_sample_every", 4),
     ("incident_dir", "incidents"),
-    ("sanitize", True),
 ])
 def test_unported_config_fields_raise(weights, field, value):
     _, cfg_t, _, pt = weights
@@ -218,3 +215,126 @@ def test_overload_rejects_and_cancel_and_finish(weights):
     assert summary["requests_rejected"] == 2
     assert summary["requests_cancelled"] == 1
     assert summary["pages_capacity"] == eng.cache.num_pages
+
+
+# ---------------------------------------------------------------------------
+# the engine's programs and surface
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("kv_dtype", [None, "int8"])
+@pytest.mark.parametrize("paged_attention", [True, False])
+def test_programs_built_once_across_a_request_mix_like_jax(
+        weights, paged_attention, kv_dtype):
+    """Cold and hit admissions, forks, a cancel mid-decode, greedy and
+    sampled: admit, prefill and decode are each built once, as the JAX
+    engine compiles each once."""
+    cfg_j, cfg_t, pj, pt = weights
+    kw = dict(BASE, paged_attention=paged_attention, kv_dtype=kv_dtype)
+
+    def drive(eng):
+        rng = np.random.default_rng(21)
+        parent = eng.submit(rng.integers(0, 256, 20).astype(np.int32),
+                            max_new_tokens=5)
+        kid = eng.fork(parent, temperature=0.7)
+        victim = eng.submit(rng.integers(0, 256, 9).astype(np.int32),
+                            max_new_tokens=30)
+        for _ in range(6):
+            eng.step()
+        eng.cancel(victim)
+        eng.run_until_idle()
+        return [parent.tokens, len(kid.tokens)], eng.compile_stats()
+
+    (jt, js), (tt, ts) = (
+        drive(JEngine(jl, cfg_j, pj, JConfig(cache_dtype=jnp.float32, **kw))),
+        drive(Engine(tl, cfg_t, pt, EngineConfig(
+            cache_dtype=torch.float32, sanitize=True, **kw), device="cpu")))
+    assert tt == jt
+    assert ts == js == {"admit": 1, "prefill": 1, "decode": 1}
+
+
+def test_astream_interleaves_two_requests_like_stream(weights):
+    import asyncio
+
+    _, cfg_t, _, pt = weights
+    prompts = [np.arange(5, dtype=np.int32), np.arange(11, dtype=np.int32)]
+
+    def engine():
+        return Engine(tl, cfg_t, pt, EngineConfig(
+            cache_dtype=torch.float32, sanitize=True, **BASE), device="cpu")
+
+    eng = engine()
+    reqs = [eng.submit(p, max_new_tokens=6) for p in prompts]
+
+    async def collect(req):
+        return [tok async for tok in eng.astream(req)]
+
+    async def both():
+        return await asyncio.gather(*(collect(r) for r in reqs))
+
+    streamed = asyncio.run(both())
+    ref = engine()
+    want = [ref.submit(p, max_new_tokens=6) for p in prompts]
+    ref.run_until_idle()
+    assert streamed == [r.tokens for r in want]
+    assert all(len(t) == 6 for t in streamed)
+
+
+def test_debug_views_match_jax(weights):
+    """debug_requests/slots/pages/scheduler mid-flight, after the same
+    steps: the JAX engine's entries, less the request ages."""
+    cfg_j, cfg_t, pj, pt = weights
+    prompt = np.random.default_rng(11).integers(0, 256, 24).astype(np.int32)
+
+    def views(eng):
+        parent = eng.submit(prompt, max_new_tokens=8)
+        fork = eng.fork(parent)
+        eng.step()
+        out = (eng.debug_requests(), eng.debug_slots(), eng.debug_pages(),
+               eng.debug_scheduler())
+        by_id = {e["request_id"]: e
+                 for e in out[0]["running"] + out[0]["queued"]}
+        assert by_id[parent.request_id]["fork_parent"] is True
+        assert by_id[fork.request_id]["forked_from"] == parent.request_id
+        eng.run_until_idle()
+        for entry in out[0]["running"] + out[0]["queued"]:
+            entry.pop("age_s")
+            entry.pop("trace_id")
+            entry.pop("request_id")
+            entry.pop("forked_from", None)
+        for entry in out[1]:
+            entry.pop("trace_id", None)
+            entry.pop("request_id", None)
+        return out
+
+    kw = dict(BASE, max_len=96)
+    j = views(JEngine(jl, cfg_j, pj, JConfig(cache_dtype=jnp.float32, **kw)))
+    t = views(Engine(tl, cfg_t, pt, EngineConfig(cache_dtype=torch.float32,
+                                                 **kw), device="cpu"))
+    assert t[0] == j[0] and t[1] == j[1] and t[2] == j[2]
+    assert t[3].keys() == j[3].keys()
+
+
+def test_reset_metrics_keeps_programs_pages_and_requests(weights):
+    _, cfg_t, _, pt = weights
+    eng = Engine(tl, cfg_t, pt, EngineConfig(
+        cache_dtype=torch.float32, sanitize=True, **BASE), device="cpu")
+    first = eng.submit(np.arange(12, dtype=np.int32), max_new_tokens=3)
+    eng.run_until_idle()
+    live = eng.submit(np.arange(7, dtype=np.int32), max_new_tokens=5)
+    eng.step()
+    before = eng.compile_stats()
+    eng.reset_metrics()
+    summary = eng.metrics_summary()
+    assert summary["requests_finished"] == 0
+    assert summary["prefill_chunks"] == 0
+    assert eng.scheduler.step_time_ema == 0.0
+    assert eng.registry.gauge("serving_pages_in_use").value \
+        == eng.allocator.pages_in_use > 0
+    eng.run_until_idle()
+    assert live.status is RequestStatus.FINISHED and len(live.tokens) == 5
+    assert first.status is RequestStatus.FINISHED
+    assert eng.compile_stats() == before
+    assert eng.metrics_summary()["requests_finished"] == 1
+    assert eng.metrics_summary()["compiles_decode"] == 1.0
+    eng.close()
