@@ -79,14 +79,12 @@ class HostTier:
     tree, and `PrefixIndex.drop_host` fires here the moment a node loses
     its naming path."""
 
-    def __init__(self, engine, budget_bytes: int,
-                 queue_pages: int | None = None):
+    def __init__(self, engine, budget_bytes: int):
         self._engine = engine
         cache = engine.cache
         self.page_nbytes = cache.page_nbytes
         self.capacity_pages = max(0, int(budget_bytes) // self.page_nbytes)
-        self.queue_bound = (queue_pages if queue_pages is not None
-                            else max(4, 2 * cache.pages_per_slot))
+        self.queue_bound = max(4, 2 * cache.pages_per_slot)
         self._entries: dict = {}
         self._queue: queue.Queue = queue.Queue(maxsize=self.queue_bound)
         self.swapped_out_pages = 0      # lifetime accepted offers
@@ -148,7 +146,7 @@ class HostTier:
             return False
         eng = self._engine
         tp = eng._swap_transport
-        entry = _HostEntry(node, tp.copy_out(tp.extract([node.page]), 1))
+        entry = _HostEntry(node, tp.copy_out(tp.extract(node.page)))
         try:
             self._queue.put_nowait(entry)
         except queue.Full:

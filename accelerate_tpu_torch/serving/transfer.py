@@ -3,11 +3,11 @@ tier moves swapped pages with (the port's own copy of what the tier needs
 from `accelerate_tpu/serving/pod/transfer.py` `PageTransport`; the pod's
 prefill-to-decode shipment comes with the pod slice).
 
-- `extract`: gather one fixed [pages_per_slot] table row of the pool into
-  a dense block, page-major ([P, L, page_size, H, D]); the row is padded
-  with the trash page, so every extraction is one program. The host tier
-  then copies the leading pages it asked for to pinned host memory on a
-  side stream (`copy_out`), ordered after the gather by an event.
+- `extract`: gather one pool page into a dense block, page-major
+  ([1, L, page_size, H, D]): the host tier swaps out one eviction victim
+  at a time, so one fixed shape serves every extraction. The tier then
+  copies the block to pinned host memory on a side stream (`copy_out`),
+  ordered after the gather by an event.
 - `install`: scatter a block into the pool at a fixed [pages_per_slot]
   row, trash-padded past the real pages, so the dead lanes write only the
   trash page. Also one program.
@@ -39,7 +39,7 @@ class PageTransport:
         P = cache.pages_per_slot
         self._names = (("k", "v", "k_scale", "v_scale") if cache.quantized
                        else ("k", "v"))
-        self._rows = runner.buffer("extract_rows", (P,), torch.int32)
+        self._page = runner.buffer("extract_page", (1,), torch.int32)
         self._install_rows = runner.buffer("install_rows", (P,), torch.int32)
         # the install block lives on the device at a fixed address (the
         # graph reads it there) with a pinned host twin it is filled from
@@ -61,10 +61,10 @@ class PageTransport:
     # -- programs ------------------------------------------------------------
 
     def _extract(self):
-        rows = self._rows.long()
+        page = self._page.long()
         return tuple(
             torch.index_select(getattr(self._cache, name).transpose(0, 1),
-                               0, rows)
+                               0, page)
             for name in self._names)
 
     def _install(self):
@@ -75,39 +75,34 @@ class PageTransport:
 
     # -- host side -----------------------------------------------------------
 
-    def extract(self, pages) -> dict:
-        """The pool pages `pages` (a list of page ids, at most
-        pages_per_slot) as a device block per buffer, page-major, padded
-        with trash pages to the fixed row."""
-        row = np.full((self._cache.pages_per_slot,), self._cache.trash_page,
-                      np.int32)
-        row[:len(pages)] = pages
+    def extract(self, page: int) -> dict:
+        """Pool page `page` as a [1, L, ps, H(, D)] device block per
+        buffer."""
         if self._copied is not None:
             # the block may be a graph's output: the last copy out of it
             # must finish before a replay rewrites it
             torch.cuda.current_stream(self._cache.k.device).wait_event(
                 self._copied)
-        self._runner.upload("extract_rows", row)
+        self._runner.upload("extract_page", np.array([page], np.int32))
         return dict(zip(self._names, self._runner("extract")))
 
-    def copy_out(self, block: dict, n: int):
-        """Start copying the leading `n` pages of an extracted block to
-        host memory: ({name: [n, L, ps, H(, D)] host tensor}, event), the
-        event None on a CPU engine. On CUDA the copy runs on a side
-        stream after everything queued so far; waiting on the event waits
-        for this copy only."""
-        host = {name: torch.empty((n,) + tuple(t.shape[1:]), dtype=t.dtype,
+    def copy_out(self, block: dict):
+        """Start copying an extracted block to host memory: ({name:
+        [1, L, ps, H(, D)] host tensor}, event), the event None on a CPU
+        engine. On CUDA the copy runs on a side stream after everything
+        queued so far; waiting on the event waits for this copy only."""
+        host = {name: torch.empty(t.shape, dtype=t.dtype,
                                   pin_memory=self._cuda)
                 for name, t in block.items()}
         if not self._cuda:
             for name, t in block.items():
-                host[name].copy_(t[:n])
+                host[name].copy_(t)
             return host, None
         side = self._side
         side.wait_stream(torch.cuda.current_stream(side.device))
         with torch.cuda.stream(side):
             for name, t in block.items():
-                host[name].copy_(t[:n], non_blocking=True)
+                host[name].copy_(t, non_blocking=True)
                 t.record_stream(side)
             done = torch.cuda.Event()
             done.record(side)

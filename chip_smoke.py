@@ -956,7 +956,9 @@ def _decode_breakdown(eng, table, engine_numbers, reqs):
     whole eager forward through each path, the kernel alone on layer 0's
     inputs (it runs once per layer), and the captured decode step (the
     forward, sampling and the append) replayed back to back, beside the
-    engine phase's decode step by the host clock."""
+    engine phase's decode step by the host clock. Gated: one profiled
+    replay runs the K2 split and combine kernels once per layer each,
+    and the runner books as many launches for it."""
     import accelerate_tpu_torch.ops.paged_attention as paged
 
     launch = paged.paged_decode_attention
@@ -989,6 +991,7 @@ def _decode_breakdown(eng, table, engine_numbers, reqs):
                       if s.request in reqs])
     graph_ms = cuda_time_ms(lambda: eng._graphs("decode"), iters=5,
                             warmup=1)
+    replay = _replay_kernels(eng)
     host_ms = engine_numbers["decode_step_ms_median"]
     G = args[0].shape[2] // args[1].shape[2]
     bound_ms, bound_by = _paged_bound(args[0], args[3], lengths,
@@ -1001,9 +1004,39 @@ def _decode_breakdown(eng, table, engine_numbers, reqs):
          paged_decode_ms=cuda_time_ms(lambda: launch(*args, **kw), iters=50),
          paged_decode_bound_ms=bound_ms, bound_by=bound_by,
          layers=eng.cache.num_layers, profile=profile,
-         graph_decode_step_ms=graph_ms,
+         graph_decode_step_ms=graph_ms, replay_kernels=replay,
          engine_decode_step_ms_median=host_ms,
          step_over_forward_device=host_ms / forward_device_ms)
+    layers = eng.cache.num_layers
+    if set(replay.values()) != {layers}:
+        raise AssertionError(f"one decode replay ran {replay}, not "
+                             f"{layers} of each")
+
+
+def _replay_kernels(eng) -> dict:
+    """One replay of the captured decode program under torch.profiler:
+    the K2 split and combine kernels the device ran, beside the launches
+    the runner books for the replay (the wrapper, the counting site,
+    does not run in a replay: the runner adds what the capture
+    counted)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    import accelerate_tpu_torch.ops.paged_attention as paged
+
+    torch.cuda.synchronize()
+    before = paged.paged_decode_attention.launches
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        eng._graphs("decode")
+        torch.cuda.synchronize()
+    ran = {"paged_decode_split_kernel": 0, "paged_decode_combine_kernel": 0}
+    for ev in prof.key_averages():
+        if str(ev.device_type) != "DeviceType.CUDA":
+            continue
+        for name in ran:
+            if name in ev.key:
+                ran[name] += ev.count
+    return {"booked": paged.paged_decode_attention.launches - before, **ran}
 
 
 def _profile_step(eng, table):
@@ -1082,15 +1115,31 @@ SPEC_PROGRAMS = {"admit": 1, "prefill": 1, "draft_prefill": 1, "draft": 1,
                  "verify": 1}
 
 
+def _truncated(params, layers):
+    """A draft that is the target cut after its first `layers` layers:
+    the same embedding, final norm and head, and the stacked layer
+    weights sliced (views, nothing copied)."""
+    def cut(tree):
+        if isinstance(tree, dict):
+            return {k: cut(v) for k, v in tree.items()}
+        return tree[:layers]
+
+    return {**params, "layers": cut(params["layers"])}
+
+
 def phase_speculative(cfg, params, prompts, temps, engine_numbers):
-    """Speculative decoding at llama3-8B width, the draft the same width
-    with 2 layers and its own seed, draft_k 4, 8 slots, the engine
-    phase's 12 prompts. Gated in f32 activations at 4 layers: greedy
-    streams identical to the plain engine's (bf16 paths drift apart at
-    depth, as kernel_vs_dense shows). Then the bf16 32-layer target of
-    the engine phase: every request finishes; reported are the accept
-    rate, tokens per verify step, the draft and verify programs' device
-    times, and the share of greedy tokens equal to the plain engine's."""
+    """Speculative decoding at llama3-8B width, draft_k 4, 8 slots, the
+    engine phase's 12 prompts. Gated in f32 activations at 4 layers
+    (bf16 paths drift apart at depth, as kernel_vs_dense shows), with
+    two drafts: the target's truncated 2-layer sibling (its embedding,
+    first 2 layers and head), and the target drafting for itself, which
+    is accepted, so the captured verify commits accepted windows. Gates:
+    greedy streams identical to the plain engine's for both drafts, and
+    a self-draft accept rate above 0. Then the bf16 32-layer target of
+    the engine phase with a 2-layer draft of its own seed: every request
+    finishes; reported are the accept rate, tokens per verify step, the
+    draft and verify programs' device times, and the share of greedy
+    tokens equal to the plain engine's."""
     import dataclasses
 
     import numpy as np
@@ -1102,18 +1151,24 @@ def phase_speculative(cfg, params, prompts, temps, engine_numbers):
     cfg4 = dataclasses.replace(cfg, num_hidden_layers=4)
     dcfg = dataclasses.replace(cfg, num_hidden_layers=2)
     p4 = llama.init_params(cfg4, 0, dtype=torch.float32)
-    d4 = llama.init_params(dcfg, 1, dtype=torch.float32)
     ec = EngineConfig(cache_dtype=torch.float32, **ENGINE_CONFIG)
     greedy_temps = [0.0] * len(prompts)
     plain, *_ = _drive(Engine(llama, cfg4, p4, ec), prompts, greedy_temps)
-    spec_eng = Engine(llama, cfg4, p4, dataclasses.replace(
-        ec, speculative=(llama, dcfg, d4), draft_k=4))
-    spec, *_ = _drive(spec_eng, prompts, greedy_temps)
-    f32_same = [a.tokens == b.tokens for a, b in zip(spec, plain)]
-    f32_stats = spec_eng.compile_stats()
-    f32_accept = spec_eng.metrics_summary().get("spec_accept_rate")
-    bad = _finished(plain, cfg.vocab_size) + _finished(spec, cfg.vocab_size)
-    del spec_eng, p4, d4, plain, spec
+    bad = _finished(plain, cfg.vocab_size)
+    f32 = {}
+    for name, draft in (("truncated", (llama, dcfg, _truncated(p4, 2))),
+                        ("self", (llama, cfg4, p4))):
+        spec_eng = Engine(llama, cfg4, p4, dataclasses.replace(
+            ec, speculative=draft, draft_k=4))
+        spec, *_ = _drive(spec_eng, prompts, greedy_temps)
+        f32[name] = dict(
+            same=[a.tokens == b.tokens for a, b in zip(spec, plain)],
+            stats=spec_eng.compile_stats(),
+            accept=spec_eng.metrics_summary().get("spec_accept_rate"))
+        bad += _finished(spec, cfg.vocab_size)
+        del spec_eng, spec
+    f32_same = [all(pair) for pair in zip(*(r["same"] for r in f32.values()))]
+    del p4, plain
     _drop()
 
     draft = llama.init_params(dcfg, 1, dtype=torch.bfloat16)
@@ -1135,8 +1190,9 @@ def phase_speculative(cfg, params, prompts, temps, engine_numbers):
     total = sum(len(t) for t in ref.values())
     emit("speculative", config="llama3_8b", draft_layers=2, draft_k=4,
          f32_layers=4, f32_greedy_streams_identical=all(f32_same),
-         f32_identical_per_request=f32_same, f32_compile_stats=f32_stats,
-         f32_accept_rate=f32_accept,
+         f32_identical_per_request=f32_same,
+         f32_compile_stats={n: r["stats"] for n, r in f32.items()},
+         f32_accept_rate={n: r["accept"] for n, r in f32.items()},
          layers=cfg.num_hidden_layers, compile_stats=stats,
          finished=len(reqs) - len(_finished(reqs, cfg.vocab_size)),
          accept_rate=summary.get("spec_accept_rate"),
@@ -1156,9 +1212,12 @@ def phase_speculative(cfg, params, prompts, temps, engine_numbers):
     if not all(f32_same):
         raise AssertionError("f32 speculative greedy streams differ from "
                              f"the plain engine's: {f32_same}")
-    if stats != SPEC_PROGRAMS or f32_stats != SPEC_PROGRAMS:
+    if not f32["self"]["accept"]:
+        raise AssertionError("the f32 self-draft had no proposal accepted")
+    if any(r["stats"] != SPEC_PROGRAMS for r in f32.values()) \
+            or stats != SPEC_PROGRAMS:
         raise AssertionError(f"programs not captured once: {stats}, "
-                             f"{f32_stats}")
+                             f"{f32}")
 
 
 # ---------------------------------------------------------------------------
@@ -1252,7 +1311,7 @@ def _transfer_times(eng) -> dict:
     out_s = []
     for page in range(8):
         t0 = time.perf_counter()
-        host, done = tp.copy_out(tp.extract([page]), 1)
+        host, done = tp.copy_out(tp.extract(page))
         done.synchronize()
         out_s.append(time.perf_counter() - t0)
     pages = [{name: t[0] for name, t in host.items()}] * 32

@@ -286,23 +286,34 @@ def test_kernel_launches_count_through_replays(cuda):
     assert counts[True] == counts[False]
 
 
+def _moved(target, other, frac=0.1):
+    """`target`'s weights moved `frac` of the way toward `other`'s."""
+    if isinstance(target, dict):
+        return {k: _moved(target[k], other[k], frac) for k in target}
+    return target + frac * (other - target)
+
+
 def test_speculative_engine_on_graphs_matches_eager_and_plain(cuda):
+    """The draft is the target moved a tenth of the way toward another
+    seed's weights: it is accepted about half the time, so the captured
+    verify commits accepted windows of several rows as well as lone
+    corrections."""
     cfg = _graph_cfg()
     params = llama.init_params(cfg, 0)
-    draft_cfg = llama.LlamaConfig.tiny(hidden_size=128, num_attention_heads=4,
-                                       num_key_value_heads=2,
-                                       num_hidden_layers=1)
-    draft = llama.init_params(draft_cfg, 7)
-    out = {}
+    draft = _moved(params, llama.init_params(cfg, 7))
+    out, rate = {}, {}
     for graphs in (True, False):
         eng = _graph_engine(params, cfg, graphs,
-                            speculative=(llama, draft_cfg, draft), draft_k=3)
+                            speculative=(llama, cfg, draft), draft_k=3)
         out[graphs] = _serve_mix(eng, seed=2)
         assert eng.compile_stats() == {"admit": 1, "prefill": 1,
                                        "draft_prefill": 1, "draft": 1,
                                        "verify": 1}
+        rate[graphs] = eng.metrics_summary()["spec_accept_rate"]
+        assert 0.0 < rate[graphs] < 1.0
     plain = _serve_mix(_graph_engine(params, cfg, True), seed=2)
     assert [t for t, _ in out[True]] == [t for t, _ in out[False]]
+    assert rate[True] == rate[False]
     greedy = [i for i in (0, 2, 3, 5)]
     assert [out[True][i][0] for i in greedy] == [plain[i][0] for i in greedy]
 
