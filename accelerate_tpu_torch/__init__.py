@@ -18,7 +18,10 @@ Ported so far:
 - the training step (`accelerator.Accelerator`, `training.TrainState`,
   `optimizers.adamw`, `models.llama.causal_lm_loss`), with the flash
   attention forward and backward kernels written in CUDA
-  (`csrc/flash_attention.cu`, wrapped by `ops.flash_attention`).
+  (`csrc/flash_attention.cu`, wrapped by `ops.flash_attention`);
+- the OpenAI-compatible HTTP front door over the engine (`server`,
+  `python -m accelerate_tpu_torch.commands.serve`), with request tracing
+  (`telemetry.trace`) and the Prometheus exposition (`telemetry.export`).
 """
 
 from .device import resolve_device

@@ -9,8 +9,11 @@
 // Layout: q/o/dq/do are [B, Sq, H, D] and k/v/dk/dv [B, Sk, H, D], heads
 // already repeated (GQA callers repeat K/V first); lse and delta are
 // [B, H, Sq] f32; the optional key mask is [B, Sk] uint8 (1 = attend).
-// Inputs are bf16 (the main path, tensor cores) or f32 (a CUDA-core path
-// of the same kernels, for tight checks); outputs are in the input dtype.
+// Inputs are bf16 (the main path, tensor cores), f32 or f16; outputs are
+// in the input dtype. bf16 head dims up to 128 run the wgmma kernels; f32,
+// f16, and bf16 head dims over 128 (up to 256) run the CUDA-core kernels
+// of the same semantics, which take the head dim at run time. Head dims
+// need only be a multiple of 16 bytes of a row (8 bf16/f16, 4 f32).
 //
 // Semantics kept from the reference:
 //   - sm_scale = 1/sqrt(D) is applied to the f32 dot;
@@ -53,8 +56,10 @@
 //   - head dims below 64 or 128 are zero-padded columns in shared memory
 //     (instances DP = 64 and 128); outputs leave through shared memory as
 //     16-byte stores of the valid rows and columns.
-//   - the f32 path stages 32-row tiles in shared memory and multiplies on
-//     CUDA cores, for tight checks.
+//   - the CUDA-core path (f32 for tight checks, f16, and bf16 past 128
+//     columns) stages 32-row tiles in shared memory in the input dtype and
+//     multiplies on CUDA cores in f32; at D = 256 its dK/dV pass in f32
+//     takes 218 KB of the 227 KB a block may have.
 //
 // What bounds it: at the training shapes (S = 2048, D = 128, causal) all
 // three are bounded by tensor-core operations (4, 6 and 8 flops per
@@ -69,28 +74,39 @@
 // for arguments it is not built for).
 
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
-
-#include <type_traits>
 
 #include "hopper.cuh"
 
 namespace {
 
 using bf16 = __nv_bfloat16;
+using f16 = __half;
 
 constexpr float kNegInf = -1e30f;
 constexpr float kLog2e = 1.4426950408889634f;
 constexpr int kThreads = 256;
-constexpr int kMaxD = 128;
+constexpr int kMaxD = 256;
+constexpr int kMaxSmem = 232448;  // a block's shared memory on an H100
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
+__device__ __forceinline__ float to_f32(bf16 x) { return __bfloat162float(x); }
+__device__ __forceinline__ float to_f32(f16 x) { return __half2float(x); }
 
 template <typename T>
 __device__ __forceinline__ T from_f32(float x);
 template <>
 __device__ __forceinline__ float from_f32<float>(float x) { return x; }
+template <>
+__device__ __forceinline__ bf16 from_f32<bf16>(float x) {
+  return __float2bfloat16(x);  // round to nearest even
+}
+template <>
+__device__ __forceinline__ f16 from_f32<f16>(float x) {
+  return __float2half_rn(x);
+}
 
 __device__ __forceinline__ float warp_sum(float v) {
   for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
@@ -103,12 +119,10 @@ __device__ __forceinline__ float warp_max(float v) {
   return v;
 }
 
-// Tile sizes of the f32 path (CUDA cores), small enough that its dK/dV
-// pass fits shared memory; bf16 runs the wgmma kernels.
+// Tile sizes of the CUDA-core path, small enough that its dK/dV pass
+// fits shared memory at D = 256 in f32.
 template <typename T>
-struct Tiles;
-template <>
-struct Tiles<float> {
+struct Tiles {
   static constexpr int BQ = 32, BK = 32;
 };
 
@@ -119,18 +133,18 @@ __host__ __device__ constexpr int pad() {
 }
 constexpr int kPadF = 4;  // f32 accumulators
 
-// C[M,N] (+)= op(A)[M,K] . op(B)[K,N] on CUDA cores, summed in k order. A
-// is stored [M,K] (or [K,M] when kAT), B [K,N] (or [N,K] when kBT), all
-// in shared memory.
-template <bool kAT, bool kBT>
-__device__ void mm(float* C, int ldc, const float* A, int lda,
-                   const float* B, int ldb, int M, int N, int K, bool acc) {
+// C[M,N] (+)= op(A)[M,K] . op(B)[K,N] on CUDA cores in f32, summed in k
+// order. A is stored [M,K] (or [K,M] when kAT), B [K,N] (or [N,K] when
+// kBT), all in shared memory in the input dtype.
+template <bool kAT, bool kBT, typename T>
+__device__ __forceinline__ void mm(float* C, int ldc, const T* A, int lda, const T* B,
+                   int ldb, int M, int N, int K, bool acc) {
   for (int idx = threadIdx.x; idx < M * N; idx += blockDim.x) {
     const int m = idx / N, n = idx - m * N;
     float s = acc ? C[m * ldc + n] : 0.f;
     for (int k = 0; k < K; ++k) {
-      const float a = kAT ? A[k * lda + m] : A[m * lda + k];
-      const float b = kBT ? B[n * ldb + k] : B[k * ldb + n];
+      const float a = to_f32(kAT ? A[k * lda + m] : A[m * lda + k]);
+      const float b = to_f32(kBT ? B[n * ldb + k] : B[k * ldb + n]);
       s = fmaf(a, b, s);
     }
     C[m * ldc + n] = s;
@@ -140,7 +154,7 @@ __device__ void mm(float* C, int ldc, const float* A, int lda,
 // rows x D tile from global rows `row_stride` elements apart into shared
 // memory (leading dimension ld); rows at or past `valid` read as zero.
 template <typename T>
-__device__ void load_rows(T* dst, int ld, const T* src, size_t row_stride,
+__device__ __forceinline__ void load_rows(T* dst, int ld, const T* src, size_t row_stride,
                           int rows, int valid, int D) {
   const int chunks = D * static_cast<int>(sizeof(T)) / 16;
   for (int idx = threadIdx.x; idx < rows * chunks; idx += blockDim.x) {
@@ -181,7 +195,8 @@ struct Shape {
 };
 
 // ---------------------------------------------------------------------------
-// K1a: forward, f32 on CUDA cores (bf16 runs flash_fwd_kernel_sm90 below)
+// K1a: forward on CUDA cores (bf16 up to 128 columns runs
+// flash_fwd_kernel_sm90 below)
 // ---------------------------------------------------------------------------
 
 template <typename T>
@@ -197,13 +212,11 @@ size_t fwd_smem(int D) {
 }
 
 template <typename T>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads, 1)
     flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                      const T* __restrict__ v,
                      const uint8_t* __restrict__ kmask, T* __restrict__ o,
                      float* __restrict__ lse, Shape sh) {
-  static_assert(std::is_same<T, float>::value,
-                "the bf16 forward is flash_fwd_kernel_sm90");
   constexpr int BQ = Tiles<T>::BQ, BK = Tiles<T>::BK;
   constexpr int kPerLane = BK / 32;
   const int H = sh.H, Sq = sh.Sq, Sk = sh.Sk, D = sh.D;
@@ -648,7 +661,8 @@ __global__ void __launch_bounds__(kSm90Threads, 1)
 }
 
 // ---------------------------------------------------------------------------
-// K1b: dQ (and delta), f32 on CUDA cores (bf16 runs flash_dq_kernel_sm90)
+// K1b: dQ (and delta) on CUDA cores (bf16 up to 128 columns runs
+// flash_dq_kernel_sm90)
 // ---------------------------------------------------------------------------
 
 template <typename T>
@@ -664,7 +678,7 @@ size_t dq_smem(int D) {
 }
 
 template <typename T>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads, 1)
     flash_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
                     const T* __restrict__ v, const T* __restrict__ o,
                     const T* __restrict__ dout,
@@ -947,7 +961,8 @@ __global__ void __launch_bounds__(kSm90Threads, 1)
 }
 
 // ---------------------------------------------------------------------------
-// K1c: dK, dV, f32 on CUDA cores (bf16 runs flash_dkv_kernel_sm90)
+// K1c: dK, dV on CUDA cores (bf16 up to 128 columns runs
+// flash_dkv_kernel_sm90)
 // ---------------------------------------------------------------------------
 
 template <typename T>
@@ -963,7 +978,7 @@ size_t dkv_smem(int D) {
 }
 
 template <typename T>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads, 1)
     flash_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
                      const T* __restrict__ v, const T* __restrict__ dout,
                      const float* __restrict__ lse,
@@ -1261,16 +1276,22 @@ int set_smem(Kernel kernel, size_t bytes) {
   return 0;
 }
 
-bool bad_shape(int B, int H, int Sq, int Sk, int D) {
-  return B < 1 || H < 1 || Sq < 1 || Sk < 1 || D < 16 || D % 16 != 0 ||
-         D > kMaxD;
+// Head dims every path takes: a row of 16-byte pieces, up to 256.
+bool bad_shape(int dtype, int B, int H, int Sq, int Sk, int D) {
+  const int elt = dtype == 0 ? 4 : 2;
+  return dtype < 0 || dtype > 2 || B < 1 || H < 1 || Sq < 1 || Sk < 1 ||
+         D < 1 || (D * elt) % 16 != 0 || D > kMaxD;
 }
+
+// Whether a bf16 head dim runs the wgmma kernels (DP = 64 or 128).
+bool sm90(int dtype, int D) { return dtype == 1 && D <= 128; }
 
 template <typename T>
 int launch_fwd(const void* q, const void* k, const void* v,
                const uint8_t* kmask, void* o, float* lse, int B, Shape sh,
                cudaStream_t st) {
   const size_t smem = fwd_smem<T>(sh.D);
+  if (smem > kMaxSmem) return -1;
   if (int e = set_smem(flash_fwd_kernel<T>, smem)) return e;
   dim3 grid((sh.Sq + Tiles<T>::BQ - 1) / Tiles<T>::BQ, B * sh.H);
   flash_fwd_kernel<T><<<grid, kThreads, smem, st>>>(
@@ -1299,6 +1320,7 @@ int launch_dq(const void* q, const void* k, const void* v, const void* o,
               const void* dout, const float* lse, const uint8_t* kmask,
               void* dq, float* delta, int B, Shape sh, cudaStream_t st) {
   const size_t smem = dq_smem<T>(sh.D);
+  if (smem > kMaxSmem) return -1;
   if (int e = set_smem(flash_dq_kernel<T>, smem)) return e;
   dim3 grid((sh.Sq + Tiles<T>::BQ - 1) / Tiles<T>::BQ, B * sh.H);
   flash_dq_kernel<T><<<grid, kThreads, smem, st>>>(
@@ -1333,6 +1355,7 @@ int launch_dkv(const void* q, const void* k, const void* v,
                const uint8_t* kmask, void* dk, void* dv, int B, Shape sh,
                cudaStream_t st) {
   const size_t smem = dkv_smem<T>(sh.D);
+  if (smem > kMaxSmem) return -1;
   if (int e = set_smem(flash_dkv_kernel<T>, smem)) return e;
   dim3 grid((sh.Sk + Tiles<T>::BK - 1) / Tiles<T>::BK, B * sh.H);
   flash_dkv_kernel<T><<<grid, kThreads, smem, st>>>(
@@ -1361,26 +1384,27 @@ int launch_dkv_sm90(const void* q, const void* k, const void* v,
 
 }  // namespace
 
-// dtype codes: 0 = float32, 1 = bfloat16. window <= 0 means none; kmask
-// may be null. sm_scale is 1/sqrt(D), passed by the caller. bf16 head
-// dims up to 64 run the DP = 64 instances, the rest DP = 128.
+// dtype codes: 0 = float32, 1 = bfloat16, 2 = float16. window <= 0 means
+// none; kmask may be null. sm_scale is 1/sqrt(D), passed by the caller.
+// bf16 head dims up to 64 run the DP = 64 wgmma instances, up to 128 the
+// DP = 128 ones; the rest, and f32 and f16, the CUDA-core kernels.
 
 extern "C" int flash_fwd(int dtype, const void* q, const void* k,
                          const void* v, const void* kmask, void* o,
                          void* lse, int B, int H, int Sq, int Sk, int D,
                          int causal, int window, float sm_scale,
                          void* stream) {
-  if (bad_shape(B, H, Sq, Sk, D)) return -1;
+  if (bad_shape(dtype, B, H, Sq, Sk, D)) return -1;
   Shape sh{H, Sq, Sk, D, causal, window, sm_scale};
   auto st = static_cast<cudaStream_t>(stream);
   auto km = static_cast<const uint8_t*>(kmask);
   auto ls = static_cast<float*>(lse);
+  if (sm90(dtype, D))
+    return D <= 64 ? launch_fwd_sm90<64>(q, k, v, km, o, ls, B, sh, st)
+                   : launch_fwd_sm90<128>(q, k, v, km, o, ls, B, sh, st);
   if (dtype == 0) return launch_fwd<float>(q, k, v, km, o, ls, B, sh, st);
-  if (dtype == 1)
-    return sh.D <= 64
-               ? launch_fwd_sm90<64>(q, k, v, km, o, ls, B, sh, st)
-               : launch_fwd_sm90<128>(q, k, v, km, o, ls, B, sh, st);
-  return -1;
+  if (dtype == 1) return launch_fwd<bf16>(q, k, v, km, o, ls, B, sh, st);
+  return launch_fwd<f16>(q, k, v, km, o, ls, B, sh, st);
 }
 
 // Also writes delta [B, H, Sq] f32 for flash_bwd_dkv, which must run
@@ -1391,21 +1415,22 @@ extern "C" int flash_bwd_dq(int dtype, const void* q, const void* k,
                             void* delta, int B, int H, int Sq, int Sk, int D,
                             int causal, int window, float sm_scale,
                             void* stream) {
-  if (bad_shape(B, H, Sq, Sk, D)) return -1;
+  if (bad_shape(dtype, B, H, Sq, Sk, D)) return -1;
   Shape sh{H, Sq, Sk, D, causal, window, sm_scale};
   auto st = static_cast<cudaStream_t>(stream);
   auto km = static_cast<const uint8_t*>(kmask);
   auto ls = static_cast<const float*>(lse);
   auto dl = static_cast<float*>(delta);
+  if (sm90(dtype, D))
+    return D <= 64 ? launch_dq_sm90<64>(q, k, v, o, dout, ls, km, dq, dl, B,
+                                        sh, st)
+                   : launch_dq_sm90<128>(q, k, v, o, dout, ls, km, dq, dl, B,
+                                         sh, st);
   if (dtype == 0)
     return launch_dq<float>(q, k, v, o, dout, ls, km, dq, dl, B, sh, st);
   if (dtype == 1)
-    return sh.D <= 64
-               ? launch_dq_sm90<64>(q, k, v, o, dout, ls, km, dq, dl, B, sh,
-                                    st)
-               : launch_dq_sm90<128>(q, k, v, o, dout, ls, km, dq, dl, B,
-                                     sh, st);
-  return -1;
+    return launch_dq<bf16>(q, k, v, o, dout, ls, km, dq, dl, B, sh, st);
+  return launch_dq<f16>(q, k, v, o, dout, ls, km, dq, dl, B, sh, st);
 }
 
 extern "C" int flash_bwd_dkv(int dtype, const void* q, const void* k,
@@ -1414,21 +1439,22 @@ extern "C" int flash_bwd_dkv(int dtype, const void* q, const void* k,
                              const void* kmask, void* dk, void* dv, int B,
                              int H, int Sq, int Sk, int D, int causal,
                              int window, float sm_scale, void* stream) {
-  if (bad_shape(B, H, Sq, Sk, D)) return -1;
+  if (bad_shape(dtype, B, H, Sq, Sk, D)) return -1;
   Shape sh{H, Sq, Sk, D, causal, window, sm_scale};
   auto st = static_cast<cudaStream_t>(stream);
   auto km = static_cast<const uint8_t*>(kmask);
   auto ls = static_cast<const float*>(lse);
   auto dl = static_cast<const float*>(delta);
+  if (sm90(dtype, D))
+    return D <= 64 ? launch_dkv_sm90<64>(q, k, v, dout, ls, dl, km, dk, dv, B,
+                                         sh, st)
+                   : launch_dkv_sm90<128>(q, k, v, dout, ls, dl, km, dk, dv,
+                                          B, sh, st);
   if (dtype == 0)
     return launch_dkv<float>(q, k, v, dout, ls, dl, km, dk, dv, B, sh, st);
   if (dtype == 1)
-    return sh.D <= 64
-               ? launch_dkv_sm90<64>(q, k, v, dout, ls, dl, km, dk, dv, B,
-                                     sh, st)
-               : launch_dkv_sm90<128>(q, k, v, dout, ls, dl, km, dk, dv, B,
-                                      sh, st);
-  return -1;
+    return launch_dkv<bf16>(q, k, v, dout, ls, dl, km, dk, dv, B, sh, st);
+  return launch_dkv<f16>(q, k, v, dout, ls, dl, km, dk, dv, B, sh, st);
 }
 
 // Dynamic shared memory in bytes of a bf16 (wgmma) kernel, for reports:

@@ -43,6 +43,15 @@ __device__ __forceinline__ void cp_async4(void* smem, const void* gmem,
                : "memory");
 }
 
+// 8 bytes from global to shared memory, asynchronously (through L1, for
+// rows whose size or start is a multiple of 8 but not of 16).
+__device__ __forceinline__ void cp_async8(void* smem, const void* gmem) {
+  const uint32_t s = static_cast<uint32_t>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n" ::"r"(s),
+               "l"(gmem)
+               : "memory");
+}
+
 __device__ __forceinline__ void cp_async_commit() {
   asm volatile("cp.async.commit_group;\n" ::: "memory");
 }

@@ -7,7 +7,11 @@
 //   - the page table [S, P] and lengths [S] are data; only the slot's live
 //     pages (j * ps < length) are read;
 //   - the GQA group is broadcast in-kernel: q is [S, Hkv, G, D] and K/V
-//     rows are never repeated;
+//     rows are never repeated; any group G >= 1 and any head dim up to
+//     256 whose pool row is a whole number of 4-byte words (multiples of
+//     32 up to 1024 beyond that);
+//   - q, the new rows and the output are f32, bf16 or f16; the pool f32,
+//     bf16, f16 or int8;
 //   - int8 pools are dequantized in f32 as code * per-row-per-head scale;
 //   - a sliding window keeps pos > length - window (window <= 0: none);
 //   - scores, probabilities and P.V stay in f32;
@@ -27,19 +31,25 @@
 //     partial (m = -1e30, l = 0) and exits;
 //   - inside a split, pages stream through a ring of shared-memory
 //     buffers filled by cp.async with 16-byte copies (neighbouring threads
-//     on neighbouring addresses), up to three pages ahead of the one being
+//     on neighbouring addresses; 8- or 4-byte copies where a row's size or
+//     start is not a multiple of 16), up to three pages ahead of the one being
 //     scored, with one barrier per page. The split scores its K pages,
 //     takes its softmax statistics once, then streams its V pages through
 //     the same ring; its partial (m, l and the unnormalised P.V row) goes
 //     to f32 scratch;
 //   - a split block is latency-bound, so it keeps instructions few and
-//     independent: the GQA group width is built in (4, 8 or 16), a row's
-//     group dots are summed across the warp by one transposing butterfly,
+//     independent: the GQA group width is built in (4, 8 or 16; a wider
+//     group is cut into tiles of 16 along the grid's second dimension,
+//     each tile writing its own heads' partials), a row's group dots are
+//     summed across the warp by one transposing butterfly,
 //     256 threads share the rows of P.V, and the split's page ids are
 //     read into shared memory once;
 //   - a second kernel combines the splits of each (slot, kv head) in split
 //     order, with no atomics (the result is deterministic), skips empty
 //     splits, and folds the new token last.
+// Head dims that are not a multiple of 32 need no padding: every loop
+// over a row's columns runs to D (lanes past it add zeros to the warp
+// sums), and the combine's block is D rounded up to a warp.
 // The number of splits follows from the page table's width and the page
 // size, both known on the host, so a launch never reads device data on
 // the host.
@@ -49,6 +59,7 @@
 // cudaGetLastError().
 
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -57,13 +68,13 @@
 namespace {
 
 constexpr float kNegInf = -1e30f;
-constexpr int kMaxGroup = 16;
 constexpr int kMaxSmem = 232448;  // a block's shared memory on an H100
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
   return __bfloat162float(x);
 }
+__device__ __forceinline__ float to_f32(__half x) { return __half2float(x); }
 __device__ __forceinline__ float to_f32(int8_t x) {
   return static_cast<float>(x);
 }
@@ -75,6 +86,10 @@ __device__ __forceinline__ float from_f32<float>(float x) { return x; }
 template <>
 __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
   return __float2bfloat16(x);  // round to nearest even
+}
+template <>
+__device__ __forceinline__ __half from_f32<__half>(float x) {
+  return __float2half_rn(x);
 }
 
 __device__ __forceinline__ float warp_sum(float v) {
@@ -98,8 +113,10 @@ __device__ __forceinline__ void cp_async_wait_stages(int stages) {
   }
 }
 
+// gran: bytes of one cp.async copy (16, 8 or 4), the widest that divides
+// a pool row and both pools' starts.
 struct SplitArgs {
-  int Hkv, G, D, P, ps, pps, nsplit, stages, window;
+  int Hkv, G, D, P, ps, pps, nsplit, stages, window, gran;
   float sm_scale;
 };
 
@@ -148,10 +165,12 @@ __device__ __forceinline__ void warp_sum_transpose(float (&v)[kG], int lane) {
     v[0] += __shfl_xor_sync(0xffffffffu, v[0], o);
 }
 
-// Grid (nsplit, Hkv, S); blockDim split_threads(D) <= kThreads. Split `sp`
-// of slot s owns pages [sp * pps, (sp + 1) * pps) of the slot's table row.
-// kG is G rounded up to 4, 8 or 16: the group loops unroll whole, and q's
-// padded heads are zeros whose results are never written.
+// Grid (nsplit, Hkv * tiles, S); blockDim split_threads(D) <= kThreads.
+// Split `sp` of slot s owns pages [sp * pps, (sp + 1) * pps) of the slot's
+// table row. Group tile `gt` owns query heads [gt * kG, gt * kG + kG) of
+// the G: kG is G rounded up to 4, 8 or 16 (16 and several tiles past 16),
+// so the group loops unroll whole, and q's heads past G are zeros whose
+// results are never written.
 template <typename QT, typename PT, bool kQuant, int kG, int kThreads>
 __global__ void __launch_bounds__(kThreads, 1)
     paged_decode_split_kernel(const QT* __restrict__ q,        // [S,Hkv,G,D]
@@ -167,10 +186,12 @@ __global__ void __launch_bounds__(kThreads, 1)
                               SplitArgs a) {
   const int Hkv = a.Hkv, G = a.G, D = a.D, ps = a.ps;
   const int R = a.pps * ps;  // rows of a split
-  const int sp = blockIdx.x, h = blockIdx.y, s = blockIdx.z;
+  const int sp = blockIdx.x, s = blockIdx.z;
+  const int h = blockIdx.y % Hkv, g0 = (blockIdx.y / Hkv) * kG;
+  const int Gt = min(kG, G - g0);  // this tile's query heads
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int nwarps = blockDim.x >> 5;
-  const size_t pidx = (((size_t)s * Hkv + h) * a.nsplit + sp) * G;
+  const size_t pidx = (((size_t)s * Hkv + h) * a.nsplit + sp) * G + g0;
 
   // the split's visible pool rows: [first, end)
   const int length = lengths[s];
@@ -179,7 +200,7 @@ __global__ void __launch_bounds__(kThreads, 1)
   const int r0 = sp * R;
   const int first = max(r0, lo), end = min(r0 + R, live_end);
   if (first >= end) {
-    if (tid < G) {
+    if (tid < Gt) {
       part_m[pidx + tid] = kNegInf;
       part_l[pidx + tid] = 0.f;
     }
@@ -201,14 +222,15 @@ __global__ void __launch_bounds__(kThreads, 1)
   // the page ids, read once: the ring's copies never wait on the table
   for (int i = tid; i < npg; i += blockDim.x)
     pid_s[i] = table[(size_t)s * a.P + pb + i];
-  const size_t qbase = ((size_t)s * Hkv + h) * G * D;
+  const size_t qbase = (((size_t)s * Hkv + h) * G + g0) * D;
   for (int i = tid; i < kG * D; i += blockDim.x)
-    q_s[i] = i < G * D ? to_f32(q[qbase + i]) : 0.f;
+    q_s[i] = i < Gt * D ? to_f32(q[qbase + i]) : 0.f;
   __syncthreads();
 
   // page load t: the K pages of the split, then its V pages
   const size_t hd = (size_t)Hkv * D;
-  const int chunks = static_cast<int>(row_bytes / 16);
+  const int gran = a.gran;
+  const int chunks = static_cast<int>(row_bytes) / gran;
   auto issue = [&](int t) {
     if (t < 2 * npg) {
       const bool is_v = t >= npg;
@@ -218,8 +240,14 @@ __global__ void __launch_bounds__(kThreads, 1)
       char* dst = ring + (t % a.stages) * stage_bytes;
       for (int i = tid; i < ps * chunks; i += blockDim.x) {
         const int r = i / chunks, c = i - r * chunks;
-        hopper::cp_async16(dst + r * row_bytes + c * 16,
-                           src + r * hd * sizeof(PT) + c * 16);
+        char* d = dst + r * row_bytes + c * gran;
+        const char* g = src + r * hd * sizeof(PT) + c * gran;
+        if (gran == 16)
+          hopper::cp_async16(d, g);
+        else if (gran == 8)
+          hopper::cp_async8(d, g);
+        else
+          hopper::cp_async4(d, g);
       }
     }
     hopper::cp_async_commit();  // empty groups keep the count uniform
@@ -284,7 +312,7 @@ __global__ void __launch_bounds__(kThreads, 1)
       // query head; the split has a visible row, so m is finite, l >= 1
       __syncthreads();
       const int rows = npg * ps;
-      for (int g = warp; g < G; g += nwarps) {
+      for (int g = warp; g < Gt; g += nwarps) {
         float mx = kNegInf;
         for (int r = lane; r < rows; r += 32) mx = fmaxf(mx, p_s[g * R + r]);
         mx = warp_max(mx);
@@ -319,18 +347,19 @@ __global__ void __launch_bounds__(kThreads, 1)
     }
 #pragma unroll
     for (int g = 0; g < kG; ++g)
-      if (g < G) part_acc[(pidx + g) * D + col] = acc[g];
+      if (g < Gt) part_acc[(pidx + g) * D + col] = acc[g];
   }
-  if (tid < G) {
+  if (tid < Gt) {
     part_m[pidx + tid] = m_s[tid];
     part_l[pidx + tid] = l_s[tid];
   }
 }
 
-// Grid (Hkv, S); blockDim D. Merges the splits of one (slot, kv head) in
-// split order and folds the new token's K/V last: one warp per query head
-// turns the splits' (m, l) and the new token's score into normalised
-// weights in shared memory, then thread d sums column d.
+// Grid (Hkv, S); blockDim D rounded up to a warp. Merges the splits of one
+// (slot, kv head) in split order and folds the new token's K/V last: one
+// warp per query head turns the splits' (m, l) and the new token's score
+// into normalised weights in shared memory, then thread d < D sums column
+// d.
 template <typename QT, typename RT>
 __global__ void __launch_bounds__(1024)
     paged_decode_combine_kernel(const QT* __restrict__ q,
@@ -342,8 +371,8 @@ __global__ void __launch_bounds__(1024)
                                 QT* __restrict__ out,  // [S,Hkv,G,D]
                                 int Hkv, int G, int D, int nsplit,
                                 float sm_scale) {
-  __shared__ float pn_s[kMaxGroup];    // the new token's weight
   extern __shared__ float w_s[];        // [G, nsplit] the splits' weights
+  float* pn_s = w_s + G * nsplit;       // [G] the new token's weight
   const int h = blockIdx.x, s = blockIdx.y, d = threadIdx.x;
   const int lane = d & 31, warp = d >> 5, nwarps = blockDim.x >> 5;
   const size_t qbase = ((size_t)s * Hkv + h) * G * D;
@@ -383,6 +412,7 @@ __global__ void __launch_bounds__(1024)
     if (lane == 0) pn_s[g] = p * inv;
   }
   __syncthreads();
+  if (d >= D) return;
   const float vn = to_f32(v_row[rbase + d]);
   for (int g = 0; g < G; ++g) {
     float o = pn_s[g] * vn;
@@ -408,11 +438,17 @@ int set_smem(Kernel kernel, size_t bytes) {
       static_cast<int>(bytes)));
 }
 
+// The launch's pointers: q [S,Hkv,G,D]; the new rows [S,Hkv,D]; the pools
+// and their scales; the table and lengths; the f32 partials; the output.
+struct Ptrs {
+  const void *q, *k_row, *v_row, *pool_k, *pool_v, *k_scales, *v_scales;
+  const int *table, *lengths;
+  float *part_m, *part_l, *part_acc;
+  void* out;
+};
+
 template <typename QT, typename PT, bool kQuant, int kG>
-int launch_split(const void* q, const void* pool_k, const void* pool_v,
-                 const void* k_scales, const void* v_scales, const int* table,
-                 const int* lengths, float* part_m, float* part_l,
-                 float* part_acc, int S, SplitArgs a, cudaStream_t stream) {
+int launch_split(const Ptrs& p, int S, SplitArgs a, cudaStream_t stream) {
   // the deepest ring (up to 4 pages) that fits
   a.stages = 4;
   while (a.stages > 2 && split_smem(a.stages, a.ps, a.D, sizeof(PT), kG,
@@ -420,6 +456,8 @@ int launch_split(const void* q, const void* pool_k, const void* pool_v,
     --a.stages;
   const size_t smem = split_smem(a.stages, a.ps, a.D, sizeof(PT), kG, a.pps);
   if (smem > kMaxSmem) return -1;
+  const int tiles = (a.G + kG - 1) / kG;
+  if ((long)a.Hkv * tiles > 65535) return -1;
   // up to 256 threads a block may hold 255 registers a thread; head dims
   // over 256 take a thread a column and the 16-wide group
   auto split = paged_decode_split_kernel<QT, PT, kQuant, kG, 256>;
@@ -427,78 +465,79 @@ int launch_split(const void* q, const void* pool_k, const void* pool_v,
     if (a.D > 256) split = paged_decode_split_kernel<QT, PT, kQuant, 16, 1024>;
   }
   if (int e = set_smem(split, smem)) return e;
-  split<<<dim3(a.nsplit, a.Hkv, S), dim3(split_threads(a.D)), smem,
+  split<<<dim3(a.nsplit, a.Hkv * tiles, S), dim3(split_threads(a.D)), smem,
           stream>>>(
-      static_cast<const QT*>(q), static_cast<const PT*>(pool_k),
-      static_cast<const PT*>(pool_v),
-      static_cast<const __nv_bfloat16*>(k_scales),
-      static_cast<const __nv_bfloat16*>(v_scales), table, lengths, part_m,
-      part_l, part_acc, a);
+      static_cast<const QT*>(p.q), static_cast<const PT*>(p.pool_k),
+      static_cast<const PT*>(p.pool_v),
+      static_cast<const __nv_bfloat16*>(p.k_scales),
+      static_cast<const __nv_bfloat16*>(p.v_scales), p.table, p.lengths,
+      p.part_m, p.part_l, p.part_acc, a);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <typename QT, typename PT, typename RT, bool kQuant>
-int launch(const void* q, const void* k_row, const void* v_row,
-           const void* pool_k, const void* pool_v, const void* k_scales,
-           const void* v_scales, const int* table, const int* lengths,
-           float* part_m, float* part_l, float* part_acc, void* out, int S,
-           SplitArgs a, cudaStream_t stream) {
+int launch(const Ptrs& p, int S, SplitArgs a, cudaStream_t stream) {
   // the group width the split kernel is built for: G rounded up to 4, 8
-  // or 16 (16 for head dims over 256)
+  // or 16, tiles of 16 past that (16 for head dims over 256)
   const int kg = a.D > 256 ? 16 : a.G <= 4 ? 4 : a.G <= 8 ? 8 : 16;
-  int e = kg == 4 ? launch_split<QT, PT, kQuant, 4>(
-                        q, pool_k, pool_v, k_scales, v_scales, table,
-                        lengths, part_m, part_l, part_acc, S, a, stream)
-          : kg == 8 ? launch_split<QT, PT, kQuant, 8>(
-                          q, pool_k, pool_v, k_scales, v_scales, table,
-                          lengths, part_m, part_l, part_acc, S, a, stream)
-                    : launch_split<QT, PT, kQuant, 16>(
-                          q, pool_k, pool_v, k_scales, v_scales, table,
-                          lengths, part_m, part_l, part_acc, S, a, stream);
+  int e = kg == 4   ? launch_split<QT, PT, kQuant, 4>(p, S, a, stream)
+          : kg == 8 ? launch_split<QT, PT, kQuant, 8>(p, S, a, stream)
+                    : launch_split<QT, PT, kQuant, 16>(p, S, a, stream);
   if (e) return e;
-  const size_t combine_smem = sizeof(float) * a.G * a.nsplit;
+  const size_t combine_smem = sizeof(float) * a.G * (a.nsplit + 1);
   if (combine_smem > kMaxSmem) return -1;
   auto combine = paged_decode_combine_kernel<QT, RT>;
   if ((e = set_smem(combine, combine_smem))) return e;
-  combine<<<dim3(a.Hkv, S), dim3(a.D), combine_smem, stream>>>(
-      static_cast<const QT*>(q), static_cast<const RT*>(k_row),
-      static_cast<const RT*>(v_row), part_m, part_l, part_acc,
-      static_cast<QT*>(out), a.Hkv, a.G, a.D, a.nsplit, a.sm_scale);
+  combine<<<dim3(a.Hkv, S), dim3((a.D + 31) / 32 * 32), combine_smem,
+            stream>>>(
+      static_cast<const QT*>(p.q), static_cast<const RT*>(p.k_row),
+      static_cast<const RT*>(p.v_row), p.part_m, p.part_l, p.part_acc,
+      static_cast<QT*>(p.out), a.Hkv, a.G, a.D, a.nsplit, a.sm_scale);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <typename QT, typename RT>
-int dispatch_pool(int pool_dtype, const void* q, const void* k_row,
-                  const void* v_row, const void* pool_k, const void* pool_v,
-                  const void* k_scales, const void* v_scales,
-                  const int* table, const int* lengths, float* part_m,
-                  float* part_l, float* part_acc, void* out, int S,
-                  SplitArgs a, cudaStream_t stream) {
+int dispatch_pool(int pool_dtype, const Ptrs& p, int S, SplitArgs a,
+                  cudaStream_t st) {
   switch (pool_dtype) {
-    case 0:
-      return launch<QT, float, RT, false>(
-          q, k_row, v_row, pool_k, pool_v, k_scales, v_scales, table,
-          lengths, part_m, part_l, part_acc, out, S, a, stream);
-    case 1:
-      return launch<QT, __nv_bfloat16, RT, false>(
-          q, k_row, v_row, pool_k, pool_v, k_scales, v_scales, table,
-          lengths, part_m, part_l, part_acc, out, S, a, stream);
-    case 2:
-      return launch<QT, int8_t, RT, true>(
-          q, k_row, v_row, pool_k, pool_v, k_scales, v_scales, table,
-          lengths, part_m, part_l, part_acc, out, S, a, stream);
+    case 0: return launch<QT, float, RT, false>(p, S, a, st);
+    case 1: return launch<QT, __nv_bfloat16, RT, false>(p, S, a, st);
+    case 2: return launch<QT, int8_t, RT, true>(p, S, a, st);
+    case 3: return launch<QT, __half, RT, false>(p, S, a, st);
   }
   return -1;
 }
 
+template <typename QT>
+int dispatch_row(int row_dtype, int pool_dtype, const Ptrs& p, int S,
+                 SplitArgs a, cudaStream_t st) {
+  switch (row_dtype) {
+    case 0: return dispatch_pool<QT, float>(pool_dtype, p, S, a, st);
+    case 1: return dispatch_pool<QT, __nv_bfloat16>(pool_dtype, p, S, a, st);
+    case 3: return dispatch_pool<QT, __half>(pool_dtype, p, S, a, st);
+  }
+  return -1;
+}
+
+int elt_size(int dtype) {
+  switch (dtype) {
+    case 0: return 4;
+    case 1: case 3: return 2;
+    case 2: return 1;
+  }
+  return 0;
+}
+
 }  // namespace
 
-// dtype codes: 0 = float32, 1 = bfloat16, 2 = int8 (pool only).
-// part_m and part_l are [S, Hkv, nsplit, G] f32 and part_acc
+// dtype codes: 0 = float32, 1 = bfloat16, 2 = int8 (pool only), 3 =
+// float16. part_m and part_l are [S, Hkv, nsplit, G] f32 and part_acc
 // [S, Hkv, nsplit, G, D] f32 scratch; split i owns table columns
-// [i * pps, (i + 1) * pps), so nsplit * pps must cover P. Returns
-// cudaGetLastError() after the launches, or -1 for arguments the kernels
-// are not built for.
+// [i * pps, (i + 1) * pps), so nsplit * pps must cover P. Head dims: any
+// D <= 256 whose pool row (D times the pool's element size) is a multiple
+// of 4 bytes, and multiples of 32 up to 1024; the pools must start on 4
+// bytes. Returns cudaGetLastError() after the launches, or -1 for
+// arguments the kernels do not take.
 extern "C" int paged_decode(int q_dtype, int pool_dtype, int row_dtype,
                             const void* q, const void* k_row,
                             const void* v_row, const void* pool_k,
@@ -509,29 +548,26 @@ extern "C" int paged_decode(int q_dtype, int pool_dtype, int row_dtype,
                             int D, int P, int ps, int pps, int nsplit,
                             int window, float sm_scale, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (G < 1 || G > kMaxGroup || D < 32 || D % 32 != 0 || D > 1024) return -1;
+  const long row_bytes = (long)D * elt_size(pool_dtype);
+  const uintptr_t ak = reinterpret_cast<uintptr_t>(pool_k);
+  const uintptr_t av = reinterpret_cast<uintptr_t>(pool_v);
+  if (G < 1 || D < 1 || row_bytes == 0 || row_bytes % 4 || ak % 4 || av % 4)
+    return -1;
+  if (D > 256 && (D % 32 != 0 || D > 1024)) return -1;
   if (S < 1 || Hkv < 1 || ps < 1 || pps < 1 || (long)nsplit * pps < P ||
       S > 65535 || Hkv > 65535)
     return -1;
-  SplitArgs a{Hkv, G, D, P, ps, pps, nsplit, 2, window, sm_scale};
-  auto pm = static_cast<float*>(part_m);
-  auto pl = static_cast<float*>(part_l);
-  auto pa = static_cast<float*>(part_acc);
-  if (q_dtype == 0 && row_dtype == 0)
-    return dispatch_pool<float, float>(pool_dtype, q, k_row, v_row, pool_k,
-                                       pool_v, k_scales, v_scales, table,
-                                       lengths, pm, pl, pa, out, S, a, st);
-  if (q_dtype == 0 && row_dtype == 1)
-    return dispatch_pool<float, __nv_bfloat16>(
-        pool_dtype, q, k_row, v_row, pool_k, pool_v, k_scales, v_scales,
-        table, lengths, pm, pl, pa, out, S, a, st);
-  if (q_dtype == 1 && row_dtype == 0)
-    return dispatch_pool<__nv_bfloat16, float>(
-        pool_dtype, q, k_row, v_row, pool_k, pool_v, k_scales, v_scales,
-        table, lengths, pm, pl, pa, out, S, a, st);
-  if (q_dtype == 1 && row_dtype == 1)
-    return dispatch_pool<__nv_bfloat16, __nv_bfloat16>(
-        pool_dtype, q, k_row, v_row, pool_k, pool_v, k_scales, v_scales,
-        table, lengths, pm, pl, pa, out, S, a, st);
+  int gran = 16;
+  while (gran > 4 && (row_bytes % gran || ak % gran || av % gran)) gran /= 2;
+  SplitArgs a{Hkv, G, D, P, ps, pps, nsplit, 2, window, gran, sm_scale};
+  Ptrs p{q, k_row, v_row, pool_k, pool_v, k_scales, v_scales, table, lengths,
+         static_cast<float*>(part_m), static_cast<float*>(part_l),
+         static_cast<float*>(part_acc), out};
+  switch (q_dtype) {
+    case 0: return dispatch_row<float>(row_dtype, pool_dtype, p, S, a, st);
+    case 1:
+      return dispatch_row<__nv_bfloat16>(row_dtype, pool_dtype, p, S, a, st);
+    case 3: return dispatch_row<__half>(row_dtype, pool_dtype, p, S, a, st);
+  }
   return -1;
 }

@@ -15,6 +15,7 @@
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from .common import dot_product_attention, repeat_kv
@@ -162,10 +163,20 @@ def _mix32_int(x: int) -> int:
     return x ^ (x >> 16)
 
 
-def stream_key(key: int) -> tuple[int, int]:
-    """The two 32-bit words of a sampling key (any python int)."""
-    key = int(key) & 0xFFFFFFFFFFFFFFFF
-    return key & _M32, key >> 32
+def stream_key(key) -> tuple[int, int]:
+    """The two 32-bit words of a sampling key: a python int gives its low
+    and high words; a uint32[2] key (the reference's raw key data, e.g.
+    `np.array([seed, i], np.uint32)`) gives its two entries as they are,
+    so it draws the stream of the int `w0 + 2**32 * w1`. Distinct words
+    give distinct streams, and an int's stream never changes."""
+    if isinstance(key, (int, np.integer)):
+        key = int(key) & 0xFFFFFFFFFFFFFFFF
+        return key & _M32, key >> 32
+    words = np.asarray(key).reshape(-1)
+    if words.shape != (2,) or words.dtype.kind not in "iu":
+        raise ValueError(f"a sampling key is an int or a uint32[2] pair, "
+                         f"got {key!r}")
+    return int(words[0]) & _M32, int(words[1]) & _M32
 
 
 def derive_key(seed: int, index: int) -> tuple[int, int]:

@@ -11,6 +11,12 @@ three entry points launch the hand-written Hopper kernels of
 - `flash_backward` launches the two in turn, from the saved output and
   LSE.
 
+bf16 head dims up to 128 run the `wgmma` kernels; f32, f16 and bf16 head
+dims up to 256 run the CUDA-core kernels of the same semantics. Any head
+dim whose rows are whole 16-byte pieces (a multiple of 4 in f32, of 8 in
+bf16/f16) up to 256 launches a kernel: that covers every head dim the
+reference's tests give its kernels.
+
 On a CPU tensor they run `flash_forward_reference` and
 `flash_backward_reference`, the plain versions with identical semantics
 (dense, one S x S matrix). `flash_attention` wraps them in an autograd
@@ -45,8 +51,9 @@ __all__ = [
 ]
 
 # the kernels' dtype codes (csrc/flash_attention.cu)
-_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
-_MAX_D = 128
+_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
+_MAX_D = 256
+_ELT = {torch.float32: 4, torch.bfloat16: 2, torch.float16: 2}
 
 
 def _lib():
@@ -91,11 +98,13 @@ def _check(tensors: dict, D: int) -> None:
             dtype = t.dtype
         if t.dtype != dtype or t.dtype not in _DTYPE_CODE:
             raise ValueError(
-                f"{what} dtype {t.dtype}: the kernels take float32 or "
-                "bfloat16, the same for every operand")
-    if D % 16 or not 16 <= D <= _MAX_D:
-        raise ValueError(f"the kernels take head_dim a multiple of 16 in "
-                         f"[16, {_MAX_D}]; got {D}")
+                f"{what} dtype {t.dtype}: the kernels take float32, "
+                "bfloat16 or float16, the same for every operand")
+    # rows are copied in 16-byte pieces: 4 f32 or 8 bf16/f16 columns
+    if (D * _ELT[dtype]) % 16 or not 1 <= D <= _MAX_D:
+        raise ValueError(
+            f"the kernels take a head_dim up to {_MAX_D} that is a multiple "
+            f"of {16 // _ELT[dtype]} in {dtype}; got {D}")
 
 
 def _key_mask_u8(mask, b: int, sk: int, device):

@@ -45,8 +45,9 @@ __all__ = [
 ]
 
 # the kernel's dtype codes (csrc/paged_decode.cu)
-_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
-_MAX_GROUP = 16
+_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2,
+               torch.float16: 3}
+_FLOATS = (torch.float32, torch.bfloat16, torch.float16)
 _SMEM_LIMIT = 232448      # a block's shared memory on an H100
 _SPLIT_ROWS = 128         # pool rows of one split (one block)
 
@@ -139,8 +140,8 @@ def _split_smem(page_size: int, D: int, elt: int, G: int,
     `split_smem`): a ring of `stages` pages, q in f32, the split's
     scores, m and l per query head, the split's page ids, and the P.V
     sums of all but one row group of threads; the group is G rounded up
-    to the kernel's width (4, 8 or 16). The kernel deepens the ring to
-    four pages where that fits."""
+    to the kernel's width (4, 8 or 16; tiles of 16 past that). The
+    kernel deepens the ring to four pages where that fits."""
     kg = 16 if D > 256 or G > 8 else 8 if G > 4 else 4
     groups = max(D, 256) // D
     pps, _ = _split_plan(1, page_size)
@@ -162,12 +163,14 @@ def _check_kernel_inputs(q4, k_row, pk: PagedKV, pv: PagedKV,
             raise ValueError(f"{what} is on {t.device}, q on {dev}")
         if not t.is_contiguous():
             raise ValueError(f"{what} must be contiguous")
+    # the kernel copies pool rows in 16-, 8- or 4-byte pieces, the widest
+    # that divides a row and both pools' starts
     for what in ("pool K", "pool V"):
-        if tensors[what].data_ptr() % 16:
-            raise ValueError(f"{what} must be 16-byte aligned")
-    if q4.dtype not in (torch.float32, torch.bfloat16):
+        if tensors[what].data_ptr() % 4:
+            raise ValueError(f"{what} must be 4-byte aligned")
+    if q4.dtype not in _FLOATS:
         raise ValueError(f"q dtype {q4.dtype} not supported")
-    if k_row.dtype not in (torch.float32, torch.bfloat16):
+    if k_row.dtype not in _FLOATS:
         raise ValueError(f"K/V row dtype {k_row.dtype} not supported")
     if pk.data.dtype not in _DTYPE_CODE or pv.data.dtype != pk.data.dtype:
         raise ValueError(
@@ -190,10 +193,15 @@ def _check_kernel_inputs(q4, k_row, pk: PagedKV, pv: PagedKV,
         raise ValueError("page table and lengths must be int32")
     if meta.table.ndim != 2 or tuple(meta.lengths.shape) != (S,):
         raise ValueError("page table must be [S, P] and lengths [S]")
-    if G > _MAX_GROUP or D % 32 or not 32 <= D <= 1024:
+    row_bytes = D * pk.data.element_size()
+    if row_bytes % 4 or (D > 256 and (D % 32 or D > 1024)):
         raise ValueError(
-            f"kernel takes a GQA group <= {_MAX_GROUP} and head_dim a "
-            f"multiple of 32 in [32, 1024]; got group {G}, head_dim {D}")
+            "the kernel takes a head_dim up to 256 whose pool row is a "
+            "whole number of 4-byte words, or a multiple of 32 up to 1024; "
+            f"got head_dim {D} ({row_bytes}-byte {pk.data.dtype} rows)")
+    if Hkv * -(-G // 16) > 65535 or S > 65535:
+        raise ValueError(f"grid too large: {S} slots, {Hkv} kv heads, "
+                         f"group {G}")
     ps = pk.data.shape[1]
     smem = _split_smem(ps, D, pk.data.element_size(), G)
     if smem > _SMEM_LIMIT:

@@ -57,6 +57,17 @@ host; a finished prefill reads one token.
 
 `EngineConfig(sanitize=True)` checks the cross-structure invariants of
 `serving/sanitizer.py` after every step.
+
+Request tracing is the reference's: with `telemetry.trace` enabled every
+request gets a trace id at submit (or joins the caller's, as the HTTP
+front door passes it), and a sampled request records a root span
+`serving.request` with children `serving.queue_wait`, `serving.admit`,
+`serving.swap_in`, `serving.prefill`, `serving.draft_prefill` and
+`serving.decode_lifetime`; the batched steps (`serving.decode`,
+`serving.draft`, `serving.verify`) link every sampled request they
+serve. The spans are host-side: they wrap a program's launch or replay
+from the outside, time its dispatch as the reference's do, and add no
+synchronisation.
 """
 
 from __future__ import annotations
@@ -75,6 +86,14 @@ from ..models.decode import derive_key, gumbel_noise, sample_token, \
 from ..ops import paged_attention as _paged
 from ..ops.paged_attention import PagedDecodeMeta, PagedKV
 from ..telemetry.registry import MetricsRegistry
+from ..telemetry.trace import (
+    head_sample,
+    new_trace_id,
+    next_span_id,
+    record_span,
+    span,
+    tracing_enabled,
+)
 from .cache import (
     PagedAllocator,
     PagedKVCache,
@@ -103,6 +122,60 @@ _KERNEL_COUNTERS = ((_paged, "paged_decode_attention"),)
 # speculative decoding's three draws per position (the reference's
 # fold_in tags)
 DRAFT_TAG, ACCEPT_TAG, RESID_TAG = 1, 2, 3
+
+
+def prepare_request_tracing(req: Request, trace_id, trace_parent,
+                            trace_sampled) -> None:
+    """Install the request's trace identity at submit time. The id is
+    minted whenever tracing is on, sampled or not (request-id plumbing
+    must not depend on the sampling rate); a sampled request
+    pre-allocates its root span id so children can parent onto it before
+    the root closes at the terminal state."""
+    req.trace_id = trace_id
+    req.trace_parent = trace_parent
+    if trace_sampled is None:
+        req.trace_sampled = head_sample(req.tenant)
+    else:
+        req.trace_sampled = bool(trace_sampled) and tracing_enabled()
+    if req.trace_id is None and tracing_enabled():
+        req.trace_id = new_trace_id()
+    if req.trace_sampled:
+        req.span_id = next_span_id()
+
+
+def close_request_trace(req: Request, end: float) -> None:
+    """Close a terminal request's retrospective spans: the decode-lifetime
+    child (first token -> terminal) and the root `serving.request` span
+    carrying status/reason/shed_code. Every terminal path lands here
+    exactly once — finished, cancelled, rejected, shed."""
+    if not req.trace_sampled:
+        return
+    if req.first_token_at is not None and end > req.first_token_at:
+        # decode lifetime: first token -> terminal (prefill chunks are
+        # their own child spans; this is the streaming tail)
+        record_span("serving.decode_lifetime", req.first_token_at, end,
+                    trace=req.trace_id, parent=req.span_id,
+                    tokens=len(req.tokens))
+    attrs: dict[str, Any] = {
+        "request_id": req.request_id,
+        "tenant": req.tenant,
+        "status": req.status.value,
+        "prompt_len": req.prompt_len,
+        "tokens": len(req.tokens),
+    }
+    if req.ttft_s is not None:
+        attrs["ttft_s"] = req.ttft_s
+    if req.reject_reason is not None:
+        attrs["reason"] = req.reject_reason
+    if req.shed_code is not None:
+        attrs["shed_code"] = req.shed_code
+    if req.parent_id is not None:
+        # fork parentage rides the root span: a fan-out's siblings all
+        # name the request whose prompt pages they share
+        attrs["forked_from"] = req.parent_id
+    record_span("serving.request", req.submitted_at, end,
+                trace=req.trace_id, parent=req.trace_parent,
+                span_id=req.span_id, **attrs)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -203,6 +276,13 @@ def _cache_spec(config) -> tuple[int, int, int]:
     if kv is None:
         kv = config.num_attention_heads
     return config.num_hidden_layers, kv, config.head_dim
+
+
+def _links(slots) -> list | None:
+    """The trace ids of the sampled requests a batched step serves."""
+    links = [s.request.trace_id for s in slots
+             if s.request is not None and s.request.trace_sampled]
+    return links or None
 
 
 def _first_tensor(tree):
@@ -333,6 +413,9 @@ class Engine:
         # admission hook: on_admit(slot, request) at the end of every
         # admission, after the slot's page table and state are installed
         self.on_admit: Any = None
+        # the stall watchdog is not ported (`watchdog_timeout_s` raises);
+        # the HTTP service reads this attribute for its health check
+        self.watchdog = None
 
     # -- device programs -----------------------------------------------------
 
@@ -576,18 +659,29 @@ class Engine:
         prompt,
         max_new_tokens: int = 32,
         temperature: float = 0.0,
-        key: int | None = None,
+        key=None,
         eos_token_id: int | None = None,
         deadline_s: float | None = None,
         tenant: str = "default",
         slo_ttft_s: float | None = None,
+        trace_id=None,
+        trace_parent=0,
+        trace_sampled: bool | None = None,
         parent_id: int | None = None,
     ) -> Request:
         """Queue one generation request; returns its handle immediately.
         Overload is reported on the handle (`status` REJECTED with
-        `reject_reason`, `shed_code` and `retry_after_s`). `key` (an int)
-        fixes the request's sampling stream; None derives one from the
-        engine seed and the request id."""
+        `reject_reason`, `shed_code` and `retry_after_s`). `key` fixes the
+        request's sampling stream: an int, or a uint32[2] pair taken as
+        the stream key's two words (`models.decode.stream_key`); None
+        derives one from the engine seed and the request id.
+        `trace_id`/`trace_parent` join the request to an externally
+        minted trace (the HTTP layer's, or an inbound W3C traceparent);
+        with tracing enabled and no id supplied the engine mints one.
+        Whether spans record is the per-tenant head-sampling decision,
+        made here unless the caller passes `trace_sampled` (the server
+        decides once per HTTP request so fan-out siblings sample
+        together)."""
         prompt = np.asarray(prompt, np.int32).reshape(-1)
         if prompt.size == 0:
             raise ValueError("empty prompt")
@@ -599,6 +693,9 @@ class Engine:
             eos_token_id=eos_token_id, deadline_s=deadline_s,
             tenant=tenant, slo_ttft_s=slo_ttft_s, parent_id=parent_id,
         )
+        if key is not None:
+            stream_key(key)  # a malformed key fails here, not at admission
+        prepare_request_tracing(req, trace_id, trace_parent, trace_sampled)
         # drain first, THEN capacity-check: a slot freed since the last
         # step must make room before this request is judged against
         # max_queue
@@ -618,10 +715,13 @@ class Engine:
         parent: Request,
         max_new_tokens: int | None = None,
         temperature: float | None = None,
-        key: int | None = None,
+        key=None,
         eos_token_id: Any = "inherit",
         deadline_s: float | None = None,
         slo_ttft_s: float | None = None,
+        trace_id=None,
+        trace_parent=0,
+        trace_sampled: bool | None = None,
     ) -> Request:
         """COW-fork `parent`: a new request on the same prompt that
         SHARES the parent's prompt pages instead of re-prefilling them.
@@ -649,6 +749,9 @@ class Engine:
             deadline_s=deadline_s,
             tenant=parent.tenant,
             slo_ttft_s=slo_ttft_s,
+            trace_id=trace_id,
+            trace_parent=trace_parent,
+            trace_sampled=trace_sampled,
             parent_id=parent.request_id,
         )
 
@@ -820,7 +923,9 @@ class Engine:
         for i, (node, page) in enumerate(alloc.swap_ins):
             pages.append(self._host_tier.fetch(node))
             rows[i] = page
-        self._swap_transport.install(rows, pages)
+        with self._request_span("serving.swap_in", req, slot=slot.index,
+                                pages=len(alloc.swap_ins)):
+            self._swap_transport.install(rows, pages)
         self.metrics.note_swap_in(len(alloc.swap_ins), self._clock() - t0)
 
     def _run_admit(self, slot: Slot, req: Request) -> None:
@@ -837,10 +942,18 @@ class Engine:
         self.metrics.note_admission(req.prompt_len, alloc.reused_len,
                                     host_pages=len(alloc.swap_ins or ()))
         self._set_page_gauges()
+        if req.trace_sampled:
+            # the queue-wait span is only known in retrospect: it closes
+            # the moment admission happens
+            record_span("serving.queue_wait", req.submitted_at,
+                        req.admitted_at, trace=req.trace_id,
+                        parent=req.span_id, tenant=req.tenant)
         if self._spec:
             slot.draft_done = 0
-        self._graphs("admit", slot.index, key, req.temperature,
-                     alloc.reused_len)
+        with self._request_span("serving.admit", req, slot=slot.index,
+                                reused_len=alloc.reused_len):
+            self._graphs("admit", slot.index, key, req.temperature,
+                         alloc.reused_len)
         if self.on_admit is not None:
             self.on_admit(slot, req)
 
@@ -860,7 +973,10 @@ class Engine:
         start = slot.draft_done
         real = min(self.engine_config.prefill_chunk, upto - start)
         self._upload_chunk(slot, start, real)
-        self._graphs("draft_prefill")
+        with self._request_span("serving.draft_prefill", slot.request,
+                                slot=slot.index, chunk_start=start,
+                                chunk_tokens=real):
+            self._graphs("draft_prefill")
         slot.draft_done += real
 
     def _run_prefill_chunk(self, slot: Slot) -> None:
@@ -877,12 +993,18 @@ class Engine:
         real = min(chunk, req.prompt_len - start)
         self._upload_chunk(slot, start, real)
         self._graphs.upload("table", self._table)
-        lp = self._graphs("prefill")
+        with self._request_span("serving.prefill", req, slot=slot.index,
+                                chunk_start=start, chunk_tokens=real):
+            lp = self._graphs("prefill")
         self.metrics.note_prefill_chunk()
         if self._spec:
             # joint chunk: the draft processes the same window (the
             # buffers still hold it), so both prompts complete together
-            self._graphs("draft_prefill")
+            with self._request_span("serving.draft_prefill", req,
+                                    slot=slot.index,
+                                    chunk_start=slot.draft_done,
+                                    chunk_tokens=real):
+                self._graphs("draft_prefill")
             slot.draft_done += real
         done = self.scheduler.note_prefill_chunk(slot, real)
         if req.share_prompt:
@@ -909,7 +1031,11 @@ class Engine:
             self._run_spec_decode(slots)
             return
         self._upload_step(slots)
-        lps = self._graphs("decode")
+        # one decode step serves every live slot, so the step span
+        # belongs to no single request: span links carry each sampled
+        # request's trace id instead (bounded by num_slots)
+        with span("serving.decode", links=_links(slots)):
+            lps = self._graphs("decode")
         toks = self._tokens.cpu().numpy()  # the per-step host read
         lps = lps.cpu().numpy()
         self.metrics.note_decode_step(
@@ -935,8 +1061,11 @@ class Engine:
             if s.request is not None and not live[s.index]:
                 restore[s.index] = s.draft_done
         self._graphs.upload("restore", restore)
-        self._graphs("draft")
-        committed, counts, n_acc, lps = self._graphs("verify")
+        links = _links(slots)
+        with span("serving.draft", links=links):
+            self._graphs("draft")
+        with span("serving.verify", links=links):
+            committed, counts, n_acc, lps = self._graphs("verify")
         toks = committed.cpu().numpy()   # [S, K]: the per-step host read
         cnts = counts.cpu().numpy()
         accs = n_acc.cpu().numpy()
@@ -955,9 +1084,23 @@ class Engine:
                     self._finalize_request(req)
                     break
 
+    # -- request tracing ---------------------------------------------------
+
+    @staticmethod
+    def _request_span(name: str, req: Request, **attrs):
+        """A live span joined to the request's trace when it is sampled,
+        the plain engine-wide span otherwise."""
+        if req.trace_sampled:
+            return span(name, trace=req.trace_id, parent=req.span_id,
+                        **attrs)
+        return span(name, **attrs)
+
     def _finalize_request(self, req: Request) -> None:
-        """The one terminal path: fold the request into the metrics."""
+        """The one terminal path: close the request's trace, then fold it
+        into the metrics (TTFT/per-token exemplars carry the trace id)."""
         self._fork_parents.pop(req.request_id, None)
+        end = req.finished_at
+        close_request_trace(req, self._clock() if end is None else end)
         self.metrics.observe_request(req)
 
     # -- live introspection ------------------------------------------------
@@ -1045,6 +1188,25 @@ class Engine:
         """The scheduler's policy state (per-tenant queues, DRR deficits,
         SLO EMA, shed counters)."""
         return self.scheduler.debug_state()
+
+    def incident_dumps(self) -> dict:
+        """What an incident report freezes about this engine: the /debug
+        snapshots plus the capture counts (the reference also carries its
+        device-cost table, which the port has not reached). Per-section
+        best-effort: one section's failure must not cost the others."""
+        out: dict[str, Any] = {}
+        for name, build in (
+            ("requests", self.debug_requests),
+            ("slots", self.debug_slots),
+            ("pages", self.debug_pages),
+            ("scheduler", self.debug_scheduler),
+            ("compile_stats", self.compile_stats),
+        ):
+            try:
+                out[name] = build()
+            except Exception as e:
+                out[name] = {"error": f"{type(e).__name__}: {e}"}
+        return out
 
     # -- metrics -----------------------------------------------------------
 

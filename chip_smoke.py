@@ -12,11 +12,15 @@ script exits non-zero:
    kernels' shared memory; a kernel that spills fails the phase;
 3. kernel checks: the paged-decode kernels (K2, split and combine) at
    the serving path's shapes, split boundaries, a window that drops
-   whole splits and head dims 32 and 96, and the flash-attention kernels
+   whole splits, head dims 8, 16, 32, 80, 96 and 256 with GQA groups 1,
+   3 and 32 in bf16, f16 and int8 pools, and the flash-attention kernels
    (K1a forward, K1b dQ, K1c dK/dV) at the training path's shapes and a
-   matrix of masks, windows, lengths and head dims, each against its
-   plain PyTorch version, with its time, its bound and a library
-   yardstick;
+   matrix of masks, windows, lengths and head dims 8 to 256 in bf16, f32
+   and f16, each against its plain PyTorch version, with its time, its
+   bound and a library yardstick (also at the new shapes);
+3b. small_parity: the default engine (paged kernel "auto") on
+   `LlamaConfig.tiny()` (head_dim 16) on the card against the CPU
+   engine: greedy streams identical;
 4. engine: the serving engine at llama3-8B width and depth (random bf16
    weights from a seed), its programs captured as CUDA graphs, 12
    requests through the paged-decode kernel (launches counted through
@@ -25,6 +29,16 @@ script exits non-zero:
 5. parity: one decode step through the kernel path and the dense-gather
    path from the same pool state, logits compared; the eager forward's
    device time beside the captured decode step's;
+5a. server: that engine behind the HTTP front door (`InferenceService`
+   + `HttpFrontDoor` on 127.0.0.1): streamed and unary greedy
+   completions equal to the engine driven directly, TTFT and decode
+   tokens/s over HTTP beside engine-direct, an n=2 fan-out through
+   `fork`, a `traceparent` whose id comes back as x-request-id with its
+   spans recorded, /healthz and /metrics in both expositions, and a
+   drain during which new work gets 503; K2's launches in the HTTP run;
+5a'. serve_cli: `python -m accelerate_tpu_torch.commands.serve` with
+   `--dry-run`, then serving for real on the card: one request over
+   HTTP through K2, then SIGTERM: it drains and exits 0;
 5b. speculative: a 2-layer draft, draft_k 4: greedy streams equal to
    the plain engine's in f32 at 4 layers, then the bf16 32-layer engine
    with its accept rate and the draft and verify programs' times;
@@ -225,7 +239,8 @@ def _paged_inputs(pool_dtype, S=8, Hkv=8, G=4, D=128, ps=16, P=136,
     shape = (num_pages + 1, ps, Hkv, D)
     k = torch.randn(shape, generator=g, device=dev)
     v = torch.randn(shape, generator=g, device=dev)
-    q_dtype = torch.float32 if pool_dtype == torch.float32 else torch.bfloat16
+    # activations in the pool's dtype (bf16 beside an int8 pool)
+    q_dtype = pool_dtype if pool_dtype.is_floating_point else torch.bfloat16
     q = torch.randn((S, 1, Hkv * G, D), generator=g, device=dev).to(q_dtype)
     kn = torch.randn((S, 1, Hkv, D), generator=g, device=dev).to(q_dtype)
     vn = torch.randn((S, 1, Hkv, D), generator=g, device=dev).to(q_dtype)
@@ -299,17 +314,22 @@ def phase_paged_kernel():
     """K2 against its plain version: the serving shapes in each pool
     dtype, with and without a window (300 rows leave the first 14 splits
     of the 2175-row slot empty), then lengths at split boundaries, a
-    window of 129 that drops whole splits of every long slot, and head
-    dims 32 and 96."""
+    window of 129 that drops whole splits of every long slot, head dims
+    32 and 96, and head dims 8, 16, 80 and 256 with groups 1, 3 and 32
+    (two tiles of 16) in bf16 and f16 pools and activations, and int8
+    pools at head dim 8 (8-byte rows). Timed at the serving shape, and
+    at head dims 16 and 256 with a group of 32."""
     import torch
 
     from accelerate_tpu_torch.ops.paged_attention import (
         paged_decode_attention, paged_decode_reference)
 
-    tol = {torch.float32: 1e-4, torch.bfloat16: 2e-2, torch.int8: 2e-2}
+    tol = {torch.float32: 1e-4, torch.bfloat16: 2e-2, torch.int8: 2e-2,
+           torch.float16: 4e-3}
     ps, G = 16, 4
     timing = None
-    bf16 = torch.bfloat16
+    shapes = {}
+    bf16, f16 = torch.bfloat16, torch.float16
     cases = [("serving", dt, window, {})
              for dt in (torch.float32, bf16, torch.int8)
              for window in (None, 300)]
@@ -319,6 +339,12 @@ def phase_paged_kernel():
               ("window_drops_splits", bf16, 129, {}),
               ("head_dim_32", bf16, None, {"D": 32}),
               ("head_dim_96", bf16, 300, {"D": 96})]
+    cases += [(f"D{D}_G{g}", dt, 300 if g == 3 else None,
+               {"D": D, "G": g, "Hkv": 2})
+              for D in (8, 16, 80, 256) for g in (1, 3, 32)
+              for dt in (bf16, f16)]
+    cases += [(f"D8_G{g}", torch.int8, None, {"D": 8, "G": g, "Hkv": 2})
+              for g in (1, 3, 32)]
     for case, pool_dtype, window, kw in cases:
         q, kn, vn, pk, pv, meta, lengths = _paged_inputs(pool_dtype, **kw)
         out, (kr, vr) = paged_decode_attention(q, kn, vn, pk, pv, meta,
@@ -332,6 +358,7 @@ def phase_paged_kernel():
             torch.isfinite(out.float()).all())
         emit("kernel_check", kernel="paged_decode", case=case,
              pool=str(pool_dtype).replace("torch.", ""), D=q.shape[-1],
+             G=q.shape[2] // kn.shape[2], q_dtype=str(q.dtype)[6:],
              lengths=lengths, window=window, max_abs_err=err,
              tol=tol[pool_dtype], rows_identical=rows_equal, ok=ok)
         if not ok:
@@ -340,6 +367,8 @@ def phase_paged_kernel():
                 f"pool {pool_dtype} window {window} err {err}")
         if case == "serving" and pool_dtype == bf16 and window is None:
             timing = (q, kn, vn, pk, pv, meta, lengths, err)
+        if case in ("D16_G32", "D256_G32") and pool_dtype == bf16:
+            shapes[case] = (q, kn, vn, pk, pv, meta, lengths, err)
     # timed at the engine's configuration: bf16 pool, no window
     q, kn, vn, pk, pv, meta, lengths, err = timing
     ms = cuda_time_ms(
@@ -366,6 +395,22 @@ def phase_paged_kernel():
                             "gathered from the pages beforehand",
            "device_ms": device_ms, "wrapper_host_us": host_us}
     emit("kernel_time", **row)
+    for case, (q, kn, vn, pk, pv, meta, lengths, err) in shapes.items():
+        g = q.shape[2] // kn.shape[2]
+        bound_ms, bound_by = _paged_bound(q, pk, lengths, ps, g)
+        emit("kernel_time_shape", name="paged_decode", case=case,
+             shape={"S": q.shape[0], "Hkv": kn.shape[2], "G": g,
+                    "D": q.shape[-1], "page_size": ps, "pool": "bfloat16"},
+             max_abs_err=err,
+             ms=cuda_time_ms(lambda: paged_decode_attention(
+                 q, kn, vn, pk, pv, meta), iters=200),
+             device_ms=_device_ms(lambda: paged_decode_attention(
+                 q, kn, vn, pk, pv, meta), "paged_decode", calls=20),
+             plain_ms=cuda_time_ms(lambda: paged_decode_reference(
+                 q, kn, vn, pk, pv, meta), iters=20),
+             library_ms=cuda_time_ms(_sdpa_yardstick(
+                 q, kn, vn, pk, pv, meta, lengths), iters=100),
+             bound_ms=bound_ms, bound_by=bound_by)
     return [row]
 
 
@@ -420,7 +465,22 @@ FLASH_CASES = [
     ("s_12", 2, 12, 4, 64, True, None, None),
     ("head_dim_32", 1, 1000, 4, 32, True, None, None),
     ("head_dim_96", 2, 2048, 4, 96, True, "row", 300),
+    ("head_dim_8", 1, 1000, 4, 8, True, None, None),
+    ("head_dim_80", 2, 1024, 4, 80, True, "row", 300),
+    ("head_dim_256", 1, 1024, 4, 256, True, None, None),
+    ("head_dim_256_noncausal", 2, 300, 2, 256, False, "row", None),
 ]
+
+# the flash checks' tolerances against the plain version in f32: f32 in
+# another summation order; bf16 and f16 with one rounding of o and of P
+# and dS before their products
+FLASH_TOL = {
+    "float32": {n: 1e-4 for n in ("o", "lse", "dq", "dk", "dv")},
+    "bfloat16": {"o": 2e-2, "lse": 1e-3, "dq_rel_l2": 2e-2,
+                 "dk_rel_l2": 2e-2, "dv_rel_l2": 2e-2},
+    "float16": {"o": 5e-3, "lse": 1e-3, "dq_rel_l2": 5e-3,
+                "dk_rel_l2": 5e-3, "dv_rel_l2": 5e-3},
+}
 
 
 def _flash_inputs(B, S, H, D, mask_kind, dtype, seed):
@@ -469,9 +529,10 @@ def _flash_bounds(B, S, H, D, causal, window, elt):
 
 
 def phase_flash_kernel():
-    """Each case in bf16 and f32: kernel outputs (o, lse) and gradients
-    (dq, dk, dv, one random dO) against the plain versions run in f32 on
-    the same inputs. Then the slice's shape is timed."""
+    """Each case in bf16, f32 and f16: kernel outputs (o, lse) and
+    gradients (dq, dk, dv, one random dO) against the plain versions run
+    in f32 on the same inputs. Then the slice's shape is timed, and head
+    dim 256 in bf16 and head dim 128 in f16 (the CUDA-core kernels)."""
     import torch
 
     from accelerate_tpu_torch.ops import flash_attention as fa
@@ -480,7 +541,7 @@ def phase_flash_kernel():
     failures = []
     timing = None
     for ci, (name, B, S, H, D, causal, mk, window) in enumerate(FLASH_CASES):
-        for dtype in (torch.bfloat16, torch.float32):
+        for dtype in (torch.bfloat16, torch.float32, torch.float16):
             q, k, v, do, mask = _flash_inputs(B, S, H, D, mk, dtype, ci)
             o, lse = fa.flash_forward(q, k, v, causal, mask, window,
                                       save_residuals=True)
@@ -497,11 +558,7 @@ def phase_flash_kernel():
                             ("dv", dv, rdv)):
                 err[n] = _max_abs(a, b)
                 err[n + "_rel_l2"] = _rel_l2(a.float(), b)
-            if dtype == torch.float32:
-                tol = {n: 1e-4 for n in ("o", "lse", "dq", "dk", "dv")}
-            else:
-                tol = {"o": 2e-2, "lse": 1e-3, "dq_rel_l2": 2e-2,
-                       "dk_rel_l2": 2e-2, "dv_rel_l2": 2e-2}
+            tol = FLASH_TOL[str(dtype)[6:]]
             finite = all(bool(torch.isfinite(t.float()).all())
                          for t in (o, lse, dq, dk, dv))
             ok = finite and all(err[n] <= t for n, t in tol.items())
@@ -516,7 +573,57 @@ def phase_flash_kernel():
     if failures:
         raise AssertionError(f"flash kernels disagree with their plain "
                              f"versions: {failures}")
-    return _flash_times(*timing)
+    rows = _flash_times(*timing)
+    for B, S, H, D, dtype in ((1, 2048, 8, 256, torch.bfloat16),
+                              (1, 2048, 8, 128, torch.float16)):
+        _flash_shape_times(B, S, H, D, dtype)
+    return rows
+
+
+def _flash_shape_times(B, S, H, D, dtype):
+    """K1a, K1b and K1c at one causal shape off the wgmma instances (the
+    CUDA-core kernels), beside their plain versions, their bounds and
+    scaled_dot_product_attention (forward; backward by device time)."""
+    import torch
+    import torch.nn.functional as F
+
+    from accelerate_tpu_torch.ops import flash_attention as fa
+
+    q, k, v, do, _ = _flash_inputs(B, S, H, D, None, dtype, 99)
+    o, lse = fa.flash_forward(q, k, v, True, save_residuals=True)
+    _, delta = fa.flash_backward_dq(q, k, v, o, lse, do, True)
+    ms = {"flash_fwd": cuda_time_ms(lambda: fa.flash_forward(
+              q, k, v, True, save_residuals=True), iters=5, warmup=1),
+          "flash_bwd_dq": cuda_time_ms(lambda: fa.flash_backward_dq(
+              q, k, v, o, lse, do, True), iters=5, warmup=1),
+          "flash_bwd_dkv": cuda_time_ms(lambda: fa.flash_backward_dkv(
+              q, k, v, do, lse, delta, True), iters=5, warmup=1)}
+    qf, kf, vf, of, dof = (t.float() for t in (q, k, v, o, do))
+    plain_fwd = cuda_time_ms(
+        lambda: fa.flash_forward_reference(qf, kf, vf, True), iters=3,
+        warmup=1)
+    plain_bwd = cuda_time_ms(
+        lambda: fa.flash_backward_reference(qf, kf, vf, of, lse, dof, True),
+        iters=3, warmup=1)
+    del qf, kf, vf, of, dof
+    qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_()
+                  for t in (q, k, v))
+    sdpa_fwd = cuda_time_ms(
+        lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True),
+        iters=20)
+    with torch.enable_grad():
+        out = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True)
+        sdpa_bwd = _device_ms(lambda: torch.autograd.grad(
+            out, (qt, kt, vt), do.transpose(1, 2), retain_graph=True), "",
+            calls=5)
+    bounds = _flash_bounds(B, S, H, D, True, None, q.element_size())
+    emit("flash_time_shape", shape=[B, S, H, D], causal=True,
+         dtype=str(dtype)[6:], ms=ms,
+         bwd_pair_ms=ms["flash_bwd_dq"] + ms["flash_bwd_dkv"],
+         plain_fwd_ms=plain_fwd, plain_bwd_ms=plain_bwd,
+         sdpa_fwd_ms=sdpa_fwd, sdpa_bwd_device_ms=sdpa_bwd,
+         bounds={n: b[0] for n, b in bounds.items()},
+         bound_by={n: b[1] for n, b in bounds.items()})
 
 
 def _flash_times(q, k, v, do, o, lse, err):
@@ -631,8 +738,9 @@ def _serve(engine, prompts, temps, max_new, keys):
 
 
 def phase_small_parity():
-    """Greedy streams of a tiny llama (f32): the card's engine through
-    the kernel against the CPU engine through the dense-gather path."""
+    """Greedy streams of `LlamaConfig.tiny()` (head_dim 16, f32) under the
+    default engine config: on the card "auto" runs the paged kernel, on
+    the CPU the dense-gather path; the streams must be identical."""
     import numpy as np
     import torch
 
@@ -641,9 +749,10 @@ def phase_small_parity():
         params_from_numpy
     from accelerate_tpu_torch.serving import Engine, EngineConfig
 
-    # head_dim 32: the kernel takes multiples of 32
-    cfg = llama.LlamaConfig.tiny(hidden_size=256, num_attention_heads=8,
-                                 num_key_value_heads=2)
+    from accelerate_tpu_torch.ops.paged_attention import \
+        paged_decode_attention
+
+    cfg = llama.LlamaConfig.tiny()
     params = llama.init_params(cfg, 0, device="cuda")
     cpu_params = params_from_numpy(params_to_numpy(params), device="cpu")
     rng = np.random.default_rng(1)
@@ -652,17 +761,21 @@ def phase_small_parity():
     temps, keys = [0.0] * len(prompts), list(range(len(prompts)))
     kw = dict(num_slots=3, max_len=96, prefill_chunk=8, page_size=16,
               cache_dtype=torch.float32)
-    card = _serve(Engine(llama, cfg, params, EngineConfig(
-        paged_attention=True, **kw)), prompts, temps, 8, keys)
-    host = _serve(Engine(llama, cfg, cpu_params, EngineConfig(
-        paged_attention=False, **kw), device="cpu"), prompts, temps, 8, keys)
+    before = paged_decode_attention.launches
+    card = _serve(Engine(llama, cfg, params, EngineConfig(**kw)), prompts,
+                  temps, 8, keys)
+    launches = paged_decode_attention.launches - before
+    host = _serve(Engine(llama, cfg, cpu_params, EngineConfig(**kw),
+                         device="cpu"), prompts, temps, 8, keys)
     same = [a.tokens for a in card] == [b.tokens for b in host]
     lp_err = max(abs(x - y) for a, b in zip(card, host)
                  for x, y in zip(a.logprobs, b.logprobs))
-    emit("small_parity", head_dim=cfg.head_dim, tokens_identical=same,
+    emit("small_parity", head_dim=cfg.head_dim, paged_attention="auto",
+         paged_decode_launches=launches, tokens_identical=same,
          logprob_max_abs_err=lp_err)
-    if not same or lp_err > 1e-3:
-        raise AssertionError("card engine disagrees with the CPU engine")
+    if not same or lp_err > 1e-3 or launches == 0:
+        raise AssertionError("card engine disagrees with the CPU engine, "
+                             f"or ran no paged kernel ({launches})")
 
 
 # ---------------------------------------------------------------------------
@@ -1070,6 +1183,318 @@ def _profile_step(eng, table):
             "device_ms_total": sum(classes.values()),
             "kernel_launches": sum(n for _, n, _ in kernels),
             "top_kernels": kernels[:8]}
+
+
+# ---------------------------------------------------------------------------
+# phase 5a: the HTTP front door over the llama3-8B engine
+# ---------------------------------------------------------------------------
+
+
+async def _http(port, path, body=None, headers=None, method=None):
+    """One HTTP/1.1 exchange with the front door: (status, head, body)."""
+    import asyncio
+
+    reader, writer = await asyncio.open_connection("127.0.0.1", port)
+    payload = json.dumps(body).encode() if body is not None else b""
+    method = method or ("POST" if body is not None else "GET")
+    hdr = "".join(f"{k}: {v}\r\n" for k, v in (headers or {}).items())
+    writer.write(f"{method} {path} HTTP/1.1\r\nHost: smoke\r\n{hdr}"
+                 f"Content-Length: {len(payload)}\r\n\r\n".encode()
+                 + payload)
+    await writer.drain()
+    raw = await reader.read()
+    writer.close()
+    head, _, out = raw.partition(b"\r\n\r\n")
+    return int(head.split(b" ")[1]), head, out
+
+
+def _header(head: bytes, name: bytes):
+    for line in head.split(b"\r\n"):
+        key, _, value = line.partition(b":")
+        if key.strip().lower() == name:
+            return value.strip().decode()
+    return None
+
+
+async def _stream(port, body, on_first=None):
+    """A streamed completion, read frame by frame as the server flushes
+    them: (status, send time, [arrival time per token], token ids)."""
+    import asyncio
+
+    reader, writer = await asyncio.open_connection("127.0.0.1", port)
+    payload = json.dumps(dict(body, stream=True)).encode()
+    t0 = time.perf_counter()
+    writer.write(b"POST /v1/completions HTTP/1.1\r\nHost: smoke\r\n"
+                 + f"Content-Length: {len(payload)}\r\n\r\n".encode()
+                 + payload)
+    await writer.drain()
+    head = await reader.readuntil(b"\r\n\r\n")
+    status = int(head.split(b" ")[1])
+    times, ids = [], []
+    while status == 200:
+        try:
+            frame = await reader.readuntil(b"\n\n")
+        except asyncio.IncompleteReadError:
+            break
+        if frame.startswith(b"data: [DONE]"):
+            break
+        new = json.loads(frame[len(b"data: "):])["choices"][0].get(
+            "token_ids") or []
+        if new and not ids and on_first is not None:
+            on_first()
+        now = time.perf_counter()
+        times += [now] * len(new)
+        ids += new
+    writer.close()
+    return status, t0, times, ids
+
+
+def _rates(t0s, times, counts):
+    """TTFT per request (ms) and the decode tokens/s of the whole batch:
+    tokens after each request's first, over the span from the first
+    first token to the last token."""
+    ttft = [(ts[0] - t0) * 1e3 for t0, ts in zip(t0s, times)]
+    start = min(ts[0] for ts in times)
+    end = max(ts[-1] for ts in times)
+    return ttft, (sum(counts) - len(counts)) / (end - start)
+
+
+def _direct(eng, prompts, max_new):
+    """The prompts submitted together to the engine, stepped to idle with
+    each token's host arrival time recorded: (requests, submit time,
+    arrival times per request)."""
+    t0 = time.perf_counter()
+    reqs = [eng.submit(p, max_new_tokens=max_new) for p in prompts]
+    times = [[] for _ in reqs]
+    while eng.step():
+        now = time.perf_counter()
+        for r, ts in zip(reqs, times):
+            ts += [now] * (len(r.tokens) - len(ts))
+    return reqs, t0, times
+
+
+def phase_server(cfg, eng):
+    """The llama3-8B engine of phase `engine` (32 layers, bf16) behind
+    `InferenceService` + `HttpFrontDoor` on 127.0.0.1, an ephemeral port.
+
+    Prompt pages are not reused during the phase (the allocator's prefix
+    cache is off, then restored), so the HTTP run and the engine-direct
+    run prefill the same cold prompts the same way. Gated: the SSE token
+    ids and a unary completion equal the greedy streams of the engine
+    driven directly; an n=2 fan-out (one submission, one fork) gives two
+    distinct 8-token choices; a request carrying `traceparent` gets its
+    trace id back as x-request-id and its spans in the flight recorder;
+    /healthz answers 200 and /metrics both expositions; during a drain
+    new work gets 503 and /healthz 503 while the stream in flight
+    finishes; K2 launched in the HTTP run. Reported: TTFT and decode
+    tokens/s over HTTP beside engine-direct, 5 prompts at once on the 8
+    slots."""
+    import asyncio
+
+    import numpy as np
+
+    from accelerate_tpu_torch.ops.paged_attention import \
+        paged_decode_attention
+    from accelerate_tpu_torch.server import (
+        HttpFrontDoor, InferenceService, ServerConfig, get_tokenizer)
+    from accelerate_tpu_torch.telemetry import trace
+
+    rng = np.random.default_rng(5)
+    prompts = [rng.integers(0, cfg.vocab_size, n).astype(np.int32)
+               for n in (200, 350, 500, 640, 260)]
+    max_new = 32
+    eng.allocator.prefix_cache = False
+    try:
+        direct, t0, dtimes = _direct(eng, prompts, max_new)
+        want = [r.tokens for r in direct]
+        d_ttft, d_rate = _rates([t0] * len(direct), dtimes,
+                                [len(t) for t in want])
+        door = HttpFrontDoor(InferenceService(
+            eng, get_tokenizer("auto", cfg.vocab_size),
+            ServerConfig(port=0, default_max_tokens=max_new)))
+        paged_decode_attention.launches = 0
+        out = asyncio.run(_server_scenario(door, prompts, max_new, want,
+                                           trace))
+        launches = paged_decode_attention.launches
+    finally:
+        eng.allocator.prefix_cache = True
+        trace.configure_tracing(enabled=False)
+        trace.clear_flight_recorder()
+    h_ttft, h_rate = _rates(out["t0"], out["times"],
+                            [len(i) for i in out["ids"]])
+    emit("server", config="llama3_8b", layers=cfg.num_hidden_layers,
+         requests=len(prompts), prompt_tokens=[len(p) for p in prompts],
+         max_tokens=max_new, num_slots=eng.engine_config.num_slots,
+         sse_streams_equal_engine=out["ids"] == want,
+         unary_equal_engine=out["unary"] == want[0],
+         fan_out=out["fan_out"], traceparent=out["traceparent"],
+         healthz=out["healthz"], metrics=out["metrics"],
+         drain=out["drain"], paged_decode_launches=launches,
+         http_ttft_ms=h_ttft, engine_ttft_ms=d_ttft,
+         http_ttft_ms_median=float(np.median(h_ttft)),
+         engine_ttft_ms_median=float(np.median(d_ttft)),
+         http_decode_tokens_per_s=h_rate,
+         engine_decode_tokens_per_s=d_rate)
+    failed = [k for k, ok in (
+        ("sse_streams", out["ids"] == want),
+        ("unary", out["unary"] == want[0]),
+        ("fan_out", out["fan_out"]["ok"]),
+        ("traceparent", out["traceparent"]["ok"]),
+        ("healthz", out["healthz"] == 200),
+        ("metrics", out["metrics"]["ok"]),
+        ("drain", out["drain"]["ok"]),
+        ("paged_decode_launches", launches > 0)) if not ok]
+    if failed:
+        raise AssertionError(f"server phase failed: {failed}")
+
+
+async def _server_scenario(door, prompts, max_new, want, trace):
+    import asyncio
+
+    await door.start()
+    port = door.port
+    try:
+        streams = await asyncio.gather(*[
+            _stream(port, {"prompt": p.tolist(), "max_tokens": max_new,
+                           "temperature": 0}) for p in prompts])
+        out = {"t0": [s[1] for s in streams],
+               "times": [s[2] for s in streams],
+               "ids": [s[3] for s in streams]}
+        st, _, body = await _http(port, "/v1/completions", {
+            "prompt": prompts[0].tolist(), "max_tokens": max_new,
+            "temperature": 0})
+        out["unary"] = (json.loads(body)["choices"][0]["token_ids"]
+                        if st == 200 else None)
+        st, _, body = await _http(port, "/v1/completions", {
+            "prompt": prompts[1][:100].tolist(), "max_tokens": 8, "n": 2,
+            "temperature": 0.8, "seed": 11})
+        choices = json.loads(body)["choices"] if st == 200 else []
+        ids = [c["token_ids"] for c in choices]
+        out["fan_out"] = {"status": st, "choices": len(ids),
+                          "ok": st == 200 and len(ids) == 2
+                          and all(len(i) == 8 for i in ids)
+                          and ids[0] != ids[1]}
+        trace.configure_tracing(enabled=True, annotate=False)
+        tid = "5e" * 16
+        st, head, _ = await _http(
+            port, "/v1/completions",
+            {"prompt": prompts[2][:64].tolist(), "max_tokens": 4,
+             "temperature": 0},
+            headers={"traceparent": f"00-{tid}-{'ab' * 8}-01"})
+        trace.configure_tracing(enabled=False)
+        names = sorted({e["name"] for e in trace.trace_events(tid)})
+        needed = {"serving.request", "serving.queue_wait", "serving.admit",
+                  "serving.prefill", "serving.decode_lifetime"}
+        out["traceparent"] = {
+            "status": st, "x_request_id": _header(head, b"x-request-id"),
+            "spans": names,
+            "ok": st == 200 and _header(head, b"x-request-id") == tid
+            and needed <= set(names)}
+        st, _, _ = await _http(port, "/healthz")
+        out["healthz"] = st
+        st1, head1, body1 = await _http(port, "/metrics")
+        st2, head2, body2 = await _http(
+            port, "/metrics",
+            headers={"Accept": "application/openmetrics-text"})
+        ctype1 = _header(head1, b"content-type") or ""
+        ctype2 = _header(head2, b"content-type") or ""
+        out["metrics"] = {
+            "prometheus": ctype1, "openmetrics": ctype2,
+            "ok": st1 == st2 == 200 and ctype1.startswith("text/plain")
+            and ctype2.startswith("application/openmetrics-text")
+            and b"serving_ttft_seconds" in body1
+            and body2.rstrip().endswith(b"# EOF")}
+        # a drain while a stream is in flight: new work 503, the stream
+        # still finishes
+        first = asyncio.Event()
+        inflight = asyncio.get_running_loop().create_task(_stream(
+            port, {"prompt": prompts[3].tolist(), "max_tokens": 64,
+                   "temperature": 0}, on_first=first.set))
+        await asyncio.wait_for(first.wait(), 300)
+        drain = asyncio.get_running_loop().create_task(
+            door.service.drain(timeout_s=300))
+        await asyncio.sleep(0)
+        st_new, _, body_new = await _http(
+            port, "/v1/completions",
+            {"prompt": prompts[4][:32].tolist(), "max_tokens": 4})
+        st_health, _, _ = await _http(port, "/healthz")
+        st_stream, _, _, got = await inflight
+        await drain
+        code = (json.loads(body_new)["error"].get("code")
+                if st_new == 503 else None)
+        out["drain"] = {"new_request": st_new, "code": code,
+                        "healthz": st_health, "in_flight": st_stream,
+                        "in_flight_tokens": len(got),
+                        "ok": st_new == 503 and code == "draining"
+                        and st_health == 503 and st_stream == 200
+                        and len(got) == 64}
+        return out
+    finally:
+        await door.stop()
+
+
+def phase_serve_cli():
+    """`python -m accelerate_tpu_torch.commands.serve`: its --dry-run JSON,
+    then the default tiny config served on the card (port 0), one greedy
+    request over HTTP, the decode path's counter read from /metrics
+    (`serving_decode_path_total{path="kernel"}`: K2 served the steps),
+    then SIGTERM: the process drains and exits 0."""
+    import http.client
+    import queue
+    import re
+    import signal
+    import threading
+
+    cmd = [sys.executable, "-m", "accelerate_tpu_torch.commands.serve"]
+    dry = subprocess.run(cmd + ["--dry-run"], capture_output=True,
+                         text=True, timeout=300, check=True)
+    conf = json.loads(dry.stdout.strip().splitlines()[-1])
+    proc = subprocess.Popen(cmd + ["--port", "0"], stdout=subprocess.DEVNULL,
+                            stderr=subprocess.PIPE, text=True)
+    lines: queue.Queue = queue.Queue()
+    reader = threading.Thread(
+        target=lambda: [lines.put(ln) for ln in proc.stderr], daemon=True)
+    reader.start()
+    try:
+        line = lines.get(timeout=300)
+        m = re.search(r"serving \S+ on 127\.0\.0\.1:(\d+)", line)
+        if m is None:
+            raise AssertionError(f"serve did not start: {line!r}")
+        port = int(m.group(1))
+        t = time.perf_counter()
+        conn = http.client.HTTPConnection("127.0.0.1", port, timeout=300)
+        conn.request("POST", "/v1/completions", json.dumps(
+            {"prompt": [1, 2, 3, 4, 5], "max_tokens": 8,
+             "temperature": 0}), {"Content-Type": "application/json"})
+        resp = conn.getresponse()
+        body = json.loads(resp.read())
+        request_s = time.perf_counter() - t
+        conn.close()
+        conn = http.client.HTTPConnection("127.0.0.1", port, timeout=60)
+        conn.request("GET", "/metrics")
+        metrics = conn.getresponse().read().decode()
+        conn.close()
+        m = re.search(r'serving_decode_path_total\{path="kernel"\} (\S+)',
+                      metrics)
+        kernel_steps = float(m.group(1)) if m else 0.0
+        proc.send_signal(signal.SIGTERM)
+        rc = proc.wait(timeout=300)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait(timeout=60)
+    reader.join(timeout=60)
+    rest = []
+    while not lines.empty():
+        rest.append(lines.get().strip())
+    tokens = body["choices"][0]["token_ids"]
+    emit("serve_cli", dry_run=conf, status=resp.status, tokens=tokens,
+         request_s=request_s, kernel_decode_steps=kernel_steps,
+         exit_code=rc, log=rest[-3:])
+    if not (conf.get("dry_run") and resp.status == 200 and len(tokens) == 8
+            and kernel_steps > 0 and rc == 0
+            and any("drained" in ln for ln in rest)):
+        raise AssertionError("serve_cli failed: see the serve_cli line")
 
 
 # ---------------------------------------------------------------------------
@@ -1599,8 +2024,10 @@ def main() -> int:
     phase_small_parity()
     cfg, params, eng, prompts, temps, numbers = phase_engine(kernels[:1])
     phase_kernel_vs_dense(cfg, params, eng, numbers)
+    phase_server(cfg, eng)
     del eng
     _drop()
+    phase_serve_cli()
     phase_speculative(cfg, params, prompts, temps, numbers)
     _drop()
     phase_host_tier(cfg, params)

@@ -51,8 +51,7 @@ def _inputs(dev, pool_dtype=torch.float32, S=3, P=4, ps=8, Hkv=2, G=3,
     for s, fill in enumerate(([0, 1, 2], [3, 4], [5])[:S]):
         table[s, :len(fill)] = torch.tensor(fill[:P])
     lengths = torch.tensor([ps + 5, 2 * ps, 2][:S], dtype=torch.int32)
-    q_dtype = torch.float32 if pool_dtype == torch.float32 else \
-        torch.bfloat16
+    q_dtype = _Q_DTYPE.get(pool_dtype, torch.bfloat16)
     q = torch.randn((S, 1, Hkv * G, D), generator=g).to(q_dtype)
     kn = torch.randn((S, 1, Hkv, D), generator=g).to(q_dtype)
     vn = torch.randn((S, 1, Hkv, D), generator=g).to(q_dtype)
@@ -67,9 +66,14 @@ def _inputs(dev, pool_dtype=torch.float32, S=3, P=4, ps=8, Hkv=2, G=3,
     return q.to(dev), kn.to(dev), vn.to(dev), pk, pv, meta
 
 
+# the activations' dtype beside each pool dtype (bf16 beside int8)
+_Q_DTYPE = {torch.float32: torch.float32, torch.float16: torch.float16}
+
 # f32 pools: f32 arithmetic in another order (1e-5); bf16 outputs: one
-# bf16 rounding of values below 4 (2**-7 relative, atol 2e-2)
-TOL = {torch.float32: 1e-5, torch.bfloat16: 2e-2, torch.int8: 2e-2}
+# bf16 rounding of values below 4 (2**-7 relative, atol 2e-2); f16
+# outputs: one f16 rounding of values below 4 (2**-10 relative, 4e-3)
+TOL = {torch.float32: 1e-5, torch.bfloat16: 2e-2, torch.int8: 2e-2,
+       torch.float16: 4e-3}
 
 
 @pytest.mark.parametrize("pool_dtype", [torch.float32, torch.bfloat16,
@@ -87,6 +91,38 @@ def test_paged_decode_kernel_matches_plain_version(cuda, pool_dtype, window,
     torch.testing.assert_close(out.float(), ref.float(),
                                atol=TOL[pool_dtype], rtol=0)
     assert all(torch.equal(a, b) for a, b in zip(rows, ref_rows))
+
+
+@pytest.mark.parametrize("pool_dtype", [torch.float32, torch.bfloat16,
+                                        torch.float16], ids=str)
+@pytest.mark.parametrize("G", [1, 3, 32])
+@pytest.mark.parametrize("D", [8, 16, 80, 256])
+def test_paged_decode_kernel_every_head_dim_and_group(cuda, pool_dtype, G,
+                                                      D):
+    """Head dims under 32 and between multiples of 32, the widest (256),
+    and groups of one, three and two tiles of 16, in f32, bf16 and f16
+    pools and activations: the kernel within its dtype's rounding of the
+    plain version, and the new rows handed back unchanged."""
+    args = _inputs(cuda, pool_dtype, G=G, D=D, seed=D + G)
+    before = tp.paged_decode_attention.launches
+    out, rows = tp.paged_decode_attention(*args, window=5)
+    ref, ref_rows = tp.paged_decode_reference(*args, window=5)
+    torch.cuda.synchronize()
+    assert tp.paged_decode_attention.launches == before + 1
+    assert out.dtype == args[0].dtype
+    torch.testing.assert_close(out.float(), ref.float(),
+                               atol=TOL[pool_dtype], rtol=0)
+    assert all(torch.equal(a, b) for a, b in zip(rows, ref_rows))
+
+
+@pytest.mark.parametrize("D", [4, 8, 12])
+def test_paged_decode_kernel_int8_rows_under_16_bytes(cuda, D):
+    """int8 pools whose rows are 4, 8 and 12 bytes: copied in 4- and
+    8-byte pieces."""
+    args = _inputs(cuda, torch.int8, G=3, D=D, seed=D)
+    out, _ = tp.paged_decode_attention(*args)
+    ref, _ = tp.paged_decode_reference(*args)
+    torch.testing.assert_close(out.float(), ref.float(), atol=2e-2, rtol=0)
 
 
 def _split_inputs(dev, pool_dtype, G, ps, D=64, Hkv=2, seed=0):
@@ -172,8 +208,10 @@ def test_paged_decode_kernel_rejects_bad_inputs(cuda):
     bad_table = tp.PagedDecodeMeta(meta.table.long(), meta.lengths, meta.rows)
     with pytest.raises(ValueError, match="int32"):
         tp.paged_decode_attention(q, kn, vn, pk, pv, bad_table)
-    with pytest.raises(ValueError, match="multiple of 32"):
-        tp.paged_decode_attention(*_inputs(cuda, D=16))
+    with pytest.raises(ValueError, match="4-byte words"):
+        tp.paged_decode_attention(*_inputs(cuda, D=300))
+    with pytest.raises(ValueError, match="4-byte words"):
+        tp.paged_decode_attention(*_inputs(cuda, torch.int8, D=6))
     strided = tp.PagedKV(pk.data.transpose(1, 2).contiguous().transpose(1, 2))
     with pytest.raises(ValueError, match="contiguous"):
         tp.paged_decode_attention(q, kn, vn, strided, pv, meta)
@@ -209,10 +247,31 @@ def test_engine_on_the_card_matches_the_cpu_engine(cuda):
 # --- the engine's programs as CUDA graphs -------------------------------------
 
 
+def test_default_engine_on_tiny_llama_matches_the_cpu_engine(cuda):
+    """`LlamaConfig.tiny()` (head_dim 16) under the default engine config
+    ("auto" runs the paged kernel on the card, the dense path on the CPU;
+    f32 weights and pool): the same greedy streams."""
+    cfg = llama.LlamaConfig.tiny()
+    params = llama.init_params(cfg, 0)
+    host_params = params_from_numpy(params_to_numpy(params), device="cpu")
+    rng = np.random.default_rng(1)
+    prompts = [rng.integers(0, cfg.vocab_size, n).astype(np.int32)
+               for n in (5, 17, 33, 12)]
+    streams = []
+    for ps, dev in ((params, None), (host_params, "cpu")):
+        eng = Engine(llama, cfg, ps, EngineConfig(cache_dtype=torch.float32),
+                     device=dev)
+        assert eng._use_paged_kernel == (dev is None)
+        before = tp.paged_decode_attention.launches
+        reqs = [eng.submit(p, max_new_tokens=8) for p in prompts]
+        eng.run_until_idle()
+        assert (tp.paged_decode_attention.launches > before) == (dev is None)
+        streams.append([r.tokens for r in reqs])
+    assert streams[0] == streams[1]
+
+
 def _graph_cfg():
-    # head_dim 32: the paged kernel takes multiples of 32
-    return llama.LlamaConfig.tiny(hidden_size=128, num_attention_heads=4,
-                                  num_key_value_heads=2)
+    return llama.LlamaConfig.tiny()
 
 
 def _serve_mix(eng, seed=0, forks=True, cancel=True):
@@ -577,6 +636,49 @@ def test_flash_backward_row_that_sees_no_key_has_zero_gradients(cuda):
             assert _rel_l2(a, b) <= 2e-2
 
 
+# f32: another f32 summation order; bf16/f16 against the plain version in
+# f32: one rounding of the output and of P and dS before their products
+_FLASH_TOL = {torch.float32: (1e-4, 1e-4), torch.bfloat16: (2e-2, 2e-2),
+              torch.float16: (4e-3, 4e-3)}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16], ids=str)
+@pytest.mark.parametrize("S,mode", [(12, "causal"), (300, "window"),
+                                    (200, "noncausal")])
+@pytest.mark.parametrize("D", [8, 80, 256])
+def test_flash_kernels_narrow_wide_and_f16_head_dims(cuda, dtype, S, mode,
+                                                     D):
+    """Head dims under 16, between the wgmma instances, and 256 (the
+    CUDA-core path in every dtype), in f32, bf16 and f16: forward,
+    LSE and gradients against the plain versions in f32."""
+    g = torch.Generator(device=cuda).manual_seed(D * 1000 + S)
+    B, H = 2, 2
+    q, k, v, do = (torch.randn((B, S, H, D), generator=g, device=cuda)
+                   .to(dtype) for _ in range(4))
+    causal = mode != "noncausal"
+    window = 40 if mode == "window" else None
+    launches = (tf.flash_forward.launches, tf.flash_backward_dq.launches,
+                tf.flash_backward_dkv.launches)
+    o, lse = tf.flash_forward(q, k, v, causal, None, window,
+                              save_residuals=True)
+    grads = tf.flash_backward(q, k, v, o, lse, do, causal, None, window)
+    ro, rlse = tf.flash_forward_reference(q.float(), k.float(), v.float(),
+                                          causal, None, window)
+    ref = tf.flash_backward_reference(q.float(), k.float(), v.float(), ro,
+                                      rlse, do.float(), causal, None, window)
+    torch.cuda.synchronize()
+    assert (tf.flash_forward.launches, tf.flash_backward_dq.launches,
+            tf.flash_backward_dkv.launches) == tuple(n + 1 for n in launches)
+    o_tol, g_tol = _FLASH_TOL[dtype]
+    assert o.dtype == dtype
+    torch.testing.assert_close(o.float(), ro, atol=o_tol, rtol=0)
+    torch.testing.assert_close(lse, rlse, atol=1e-3, rtol=0)
+    for a, b in zip(grads, ref):
+        assert a.dtype == dtype and bool(torch.isfinite(a.float()).all())
+        assert _rel_l2(a, b) <= g_tol
+
+
 def test_flash_attention_autograd_on_the_card_matches_the_cpu(cuda):
     g = torch.Generator().manual_seed(0)
     q, k, v, do = (torch.randn((1, 80, 2, 32), generator=g)
@@ -592,12 +694,15 @@ def test_flash_attention_autograd_on_the_card_matches_the_cpu(cuda):
 
 
 def test_flash_kernels_reject_bad_inputs(cuda):
-    q = torch.zeros((1, 16, 2, 24), device=cuda)
-    with pytest.raises(ValueError, match="multiple of 16"):
+    q = torch.zeros((1, 16, 2, 264), device=cuda)
+    with pytest.raises(ValueError, match="up to 256"):
+        tf.flash_forward(q, q, q, True)
+    q = torch.zeros((1, 16, 2, 12), device=cuda).bfloat16()
+    with pytest.raises(ValueError, match="multiple of 8"):
         tf.flash_forward(q, q, q, True)
     q = torch.zeros((1, 16, 2, 32), device=cuda)
-    with pytest.raises(ValueError, match="float32 or bfloat16"):
-        tf.flash_forward(q.half(), q.half(), q.half(), True)
+    with pytest.raises(ValueError, match="float32, bfloat16 or float16"):
+        tf.flash_forward(q.double(), q.double(), q.double(), True)
     with pytest.raises(ValueError, match="contiguous"):
         tf.flash_forward(q.transpose(1, 2), q.transpose(1, 2),
                          q.transpose(1, 2), False)

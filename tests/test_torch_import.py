@@ -37,7 +37,10 @@ def test_port_imports_no_jax_and_no_jax_package():
     assert "accelerate_tpu_torch.serving.engine" in out["modules"]
     assert "accelerate_tpu_torch.csrc" in out["modules"]
     for name in ("accelerator", "training", "optimizers", "state", "data",
-                 "utils.dataclasses", "ops.flash_attention"):
+                 "utils.dataclasses", "ops.flash_attention", "profiler",
+                 "server", "server.config", "server.http",
+                 "server.protocol", "server.service", "server.tokenizer",
+                 "telemetry.trace", "telemetry.export", "commands.serve"):
         assert f"accelerate_tpu_torch.{name}" in out["modules"]
     assert out["leaked"] == []
 
