@@ -21,11 +21,53 @@ Ported so far:
   (`csrc/flash_attention.cu`, wrapped by `ops.flash_attention`);
 - the OpenAI-compatible HTTP front door over the engine (`server`,
   `python -m accelerate_tpu_torch.commands.serve`), with request tracing
-  (`telemetry.trace`) and the Prometheus exposition (`telemetry.export`).
+  (`telemetry.trace`) and the Prometheus exposition (`telemetry.export`);
+- checkpointing (`checkpointing`: sync and async saves committed by
+  manifest, resume, retention, safetensors export) and the resilient
+  training loop (`training.run_resilient`, `profiler.StepTimer`,
+  `telemetry.StragglerMonitor`).
 """
 
 from .device import resolve_device
 
 __version__ = "0.1.0"
 
-__all__ = ["resolve_device"]
+# the reference's top-level names that the port has; each module loads
+# when its name is first read
+_LAZY = {
+    "Accelerator": ".accelerator",
+    "TrainState": ".training",
+    "DynamicLossScale": ".training",
+    "run_resilient": ".training",
+    "ResilienceReport": ".training",
+    "resume_latest": ".checkpointing",
+    "latest_complete_checkpoint": ".checkpointing",
+    "prune_checkpoints": ".checkpointing",
+    "wait_for_checkpoints": ".checkpointing",
+    "skip_first_batches": ".data",
+    "DataLoaderShard": ".data",
+    "ProjectConfiguration": ".utils.dataclasses",
+    "GradientAccumulationPlugin": ".utils.dataclasses",
+    "profile": ".profiler",
+    "StepTimer": ".profiler",
+    "device_memory_stats": ".profiler",
+    "MetricsRegistry": ".telemetry",
+    "get_registry": ".telemetry",
+    "span": ".telemetry",
+    "configure_tracing": ".telemetry",
+    "export_chrome_trace": ".telemetry",
+    "render_prometheus": ".telemetry",
+    "aggregate_snapshot": ".telemetry",
+    "StragglerMonitor": ".telemetry",
+}
+
+__all__ = ["resolve_device", *_LAZY]
+
+
+def __getattr__(name: str):
+    if name in _LAZY:
+        import importlib
+
+        module = importlib.import_module(_LAZY[name], __name__)
+        return getattr(module, name)
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

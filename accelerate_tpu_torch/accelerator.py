@@ -17,24 +17,43 @@ and `train_step(loss_fn)`, which returns `step(state, *batch) -> (state,
   step whose grads are not finite.
 
 The step is eager and updates the state's tensors in place (see
-`training.py`). It runs on CUDA unless `cpu=True`; with no GPU and no
-`cpu=True` it raises. Arguments of the reference that the port does not
-carry yet raise `NotImplementedError` when set, naming their slice.
+`training.py`); `train_step(donate=False)` instead writes the update into
+new tensors and leaves its input state as it was. It runs on CUDA unless
+`cpu=True`; with no GPU and no `cpu=True` it raises.
+
+The checkpoint surface is the reference's (`checkpointing.py`):
+`save_state` (sync or async), `wait_for_checkpoints`, `load_state`,
+`resume_latest`, versioned directories under `project_dir` with
+`ProjectConfiguration`, `register_for_checkpointing` and the save/load
+pre-hooks, `save_model`, `get_state_dict`, `skip_first_batches`, and
+`end_training`'s drain.
+
+Arguments of the reference that the port does not carry yet raise
+`NotImplementedError` when set, naming their slice.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import os
+import shutil
 from typing import Any, Callable
 
 import torch
 
-from .data import DataLoaderShard, to_device
+from . import checkpointing
+from .data import DataLoaderShard, skip_first_batches, to_device
+from .hooks_registry import RemovableHandle
 from .optimizers import tree_leaves, tree_map
 from .state import AcceleratorState, GradientState
 from .training import DynamicLossScale, TrainState, cast_floating, \
-    global_norm
-from .utils.dataclasses import GradientAccumulationPlugin, PrecisionType
+    clone_tree, global_norm
+from .utils.constants import CHECKPOINT_DIR_PREFIX
+from .utils.dataclasses import (
+    GradientAccumulationPlugin,
+    PrecisionType,
+    ProjectConfiguration,
+)
 
 # reference arguments the port does not carry yet: the value that means
 # "unused", and the slice that brings them
@@ -49,8 +68,6 @@ _UNPORTED = {
     "sharding_rules": (None, "parallelism"),
     "rng_types": (None, "data-pipeline"),
     "log_with": (None, "tracking"),
-    "project_dir": (None, "checkpointing"),
-    "project_config": (None, "checkpointing"),
     "step_scheduler_with_optimizer": (True, "scheduler"),
     "jit_config": (None, "CUDA-graph"),
     "kwargs_handlers": (None, "fp8 and mixed-precision handlers"),
@@ -80,7 +97,10 @@ class Accelerator:
                  gradient_accumulation_steps: int = 1, cpu: bool = False,
                  gradient_accumulation_plugin:
                  GradientAccumulationPlugin | None = None,
-                 gradient_clipping: float | None = None, **unported: Any):
+                 gradient_clipping: float | None = None,
+                 project_dir: str | None = None,
+                 project_config: ProjectConfiguration | None = None,
+                 **unported: Any):
         for name, value in unported.items():
             if name not in _UNPORTED:
                 raise TypeError(
@@ -98,6 +118,18 @@ class Accelerator:
                 num_steps=gradient_accumulation_steps)
         self.gradient_state = GradientState(gradient_accumulation_plugin)
         self.gradient_clipping = gradient_clipping
+        self.project_configuration = project_config or ProjectConfiguration(
+            project_dir=project_dir)
+        if project_dir is not None and \
+                self.project_configuration.project_dir is None:
+            self.project_configuration.set_directories(project_dir)
+        # what save_state writes beside a TrainState (the port prepares no
+        # eager model, optimizer or scheduler yet: the hooks get no models)
+        self._dataloaders: list = []
+        self._custom_objects: list = []
+        self._save_model_state_pre_hook: dict = {}
+        self._load_model_state_pre_hook: dict = {}
+        self.step = 0
 
     # ------------------------------------------------------------------ state
     @property
@@ -139,7 +171,9 @@ class Accelerator:
                 out.append(to_device(obj, self.device, non_blocking=False))
             elif hasattr(obj, "__iter__") and not isinstance(
                     obj, (dict, str, bytes)):
-                out.append(DataLoaderShard(obj, self.device))
+                loader = DataLoaderShard(obj, self.device)
+                self._dataloaders.append(loader)
+                out.append(loader)
             else:
                 raise _unported(f"prepare() of a {type(obj).__name__}",
                                 "optimizer/scheduler wrapper")
@@ -166,24 +200,179 @@ class Accelerator:
                    replication_threshold: int = 1 << 26) -> Callable:
         """`step(state, *batch) -> (state, metrics)`: forward, backward,
         1/k accumulation, clip, optimizer update and loss scale, as the
-        reference's compiled step, run eagerly. The state's tensors are
-        updated in place (the counterpart of the reference's donation)."""
-        if not donate:
-            raise _unported("train_step(donate=False)", "checkpointing")
+        reference's compiled step, run eagerly. With `donate=True` the
+        state's tensors are updated in place (the counterpart of the
+        reference's donation); with `donate=False` the step writes into
+        copies and the input state keeps its values."""
         if contract is not None or replication_threshold != 1 << 26:
             raise _unported("train_step(contract=...)", "analysis")
         return _TrainStep(self, loss_fn, has_aux,
                           max_grad_norm if max_grad_norm is not None
-                          else self.gradient_clipping)
+                          else self.gradient_clipping, donate)
+
+    # ------------------------------------------------------------- data
+    def skip_first_batches(self, dataloader, num_batches: int = 0):
+        """The loader with its first `num_batches` skipped (a resume in
+        the middle of a pass)."""
+        return skip_first_batches(dataloader, num_batches)
+
+    def end_training(self) -> None:
+        """Drain the async checkpoint writes (a failed one re-raises)."""
+        checkpointing.wait_for_checkpoints()
+
+    # --------------------------------------------------------- checkpoints
+    def register_for_checkpointing(self, *objects) -> None:
+        """Save and load `objects` with every checkpoint; each needs
+        `state_dict` and `load_state_dict`."""
+        invalid = [o for o in objects if not (
+            hasattr(o, "state_dict") and hasattr(o, "load_state_dict")
+        )]
+        if invalid:
+            raise ValueError(
+                f"Objects {invalid} lack state_dict/load_state_dict and cannot be "
+                "registered for checkpointing"
+            )
+        self._custom_objects.extend(objects)
+
+    def register_save_state_pre_hook(self, hook: Callable):
+        """`hook(models, weights, output_dir)` runs before each save."""
+        handle = RemovableHandle(self._save_model_state_pre_hook)
+        self._save_model_state_pre_hook[handle.id] = hook
+        return handle
+
+    def register_load_state_pre_hook(self, hook: Callable):
+        """`hook(models, input_dir)` runs before each load."""
+        handle = RemovableHandle(self._load_model_state_pre_hook)
+        self._load_model_state_pre_hook[handle.id] = hook
+        return handle
+
+    def save_state(self, output_dir: str | None = None,
+                   state: TrainState | None = None,
+                   async_save: bool = False) -> str:
+        """Checkpoint `state` and the registered objects into `output_dir`
+        (default: the next versioned directory under `project_dir`).
+        `async_save=True` overlaps the file writes with later steps (drain
+        with `wait_for_checkpoints()`; `load_state`/`end_training` drain
+        too)."""
+        if output_dir is None:
+            output_dir = self._checkpoint_dir(new=True)
+        for hook in self._save_model_state_pre_hook.values():
+            hook([], None, output_dir)
+        return checkpointing.save_accelerator_state(
+            output_dir,
+            train_states=[state] if state is not None else [],
+            dataloaders=self._dataloaders,
+            custom_objects=self._custom_objects,
+            step=self.step,
+            async_save=async_save,
+        )
+
+    def wait_for_checkpoints(self) -> int:
+        """Drain in-flight async checkpoint saves."""
+        return checkpointing.wait_for_checkpoints()
+
+    def load_state(self, input_dir: str | None = None,
+                   state: TrainState | None = None):
+        """Restore a checkpoint into `state` in place (default: the newest
+        versioned directory under `project_dir`)."""
+        if input_dir is None:
+            input_dir = self._checkpoint_dir(new=False)
+        for hook in self._load_model_state_pre_hook.values():
+            hook([], input_dir)
+        result = checkpointing.load_accelerator_state(
+            input_dir,
+            train_states=[state] if state is not None else [],
+            dataloaders=self._dataloaders,
+            custom_objects=self._custom_objects,
+        )
+        # resume the micro-step counter so accumulation boundaries line up
+        self.step = int(result.get("step", 0))
+        return result
+
+    def resume_latest(self, input_dir: str | None = None,
+                      state: TrainState | None = None, **kwargs):
+        """Restore from the newest COMPLETE checkpoint under `input_dir`
+        (default: `<project_dir>/checkpoints`); torn saves are skipped.
+        Returns the `load_state` result plus `checkpoint_dir` and
+        `manifest`, or None when nothing committed exists."""
+        if input_dir is None:
+            input_dir = os.path.join(
+                self.project_configuration.project_dir or ".", "checkpoints")
+        for hook in self._load_model_state_pre_hook.values():
+            hook([], input_dir)
+        result = checkpointing.resume_latest(
+            input_dir,
+            train_states=[state] if state is not None else [],
+            dataloaders=self._dataloaders,
+            custom_objects=self._custom_objects,
+            **kwargs,
+        )
+        if result is not None:
+            self.step = int(result.get("step", 0))
+        return result
+
+    def _checkpoint_dir(self, new: bool) -> str:
+        """`<project_dir>/checkpoints`, or with automatic naming its
+        `checkpoint_<n>`: the next index (pruning the oldest beyond
+        `total_limit`, after draining the async saves that are still
+        writing one of them) or the newest. One process decides alone;
+        the reference's broadcast of the decision to every process
+        arrives with the parallelism slice."""
+        base = os.path.join(self.project_configuration.project_dir or ".",
+                            "checkpoints")
+        if not self.project_configuration.automatic_checkpoint_naming:
+            return base
+        os.makedirs(base, exist_ok=True)
+        existing = sorted(
+            int(d.rsplit("_", 1)[1])
+            for d in os.listdir(base)
+            if d.startswith(CHECKPOINT_DIR_PREFIX + "_")
+            and d.rsplit("_", 1)[1].isdigit()
+        )
+        if not new:
+            if not existing:
+                raise FileNotFoundError(f"no checkpoints under {base}")
+            return os.path.join(base, f"{CHECKPOINT_DIR_PREFIX}_{existing[-1]}")
+        idx = (existing[-1] + 1) if existing else 0
+        limit = self.project_configuration.total_limit
+        if limit is not None and len(existing) + 1 > limit:
+            victims = [os.path.abspath(os.path.join(
+                base, f"{CHECKPOINT_DIR_PREFIX}_{old}"))
+                for old in existing[: len(existing) + 1 - limit]]
+            # an async save still writing (or sealing) a victim commits
+            # first: with total_limit=1 the victim is the newest directory,
+            # which the reference always drains for; with larger limits the
+            # oldest can still be sealing when saves come close together
+            if set(victims) & set(checkpointing.sealing_checkpoint_dirs()):
+                self.wait_for_checkpoints()
+            for path in victims:
+                shutil.rmtree(path, ignore_errors=True)
+        self.project_configuration.iteration = idx
+        return os.path.join(base, f"{CHECKPOINT_DIR_PREFIX}_{idx}")
+
+    def save_model(self, params: Any, save_directory: str,
+                   max_shard_size: str | int = "10GB",
+                   safe_serialization: bool = True):
+        """Export the params alone as (index-sharded) safetensors."""
+        return checkpointing.save_model(params, save_directory,
+                                        max_shard_size, safe_serialization)
+
+    def get_state_dict(self, model, unwrap: bool = True):
+        """The params (of a TrainState, or a params dict) as host
+        tensors, keys kept."""
+        if isinstance(model, TrainState):
+            model = model.params
+        return tree_map(lambda t: t.detach().to("cpu"), model)
 
 
 class _TrainStep:
     def __init__(self, acc: Accelerator, loss_fn: Callable, has_aux: bool,
-                 max_grad_norm: float | None):
+                 max_grad_norm: float | None, donate: bool):
         self.acc = acc
         self.loss_fn = loss_fn
         self.has_aux = has_aux
         self.max_grad_norm = max_grad_norm
+        self.donate = donate
 
     def __call__(self, state: TrainState, *batch):
         acc = self.acc
@@ -198,6 +387,13 @@ class _TrainStep:
         if k > 1 and state.grad_accum is None:
             raise ValueError("gradient_accumulation_steps>1 needs "
                              "TrainState.create(use_grad_accum_buffer=True)")
+        if not self.donate:
+            # the update goes into copies: the caller's state keeps its
+            # tensors and their values
+            state = dataclasses.replace(
+                state, params=clone_tree(state.params),
+                opt_state=clone_tree(state.opt_state),
+                grad_accum=clone_tree(state.grad_accum))
         batch = to_device(batch, acc.device)
         leaves = tree_leaves(state.params)
         masters = [p.detach().requires_grad_(True) for p in leaves]
@@ -213,7 +409,9 @@ class _TrainStep:
             aux = out[1] if self.has_aux else None
             scaled = loss * state.loss_scale.scale if use_scale else loss
             grads = torch.autograd.grad(scaled, masters, allow_unused=True)
-        grads = [torch.zeros_like(p) if g is None else g
+        # contiguous: autograd may hand back an expanded view (the grad
+        # of a sum), which the in-place unscale and clip cannot write
+        grads = [torch.zeros_like(p) if g is None else g.contiguous()
                  for p, g in zip(masters, grads)]
         del masters, params, out, scaled
         if use_scale:

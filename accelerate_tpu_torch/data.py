@@ -5,7 +5,9 @@ Each leaf of a batch (a tensor, a numpy array, or a nested dict/list of
 them) is moved to the device with a pinned-memory, `non_blocking` copy
 issued one batch ahead, so the copy of batch i+1 overlaps the step on
 batch i. The final batch is known while it is handed out
-(`end_of_dataloader`), as in the reference.
+(`end_of_dataloader`), as in the reference. `epoch` counts the passes
+finished (a checkpoint saves it), and `skip_first_batches` resumes a
+pass in its middle.
 """
 
 from __future__ import annotations
@@ -52,6 +54,16 @@ class DataLoaderShard:
         self.device = torch.device(device)
         self.gradient_state = GradientState()
         self.end_of_dataloader = False
+        self.epoch = 0
+
+    def set_epoch(self, epoch: int) -> None:
+        """Set the pass number, here and on the source (or its sampler)
+        where it has `set_epoch`, as the reference does."""
+        self.epoch = epoch
+        for obj in (self.loader, getattr(self.loader, "sampler", None),
+                    getattr(self.loader, "batch_sampler", None)):
+            if obj is not None and hasattr(obj, "set_epoch"):
+                obj.set_epoch(epoch)
 
     def __len__(self) -> int:
         return len(self.loader)
@@ -72,7 +84,37 @@ class DataLoaderShard:
                 except StopIteration:
                     self.end_of_dataloader = True
                     yield current
-                    return
+                    break
                 yield current
+            self.set_epoch(self.epoch + 1)
         finally:
             self.gradient_state._remove_dataloader(self)
+
+
+class SkipDataLoader:
+    """Iterate `loader`, skipping its first `skip_batches` batches."""
+
+    def __init__(self, loader: Iterable, skip_batches: int = 0):
+        self.loader = loader
+        self.skip_batches = skip_batches
+
+    def __iter__(self):
+        for index, batch in enumerate(self.loader):
+            if index >= self.skip_batches:
+                yield batch
+
+    def __len__(self) -> int:
+        return max(len(self.loader) - self.skip_batches, 0)
+
+
+def skip_first_batches(dataloader, num_batches: int = 0):
+    """Resume in the middle of a pass: a prepared loader comes back as a
+    copy over its source with the first `num_batches` skipped (so it still
+    moves batches to its device); any other iterable is wrapped."""
+    if isinstance(dataloader, DataLoaderShard):
+        import copy
+
+        clone = copy.copy(dataloader)
+        clone.loader = SkipDataLoader(dataloader.loader, num_batches)
+        return clone
+    return SkipDataLoader(dataloader, num_batches)

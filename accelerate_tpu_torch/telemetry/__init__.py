@@ -1,8 +1,11 @@
 """Telemetry of the port: the metrics registry, host-span request
-tracing with its flight recorder, and the Prometheus exposition."""
+tracing with its flight recorder, the Prometheus exposition, the
+one-host snapshot aggregate and the straggler monitor."""
 
+from .aggregate import aggregate_snapshot
 from .export import negotiate_exposition, render_prometheus
 from .registry import MetricsRegistry, get_registry
+from .straggler import StragglerMonitor
 from .trace import (
     clear_flight_recorder,
     configure_tracing,
@@ -21,6 +24,8 @@ from .trace import (
 )
 
 __all__ = [
+    "aggregate_snapshot",
+    "StragglerMonitor",
     "MetricsRegistry",
     "get_registry",
     "render_prometheus",

@@ -1,5 +1,6 @@
 """Configuration records (the part of `accelerate_tpu/utils/dataclasses.py`
-that the training step needs), copied without its jax imports."""
+that the training step and checkpointing need), copied without its jax
+imports."""
 
 from __future__ import annotations
 
@@ -37,3 +38,27 @@ class GradientAccumulationPlugin:
     adjust_scheduler: bool = True
     sync_with_dataloader: bool = True
     sync_each_batch: bool = False
+
+
+@dataclass
+class ProjectConfiguration:
+    """Checkpoint directory layout and retention, as in the reference:
+    `automatic_checkpoint_naming` saves into
+    `<project_dir>/checkpoints/checkpoint_<n>`, and `total_limit` prunes
+    the oldest of them beyond that many."""
+
+    project_dir: str | None = None
+    logging_dir: str | None = None
+    automatic_checkpoint_naming: bool = False
+    total_limit: int | None = None
+    iteration: int = 0
+    save_on_each_node: bool = False
+
+    def __post_init__(self) -> None:
+        if self.logging_dir is None:
+            self.logging_dir = self.project_dir
+
+    def set_directories(self, project_dir: str | None = None) -> None:
+        self.project_dir = project_dir
+        if self.logging_dir is None:
+            self.logging_dir = project_dir

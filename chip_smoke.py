@@ -48,6 +48,12 @@ script exits non-zero:
 6. train: the bf16 training step at llama3-8B width, 4 layers, remat
    "dots": 10 steps through the flash kernels, with the launch counts,
    step time, tokens/s, MFU, peak memory and a profiler split;
+6b. resilient: that step at 2 layers through `run_resilient` with
+   async saves every 3 steps (`keep_last_n=1`), a crash at step 5 and
+   SIGTERM at step 6, then a relaunch: every loss equal to an unfaulted
+   run's, bit for bit; the checkpoint's bytes, the stage, write, drain
+   and resume times, and goodput beside the same schedule with blocking
+   saves;
 7. train_flash_vs_einsum: one step's loss and grads through the flash
    and einsum attention paths, 2 layers, f32 activations;
 8. head_grad: the bf16 head's gradient at the slice's shapes against
@@ -1892,6 +1898,278 @@ def _profile_train_step(step, state, batch):
 
 
 # ---------------------------------------------------------------------------
+# phase 6b: resilient training: save, crash, SIGTERM, resume
+# ---------------------------------------------------------------------------
+
+# f32 params at llama3-8B width by depth: a checkpoint (params and two
+# AdamW moments) is 12 bytes a param, 17.8 GB at 2 layers, 15.2 GB at 1
+RESILIENT_PARAMS = {2: 1.487e9, 1: 1.269e9}
+_RAM_FS = "/dev/shm"
+RESILIENT_STEPS = 8
+RESILIENT_SAVE_EVERY = 3
+CRASH_STEP = 5
+SIGTERM_STEP = 6
+
+
+def _meminfo_gb(key: str) -> float:
+    with open("/proc/meminfo") as f:
+        for line in f:
+            if line.startswith(key + ":"):
+                return int(line.split()[1]) * 1024 / 1e9
+    raise KeyError(key)
+
+
+def _resilient_place():
+    """(layers, directory root, the depth cut or None). Two checkpoints sit
+    on disk at once (keep_last_n=1). They go to a RAM filesystem when the
+    host's free memory holds them beside the pinned staging copy: the
+    card's machine takes at most 45 GiB of disk writes in one run, and
+    the phase writes seven checkpoints. Else to TMPDIR. Two layers if
+    either holds them, else one, else the phase fails."""
+    import os
+    import shutil
+    import tempfile
+
+    mem = _meminfo_gb("MemAvailable") * 1e9
+    for layers in (2, 1):
+        ckpt = 12 * RESILIENT_PARAMS[layers]
+        cut = None if layers == 2 else (
+            "neither RAM nor TMPDIR holds two 2-layer checkpoints")
+        if os.path.isdir(_RAM_FS) and mem >= 4 * ckpt and \
+                shutil.disk_usage(_RAM_FS).free >= 2 * ckpt:
+            return layers, _RAM_FS, cut
+        if shutil.disk_usage(tempfile.gettempdir()).free >= 2 * ckpt:
+            return layers, tempfile.gettempdir(), cut
+    raise AssertionError(
+        f"neither {_RAM_FS} with {mem / 1e9:.1f} GB of free memory nor "
+        f"{tempfile.gettempdir()} holds two 1-layer checkpoints")
+
+
+class _ResilientKit:
+    """The flagship step of phase `train` at `layers` layers, its state
+    made afresh from seed 0 for each run (as a relaunched process would),
+    and the one batch of seed 0 at every step."""
+
+    def __init__(self, layers: int):
+        from accelerate_tpu_torch.accelerator import Accelerator
+        from accelerate_tpu_torch.models import llama
+        from accelerate_tpu_torch.state import PartialState
+
+        self.cfg = _train_config(layers, remat=True, remat_policy="dots")
+        PartialState._reset_state()
+        self.acc = Accelerator(mixed_precision="bf16", gradient_clipping=1.0)
+        (self.batch,) = list(self.acc.prepare(
+            [{"input_ids": _train_batch(self.cfg)}]))
+        step = self.acc.train_step(
+            lambda p, b: llama.causal_lm_loss(self.cfg, p, b))
+        self.executed = 0
+
+        def step_fn(state, batch):
+            self.executed += 1
+            return step(state, batch)
+
+        self.step_fn = step_fn
+
+    def state(self):
+        from accelerate_tpu_torch.models import llama
+        from accelerate_tpu_torch.optimizers import adamw
+        from accelerate_tpu_torch.training import TrainState
+
+        _drop()
+        return self.acc.prepare(TrainState.create(
+            apply_fn=None, params=llama.init_params(self.cfg, 0),
+            tx=adamw(3e-4)))
+
+    def batch_fn(self, i):
+        return self.batch
+
+    def unfaulted(self) -> list:
+        state, losses = self.state(), []
+        for i in range(RESILIENT_STEPS):
+            state, m = self.step_fn(state, self.batch)
+            losses.append(float(m["loss"]))
+        del state
+        return losses
+
+
+def _faulted(kit, base: str, blocking: bool):
+    """run_resilient with a RuntimeError at step CRASH_STEP (once), SIGTERM
+    from on_step at step SIGTERM_STEP, then (async saves only) the
+    relaunch to the end. Every loss recorded (re-run steps too),
+    per-save stage seconds, the reports."""
+    import os
+    import signal
+
+    from accelerate_tpu_torch.profiler import StepTimer
+    from accelerate_tpu_torch.telemetry import get_registry
+    from accelerate_tpu_torch.training import run_resilient
+
+    stage = get_registry().histogram("checkpoint_stage_seconds")
+    recorded, stages, armed = [], [], {"crash": True, "term": True}
+    seen = {"count": stage.count, "sum": stage.sum}
+
+    def on_step(i, state, metrics):
+        if stage.count != seen["count"]:    # a save staged since the last
+            stages.append(stage.sum - seen["sum"])
+            seen.update(count=stage.count, sum=stage.sum)
+        if armed["crash"] and i == CRASH_STEP:
+            armed["crash"] = False
+            raise RuntimeError("injected step-time fault")
+        recorded.append((i, float(metrics["loss"])))
+        if armed["term"] and i == SIGTERM_STEP:
+            armed["term"] = False
+            os.kill(os.getpid(), signal.SIGTERM)
+
+    reports = []
+    # the run, then its relaunch; with blocking saves the run alone: its
+    # goodput is the comparison, and at 1 GB/s a relaunch's restore and
+    # final save would add half a minute that measures nothing new
+    for _ in range(1 if blocking else 2):
+        timer = StepTimer(warmup_steps=1, name="resilient_step")
+        rep = run_resilient(
+            kit.acc, kit.state(), kit.step_fn, kit.batch_fn,
+            RESILIENT_STEPS, base, save_every=RESILIENT_SAVE_EVERY,
+            keep_last_n=1, timer=timer, blocking_saves=blocking,
+            on_step=on_step)
+        rep.state = None    # 17.8 GB on the card: the next run makes its own
+        reports.append(rep)
+        _drop()
+    return recorded, stages, reports
+
+
+def phase_resilient():
+    """Checkpointing and resilient training on the card: the flagship bf16
+    step (phase `train`'s) at llama3-8B width, 2 layers, through
+    `run_resilient` with async saves every 3 steps and `keep_last_n=1`:
+    a crash at step 5 rolls back to the step-3 commit, SIGTERM at step 6
+    drains and commits, and a relaunch resumes there and finishes. Gates:
+    two unfaulted runs agree bit for bit, and every loss the faulted runs
+    record equals the unfaulted run's for its step; one resume and a
+    preemption in the first call, a complete manifest at the end; K1a,
+    K1b and K1c launched 2·L, L and L times per executed step (re-run
+    steps counted). Then the same schedule with blocking saves, up to
+    the drain commit, for goodput."""
+    import os
+    import shutil
+    import tempfile
+
+    from accelerate_tpu_torch import checkpointing as ckpt
+    from accelerate_tpu_torch.ops import flash_attention as fa
+    from accelerate_tpu_torch.telemetry import get_registry
+
+    layers, root, cut = _resilient_place()
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_resilient_", dir=root)
+    try:
+        disk = shutil.disk_usage(tmp)
+        emit("resilient_setup", dir=tmp, ram_backed=root == _RAM_FS,
+             disk_total_gb=disk.total / 1e9, disk_free_gb=disk.free / 1e9,
+             mem_total_gb=_meminfo_gb("MemTotal"),
+             mem_available_gb=_meminfo_gb("MemAvailable"), layers=layers,
+             depth_cut=cut)
+        kit = _ResilientKit(layers)
+        t0 = time.perf_counter()
+        unfaulted = [kit.unfaulted(), kit.unfaulted()]
+        spread = max(abs(a - b) for a, b in zip(*unfaulted))
+        reg = get_registry()
+        reg.reset()
+        out = {}
+        for label, blocking in (("async", False), ("blocking", True)):
+            base = os.path.join(tmp, label)
+            fa.flash_forward.launches = 0
+            fa.flash_backward_dq.launches = 0
+            fa.flash_backward_dkv.launches = 0
+            kit.executed = 0
+            recorded, stages, reports = _faulted(kit, base, blocking)
+            rep, relaunch = reports[0], reports[-1]
+            launches = {"flash_fwd": fa.flash_forward.launches,
+                        "flash_bwd_dq": fa.flash_backward_dq.launches,
+                        "flash_bwd_dkv": fa.flash_backward_dkv.launches}
+            final = ckpt.latest_complete_checkpoint(base)
+            ckpt_bytes = os.path.getsize(
+                os.path.join(final, "model_0.safetensors"))
+            out[label] = dict(
+                recorded=recorded, stage_s=stages, launches=launches,
+                executed_steps=kit.executed, report=rep,
+                relaunch=relaunch, final=final, ckpt_bytes=ckpt_bytes,
+                saves=sum(r.saves for r in reports),
+                snapshot=reg.snapshot())
+            reg.reset()
+            shutil.rmtree(base)
+        wall = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+    def hist(snap, name):
+        h = snap["histograms"].get(name, {})
+        return {k: h.get(k) for k in ("count", "sum", "mean", "min", "max")}
+
+    rows = {}
+    for label, r in out.items():
+        snap = r["snapshot"]
+        write = hist(snap, "checkpoint_write_seconds")
+        rows[label] = {
+            "losses": r["recorded"], "executed_steps": r["executed_steps"],
+            "launches": r["launches"],
+            "resumes": r["report"].resumes, "saves": r["saves"],
+            "preempted": r["report"].preempted,
+            "relaunched": r["relaunch"] is not r["report"],
+            "final_commit": os.path.basename(r["final"]),
+            "checkpoint_bytes": r["ckpt_bytes"],
+            "stage_s_per_save": r["stage_s"],
+            "checkpoint_stage_seconds": hist(snap,
+                                             "checkpoint_stage_seconds"),
+            "checkpoint_write_seconds": write,
+            "write_gb_per_s": (write["count"] * r["ckpt_bytes"] / 1e9
+                               / write["sum"]) if write["count"] else None,
+            "checkpoint_drain_seconds": hist(snap,
+                                             "checkpoint_drain_seconds"),
+            "checkpoint_save_seconds": hist(snap, "checkpoint_save_seconds"),
+            "resume_latency_seconds": hist(snap, "resume_latency_seconds"),
+            "goodput": r["report"].goodput,
+            "stall_taxonomy": r["report"].taxonomy,
+        }
+    emit("resilient", config="llama3_8b", layers=layers,
+         ram_backed=root == _RAM_FS,
+         remat="dots", batch=[2, 2049], mixed_precision="bf16",
+         steps=RESILIENT_STEPS, save_every=RESILIENT_SAVE_EVERY,
+         keep_last_n=1, crash_step=CRASH_STEP, sigterm_step=SIGTERM_STEP,
+         unfaulted_losses=unfaulted[0], run_to_run_max_abs=spread,
+         deterministic=spread == 0.0, wall_s=wall, **rows)
+
+    for label, r in out.items():
+        # the run executes steps 0..CRASH_STEP, re-runs from the commit at
+        # SAVE_EVERY through SIGTERM_STEP; the relaunch runs the rest
+        last = RESILIENT_STEPS if label == "async" else SIGTERM_STEP + 1
+        want_steps = last + (CRASH_STEP + 1 - RESILIENT_SAVE_EVERY)
+        for i, loss in r["recorded"]:
+            if abs(loss - unfaulted[0][i]) > spread:
+                raise AssertionError(
+                    f"{label}: step {i} loss {loss!r}, unfaulted "
+                    f"{unfaulted[0][i]!r} (run-to-run spread {spread})")
+        if sorted({i for i, _ in r["recorded"]}) != list(range(last)):
+            raise AssertionError(f"{label}: steps recorded {r['recorded']}")
+        rep, relaunch = r["report"], r["relaunch"]
+        if rep.resumes != 1 or not rep.preempted or \
+                rep.steps_completed != SIGTERM_STEP + 1:
+            raise AssertionError(f"{label}: report {rep}")
+        if label == "async" and (
+                relaunch.start_step != SIGTERM_STEP + 1
+                or relaunch.steps_completed != RESILIENT_STEPS):
+            raise AssertionError(f"{label}: relaunch {relaunch}")
+        if os.path.basename(r["final"]) != f"step_{last:08d}":
+            raise AssertionError(f"{label}: final commit {r['final']}")
+        want = {"flash_fwd": 2 * layers * want_steps,
+                "flash_bwd_dq": layers * want_steps,
+                "flash_bwd_dkv": layers * want_steps}
+        if r["executed_steps"] != want_steps or r["launches"] != want:
+            raise AssertionError(
+                f"{label}: {r['executed_steps']} steps, launches "
+                f"{r['launches']}, expected {want_steps} and {want}")
+    if not unfaulted[0][-1] < unfaulted[0][0]:
+        raise AssertionError(f"training loss did not fall: {unfaulted[0]}")
+
+
+# ---------------------------------------------------------------------------
 # phase 7: flash against einsum through the whole step, f32 activations
 # ---------------------------------------------------------------------------
 
@@ -2034,6 +2312,8 @@ def main() -> int:
     del params
     _drop()
     phase_train(kernels)
+    _drop()
+    phase_resilient()
     _drop()
     phase_train_flash_vs_einsum()
     _drop()

@@ -765,3 +765,119 @@ def test_train_step_on_the_card_matches_cpu(cuda, backend):
     np.testing.assert_allclose(l_gpu, l_cpu, atol=1e-5, rtol=0)
     for a, b in zip(p_gpu, p_cpu):
         np.testing.assert_allclose(a, b, atol=1e-4, rtol=0)
+
+
+# --- checkpoints of a state on the card --------------------------------------
+
+
+def _cuda_state(dev, n=1 << 16, seed=0):
+    g = torch.Generator().manual_seed(seed)
+    params = {"w": torch.randn(n, generator=g).to(dev),
+              "blk": {"h": torch.randn(64, 32, generator=g).bfloat16()
+                      .to(dev)}}
+    return TrainState.create(apply_fn=None, params=params,
+                             tx=to.adamw(1e-3), use_loss_scale=True)
+
+
+def _state_tensors(ts):
+    from accelerate_tpu_torch.utils.other import flatten_dict
+
+    return {**flatten_dict({"params": ts.params, "opt": ts.opt_state}),
+            "scale": ts.loss_scale.scale,
+            "tracker": ts.loss_scale.growth_tracker}
+
+
+@pytest.mark.parametrize("async_save", [False, True])
+def test_checkpoint_of_a_cuda_state_restores_in_place(cuda, async_save,
+                                                      tmp_path):
+    """A save and load of a TrainState on the card: every tensor comes
+    back on the card, into the same storage, with the saved values."""
+    from accelerate_tpu_torch import checkpointing as ckpt
+
+    ts = _cuda_state(cuda)
+    for t in _state_tensors(ts).values():
+        t.copy_((torch.rand(t.shape, device=cuda) * 7).to(t.dtype))
+    ts.step = 11
+    saved = {k: v.clone() for k, v in _state_tensors(ts).items()}
+    ckpt.save_accelerator_state(str(tmp_path), train_states=[ts], step=11,
+                                async_save=async_save)
+    ckpt.wait_for_checkpoints()
+    for t in _state_tensors(ts).values():
+        t.zero_()
+    ts.step = 0
+    live = _state_tensors(ts)
+    ptrs = {k: v.data_ptr() for k, v in live.items()}
+    out = ckpt.load_accelerator_state(str(tmp_path), train_states=[ts])
+    assert out["step"] == 11 and ts.step == 11
+    for k, v in _state_tensors(ts).items():
+        assert v is live[k] and v.data_ptr() == ptrs[k]
+        assert v.device.type == "cuda"
+        assert torch.equal(v, saved[k]), k
+
+
+def test_async_save_then_an_in_place_step_writes_the_pre_step_values(
+        cuda, tmp_path):
+    """The stage is ordered before the next step's writes: an async save
+    followed at once by in-place steps (on a 1 GiB state, so the copy to
+    the host takes milliseconds) still writes the values of the save's
+    step."""
+    from accelerate_tpu_torch import checkpointing as ckpt
+    from accelerate_tpu_torch.utils import safetensors as st
+
+    PartialState._reset_state()
+    acc = Accelerator()
+    ts = acc.prepare(TrainState.create(
+        apply_fn=None, params={"w": torch.ones(1 << 26, device=cuda)},
+        tx=to.adamw(1e-2)))
+    step = acc.train_step(lambda p, b: (p["w"] * b).sum())
+    b = torch.linspace(-1, 1, 1 << 26, device=cuda)
+    ts, _ = step(ts, b)
+    want = {k: v.cpu() for k, v in _state_tensors_plain(ts).items()}
+    acc.save_state(str(tmp_path), state=ts, async_save=True)
+    for _ in range(3):
+        ts, _ = step(ts, b)
+    acc.wait_for_checkpoints()
+    got = st.load_file(str(tmp_path / "model_0.safetensors"))
+    for k, v in want.items():
+        assert torch.equal(got[k], v), k
+    assert not torch.equal(got["params.w"], ts.params["w"].cpu())
+    PartialState._reset_state()
+
+
+def _state_tensors_plain(ts):
+    from accelerate_tpu_torch.utils.other import flatten_dict
+
+    return flatten_dict({"params": ts.params, "opt_state": ts.opt_state})
+
+
+def test_save_model_round_trip_at_full_width_is_bit_exact(cuda, tmp_path):
+    """llama3-8B width, 2 layers: every param through save_model (index
+    sharded at 2 GB) and load_model back onto the card, bit for bit."""
+    from accelerate_tpu_torch import checkpointing as ckpt
+
+    cfg = llama.LlamaConfig.llama3_8b(num_hidden_layers=2)
+    params = llama.init_params(cfg, 0)
+    from accelerate_tpu_torch.utils.other import flatten_dict
+
+    ckpt.save_model(params, str(tmp_path), max_shard_size="2GB")
+    back = flatten_dict(ckpt.load_model(str(tmp_path)))
+    flat = flatten_dict(params)
+    assert set(back) == set(flat)
+    for key, a in flat.items():
+        b = back[key]
+        assert b.device.type == "cuda" and b.dtype == a.dtype, key
+        assert torch.equal(a, b), key
+
+
+def test_step_timer_tick_waits_for_the_card(cuda):
+    """`tick(state)` returns only after the card has finished the work
+    queued on the state's tensors."""
+    from accelerate_tpu_torch.profiler import StepTimer
+
+    x = torch.randn(4096, 4096, device=cuda)
+    timer = StepTimer(warmup_steps=0)
+    timer.tick()
+    for _ in range(20):
+        x = x @ x / 64
+    timer.tick({"x": x})
+    assert torch.cuda.current_stream().query()

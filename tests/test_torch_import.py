@@ -1,5 +1,7 @@
 """The PyTorch port stands alone: it imports neither jax nor the JAX
-package, and `chip_smoke.py` refuses to report without a CUDA device.
+package, nor the `safetensors` package (the card's machine has none; the
+port reads and writes the format itself), and `chip_smoke.py` refuses
+to report without a CUDA device.
 
 The suite's conftest imports jax into every test process, so the import
 check runs in a fresh interpreter."""
@@ -24,6 +26,7 @@ for name in names:
     importlib.import_module(name)
 leaked = sorted(m for m in sys.modules
                 if m == "jax" or m.startswith("jax.")
+                or m == "safetensors" or m.startswith("safetensors.")
                 or m == "accelerate_tpu" or m.startswith("accelerate_tpu."))
 print(json.dumps({"modules": names, "leaked": leaked}))
 """
@@ -40,7 +43,10 @@ def test_port_imports_no_jax_and_no_jax_package():
                  "utils.dataclasses", "ops.flash_attention", "profiler",
                  "server", "server.config", "server.http",
                  "server.protocol", "server.service", "server.tokenizer",
-                 "telemetry.trace", "telemetry.export", "commands.serve"):
+                 "telemetry.trace", "telemetry.export", "commands.serve",
+                 "checkpointing", "hooks_registry", "utils.constants",
+                 "utils.manifest", "utils.other", "utils.safetensors",
+                 "telemetry.aggregate", "telemetry.straggler"):
         assert f"accelerate_tpu_torch.{name}" in out["modules"]
     assert out["leaked"] == []
 
@@ -60,7 +66,8 @@ def _imported_roots(path: pathlib.Path) -> set[str]:
     ids=lambda p: str(p.relative_to(ROOT)))
 def test_no_source_names_jax_or_the_jax_package(path):
     """Function-level imports included, which a plain import never runs."""
-    assert not _imported_roots(path) & {"jax", "jaxlib", "accelerate_tpu"}
+    assert not _imported_roots(path) & {"jax", "jaxlib", "accelerate_tpu",
+                                        "safetensors"}
 
 
 @pytest.mark.parametrize("alone", [False, True],

@@ -226,3 +226,38 @@ def test_accumulation_applies_every_kth_call_and_tracks_sync():
     # mean grad (2, 1) times lr 0.5, applied once
     assert torch.equal(state.params["w"], torch.tensor([0.0, -2.5]))
     assert not any(a.abs().sum() for a in to.tree_leaves(state.grad_accum))
+
+
+@pytest.mark.parametrize("mp", ["no", "fp16"])
+def test_clip_takes_the_expanded_gradient_of_a_sum_like_jax(mp):
+    """Autograd hands back the gradient of a sum as an expanded view; the
+    in-place unscale and clip must still apply (the JAX step's result)."""
+    rng = np.random.default_rng(3)
+    w = rng.normal(size=(4, 3)).astype(np.float32)
+    b = rng.normal(size=(3,)).astype(np.float32)
+    x = rng.normal(size=(8, 4)).astype(np.float32)
+
+    def loss(xp):
+        def f(p, batch):
+            return (xp.mean(p["w"] ** 2) + 3.0 * p["b"].sum()) \
+                * batch.mean()
+        return f
+
+    at.PartialState._reset_state()
+    jacc = at.Accelerator(mixed_precision=mp, gradient_clipping=1.0)
+    js = jacc.prepare(at.TrainState.create(
+        apply_fn=None, params={"w": jnp.asarray(w), "b": jnp.asarray(b)},
+        tx=optax.adamw(LR)))
+    js, jm = jacc.train_step(loss(jnp))(js, jnp.asarray(x))
+    at.PartialState._reset_state()
+    acc = Accelerator(mixed_precision=mp, gradient_clipping=1.0, cpu=True)
+    ts = acc.prepare(tt.TrainState.create(
+        apply_fn=None, params={"w": torch.tensor(w), "b": torch.tensor(b)},
+        tx=to.adamw(LR)))
+    ts, tm = acc.train_step(loss(torch))(ts, torch.tensor(x))
+    np.testing.assert_allclose(float(tm["loss"]), float(jm["loss"]),
+                               atol=1e-5, rtol=0)
+    for k in ("w", "b"):
+        np.testing.assert_allclose(ts.params[k].numpy(),
+                                   np.asarray(js.params[k]), atol=1e-6,
+                                   rtol=0)
