@@ -14,7 +14,16 @@ and `train_step(loss_fn)`, which returns `step(state, *batch) -> (state,
   applies the optimizer every k-th call;
 - the global-norm clip, then the optimizer update;
 - fp16 scales the loss by a dynamic loss scale and skips the update of a
-  step whose grads are not finite.
+  step whose grads are not finite;
+- fp8 (`mixed_precision="fp8"`) computes in bf16 with the layer
+  projections in fp8 (`ops/fp8.py`): the loss function takes an
+  `fp8_state` keyword and returns `(loss, new_fp8_state)`, and the step
+  copies the new metas into `state.fp8_state` on every micro-step.
+
+`kwargs_handlers` takes the reference's records: `AutocastKwargs`
+(`enabled=False` pins the compute to f32), `FP8RecipeKwargs` (its
+`amax_history_len` reaches every `init_fp8_state`) and
+`InitProcessGroupKwargs` without a timeout (one process has no group).
 
 The step is eager and updates the state's tensors in place (see
 `training.py`); `train_step(donate=False)` instead writes the update into
@@ -34,7 +43,9 @@ Arguments of the reference that the port does not carry yet raise
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import inspect
 import os
 import shutil
 from typing import Any, Callable
@@ -50,10 +61,15 @@ from .training import DynamicLossScale, TrainState, cast_floating, \
     clone_tree, global_norm
 from .utils.constants import CHECKPOINT_DIR_PREFIX
 from .utils.dataclasses import (
+    AutocastKwargs,
+    FP8RecipeKwargs,
     GradientAccumulationPlugin,
+    InitProcessGroupKwargs,
+    KwargsHandler,
     PrecisionType,
     ProjectConfiguration,
 )
+from .utils.other import flatten_dict
 
 # reference arguments the port does not carry yet: the value that means
 # "unused", and the slice that brings them
@@ -70,7 +86,6 @@ _UNPORTED = {
     "log_with": (None, "tracking"),
     "step_scheduler_with_optimizer": (True, "scheduler"),
     "jit_config": (None, "CUDA-graph"),
-    "kwargs_handlers": (None, "fp8 and mixed-precision handlers"),
     "metrics_port": (None, "telemetry"),
     "stall_timeout_s": (None, "telemetry"),
     "cost_sample_every": (None, "telemetry"),
@@ -100,6 +115,7 @@ class Accelerator:
                  gradient_clipping: float | None = None,
                  project_dir: str | None = None,
                  project_config: ProjectConfiguration | None = None,
+                 kwargs_handlers: list | None = None,
                  **unported: Any):
         for name, value in unported.items():
             if name not in _UNPORTED:
@@ -108,11 +124,37 @@ class Accelerator:
             default, slice_name = _UNPORTED[name]
             if value != default:
                 raise _unported(f"Accelerator({name}=...)", slice_name)
-        if PrecisionType(str(mixed_precision or "no").lower()) == \
-                PrecisionType.FP8:
-            raise _unported("mixed_precision='fp8'", "fp8")
+        self.autocast_handler: AutocastKwargs | None = None
+        self.init_handler: InitProcessGroupKwargs | None = None
+        self.fp8_recipe_handler: FP8RecipeKwargs | None = None
+        for handler in kwargs_handlers or []:
+            if not isinstance(handler, KwargsHandler):
+                raise ValueError(
+                    f"Unsupported kwargs handler {handler!r}: expected a "
+                    "KwargsHandler instance (AutocastKwargs, "
+                    "InitProcessGroupKwargs, FP8RecipeKwargs).")
+            for attr, cls in (("autocast_handler", AutocastKwargs),
+                              ("init_handler", InitProcessGroupKwargs),
+                              ("fp8_recipe_handler", FP8RecipeKwargs)):
+                if isinstance(handler, cls):
+                    if getattr(self, attr) is not None:
+                        raise ValueError(f"You can only pass one "
+                                         f"{cls.__name__} in kwargs_handlers.")
+                    setattr(self, attr, handler)
+                    break
+            else:
+                raise ValueError(
+                    f"Unsupported kwargs handler type "
+                    f"{type(handler).__name__}: GradScaler/DDP handlers are "
+                    "not part of the reference.")
+        if self.init_handler is not None and \
+                self.init_handler.timeout is not None:
+            raise _unported("InitProcessGroupKwargs(timeout=...)",
+                            "parallelism")
         self.state = AcceleratorState(mixed_precision=mixed_precision,
                                       cpu=cpu)
+        # read by ops.fp8.resolve_history_len (the models' init_fp8_state)
+        self.state.fp8_recipe_handler = self.fp8_recipe_handler
         if gradient_accumulation_plugin is None:
             gradient_accumulation_plugin = GradientAccumulationPlugin(
                 num_steps=gradient_accumulation_steps)
@@ -142,8 +184,14 @@ class Accelerator:
 
     @property
     def compute_dtype(self) -> torch.dtype:
+        """The dtype the step computes in: f32 with autocast disabled;
+        bf16 for bf16 and fp8 (fp8 is a product-level format inside the
+        model's projections); f16 for fp16; else f32."""
+        if self.autocast_handler is not None and \
+                not self.autocast_handler.enabled:
+            return torch.float32
         mp = self.state.mixed_precision
-        if mp == PrecisionType.BF16:
+        if mp in (PrecisionType.BF16, PrecisionType.FP8):
             return torch.bfloat16
         if mp == PrecisionType.FP16:
             return torch.float16
@@ -152,6 +200,12 @@ class Accelerator:
     @property
     def gradient_accumulation_steps(self) -> int:
         return self.gradient_state.num_steps
+
+    @contextlib.contextmanager
+    def autocast(self, autocast_handler=None):
+        """A no-op context, as in the reference: the precision policy is
+        the step's explicit casts."""
+        yield
 
     @property
     def sync_gradients(self) -> bool:
@@ -191,7 +245,8 @@ class Accelerator:
         return dataclasses.replace(
             ts, params=place(ts.params), opt_state=place(ts.opt_state),
             grad_accum=place(ts.grad_accum),
-            loss_scale=None if loss_scale is None else loss_scale.to(dev))
+            loss_scale=None if loss_scale is None else loss_scale.to(dev),
+            fp8_state=place(ts.fp8_state))
 
     # ------------------------------------------------------------- hot loop
     def train_step(self, loss_fn: Callable, has_aux: bool = False,
@@ -203,9 +258,26 @@ class Accelerator:
         reference's compiled step, run eagerly. With `donate=True` the
         state's tensors are updated in place (the counterpart of the
         reference's donation); with `donate=False` the step writes into
-        copies and the input state keeps its values."""
+        copies and the input state keeps its values.
+
+        Under mixed_precision="fp8" the loss function must take an
+        `fp8_state` keyword (or `**kwargs`) and return `(loss,
+        new_fp8_state)`; fp8 never degrades to full precision silently."""
         if contract is not None or replication_threshold != 1 << 26:
             raise _unported("train_step(contract=...)", "analysis")
+        if self.state.mixed_precision == PrecisionType.FP8:
+            try:
+                params = inspect.signature(loss_fn).parameters
+            except (TypeError, ValueError):
+                params = {}
+            if "fp8_state" not in params and not any(
+                    p.kind == inspect.Parameter.VAR_KEYWORD
+                    for p in params.values()):
+                raise ValueError(
+                    "mixed_precision='fp8' needs a loss_fn that accepts an "
+                    "fp8_state kwarg and returns (loss, new_fp8_state) — "
+                    "e.g. models.llama.causal_lm_loss. fp8 never silently "
+                    "degrades to full precision.")
         return _TrainStep(self, loss_fn, has_aux,
                           max_grad_norm if max_grad_norm is not None
                           else self.gradient_clipping, donate)
@@ -365,6 +437,21 @@ class Accelerator:
         return tree_map(lambda t: t.detach().to("cpu"), model)
 
 
+def _copy_metas(dst, src) -> None:
+    """The loss function's new fp8 metas copied into the state's tensors
+    in place; the two trees must have the same keys."""
+    live = {k: v for k, v in flatten_dict(dst).items() if v is not None}
+    new = {k: v for k, v in flatten_dict(src).items() if v is not None}
+    if set(live) != set(new):
+        raise ValueError(
+            "the loss function's new fp8 state does not match "
+            f"state.fp8_state: missing {sorted(set(live) - set(new))}, "
+            f"unexpected {sorted(set(new) - set(live))}")
+    with torch.no_grad():
+        for key, t in live.items():
+            t.copy_(new[key])
+
+
 class _TrainStep:
     def __init__(self, acc: Accelerator, loss_fn: Callable, has_aux: bool,
                  max_grad_norm: float | None, donate: bool):
@@ -387,13 +474,21 @@ class _TrainStep:
         if k > 1 and state.grad_accum is None:
             raise ValueError("gradient_accumulation_steps>1 needs "
                              "TrainState.create(use_grad_accum_buffer=True)")
+        use_fp8 = acc.state.mixed_precision == PrecisionType.FP8
+        if use_fp8 and state.fp8_state is None:
+            raise ValueError(
+                "mixed_precision='fp8' needs delayed-scaling state: create "
+                "it with TrainState.create(fp8_state=model.init_fp8_state("
+                "config)) — e.g. models.llama.init_fp8_state. fp8 never "
+                "silently degrades to full precision.")
         if not self.donate:
             # the update goes into copies: the caller's state keeps its
             # tensors and their values
             state = dataclasses.replace(
                 state, params=clone_tree(state.params),
                 opt_state=clone_tree(state.opt_state),
-                grad_accum=clone_tree(state.grad_accum))
+                grad_accum=clone_tree(state.grad_accum),
+                fp8_state=clone_tree(state.fp8_state))
         batch = to_device(batch, acc.device)
         leaves = tree_leaves(state.params)
         masters = [p.detach().requires_grad_(True) for p in leaves]
@@ -404,11 +499,23 @@ class _TrainStep:
         if dtype == torch.bfloat16:
             batch = cast_floating(batch, dtype)
         with torch.enable_grad():
-            out = self.loss_fn(cast_floating(params, dtype), *batch)
-            loss = out[0] if self.has_aux else out
-            aux = out[1] if self.has_aux else None
+            if use_fp8:
+                # the fp8 casts happen inside the model's fp8_dense calls
+                out = self.loss_fn(cast_floating(params, dtype), *batch,
+                                   fp8_state=state.fp8_state)
+                loss, aux, new_fp8 = (out if self.has_aux
+                                      else (out[0], None, out[1]))
+            else:
+                out = self.loss_fn(cast_floating(params, dtype), *batch)
+                loss = out[0] if self.has_aux else out
+                aux = out[1] if self.has_aux else None
             scaled = loss * state.loss_scale.scale if use_scale else loss
             grads = torch.autograd.grad(scaled, masters, allow_unused=True)
+        if use_fp8:
+            # every micro-step, accumulating or not (the amax window is a
+            # per-step statistic); after the backward, which under remat
+            # reruns the forward with this step's scales
+            _copy_metas(state.fp8_state, new_fp8)
         # contiguous: autograd may hand back an expanded view (the grad
         # of a sum), which the in-place unscale and clip cannot write
         grads = [torch.zeros_like(p) if g is None else g.contiguous()

@@ -10,6 +10,10 @@ reference writes each array payload as an orbax directory (`model_0/`),
 the port writes one safetensors file (`model_0.safetensors`) through its
 own reader and writer (`utils/safetensors.py`), keyed by the payload's
 `flatten_dict` paths (`params.embed`, `opt_state.mu.embed`, `step`).
+A train state's fp8 metas ride the save as `model_0_fp8.safetensors`
+(`fp8_state.layers.attn.q_proj.x.scale`, ...) beside the reference's
+sidecar `model_0_fp8.json` with the amax window's length; a restore
+adapts a window of another length to the live one.
 
 The commit protocol is the reference's (`utils/manifest.py`): a directory
 is a checkpoint only once `checkpoint.manifest.json` is renamed into
@@ -44,6 +48,7 @@ from __future__ import annotations
 
 import atexit
 import json
+import logging
 import os
 import pickle
 import random as _py_random
@@ -57,6 +62,7 @@ import numpy as np
 import torch
 
 from .device import resolve_device
+from .ops.fp8 import adapt_history_len, fp8_state_history_len
 from .telemetry.registry import get_registry
 from .telemetry.trace import span
 from .utils import safetensors as st
@@ -94,6 +100,8 @@ __all__ = [
     "load_model",
 ]
 
+logger = logging.getLogger(__name__)
+
 
 def _abspath(path: str) -> str:
     return os.path.abspath(os.path.expanduser(path))
@@ -129,11 +137,16 @@ class _SnapshotStager:
     the writes were synchronous, else the pending parks on the sealed
     list until the writer proves durability (`flush_ready`); `rollback`
     abandons it, leaving an incomplete directory resume will skip. The
-    sealed list is shared with the writer thread, hence the lock."""
+    sealed list is shared with the writer thread, hence the lock. A
+    commit taken off it to be published stays in `_publishing` until
+    its manifest is on disk, so `sealed_dirs` lists it the whole time
+    and retention never deletes a directory whose manifest is being
+    written."""
 
     def __init__(self):
         self._lock = threading.Lock()
         self._sealed: list[_PendingCommit] = []
+        self._publishing: list[_PendingCommit] = []
 
     def stage(self, output_dir: str, step: int) -> _PendingCommit:
         return _PendingCommit(_abspath(output_dir), step)
@@ -159,8 +172,14 @@ class _SnapshotStager:
         save's bytes are the ones this job just wrote, or older)."""
         with self._lock:
             ready, self._sealed = self._sealed, []
-        for pending in ready:
-            self._publish(pending)
+            self._publishing.extend(ready)
+        try:
+            for pending in ready:
+                self._publish(pending)
+        finally:
+            with self._lock:
+                for pending in ready:
+                    self._publishing.remove(pending)
         return len(ready)
 
     def drop_sealed(self) -> int:
@@ -174,8 +193,10 @@ class _SnapshotStager:
         return len(dropped)
 
     def sealed_dirs(self) -> list[str]:
+        """Directories of the sealed commits and of those whose manifests
+        are being published."""
         with self._lock:
-            return [p.directory for p in self._sealed]
+            return [p.directory for p in self._sealed + self._publishing]
 
     def _publish(self, pending: _PendingCommit) -> None:
         write_manifest(pending.directory, step=pending.step,
@@ -389,16 +410,25 @@ def _save_accelerator_state(output_dir, train_states, schedulers,
     os.makedirs(output_dir, exist_ok=True)
     pending = _stager.stage(output_dir, step)
     try:
-        payloads = {}
+        payloads, small = {}, {}
         for i, ts in enumerate(train_states):
             name = f"{MODEL_NAME}_{i}.safetensors"
             payloads[os.path.join(output_dir, name)] = \
                 _train_state_payload(ts)
             pending.add(name)
+            if ts.fp8_state is not None:
+                # a file of its own and the window's length beside it, so
+                # a restore can read a window of another length
+                name = f"{MODEL_NAME}_{i}_fp8.safetensors"
+                payloads[os.path.join(output_dir, name)] = {
+                    "fp8_state": ts.fp8_state}
+                pending.add(name)
+                small[f"{MODEL_NAME}_{i}_fp8.json"] = json.dumps({
+                    "amax_history_len":
+                        fp8_state_history_len(ts.fp8_state)}).encode()
         if payloads:
             _save_payloads(payloads, async_save)
 
-        small = {}
         for i, sched in enumerate(schedulers):
             small[f"{SCHEDULER_NAME}_{i}.bin"] = pickle.dumps(
                 sched.state_dict())
@@ -432,12 +462,9 @@ def _save_accelerator_state(output_dir, train_states, schedulers,
     return output_dir
 
 
-def _restore_into(path: str, payload: dict) -> dict:
-    """Copy the file's tensors into the payload's live tensors in place
-    (no leaf is rebound, so the optimizer and the caller keep seeing the
-    same tensors); returns the host ints (the step) by key. The file must
-    hold exactly the payload's keys, each with the live dtype and shape."""
-    live = _flat_tensors(payload)
+def _check_file(path: str, live: dict) -> None:
+    """The file must hold exactly `live`'s keys, each with its dtype and
+    shape."""
     header, _ = st.read_header(path)
     saved = {k for k in header if k != "__metadata__"}
     if saved != set(live):
@@ -452,6 +479,15 @@ def _restore_into(path: str, payload: dict) -> dict:
             raise ValueError(
                 f"{path}: {key!r} is {entry['dtype']}{entry['shape']} in the "
                 f"file, {st.dtype_name(t.dtype)}{list(t.shape)} in the state")
+
+
+def _restore_into(path: str, payload: dict) -> dict:
+    """Copy the file's tensors into the payload's live tensors in place
+    (no leaf is rebound, so the optimizer and the caller keep seeing the
+    same tensors); returns the host ints (the step) by key. The file must
+    hold exactly the payload's keys, each with the live dtype and shape."""
+    live = _flat_tensors(payload)
+    _check_file(path, live)
     ints = {key for key, leaf in flatten_dict(payload).items()
             if isinstance(leaf, int)}
     out = {}
@@ -462,6 +498,57 @@ def _restore_into(path: str, payload: dict) -> dict:
             else:
                 live[key].copy_(host)
     return out
+
+
+def _rebuild(tree, fn, prefix: str = ""):
+    """`tree` with each tensor t replaced by fn(key, t), the key being
+    its `flatten_dict` path; dicts, NamedTuples, lists and tuples kept."""
+    def key(k):
+        return f"{prefix}.{k}" if prefix else str(k)
+
+    if isinstance(tree, dict):
+        return {k: _rebuild(v, fn, key(k)) for k, v in tree.items()}
+    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
+        return type(tree)(*(_rebuild(v, fn, key(f))
+                            for f, v in zip(tree._fields, tree)))
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_rebuild(v, fn, key(i)) for i, v in enumerate(tree))
+    if isinstance(tree, torch.Tensor):
+        return fn(prefix, tree)
+    return tree
+
+
+def _restore_fp8_state(path: str, live_fp8_state) -> None:
+    """Restore fp8 metas into the live tensors in place. A window length
+    on disk (the sidecar's) other than the live one adapts instead of
+    failing the shape check: the like-tree takes the length on disk, and
+    the restored windows keep their newest entries or are padded with
+    zeros to the live length."""
+    live_len = fp8_state_history_len(live_fp8_state)
+    saved_len = live_len
+    sidecar = path[:-len(".safetensors")] + ".json"
+    if os.path.exists(sidecar):
+        with open(sidecar) as f:
+            saved_len = json.load(f).get("amax_history_len", live_len)
+    if saved_len is None or live_len is None or saved_len == live_len:
+        _restore_into(path, {"fp8_state": live_fp8_state})
+        return
+    logger.warning(
+        "fp8 amax_history_len mismatch: checkpoint has %d, live state "
+        "wants %d; restoring the newest %d entries (%s).",
+        saved_len, live_len, min(saved_len, live_len),
+        "truncating" if saved_len > live_len else "zero-padding the tail")
+    like = {"fp8_state": adapt_history_len(_rebuild(
+        live_fp8_state, lambda _, t: torch.empty(
+            t.shape, dtype=t.dtype, device="meta")), saved_len)}
+    _check_file(path, _flat_tensors(like))
+    host = dict(st.iter_file(path))
+    restored = adapt_history_len(
+        _rebuild(like, lambda k, _: host[k])["fp8_state"], live_len)
+    new = _flat_tensors({"fp8_state": restored})
+    with torch.no_grad():
+        for key, t in _flat_tensors({"fp8_state": live_fp8_state}).items():
+            t.copy_(new[key])
 
 
 def load_accelerator_state(
@@ -504,6 +591,9 @@ def _load_accelerator_state(input_dir, train_states, schedulers,
             os.path.join(input_dir, f"{MODEL_NAME}_{i}.safetensors"),
             _train_state_payload(ts))
         ts.step = ints["step"]
+        fp8_path = os.path.join(input_dir, f"{MODEL_NAME}_{i}_fp8.safetensors")
+        if ts.fp8_state is not None and os.path.exists(fp8_path):
+            _restore_fp8_state(fp8_path, ts.fp8_state)
         out["train_states"].append(ts)
 
     for i, sched in enumerate(schedulers):

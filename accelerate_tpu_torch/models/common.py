@@ -15,6 +15,8 @@ import math
 import numpy as np
 import torch
 
+from ..ops.fp8 import fp8_dense
+
 NEG_INF = -1e30
 
 
@@ -29,6 +31,19 @@ def dense(x: torch.Tensor, kernel: torch.Tensor,
     if bias is not None:
         out = out + bias
     return out
+
+
+def dense_maybe_fp8(x, kernel, meta, bias=None):
+    """The models' fp8 swap point: with an Fp8Meta pair the projection
+    runs in fp8 (`ops.fp8.fp8_dense`), else the ordinary `dense`. Returns
+    (out, new_meta or None); a bias adds in the output dtype after the
+    product."""
+    if meta is None:
+        return dense(x, kernel, bias), None
+    out, new_meta = fp8_dense(x, kernel, meta)
+    if bias is not None:
+        out = out + bias.to(out.dtype)
+    return out, new_meta
 
 
 def rms_norm(x: torch.Tensor, scale: torch.Tensor,

@@ -3,7 +3,10 @@
 A JAX param pytree turned to numpy (`jax.tree_util.tree_map(np.asarray,
 params)`) has the same nested keys and stacked shapes as the port's
 params, so one pair of functions serves every model family: the tests
-hand the same weights to both packages through them.
+hand the same weights to both packages through them. An fp8 state
+crosses the same way: a leaf with the fields of `Fp8Meta` (the JAX
+package's, its arrays turned to numpy) becomes the port's `Fp8Meta`, and
+back; None leaves (weights without metas) stay None.
 """
 
 from __future__ import annotations
@@ -12,6 +15,7 @@ import numpy as np
 import torch
 
 from ..device import resolve_device
+from ..ops.fp8 import Fp8Meta
 
 
 def _to_tensor(a, device, dtype):
@@ -35,6 +39,10 @@ def params_from_numpy(tree, device=None, dtype=None) -> dict:
     def walk(node):
         if isinstance(node, dict):
             return {k: walk(v) for k, v in node.items()}
+        if node is None:
+            return None
+        if getattr(node, "_fields", None) == Fp8Meta._fields:
+            return Fp8Meta(*(walk(v) for v in node))
         return _to_tensor(node, dev, dtype)
 
     return walk(tree)
@@ -47,6 +55,10 @@ def params_to_numpy(params) -> dict:
     def walk(node):
         if isinstance(node, dict):
             return {k: walk(v) for k, v in node.items()}
+        if node is None:
+            return None
+        if isinstance(node, Fp8Meta):
+            return Fp8Meta(*(walk(v) for v in node))
         t = node.detach().cpu().contiguous()
         if t.dtype == torch.bfloat16:
             import ml_dtypes

@@ -6,9 +6,12 @@ unchanged). The forward loops over layers, indexing views of the stacked
 tensors. Ported: the cached decode/prefill forward and `generate`
 (serving), and the training half: the no-cache forward on the einsum or
 flash attention path (`ops/flash_attention.py`, CUDA kernels on the card),
-per-layer remat, and `causal_lm_loss` with its chunked path. The
-sequence-parallel backends ("ring", "ulysses", `sequence_parallel`) and
-fp8 state come with later slices.
+per-layer remat, and `causal_lm_loss` with its chunked path; and fp8
+training (`fp8_state`, `init_fp8_state`): every layer projection through
+`ops.fp8.fp8_dense` with per-layer metas, views of the stacked `[L]` and
+`[L, h]` tensors, and the new metas stacked back on the layer dim. The
+sequence-parallel backends ("ring", "ulysses", `sequence_parallel`) come
+with a later slice.
 """
 
 from __future__ import annotations
@@ -27,10 +30,11 @@ from torch.utils.checkpoint import (
 
 from ..device import resolve_device
 from ..ops.flash_attention import flash_attention
+from ..ops.fp8 import SCALED_MM_OP, stacked_fp8_metas
 from .common import (
     apply_rope,
     cross_entropy_loss,
-    dense,
+    dense_maybe_fp8,
     dot_product_attention,
     repeat_kv,
     rms_norm,
@@ -180,25 +184,40 @@ def _layer_view(tree, i: int):
 
 
 def _unstack(tree, n: int) -> list:
-    """The first n layers of a stacked [L, ...] param tree, as views, by
-    one `unbind` per leaf. Its backward writes each leaf's gradient once;
-    indexing layer by layer would add a zero-padded full-size gradient
-    per layer (L times the traffic)."""
+    """The first n layers of a stacked [L, ...] param (or fp8 meta) tree,
+    as views, by one `unbind` per leaf. Its backward writes each leaf's
+    gradient once; indexing layer by layer would add a zero-padded
+    full-size gradient per layer (L times the traffic)."""
     if isinstance(tree, dict):
         parts = {k: _unstack(v, n) for k, v in tree.items()}
         return [{k: p[i] for k, p in parts.items()} for i in range(n)]
+    if isinstance(tree, tuple):     # an Fp8Meta
+        parts = [_unstack(v, n) for v in tree]
+        return [type(tree)(*(p[i] for p in parts)) for i in range(n)]
     return list(torch.unbind(tree)[:n])
 
 
+def _stack(trees: list):
+    """Per-layer trees of one structure stacked on a new layer dim."""
+    first = trees[0]
+    if isinstance(first, dict):
+        return {k: _stack([t[k] for t in trees]) for k in first}
+    if isinstance(first, tuple):    # an Fp8Meta
+        return type(first)(*(_stack([t[j] for t in trees])
+                             for j in range(len(first))))
+    return torch.stack(trees)
+
+
 def _attention(config: LlamaConfig, layer: dict, x, cos, sin, positions,
-               mask, kv_cache=None):
+               mask, kv_cache=None, fp8=None):
     b, s, _ = x.shape
     nh, nkv, hd = (config.num_attention_heads, config.num_key_value_heads,
                    config.head_dim)
     attn = layer["attn"]
-    q = dense(x, attn["q_proj"]["kernel"])
-    k = dense(x, attn["k_proj"]["kernel"])
-    v = dense(x, attn["v_proj"]["kernel"])
+    fa = fp8["attn"] if fp8 is not None else {}
+    q, mq = dense_maybe_fp8(x, attn["q_proj"]["kernel"], fa.get("q_proj"))
+    k, mk = dense_maybe_fp8(x, attn["k_proj"]["kernel"], fa.get("k_proj"))
+    v, mv = dense_maybe_fp8(x, attn["v_proj"]["kernel"], fa.get("v_proj"))
     if "bias" in attn["q_proj"]:
         q = q + attn["q_proj"]["bias"].to(q.dtype)
     if "bias" in attn["k_proj"]:
@@ -227,30 +246,44 @@ def _attention(config: LlamaConfig, layer: dict, x, cos, sin, positions,
         else:
             out = dot_product_attention(q, k, v, mask=mask, causal=True,
                                         window=config.sliding_window)
-    o = dense(out.reshape(b, s, nh * hd), attn["o_proj"]["kernel"])
+    o, mo = dense_maybe_fp8(out.reshape(b, s, nh * hd),
+                            attn["o_proj"]["kernel"], fa.get("o_proj"))
     if "bias" in attn["o_proj"]:
         o = o + attn["o_proj"]["bias"].to(o.dtype)
-    return o, new_cache
+    new_fp8 = ({"q_proj": mq, "k_proj": mk, "v_proj": mv, "o_proj": mo}
+               if fp8 is not None else None)
+    return o, new_cache, new_fp8
 
 
-def _mlp(layer: dict, x):
+def _mlp(layer: dict, x, fp8=None):
     mlp = layer["mlp"]
-    gate = dense(x, mlp["gate_proj"]["kernel"])
-    up = dense(x, mlp["up_proj"]["kernel"])
-    return dense(F.silu(gate) * up, mlp["down_proj"]["kernel"])
+    fm = fp8["mlp"] if fp8 is not None else {}
+    gate, mg = dense_maybe_fp8(x, mlp["gate_proj"]["kernel"],
+                               fm.get("gate_proj"))
+    up, mu = dense_maybe_fp8(x, mlp["up_proj"]["kernel"], fm.get("up_proj"))
+    down, md = dense_maybe_fp8(F.silu(gate) * up, mlp["down_proj"]["kernel"],
+                               fm.get("down_proj"))
+    new_fp8 = ({"gate_proj": mg, "up_proj": mu, "down_proj": md}
+               if fp8 is not None else None)
+    return down, new_fp8
 
 
 def _layer_body(config: LlamaConfig, x, layer, cos, sin, positions, mask,
-                kv_cache=None):
-    attn_out, new_cache = _attention(
+                kv_cache=None, fp8=None):
+    """One layer: (x, new_cache, new_fp8); the new metas are None without
+    `fp8`, this layer's meta tree."""
+    attn_out, new_cache, fp8_attn = _attention(
         config, layer,
         rms_norm(x, layer["input_layernorm"]["scale"], config.rms_norm_eps),
-        cos, sin, positions, mask, kv_cache,
+        cos, sin, positions, mask, kv_cache, fp8,
     )
     x = x + attn_out
-    x = x + _mlp(layer, rms_norm(x, layer["post_attention_layernorm"]["scale"],
-                                 config.rms_norm_eps))
-    return x, new_cache
+    mlp_out, fp8_mlp = _mlp(
+        layer, rms_norm(x, layer["post_attention_layernorm"]["scale"],
+                        config.rms_norm_eps), fp8)
+    new_fp8 = ({"attn": fp8_attn, "mlp": fp8_mlp} if fp8 is not None
+               else None)
+    return x + mlp_out, new_cache, new_fp8
 
 
 def forward(
@@ -261,9 +294,12 @@ def forward(
     positions: torch.Tensor | None = None,
     kv_caches: Any = None,
     return_hidden: bool = False,
+    fp8_state: Any = None,
 ):
     """Logits [B, S, V] (f32); with kv_caches, (logits, new_caches); with
     `return_hidden`, the final normed hidden states instead of logits.
+    With `fp8_state` (see `init_fp8_state`) the layer projections run in
+    fp8 and the result is (out, new_fp8_state).
 
     kv_caches is (k, v, cache_len) of stacked [L, B, M, Hkv, D] buffers
     (written in place; cache_len an int or an int tensor, 0-dim or [B]),
@@ -272,6 +308,9 @@ def forward(
     if return_hidden and kv_caches is not None:
         raise ValueError("return_hidden is not supported on the decode "
                          "(kv_caches) path")
+    if fp8_state is not None and kv_caches is not None:
+        raise ValueError("fp8 is a training-path feature; decode "
+                         "(kv_caches) runs bf16")
     if config.sequence_parallel:
         raise NotImplementedError(
             "sequence_parallel arrives with the port's parallelism slice")
@@ -289,7 +328,7 @@ def forward(
         ck, cv, cache_len = kv_caches
         rows_k, rows_v = [], []
         for i in range(config.num_hidden_layers):
-            x, (nk, nv, _) = _layer_body(
+            x, (nk, nv, _), _ = _layer_body(
                 config, x, _layer_view(layers, i), cos, sin, positions,
                 attention_mask, (ck[i], cv[i], cache_len))
             rows_k.append(nk)
@@ -303,31 +342,45 @@ def forward(
         return logits, (ck, cv, cache_len + input_ids.shape[1])
 
     body = _remat_body(config)
-    for layer in _unstack(layers, config.num_hidden_layers):
-        x = body(x, layer, cos, sin, positions, attention_mask)
+    n = config.num_hidden_layers
+    if fp8_state is None:
+        for layer in _unstack(layers, n):
+            x = body(x, layer, cos, sin, positions, attention_mask)
+        new_fp8_state = None
+    else:
+        new_metas = []
+        for layer, metas in zip(_unstack(layers, n),
+                                _unstack(fp8_state["layers"], n)):
+            x, new = body(x, layer, cos, sin, positions, attention_mask,
+                          metas)
+            new_metas.append(new)
+        new_fp8_state = {"layers": _stack(new_metas)}
     x = rms_norm(x, params["norm"]["scale"], config.rms_norm_eps)
-    if return_hidden:
-        return x
-    return _project_out(config, params, x)
+    out = x if return_hidden else _project_out(config, params, x)
+    return out if fp8_state is None else (out, new_fp8_state)
 
 
-def _layer_step(x, layer, cos, sin, positions, mask, *, config):
-    return _layer_body(config, x, layer, cos, sin, positions, mask)[0]
+def _layer_step(x, layer, cos, sin, positions, mask, fp8=None, *, config):
+    """x, or (x, new metas) with `fp8`."""
+    x, _, new_fp8 = _layer_body(config, x, layer, cos, sin, positions, mask,
+                                fp8=fp8)
+    return x if fp8 is None else (x, new_fp8)
 
 
 def _save_matmuls(ctx, op, *args, **kwargs):
     """Selective-checkpoint policy of remat "dots": keep the outputs of
-    products without batch dims (the projections), as the reference's
-    `dots_with_no_batch_dims_saveable`; recompute everything else,
-    attention included."""
-    if op in (torch.ops.aten.mm.default, torch.ops.aten.addmm.default):
+    products without batch dims (the projections, bf16 or fp8), as the
+    reference's `dots_with_no_batch_dims_saveable`; recompute everything
+    else, attention and the fp8 casts included."""
+    if op in (torch.ops.aten.mm.default, torch.ops.aten.addmm.default,
+              torch.ops.aten._scaled_mm.default, SCALED_MM_OP):
         return CheckpointPolicy.MUST_SAVE
     return CheckpointPolicy.PREFER_RECOMPUTE
 
 
 def _remat_body(config: LlamaConfig):
-    """The per-layer step `(x, layer, cos, sin, positions, mask) -> x`,
-    under `torch.utils.checkpoint` when `config.remat`: "full" recomputes
+    """The per-layer step `(x, layer, cos, sin, positions, mask[, fp8])
+    -> x` (or `(x, new metas)` with fp8 metas), under `torch.utils.checkpoint` when `config.remat`: "full" recomputes
     the whole layer in backward, "dots" keeps the projections' outputs.
     Either way the attention forward reruns in backward (with the flash
     backend: K1a launches twice per layer and step), as under the
@@ -436,11 +489,10 @@ def causal_lm_loss(config: LlamaConfig, params: dict, batch: dict,
     the projection and cross-entropy run per chunk under a checkpoint,
     and the full logits never exist. The attention_mask is a key-padding
     mask for the forward AND weights the loss (`shifted_padding_masks`);
-    positions stay 0..S-1, so batches should be right-padded."""
-    if fp8_state is not None:
-        raise NotImplementedError(
-            "fp8_state (mixed_precision='fp8') arrives with the port's fp8 "
-            "slice")
+    positions stay 0..S-1, so batches should be right-padded.
+
+    With `fp8_state` (mixed_precision="fp8") the layer projections run in
+    fp8 and the result is (loss, new_fp8_state); the head stays bf16."""
     input_ids = batch["input_ids"]
     labels = input_ids[:, 1:]
     attn_mask, mask = shifted_padding_masks(batch.get("attention_mask"))
@@ -451,12 +503,16 @@ def causal_lm_loss(config: LlamaConfig, params: dict, batch: dict,
         loss_chunk_size = max(1, budget // max(1, B * config.vocab_size))
     chunk = _pick_chunk(S, loss_chunk_size)
     if chunk is None or chunk >= S:
-        logits = forward(config, params, input_ids[:, :-1],
-                         attention_mask=attn_mask)
-        return cross_entropy_loss(logits, labels, mask)
+        out = forward(config, params, input_ids[:, :-1],
+                      attention_mask=attn_mask, fp8_state=fp8_state)
+        if fp8_state is None:
+            return cross_entropy_loss(out, labels, mask)
+        return cross_entropy_loss(out[0], labels, mask), out[1]
 
-    hidden = forward(config, params, input_ids[:, :-1],
-                     attention_mask=attn_mask, return_hidden=True)
+    out = forward(config, params, input_ids[:, :-1],
+                  attention_mask=attn_mask, return_hidden=True,
+                  fp8_state=fp8_state)
+    hidden, new_fp8 = out if fp8_state is not None else (out, None)
     if mask is None:
         mask = torch.ones((B, S), dtype=torch.float32, device=hidden.device)
 
@@ -474,7 +530,8 @@ def causal_lm_loss(config: LlamaConfig, params: dict, batch: dict,
                              use_reentrant=False)
         loss_sum = loss_sum + part
         count = count + n
-    return loss_sum / torch.clamp(count, min=1)
+    loss = loss_sum / torch.clamp(count, min=1)
+    return loss if fp8_state is None else (loss, new_fp8)
 
 
 def _pick_chunk(S: int, target: int) -> int | None:
@@ -491,6 +548,19 @@ def _pick_chunk(S: int, target: int) -> int | None:
     if best is None or best < max(1, target // 8):
         return None
     return best
+
+
+def init_fp8_state(config: LlamaConfig, history_len: int | None = None,
+                   device=None) -> dict:
+    """Per-layer delayed-scaling metas of every layer projection on
+    `device` (CUDA unless "cpu"); the window follows the Accelerator's
+    `FP8RecipeKwargs` unless `history_len` is given. Pass to
+    `TrainState.create(fp8_state=...)` and train with
+    `Accelerator(mixed_precision="fp8")`."""
+    return stacked_fp8_metas(config.num_hidden_layers, {
+        "attn": ("q_proj", "k_proj", "v_proj", "o_proj"),
+        "mlp": ("gate_proj", "up_proj", "down_proj"),
+    }, history_len, device=device)
 
 
 def init_kv_caches(config: LlamaConfig, batch: int, max_len: int,

@@ -64,7 +64,9 @@ class PartialState:
 
 
 class AcceleratorState:
-    """PartialState plus the mixed-precision policy."""
+    """PartialState plus the mixed-precision policy and the fp8 recipe
+    (`fp8_recipe_handler`, set by the Accelerator from its
+    `FP8RecipeKwargs`, read by `ops.fp8.resolve_history_len`)."""
 
     _shared_state: dict[str, Any] = {}
 
@@ -83,6 +85,7 @@ class AcceleratorState:
             return
         self.partial_state = PartialState(cpu=cpu, **kwargs)
         self.mixed_precision = resolve_mixed_precision(mixed_precision)
+        self.fp8_recipe_handler = None
 
     @property
     def initialized(self) -> bool:

@@ -68,9 +68,11 @@ class DynamicLossScale:
 
 @dataclasses.dataclass
 class TrainState:
-    """Params, optimizer state, micro-step counter, accumulation buffer
-    and loss scale. `step` is a plain int: the port's step is eager, so
-    the counter lives on the host."""
+    """Params, optimizer state, micro-step counter, accumulation buffer,
+    loss scale and the fp8 delayed-scaling metas (`ops/fp8.py`, threaded
+    through the step like optimizer state under mixed_precision="fp8").
+    `step` is a plain int: the port's step is eager, so the counter lives
+    on the host."""
 
     step: int
     params: Any
@@ -87,9 +89,6 @@ class TrainState:
                use_grad_accum_buffer: bool = False,
                use_loss_scale: bool = False,
                fp8_state: Any = None) -> "TrainState":
-        if fp8_state is not None:
-            raise NotImplementedError(
-                "fp8_state arrives with the port's fp8 slice")
         device = tree_leaves(params)[0].device
         return cls(
             step=0, params=params, opt_state=tx.init(params),
@@ -98,7 +97,7 @@ class TrainState:
                 if use_grad_accum_buffer else None),
             loss_scale=(DynamicLossScale.create(device=device)
                         if use_loss_scale else None),
-            apply_fn=apply_fn, tx=tx)
+            apply_fn=apply_fn, tx=tx, fp8_state=fp8_state)
 
     def apply_gradients(self, grads: Any) -> "TrainState":
         """One optimizer update: params and moments change in place."""

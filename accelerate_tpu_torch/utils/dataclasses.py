@@ -1,11 +1,14 @@
 """Configuration records (the part of `accelerate_tpu/utils/dataclasses.py`
-that the training step and checkpointing need), copied without its jax
-imports."""
+that the training step, fp8 and checkpointing need), copied without its
+jax imports."""
 
 from __future__ import annotations
 
+import dataclasses
 import enum
-from dataclasses import dataclass
+from dataclasses import dataclass, field
+from datetime import timedelta
+from typing import Any
 
 
 class PrecisionType(str, enum.Enum):
@@ -62,3 +65,48 @@ class ProjectConfiguration:
         self.project_dir = project_dir
         if self.logging_dir is None:
             self.logging_dir = project_dir
+
+
+class KwargsHandler:
+    """Base marker of `Accelerator(kwargs_handlers=[...])`'s records."""
+
+    def to_kwargs(self) -> dict[str, Any]:
+        """The fields that differ from the defaults."""
+        default = self.__class__()
+        return {
+            f.name: getattr(self, f.name)
+            for f in dataclasses.fields(self)  # type: ignore[arg-type]
+            if getattr(self, f.name) != getattr(default, f.name)
+        }
+
+
+@dataclass
+class AutocastKwargs(KwargsHandler):
+    """`enabled=False` pins the train step's compute to f32 whatever the
+    mixed-precision policy; `cache_enabled` is kept for the signature."""
+
+    enabled: bool = True
+    cache_enabled: bool = True
+
+
+@dataclass
+class InitProcessGroupKwargs(KwargsHandler):
+    """The process group's backend, address and timeout. One process has
+    no group: a timeout raises until the parallelism slice."""
+
+    backend: str | None = "jax"
+    init_method: str | None = None
+    timeout: timedelta = field(default_factory=lambda: timedelta(seconds=1800))
+
+
+@dataclass
+class FP8RecipeKwargs(KwargsHandler):
+    """The delayed-scaling recipe of `ops/fp8.py`. `amax_history_len=None`
+    resolves to a 16-step window (`ops.fp8.resolve_history_len`); pass a
+    value for longer windows."""
+
+    backend: str = "native"
+    margin: int = 0
+    fp8_format: str = "E4M3"
+    amax_history_len: int | None = None
+    amax_compute_algo: str = "max_along_history"

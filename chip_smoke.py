@@ -48,6 +48,14 @@ script exits non-zero:
 6. train: the bf16 training step at llama3-8B width, 4 layers, remat
    "dots": 10 steps through the flash kernels, with the launch counts,
    step time, tokens/s, MFU, peak memory and a profiler split;
+6a. fp8_train: the same step with mixed_precision="fp8": every layer
+   projection through `_scaled_mm`, the flash kernels, its launch
+   counts, step time, tokens/s, MFU, peak memory and a profiler split
+   beside phase train's; losses within a stated tolerance of phase
+   train's, the delayed scales moved and the windows filled; the
+   `_scaled_mm` products at the flagship shapes against their plain
+   version; a tiny fp8 step against the same step with the plain
+   products on the card;
 6b. resilient: that step at 2 layers through `run_resilient` with
    async saves every 3 steps (`keep_last_n=1`), a crash at step 5 and
    SIGTERM at step 6, then a relaunch: every loss equal to an unfaulted
@@ -1862,6 +1870,10 @@ def phase_train(kernel_rows):
         if row["name"] in launches:
             row["launches"] = launches[row["name"]]
     del state, step, loader, batch
+    return {"losses": losses, "step_ms_median": med, "tokens_per_s": tok_s,
+            "mfu_bf16_peak": flops_per_token * tok_s / BF16_FLOPS,
+            "max_memory_allocated_gb": peak_gb,
+            "device_ms_total": split["device_ms_total"]}
 
 
 def _profile_train_step(step, state, batch):
@@ -1895,6 +1907,359 @@ def _profile_train_step(step, state, batch):
     return {"device_ms_by_class": classes,
             "device_ms_total": sum(classes.values()),
             "top_kernels": kernels[:8]}
+
+
+# ---------------------------------------------------------------------------
+# phase 6a: the fp8 training step at llama3-8B width
+# ---------------------------------------------------------------------------
+
+FP8_FLOPS = 1979e12         # H100 SXM fp8 dense tensor cores, data sheet
+# fp8 against bf16 losses on one batch from one init. Before any update
+# (step 0) only the forward differs: the fp8 products' noise moves the
+# 12.5-nat loss by thousandths (1.7e-3 on an H100), gated at 0.01. The
+# first update takes the loss from 12.5 to a few tenths of a nat on this
+# one batch, and the E5M2 gradients (2 mantissa bits) make that update,
+# and the curve after it, differ by up to 0.1 nats (0.099 on an H100):
+# every later step is gated at 2% of the starting loss (0.25 nats)
+FP8_LOSS0_TOL = 0.01
+FP8_LOSS_TOL = 0.02
+# the tiny step on the card against the same step with the plain
+# products on the card, as in tests/test_torch_cuda.py
+FP8_TINY_TOL = 5e-3
+# the projections of one layer: (name, d_in, d_out) at llama3-8B width
+_FP8_PROJ = (("q_proj", 4096, 4096), ("k_proj", 4096, 1024),
+             ("v_proj", 4096, 1024), ("o_proj", 4096, 4096),
+             ("gate_proj", 4096, 14336), ("up_proj", 4096, 14336),
+             ("down_proj", 14336, 4096))
+
+
+def phase_fp8_train(kernel_rows, bf16):
+    """Accelerator(mixed_precision="fp8", clip 1.0) +
+    prepare(TrainState(adamw(3e-4), fp8_state=llama.init_fp8_state(cfg)))
+    + train_step(causal_lm_loss with fp8_state) at the config, batch and
+    init of phase `train`: 1 warm-up step, then 10 timed with CUDA
+    events. Every layer projection goes through `_scaled_mm` (forward,
+    dX, dW); remat "dots" keeps the forward products, so each launches
+    once a step. Then a profiled step by class, the `_scaled_mm` rows of
+    the kernel table at the flagship shapes, and a tiny step against the
+    plain products on the card."""
+    import numpy as np
+    import torch
+
+    from accelerate_tpu_torch.accelerator import Accelerator
+    from accelerate_tpu_torch.models import llama
+    from accelerate_tpu_torch.models.common import count_params
+    from accelerate_tpu_torch.ops import flash_attention as fa
+    from accelerate_tpu_torch.ops import fp8
+    from accelerate_tpu_torch.optimizers import adamw
+    from accelerate_tpu_torch.state import PartialState
+    from accelerate_tpu_torch.training import TrainState
+
+    cfg = _train_config(TRAIN_LAYERS, remat=True, remat_policy="dots")
+    PartialState._reset_state()
+    torch.cuda.reset_peak_memory_stats()
+    acc = Accelerator(mixed_precision="fp8", gradient_clipping=1.0)
+    state = acc.prepare(TrainState.create(
+        apply_fn=None, params=llama.init_params(cfg, 0), tx=adamw(3e-4),
+        fp8_state=llama.init_fp8_state(cfg)))
+    n_params = count_params(state.params)
+    loader = acc.prepare([{"input_ids": _train_batch(cfg)}])
+    (batch,) = list(loader)
+    step = acc.train_step(lambda p, b, fp8_state=None: llama.causal_lm_loss(
+        cfg, p, b, fp8_state=fp8_state))
+    state, m = step(state, batch)                     # warm-up
+    losses = [m["loss"]]
+    # the main path's run: every count at 0 just before, read just after
+    fa.flash_forward.launches = 0
+    fa.flash_backward_dq.launches = 0
+    fa.flash_backward_dkv.launches = 0
+    fp8.fp8_gemm.launches.update(fwd=0, dx=0, dw=0)
+    marks = [torch.cuda.Event(enable_timing=True)
+             for _ in range(TRAIN_STEPS + 1)]
+    marks[0].record()
+    for i in range(TRAIN_STEPS):
+        state, m = step(state, batch)
+        marks[i + 1].record()
+        losses.append(m["loss"])
+    torch.cuda.synchronize()
+    launches = {"flash_fwd": fa.flash_forward.launches,
+                "flash_bwd_dq": fa.flash_backward_dq.launches,
+                "flash_bwd_dkv": fa.flash_backward_dkv.launches,
+                **{f"fp8_gemm_{r}": n
+                   for r, n in fp8.fp8_gemm.launches.items()}}
+    step_ms = [marks[i].elapsed_time(marks[i + 1])
+               for i in range(TRAIN_STEPS)]
+    losses = [float(x) for x in losses]
+    med = float(np.median(step_ms))
+    tok_s = 2 * 2048 / (med / 1e3)
+    flops_per_token = 6 * n_params + 12 * cfg.num_hidden_layers * \
+        cfg.hidden_size * 2048
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    q = state.fp8_state["layers"]["attn"]["q_proj"]["x"]
+    hist = state.fp8_state["layers"]["mlp"]["down_proj"]["w"].amax_history
+    filled = 1 + TRAIN_STEPS
+    metas = {"q_proj_x_scale": q.scale.tolist(),
+             "history_shape": list(hist.shape),
+             "history_slots_filled": int((hist[0] > 0).sum()),
+             "every_window_filled_per_step": all(
+                 bool((t.amax_history[:, :filled] > 0).all()
+                      and (t.amax_history[:, filled:] == 0).all())
+                 for g in state.fp8_state["layers"].values()
+                 for pair in g.values() for t in pair.values()),
+             "every_scale_moved": all(
+                 not bool((t.scale == 1.0).any())
+                 for g in state.fp8_state["layers"].values()
+                 for pair in g.values() for t in pair.values())}
+    split = _profile_fp8_step(step, state, batch)
+    del state, step, loader, batch
+    _drop()
+    rows = _fp8_gemm_rows()
+    tiny = _fp8_tiny_parity()
+    diffs = [abs(a - b) for a, b in zip(losses, bf16["losses"])]
+    loss_tol = FP8_LOSS_TOL * bf16["losses"][0]
+    per_step = {k: v / TRAIN_STEPS for k, v in launches.items()}
+    emit("fp8_train", config="llama3_8b", layers=cfg.num_hidden_layers,
+         remat=cfg.remat_policy, params=n_params, batch=[2, 2049],
+         mixed_precision="fp8", steps=TRAIN_STEPS, losses=losses,
+         bf16_losses=bf16["losses"], loss_diff_step0=diffs[0],
+         loss_diff_max=max(diffs), loss_tol_step0=FP8_LOSS0_TOL,
+         loss_tol=loss_tol, step_ms=step_ms, step_ms_median=med,
+         bf16_step_ms_median=bf16["step_ms_median"], tokens_per_s=tok_s,
+         bf16_tokens_per_s=bf16["tokens_per_s"],
+         mfu_bf16_peak=flops_per_token * tok_s / BF16_FLOPS,
+         bf16_mfu_bf16_peak=bf16["mfu_bf16_peak"],
+         max_memory_allocated_gb=peak_gb,
+         bf16_max_memory_allocated_gb=bf16["max_memory_allocated_gb"],
+         launches=launches, launches_per_step=per_step, metas=metas,
+         profile=split, tiny_parity=tiny,
+         scaled_mm_rows={r["name"]: {k: r[k] for k in (
+             "ms", "library_ms", "plain_ms", "bound_ms", "tflops",
+             "max_abs_err")} for r in rows})
+    want = {"flash_fwd": 2 * TRAIN_LAYERS * TRAIN_STEPS,
+            "flash_bwd_dq": TRAIN_LAYERS * TRAIN_STEPS,
+            "flash_bwd_dkv": TRAIN_LAYERS * TRAIN_STEPS,
+            **{f"fp8_gemm_{r}": 7 * TRAIN_LAYERS * TRAIN_STEPS
+               for r in ("fwd", "dx", "dw")}}
+    if not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"non-finite fp8 training loss: {losses}")
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f"fp8 training loss did not fall: {losses}")
+    if diffs[0] > FP8_LOSS0_TOL or max(diffs) > loss_tol:
+        raise AssertionError(
+            f"fp8 losses {losses} off the bf16 losses {bf16['losses']}")
+    if launches != want:
+        raise AssertionError(f"fp8 step launches {launches}, expected {want}")
+    if not (metas["every_scale_moved"]
+            and metas["every_window_filled_per_step"]):
+        raise AssertionError(f"fp8 metas did not move: {metas}")
+    if split["scaled_mm_calls"] != 3 * 7 * TRAIN_LAYERS:
+        raise AssertionError(f"profiled step ran {split['scaled_mm_calls']}"
+                             " _scaled_mm kernels")
+    if tiny["loss_diff_max"] > FP8_TINY_TOL or not tiny["w_metas_equal"]:
+        raise AssertionError(f"tiny fp8 step off its plain version: {tiny}")
+    for row in rows:
+        row["launches"] = launches[row["name"]]
+        if row["max_abs_err"] > row["tol"]:
+            raise AssertionError(f"{row['name']} off its plain version: "
+                                 f"{row}")
+    kernel_rows.extend(rows)
+
+
+def _profile_fp8_step(step, state, batch):
+    """Device time of one fp8 step by class (ms), from torch.profiler:
+    `_scaled_mm` (fp8 GEMMs), the other GEMMs (the bf16 head), the flash
+    kernels, the fp8 casts, amaxes, transposes and meta updates (their
+    helpers wrapped in a `record_function` range for this step only),
+    and the rest."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    from accelerate_tpu_torch.ops import fp8
+
+    names = ("_cast8", "_amax", "_transposed", "_padded", "update_meta")
+    real = {n: getattr(fp8, n) for n in names}
+
+    def ranged(fn):
+        def call(*a, **kw):
+            with record_function("fp8.cast_amax"):
+                return fn(*a, **kw)
+        return call
+
+    torch.cuda.synchronize()
+    try:
+        for n in names:
+            setattr(fp8, n, ranged(real[n]))
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            step(state, batch)
+            torch.cuda.synchronize()
+    finally:
+        for n in names:
+            setattr(fp8, n, real[n])
+    total, flash, kernels = 0.0, 0.0, []
+    by_op = {}
+    for ev in prof.key_averages():
+        if ev.key == "fp8.cast_amax":
+            # the range, and its span on the device's timeline: kernels
+            # are counted by their own rows
+            if str(ev.device_type) != "DeviceType.CUDA":
+                by_op[ev.key] = (float(ev.device_time_total) / 1e3,
+                                 ev.count)
+            continue
+        if str(ev.device_type) == "DeviceType.CUDA":
+            us = float(getattr(ev, "self_device_time_total", 0.0))
+            total += us / 1e3
+            if "flash_" in ev.key and "_kernel" in ev.key:
+                flash += us / 1e3
+            kernels.append((us / 1e3, ev.count, ev.key[:90]))
+        else:
+            by_op[ev.key] = (float(getattr(ev, "device_time_total", 0.0))
+                             / 1e3, ev.count)
+    kernels.sort(reverse=True)
+    scaled = by_op.get("aten::_scaled_mm", (0.0, 0))
+    gemm = sum(by_op.get(k, (0.0, 0))[0]
+               for k in ("aten::mm", "aten::addmm", "aten::bmm"))
+    casts = by_op.get("fp8.cast_amax", (0.0, 0))[0]
+    classes = {"fp8_gemm": scaled[0], "bf16_gemm": gemm, "flash": flash,
+               "casts_amaxes": casts,
+               "rest": total - scaled[0] - gemm - flash - casts}
+    return {"device_ms_by_class": classes, "device_ms_total": total,
+            "scaled_mm_calls": scaled[1], "top_kernels": kernels[:10]}
+
+
+def _fp8_gemm_rows():
+    """The `_scaled_mm` rows of the kernel table: each product (forward,
+    dX, dW) over the seven projections of one layer at the flagship
+    shapes (4096 tokens), through the port's wrapper (`ms`), the plain
+    version on the card (`plain_ms`), and one bare `torch._scaled_mm` call
+    per projection on operands already in its layout (`library_ms`); the
+    bound is the larger of the products' operations at the fp8 peak and
+    their bytes (fp8 operands read once, bf16 output written once) over
+    3.35 TB/s. The error is the wrapper's against the plain version, in
+    the largest element's share (bf16 outputs: one rounding, 2^-7)."""
+    import torch
+
+    from accelerate_tpu_torch.ops import fp8
+
+    T = 2 * 2048
+    gen = torch.Generator(device="cuda").manual_seed(0)
+
+    def cast(shape, fmt, scale):
+        t = torch.randn(shape, generator=gen, device="cuda") * scale
+        return t.to(fmt)
+
+    one = torch.ones((), device="cuda")
+    e4, e5 = torch.float8_e4m3fn, torch.float8_e5m2
+    # (a [M, K], b_t [N, K]) of each product and projection
+    cases = {"fp8_gemm_fwd": [], "fp8_gemm_dx": [], "fp8_gemm_dw": []}
+    for _, d, o in _FP8_PROJ:
+        cases["fp8_gemm_fwd"].append((cast((T, d), e4, 64.0),
+                                      cast((o, d), e4, 64.0)))
+        cases["fp8_gemm_dx"].append((cast((T, o), e5, 1e3),
+                                     cast((d, o), e4, 64.0)))
+        cases["fp8_gemm_dw"].append((cast((d, T), e4, 64.0),
+                                     cast((o, T), e5, 1e3)))
+    replaces = {"fp8_gemm_fwd": "accelerate_tpu/ops/fp8.py:102",
+                "fp8_gemm_dx": "accelerate_tpu/ops/fp8.py:118",
+                "fp8_gemm_dw": "accelerate_tpu/ops/fp8.py:123"}
+    rows = []
+    for name, pairs in cases.items():
+        role = name.rsplit("_", 1)[1]
+        saved = dict(fp8.fp8_gemm.launches)
+
+        def port(pairs=pairs, role=role):
+            return [fp8.fp8_gemm(a, b, one, one, torch.bfloat16, role)
+                    for a, b in pairs]
+
+        def plain(pairs=pairs):
+            return [fp8.fp8_gemm_reference(a, b, one, one, torch.bfloat16)
+                    for a, b in pairs]
+
+        def library(pairs=pairs):
+            return [torch._scaled_mm(a, b.t(), scale_a=one, scale_b=one,
+                                     out_dtype=torch.bfloat16,
+                                     use_fast_accum=False)
+                    for a, b in pairs]
+
+        err = 0.0
+        for got, want in zip(port(), plain()):
+            err = max(err, float((got.float() - want.float()).abs().max()
+                                 / want.float().abs().max()))
+        ms = cuda_time_ms(port, iters=10)
+        plain_ms = cuda_time_ms(plain, iters=2, warmup=1)
+        library_ms = cuda_time_ms(library, iters=10)
+        fp8.fp8_gemm.launches.update(saved)
+        flops = sum(2 * a.shape[0] * a.shape[1] * b.shape[0]
+                    for a, b in pairs)
+        nbytes = sum(a.numel() + b.numel() + 2 * a.shape[0] * b.shape[0]
+                     for a, b in pairs)
+        t_ops, t_bytes = flops / FP8_FLOPS, nbytes / HBM_BYTES_PER_S
+        rows.append({
+            "name": name, "route": "cuda",
+            "source": "accelerate_tpu_torch/ops/fp8.py",
+            "replaces": replaces[name], "launches": None,
+            "max_abs_err": err, "tol": 2.0 ** -7, "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": max(t_ops, t_bytes) * 1e3,
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+            "library_ms": library_ms,
+            "scope": "the seven projections of one layer, 4096 tokens; "
+                     "max_abs_err in the largest element's share",
+            "library_scope": "torch._scaled_mm on operands in its layout",
+            "tflops": flops / (ms / 1e3) / 1e12})
+    del cases
+    return rows
+
+
+def _fp8_tiny_parity():
+    """Three fp8 steps of a tiny llama (head_dim 32, flash attention,
+    remat "dots") on the card, with `_scaled_mm` and then with the plain
+    products (`fp8_gemm_reference`) on the same card: losses within
+    FP8_TINY_TOL, the first step's w metas bit-equal."""
+    import numpy as np
+    import torch
+
+    from accelerate_tpu_torch.accelerator import Accelerator
+    from accelerate_tpu_torch.models import llama
+    from accelerate_tpu_torch.ops import fp8
+    from accelerate_tpu_torch.optimizers import adamw
+    from accelerate_tpu_torch.state import PartialState
+    from accelerate_tpu_torch.training import TrainState, clone_tree
+
+    cfg = llama.LlamaConfig.tiny(hidden_size=128, attention_backend="flash",
+                                 remat=True, remat_policy="dots")
+    ids = np.random.default_rng(0).integers(0, 256, (4, 33)).astype(np.int32)
+    runs = []
+    real = fp8.fp8_gemm
+    try:
+        for plain in (False, True):
+            if plain:
+                fp8.fp8_gemm = (lambda a, b, sa, sb, dt, role="fwd":
+                                fp8.fp8_gemm_reference(a, b, sa, sb, dt))
+            PartialState._reset_state()
+            acc = Accelerator(mixed_precision="fp8", gradient_clipping=1.0)
+            state = acc.prepare(TrainState.create(
+                apply_fn=None, params=llama.init_params(cfg, 0),
+                tx=adamw(1e-3), fp8_state=llama.init_fp8_state(cfg)))
+            step = acc.train_step(
+                lambda p, b, fp8_state=None: llama.causal_lm_loss(
+                    cfg, p, b, fp8_state=fp8_state))
+            losses, first = [], None
+            for i in range(3):
+                state, m = step(state, {"input_ids": ids})
+                losses.append(float(m["loss"]))
+                if i == 0:
+                    first = clone_tree(state.fp8_state)
+            runs.append((losses, first))
+    finally:
+        fp8.fp8_gemm = real
+    (lk, mk), (lp, mp) = runs
+    w_equal = all(
+        torch.equal(mk["layers"][g][n]["w"].amax_history,
+                    mp["layers"][g][n]["w"].amax_history)
+        for g in mk["layers"] for n in mk["layers"][g])
+    return {"losses_kernel": lk, "losses_plain": lp,
+            "loss_diff_max": max(abs(a - b) for a, b in zip(lk, lp)),
+            "tol": FP8_TINY_TOL, "w_metas_equal": w_equal}
 
 
 # ---------------------------------------------------------------------------
@@ -2311,7 +2676,9 @@ def main() -> int:
     phase_host_tier(cfg, params)
     del params
     _drop()
-    phase_train(kernels)
+    bf16 = phase_train(kernels)
+    _drop()
+    phase_fp8_train(kernels, bf16)
     _drop()
     phase_resilient()
     _drop()

@@ -13,8 +13,13 @@
   `wait_for_checkpoints` and dropping its commit, torn saves skipped, and
   the stage ordered before the next in-place step;
 - `ProjectConfiguration(automatic_checkpoint_naming=True, total_limit=2)`
-  naming and pruning directories as the JAX `Accelerator` does;
-- `train_step(donate=False)` leaving its input state untouched.
+  naming and pruning directories as the JAX `Accelerator` does, and
+  retention waiting for a manifest the writer thread is publishing;
+- `train_step(donate=False)` leaving its input state untouched;
+- fp8 metas in `model_0_fp8.safetensors` (read by the `safetensors`
+  package) with the window's length beside them, restored in place,
+  sync and async, and across a change of window length as the JAX
+  package restores them.
 
 Tolerance: exact everywhere (bytes are copied, not computed)."""
 
@@ -33,6 +38,7 @@ import torch
 
 import accelerate_tpu as at
 from accelerate_tpu import checkpointing as jckpt
+from accelerate_tpu.ops import fp8 as jf
 from accelerate_tpu_torch import checkpointing as ckpt
 from accelerate_tpu_torch import optimizers as to
 from accelerate_tpu_torch.accelerator import Accelerator
@@ -512,6 +518,68 @@ def test_automatic_naming_with_async_saves_keeps_every_commit(limit,
     assert all(ckpt.is_complete_checkpoint(str(base / n)) for n in names)
 
 
+def test_retention_waits_for_a_manifest_being_published(tmp_path,
+                                                        monkeypatch):
+    """The writer thread publishes a sealed commit at the end of its job.
+    While that manifest is being written, the directory must still count
+    as sealing: with total_limit=1 the next save's retention drains
+    instead of deleting it under the writer."""
+    import threading
+
+    sealed, entered, release, draining = (threading.Event()
+                                          for _ in range(4))
+    real_manifest, real_save = ckpt.write_manifest, st.save_file
+
+    def held(*a, **kw):
+        if threading.current_thread().name.startswith("ckpt-writer") \
+                and not release.is_set():
+            entered.set()
+            release.wait(30)
+        return real_manifest(*a, **kw)
+
+    def after_seal(*a, **kw):
+        # the job's write waits until its save is sealed, so the job's
+        # own flush publishes it
+        sealed.wait(30)
+        return real_save(*a, **kw)
+
+    monkeypatch.setattr(ckpt, "write_manifest", held)
+    monkeypatch.setattr(st, "save_file", after_seal)
+    acc = Accelerator(cpu=True, project_config=ProjectConfiguration(
+        project_dir=str(tmp_path), automatic_checkpoint_naming=True,
+        total_limit=1))
+    drain = acc.wait_for_checkpoints
+
+    def watched_drain():
+        draining.set()
+        return drain()
+
+    acc.wait_for_checkpoints = watched_drain
+    ts = _state()
+    first = acc.save_state(state=ts, async_save=True)
+    sealed.set()
+    assert entered.wait(30), "the writer never reached its manifest"
+    assert first in ckpt.sealing_checkpoint_dirs()
+    out = {}
+    second = threading.Thread(
+        target=lambda: out.setdefault("dir", acc.save_state(
+            state=ts, async_save=True)))
+    second.start()
+    while not draining.is_set() and second.is_alive():
+        draining.wait(0.01)
+    # the manifest is still pending: the directory must be there
+    assert os.path.isdir(first) and not ckpt.is_complete_checkpoint(first)
+    release.set()
+    second.join(30)
+    assert not second.is_alive() and draining.is_set()
+    ckpt.wait_for_checkpoints()
+    base = tmp_path / "checkpoints"
+    assert sorted(os.listdir(base)) == ["checkpoint_1"]
+    assert out["dir"] == str(base / "checkpoint_1")
+    assert all(ckpt.is_complete_checkpoint(str(base / n))
+               for n in os.listdir(base))
+
+
 def test_project_dir_and_default_resume_dir(tmp_path):
     acc = Accelerator(cpu=True, project_dir=str(tmp_path))
     assert acc.project_configuration.project_dir == str(tmp_path)
@@ -585,3 +653,115 @@ def test_loss_scale_state_saves_without_rebinding(tmp_path):
     scale.fill_(1.0)
     ckpt.load_accelerator_state(str(tmp_path), train_states=[ts])
     assert ts.loss_scale.scale is scale and float(scale) == 8.0
+
+
+# --- fp8 metas ---------------------------------------------------------------
+
+
+def _fp8_state(seed=0):
+    from accelerate_tpu_torch.models import llama as tl
+
+    ts = _state(seed)
+    ts.fp8_state = tl.init_fp8_state(tl.LlamaConfig.tiny(), device="cpu")
+    g = torch.Generator().manual_seed(seed)
+    for t in flatten_dict(ts.fp8_state).values():
+        t.copy_(torch.rand(t.shape, generator=g) * 100)
+    return ts
+
+
+@pytest.mark.parametrize("async_save", [False, True])
+def test_fp8_state_round_trip_in_place(async_save, tmp_path):
+    ts = _fp8_state(1)
+    saved = {k: v.clone() for k, v in flatten_dict(ts.fp8_state).items()}
+    ckpt.save_accelerator_state(str(tmp_path), train_states=[ts], step=3,
+                                async_save=async_save)
+    ckpt.wait_for_checkpoints()
+    assert ckpt.is_complete_checkpoint(str(tmp_path))
+    manifest = ckpt.read_manifest(str(tmp_path))
+    assert {"model_0_fp8.safetensors", "model_0_fp8.json"} <= \
+        set(manifest["files"])
+    with open(tmp_path / "model_0_fp8.json") as f:
+        assert f.read() == '{"amax_history_len": 16}'
+    # the safetensors package reads the file, keyed by flatten_dict paths
+    got = safetensors.torch.load_file(str(tmp_path / "model_0_fp8.safetensors"))
+    assert set(got) == {f"fp8_state.{k}" for k in saved}
+    for k, v in saved.items():
+        _same(got[f"fp8_state.{k}"], v)
+    live = flatten_dict(ts.fp8_state)
+    for t in live.values():
+        t.zero_()
+    ckpt.load_accelerator_state(str(tmp_path), train_states=[ts])
+    for k, v in flatten_dict(ts.fp8_state).items():
+        assert v is live[k]
+        _same(v, saved[k])
+
+
+def test_fp8_checkpoint_restores_across_history_len_change(tmp_path):
+    """A checkpoint written under a 1024-long amax window restores into a
+    16-long one by keeping the newest entries (and a 4-long one back into
+    16 by padding with zeros), as the JAX package does."""
+    from accelerate_tpu_torch.ops import fp8 as tf
+
+    params = {"w": torch.ones(8, 8)}
+    old = tf.adapt_history_len(tf.init_fp8_state(params), 1024)
+    old = {"w": {r: tf.Fp8Meta(m.scale * 2,
+                               m.amax_history.index_fill(-1,
+                                                         torch.tensor(0), 7.0))
+                 for r, m in old["w"].items()}}
+    ts = TrainState.create(apply_fn=None, params=params, tx=to.sgd(1e-3),
+                           fp8_state=old)
+    ckpt.save_accelerator_state(str(tmp_path / "long"), train_states=[ts])
+    ts2 = TrainState.create(apply_fn=None, params=params, tx=to.sgd(1e-3),
+                            fp8_state=tf.init_fp8_state(params))
+    hist = ts2.fp8_state["w"]["x"].amax_history
+    ckpt.load_accelerator_state(str(tmp_path / "long"), train_states=[ts2])
+    assert tf.fp8_state_history_len(ts2.fp8_state) == 16
+    meta = ts2.fp8_state["w"]["x"]
+    assert meta.amax_history is hist
+    assert float(meta.amax_history[0]) == 7.0
+    assert float(meta.amax_history[1:].abs().sum()) == 0.0
+    assert float(meta.scale) == 2.0
+    # the JAX package restores its own long checkpoint the same way
+    jp = {"w": jnp.ones((8, 8))}
+    jold = jax.tree_util.tree_map(
+        lambda m: jf.Fp8Meta(scale=m.scale * 2,
+                             amax_history=m.amax_history.at[..., 0].set(7.0)),
+        jf.adapt_history_len(jf.init_fp8_state(jp), 1024),
+        is_leaf=lambda x: isinstance(x, jf.Fp8Meta))
+    import optax
+
+    jts = at.TrainState.create(apply_fn=None, params=jp, tx=optax.sgd(1e-3),
+                               fp8_state=jold)
+    jckpt.save_accelerator_state(str(tmp_path / "jax"), train_states=[jts])
+    jts2 = at.TrainState.create(apply_fn=None, params=jp, tx=optax.sgd(1e-3),
+                                fp8_state=jf.init_fp8_state(jp))
+    jckpt.load_accelerator_state(str(tmp_path / "jax"), train_states=[jts2])
+    jmeta = jts2.fp8_state["w"]["x"]
+    np.testing.assert_array_equal(np.asarray(jmeta.amax_history),
+                                  meta.amax_history.numpy())
+    assert float(jmeta.scale) == float(meta.scale)
+    # a short window pads with zeros
+    short = TrainState.create(
+        apply_fn=None, params=params, tx=to.sgd(1e-3),
+        fp8_state=tf.adapt_history_len(ts2.fp8_state, 4))
+    ckpt.save_accelerator_state(str(tmp_path / "short"),
+                                train_states=[short])
+    ts2.fp8_state["w"]["x"].amax_history.fill_(5.0)
+    ckpt.load_accelerator_state(str(tmp_path / "short"), train_states=[ts2])
+    assert ts2.fp8_state["w"]["x"].amax_history.tolist() == \
+        [7.0] + [0.0] * 15
+
+
+def test_fp8_state_through_resume_latest_and_async_saves(tmp_path):
+    acc = Accelerator(cpu=True)
+    ts = _fp8_state(2)
+    want = {k: v.clone() for k, v in flatten_dict(ts.fp8_state).items()}
+    acc.step = 4
+    acc.save_state(str(tmp_path / "step_00000004"), state=ts,
+                   async_save=True)
+    for t in flatten_dict(ts.fp8_state).values():   # the next steps
+        t.add_(1.0)
+    out = acc.resume_latest(str(tmp_path), state=ts)
+    assert out["step"] == 4
+    for k, v in flatten_dict(ts.fp8_state).items():
+        _same(v, want[k])

@@ -2,8 +2,9 @@
 against its plain PyTorch version, the engine on the card against the
 engine on the CPU, the engine's programs as CUDA graphs against the same
 programs run eagerly (plain, speculative, with the host KV tier), the
-bf16 head's gradient, and a training step on the card against the same
-step on the CPU.
+bf16 head's gradient, a training step on the card against the same
+step on the CPU, and the fp8 path: the `_scaled_mm` products against
+their plain version, an fp8 training step and an fp8 checkpoint.
 
 Without a card every test here skips with a reason. The file imports
 neither jax nor the JAX package, so it also runs where those are not
@@ -881,3 +882,165 @@ def test_step_timer_tick_waits_for_the_card(cuda):
         x = x @ x / 64
     timer.tick({"x": x})
     assert torch.cuda.current_stream().query()
+
+
+# --- fp8 on the card -----------------------------------------------------------
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=str)
+@pytest.mark.parametrize("T,D,O", [(64, 128, 96), (17, 40, 24), (3, 8, 5)])
+def test_scaled_mm_products_match_the_plain_version(cuda, dtype, T, D, O):
+    """`fp8_dense` forward, dX and dW through `_scaled_mm` on the card
+    against the plain version on the same inputs (on the CPU), shapes that
+    are not multiples of 16 included (T is dW's contracted dimension).
+    The fp8 operands are the same bits and their products exact, but
+    Hopper's fp8 tensor cores keep fewer bits in their partial sums than
+    f32 between cuBLAS's promotions to f32 (measured on an H100: up to
+    2e-4 of the largest element): f32 results within 1e-3 of the largest
+    element, bf16 results within one bf16 rounding (2^-7 of it). One
+    launch of each product."""
+    from accelerate_tpu_torch.ops import fp8
+
+    g = torch.Generator().manual_seed(T)
+    x = torch.randn((T, D), generator=g).to(cuda, dtype)
+    w = (torch.randn((D, O), generator=g) * 0.1).to(cuda, dtype)
+    c = torch.randn((T, O), generator=g).to(cuda)
+    meta = {r: fp8.update_meta(fp8.Fp8Meta.init(4, device=cuda),
+                               torch.tensor(a, device=cuda))
+            for r, a in (("x", 3.1), ("w", 0.27))}
+
+    def run(dev):
+        xg = x.to(dev).requires_grad_()
+        wg = w.to(dev).requires_grad_()
+        m = {r: fp8.Fp8Meta(*(t.to(dev) for t in v)) for r, v in meta.items()}
+        with torch.enable_grad():
+            out, new = fp8.fp8_dense(xg, wg, m)
+            grads = torch.autograd.grad((out.float() * c.to(dev)).sum(),
+                                        (xg, wg))
+        return [t.detach().cpu() for t in (out, *grads)], new
+
+    fp8.fp8_gemm.launches.update(fwd=0, dx=0, dw=0)
+    card, new_card = run(cuda)
+    assert fp8.fp8_gemm.launches == {"fwd": 1, "dx": 1, "dw": 1}
+    plain, new_plain = run(torch.device("cpu"))
+    assert [t.dtype for t in card] == [torch.bfloat16, dtype, dtype]
+    for a, b, rel in zip(card, plain, (2.0 ** -7,) + (
+            (1e-3,) * 2 if dtype == torch.float32 else (2.0 ** -7,) * 2)):
+        torch.testing.assert_close(a.float(), b.float(), rtol=0,
+                                   atol=rel * float(b.abs().max()))
+    for r in ("x", "w"):
+        assert torch.equal(new_card[r].scale.cpu(), new_plain[r].scale)
+
+
+def test_fp8_dot_e5m2_and_expert_dense_on_the_card(cuda):
+    """e5m2 by e5m2 (which `_scaled_mm` refuses; an f16 product with f32
+    accumulation, 1e-5 of the largest element) and the per-expert loop
+    (bf16 out, one bf16 rounding) on the card against the CPU's plain
+    version."""
+    from accelerate_tpu_torch.ops import fp8
+
+    g = torch.Generator().manual_seed(0)
+    x = torch.randn((20, 48), generator=g)
+    w = torch.randn((48, 24), generator=g)
+    outs = []
+    for dev in (cuda, torch.device("cpu")):
+        m = (fp8.Fp8Meta.init(device=dev), fp8.Fp8Meta.init(device=dev))
+        out, *_ = fp8.fp8_dot(x.to(dev), w.to(dev), *m,
+                              out_dtype=torch.float32, fmt="E5M2")
+        outs.append(out.cpu())
+    torch.testing.assert_close(outs[0], outs[1], rtol=0,
+                               atol=1e-5 * float(outs[1].abs().max()))
+    xe = torch.randn((3, 20, 48), generator=g)
+    we = torch.randn((3, 48, 24), generator=g) * 0.1
+    outs = []
+    for dev in (cuda, torch.device("cpu")):
+        meta = {r: fp8.Fp8Meta.init(device=dev) for r in ("x", "w")}
+        out, _ = fp8.fp8_expert_dense(xe.to(dev), we.to(dev), meta)
+        outs.append(out.float().cpu())
+    torch.testing.assert_close(outs[0], outs[1], rtol=0,
+                               atol=2.0 ** -7 * float(outs[1].abs().max()))
+
+
+@pytest.mark.parametrize("remat", [None, "dots", "full"])
+def test_fp8_train_step_on_the_card_matches_cpu(cuda, remat):
+    """Three fp8 steps of a tiny llama (head_dim 32, flash attention)
+    through the Accelerator on the card and with cpu=True: losses within
+    5e-3 (an fp8 rounding boundary turns an accumulation-order difference
+    into a whole fp8 step), the first step's w metas bit-equal. On the
+    card every projection goes through `_scaled_mm`: per step 7 products
+    x 2 layers each of forward, dX and dW, plus the forward again under
+    remat "full" (remat "dots" keeps its output)."""
+    from accelerate_tpu_torch.ops import fp8
+
+    kw = {} if remat is None else {"remat": True, "remat_policy": remat}
+    cfg = llama.LlamaConfig.tiny(hidden_size=128, attention_backend="flash",
+                                 **kw)
+    init = params_to_numpy(llama.init_params(cfg, 0, device="cpu"))
+    ids = np.random.default_rng(0).integers(0, 256, (4, 33)).astype(np.int32)
+    results = []
+    for cpu in (False, True):
+        PartialState._reset_state()
+        acc = Accelerator(mixed_precision="fp8", gradient_clipping=1.0,
+                          cpu=cpu)
+        state = acc.prepare(TrainState.create(
+            apply_fn=None, params=params_from_numpy(init, device=acc.device),
+            tx=to.adamw(1e-3),
+            fp8_state=llama.init_fp8_state(cfg, device=acc.device)))
+        step = acc.train_step(
+            lambda p, b, fp8_state=None: llama.causal_lm_loss(
+                cfg, p, b, fp8_state=fp8_state))
+        fp8.fp8_gemm.launches.update(fwd=0, dx=0, dw=0)
+        losses, metas = [], None
+        for i in range(3):
+            state, m = step(state, {"input_ids": ids})
+            losses.append(float(m["loss"]))
+            if i == 0:
+                metas = params_to_numpy(_clone(state.fp8_state))
+        results.append((losses, metas, dict(fp8.fp8_gemm.launches)))
+    PartialState._reset_state()
+    (l_gpu, m_gpu, n_gpu), (l_cpu, m_cpu, n_cpu) = results
+    assert all(np.isfinite(l_gpu))
+    np.testing.assert_allclose(l_gpu, l_cpu, atol=5e-3, rtol=0)
+    per = 7 * cfg.num_hidden_layers * 3
+    fwd = 2 * per if remat == "full" else per
+    assert n_gpu == {"fwd": fwd, "dx": per, "dw": per}
+    assert n_cpu == {"fwd": 0, "dx": 0, "dw": 0}
+    for group in ("attn", "mlp"):
+        for name, pair in m_gpu["layers"][group].items():
+            other = m_cpu["layers"][group][name]["w"]
+            np.testing.assert_array_equal(pair["w"].scale, other.scale)
+            np.testing.assert_array_equal(pair["w"].amax_history,
+                                          other.amax_history)
+
+
+def _clone(tree):
+    from accelerate_tpu_torch.training import clone_tree
+
+    return clone_tree(tree)
+
+
+@pytest.mark.parametrize("async_save", [False, True])
+def test_fp8_checkpoint_of_a_cuda_state_restores_in_place(cuda, async_save,
+                                                          tmp_path):
+    """The fp8 metas of a state on the card save and load back into the
+    same storage on the card."""
+    from accelerate_tpu_torch import checkpointing as ckpt
+    from accelerate_tpu_torch.utils.other import flatten_dict
+
+    ts = _cuda_state(cuda)
+    ts.fp8_state = llama.init_fp8_state(llama.LlamaConfig.tiny(),
+                                        device=cuda)
+    live = flatten_dict(ts.fp8_state)
+    for t in live.values():
+        t.copy_(torch.rand(t.shape, device=cuda) * 100)
+    saved = {k: v.clone() for k, v in live.items()}
+    ckpt.save_accelerator_state(str(tmp_path), train_states=[ts],
+                                async_save=async_save)
+    ckpt.wait_for_checkpoints()
+    ptrs = {k: v.data_ptr() for k, v in live.items()}
+    for t in live.values():
+        t.zero_()
+    ckpt.load_accelerator_state(str(tmp_path), train_states=[ts])
+    for k, v in flatten_dict(ts.fp8_state).items():
+        assert v is live[k] and v.data_ptr() == ptrs[k]
+        assert v.device.type == "cuda" and torch.equal(v, saved[k]), k

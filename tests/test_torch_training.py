@@ -235,8 +235,13 @@ def test_remat_policy_and_unported_features_raise():
     with pytest.raises(NotImplementedError, match="parallelism slice"):
         tl.causal_lm_loss(tl.LlamaConfig.tiny(sequence_parallel=True), pt,
                           ids)
-    with pytest.raises(NotImplementedError, match="fp8 slice"):
-        tl.causal_lm_loss(tl.LlamaConfig.tiny(), pt, ids, fp8_state={})
+    # fp8 is ported (tests/test_torch_fp8.py); its decode stays refused,
+    # as in the reference
+    cfg = tl.LlamaConfig.tiny()
+    with pytest.raises(ValueError, match="fp8"):
+        tl.forward(cfg, pt, ids["input_ids"],
+                   kv_caches=tl.init_kv_caches(cfg, 1, 8, device="cpu"),
+                   fp8_state=tl.init_fp8_state(cfg, device="cpu"))
 
 
 def test_attention_backend_rule_is_the_references():
