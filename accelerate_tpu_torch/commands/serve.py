@@ -1,15 +1,15 @@
 """`python -m accelerate_tpu_torch.commands.serve` — run the
 OpenAI-compatible HTTP front door on the port's serving engine.
 
-The port of the llama path of `accelerate_tpu/commands/serve.py`
-(`accelerate-tpu serve`): the same flags, the same `--dry-run` JSON line,
-and the same engine (`LlamaConfig.tiny()` with random weights from
-`--seed`, a bf16 KV pool, the engine knobs from the flags), plus one
-flag, `--device`: the engine runs on the CUDA device unless `--device
-cpu` is given. Not ported yet, and refused with a message naming what
-brings them: `--family gpt2` (the other model families) and the flags
-whose engine machinery the port lacks (`--watchdog-timeout-s`,
-`--strict`, `--incident-dir`, through `serving.engine._UNPORTED`).
+The port of `accelerate_tpu/commands/serve.py` (`accelerate-tpu
+serve`): the same flags, the same `--dry-run` JSON line, and the same
+engine (`--family llama` serves `LlamaConfig.tiny()`, `--family gpt2`
+`GPT2Config.tiny()`, with random weights from `--seed`, a bf16 KV pool,
+the engine knobs from the flags), plus one flag, `--device`: the engine
+runs on the CUDA device unless `--device cpu` is given. Not ported yet,
+and refused with a message naming what brings them: the flags whose
+engine machinery the port lacks (`--watchdog-timeout-s`, `--strict`,
+`--incident-dir`, through `serving.engine._UNPORTED`).
 
 `--dry-run` builds the whole configuration — engine config, tenant
 specs, tokenizer, server config — prints one JSON line describing it and
@@ -104,10 +104,6 @@ def _configs(args):
     from ..serving.engine import EngineConfig, _check_ported
     from ..server.config import ServerConfig, parse_tenants_arg
 
-    if args.family != "llama":
-        raise NotImplementedError(
-            f"--family {args.family} needs the port of the other model "
-            "families (ROADMAP.md, queue 1 item 5); serve --family llama")
     tenants = parse_tenants_arg(args.tenants)
     server_cfg = ServerConfig(
         host=args.host, port=args.port,
@@ -183,14 +179,20 @@ def _serve_blocking(args, server_cfg, engine_kwargs) -> int:
 
         configure_tracing(enabled=True)
 
-    from ..models import llama as family
     from ..serving import Engine, EngineConfig
     from ..server.http import HttpFrontDoor
     from ..server.service import InferenceService
     from ..server.tokenizer import get_tokenizer
 
+    if args.family == "llama":
+        from ..models import llama as family
+
+        cfg = family.LlamaConfig.tiny()
+    else:
+        from ..models import gpt2 as family
+
+        cfg = family.GPT2Config.tiny()
     device = None if args.device == "cuda" else "cpu"
-    cfg = family.LlamaConfig.tiny()
     params = family.init_params(cfg, args.seed, device=device)
     engine = Engine(family, cfg, params,
                     EngineConfig(cache_dtype=torch.bfloat16, **engine_kwargs),

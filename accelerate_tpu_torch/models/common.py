@@ -14,10 +14,24 @@ import math
 
 import numpy as np
 import torch
+from torch.utils.checkpoint import (
+    CheckpointPolicy,
+    checkpoint,
+    create_selective_checkpoint_contexts,
+)
 
-from ..ops.fp8 import fp8_dense
+from ..device import resolve_device
+from ..ops.fp8 import SCALED_MM_OP, fp8_dense
 
 NEG_INF = -1e30
+
+
+def sp_constrain(x, axis=None):
+    """Megatron sequence parallelism's activation constraint. The port
+    has no mesh yet: it arrives with the parallelism slice."""
+    raise NotImplementedError(
+        "sequence parallelism (sp_constrain) arrives with the port's "
+        "parallelism slice (ROADMAP.md, queue 1 item 6)")
 
 
 def dense(x: torch.Tensor, kernel: torch.Tensor,
@@ -170,6 +184,202 @@ def layer_norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
     return out.to(dtype) * scale + bias
 
 
+# --- initializers -----------------------------------------------------------
+
+
+def make_generator(generator, device=None):
+    """(device, generator) for an `init_params`: `device` resolved (CUDA
+    unless "cpu"), and `generator` as given or, for a seed, a new
+    `torch.Generator` on that device seeded with it."""
+    dev = resolve_device(device)
+    if not isinstance(generator, torch.Generator):
+        generator = torch.Generator(device=dev).manual_seed(int(generator))
+    elif torch.device(generator.device).type != dev.type:
+        raise ValueError(f"a generator on {generator.device} cannot draw "
+                         f"params on {dev}")
+    return dev, generator
+
+
+def normal_init(generator: torch.Generator, shape, stddev: float = 0.02,
+                dtype=torch.float32) -> torch.Tensor:
+    """N(0, stddev) of `shape` from `generator`, on its device."""
+    return torch.randn(tuple(shape), generator=generator, dtype=dtype,
+                       device=generator.device).mul_(stddev)
+
+
+def init_dense(generator: torch.Generator, d_in: int, d_out: int,
+               stddev: float = 0.02, bias: bool = False,
+               dtype=torch.float32) -> dict:
+    params = {"kernel": normal_init(generator, (d_in, d_out), stddev, dtype)}
+    if bias:
+        params["bias"] = torch.zeros((d_out,), dtype=dtype,
+                                     device=generator.device)
+    return params
+
+
+def learned_positions(table: torch.Tensor, positions: torch.Tensor):
+    """Rows of a learned position table, indices past its end clamped to
+    the last row (the reference's gather clamps; torch would raise)."""
+    return table[positions.long().clamp(max=table.shape[0] - 1)]
+
+
+# --- the stacked layer loop -------------------------------------------------
+
+
+def layer_view(tree, i: int):
+    """Layer i of a stacked [L, ...] param tree, as views."""
+    if isinstance(tree, dict):
+        return {k: layer_view(v, i) for k, v in tree.items()}
+    return tree[i]
+
+
+def unstack_layers(tree, n: int) -> list:
+    """The first n layers of a stacked [L, ...] param (or fp8 meta) tree,
+    as views, by one `unbind` per leaf. Its backward writes each leaf's
+    gradient once; indexing layer by layer would add a zero-padded
+    full-size gradient per layer (L times the traffic)."""
+    if isinstance(tree, dict):
+        parts = {k: unstack_layers(v, n) for k, v in tree.items()}
+        return [{k: p[i] for k, p in parts.items()} for i in range(n)]
+    if isinstance(tree, tuple):     # an Fp8Meta
+        parts = [unstack_layers(v, n) for v in tree]
+        return [type(tree)(*(p[i] for p in parts)) for i in range(n)]
+    return list(torch.unbind(tree)[:n])
+
+
+def stack_layers(trees: list):
+    """Per-layer trees of one structure stacked on a new layer dim."""
+    first = trees[0]
+    if isinstance(first, dict):
+        return {k: stack_layers([t[k] for t in trees]) for k in first}
+    if isinstance(first, tuple):    # an Fp8Meta
+        return type(first)(*(stack_layers([t[j] for t in trees])
+                             for j in range(len(first))))
+    return torch.stack(trees)
+
+
+def save_matmuls(ctx, op, *args, **kwargs):
+    """Selective-checkpoint policy of remat "dots": keep the outputs of
+    products without batch dims (the projections, bf16 or fp8), as the
+    reference's `dots_with_no_batch_dims_saveable`; recompute everything
+    else, attention and the fp8 casts included."""
+    if op in (torch.ops.aten.mm.default, torch.ops.aten.addmm.default,
+              torch.ops.aten._scaled_mm.default, SCALED_MM_OP):
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def rematted(body, remat: bool, policy: str = "full"):
+    """`body` under `torch.utils.checkpoint` when `remat`: "full"
+    recomputes all of it in backward (the reference's `jax.checkpoint`
+    of the layer), "dots" keeps the projections' outputs."""
+    if not remat:
+        return body
+    if policy not in ("full", "dots"):
+        raise ValueError(f"unknown remat_policy {policy!r}; use 'full' or "
+                         "'dots'")
+    kw = {}
+    if policy == "dots":
+        kw["context_fn"] = functools.partial(
+            create_selective_checkpoint_contexts, save_matmuls)
+
+    def run(*args):
+        return checkpoint(body, *args, use_reentrant=False, **kw)
+
+    return run
+
+
+def run_layers(body, x, layers, n: int, fp8_layers=None):
+    """x through the n stacked layers: `body(x, layer, metas)` returns
+    (x, new metas or None). Returns (x, None), or with `fp8_layers` (the
+    stacked per-layer metas) (x, {"layers": the new metas, stacked})."""
+    if fp8_layers is None:
+        for layer in unstack_layers(layers, n):
+            x, _ = body(x, layer, None)
+        return x, None
+    new = []
+    for layer, metas in zip(unstack_layers(layers, n),
+                            unstack_layers(fp8_layers, n)):
+        x, m = body(x, layer, metas)
+        new.append(m)
+    return x, {"layers": stack_layers(new)}
+
+
+def _split_bf16(g: torch.Tensor) -> torch.Tensor:
+    """An f32 tensor [N, V] as three bf16 parts stacked to [3N, V] whose
+    sum is g exactly: each part takes the next 8 significant bits of
+    what the earlier parts left, and three hold all 24 of an f32 (for
+    |g| above 2^-110, where the third part is still a normal bf16)."""
+    parts, rest = [], g
+    for _ in range(3):
+        part = rest.to(torch.bfloat16)
+        parts.append(part)
+        rest = rest - part.float()
+    return torch.cat(parts)
+
+
+class _HeadF32(torch.autograd.Function):
+    """x2 [N, H] @ w [H, V] in bf16 or f16 with f32 logits out (cuBLAS's
+    GEMM with an f32 output: exact products, f32 accumulation, no
+    rounding of the logits), differentiable.
+
+    The backward follows the reference's transpose rule: the products are
+    taken against the f32 cotangent and rounded once, at the end, to the
+    operand's dtype. In bf16 that stays on the tensor cores: the cotangent
+    splits exactly into three bf16 parts (`_split_bf16`), whose products
+    with bf16 operands are exact and accumulate in f32, so dx and dw are
+    the f32-cotangent products up to the rounding of that accumulation
+    (the same as in any bf16 GEMM), at three times a bf16 GEMM's work.
+    f16's range cannot hold the parts, so f16 operands are upcast and
+    multiplied in f32."""
+
+    @staticmethod
+    def forward(ctx, x2, w):
+        ctx.save_for_backward(x2, w)
+        return torch.mm(x2, w, out_dtype=torch.float32)
+
+    @staticmethod
+    def backward(ctx, g):
+        x2, w = ctx.saved_tensors
+        g = g.float()
+        dx = dw = None
+        if x2.dtype != torch.bfloat16:
+            if ctx.needs_input_grad[0]:
+                dx = (g @ w.float().t()).to(x2.dtype)
+            if ctx.needs_input_grad[1]:
+                dw = (x2.float().t() @ g).to(w.dtype)
+            return dx, dw
+        parts = _split_bf16(g)
+        if ctx.needs_input_grad[0]:
+            # one GEMM over the stacked parts, f32 out, the three summed
+            dx = torch.mm(parts, w.t(), out_dtype=torch.float32).view(
+                3, *x2.shape).sum(0).to(x2.dtype)
+        if ctx.needs_input_grad[1]:
+            # the parts stacked along the contraction: one bf16 GEMM,
+            # f32 accumulation, rounded once to bf16
+            dw = torch.mm(x2.t().repeat(1, 3), parts)
+        return dx, dw
+
+
+def logits_f32(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """x [..., H] @ w [H, V] in x's dtype with f32 logits out, the
+    reference's `einsum(..., preferred_element_type=f32)` of a head:
+    bf16 inputs give exact products accumulated in f32 and are NOT
+    rounded to bf16 first (a bf16 matmul followed by `.float()` would
+    round, and flip near-tie argmaxes). On CUDA that is `_HeadF32`
+    (cuBLAS's bf16 GEMM with an f32 output, no upcast copy of the head);
+    on the CPU the inputs are upcast, which is exact, and autograd
+    differentiates the upcast."""
+    x2 = x.reshape(-1, x.shape[-1])
+    if x.dtype == torch.float32:
+        out = x2 @ w
+    elif x.is_cuda:
+        out = _HeadF32.apply(x2, w)
+    else:
+        out = x2.float() @ w.float()
+    return out.reshape(*x.shape[:-1], w.shape[-1])
+
+
 # --- losses -----------------------------------------------------------------
 
 
@@ -193,6 +403,22 @@ def shifted_padding_masks(mask):
     if mask is None:
         return None, None
     return mask[:, :-1], (mask[:, 1:] * mask[:, :-1]).float()
+
+
+def causal_lm_loss_of(forward_fn, config, params: dict, batch: dict,
+                      fp8_state=None):
+    """The zoo's next-token loss over {input_ids, attention_mask?}
+    through `forward_fn`: the mask keys the forward and weights the loss
+    (`shifted_padding_masks`)."""
+    input_ids = batch["input_ids"]
+    labels = input_ids[:, 1:]
+    attn_mask, mask = shifted_padding_masks(batch.get("attention_mask"))
+    out = forward_fn(config, params, input_ids[:, :-1],
+                     attention_mask=attn_mask, fp8_state=fp8_state)
+    if fp8_state is not None:
+        logits, new_fp8 = out
+        return cross_entropy_loss(logits, labels, mask), new_fp8
+    return cross_entropy_loss(out, labels, mask)
 
 
 def cross_entropy_loss(logits: torch.Tensor, labels: torch.Tensor,

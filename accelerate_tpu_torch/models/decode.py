@@ -18,7 +18,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from .common import dot_product_attention, repeat_kv
+from .common import dot_product_attention, layer_view, repeat_kv
 from ..device import resolve_device
 
 
@@ -129,6 +129,25 @@ def decode_attention(q, k, v, kv_cache, positions, mask=None,
                                 repeat_kv(v_full, n_rep), mask=m,
                                 causal=False)
     return out, new_cache
+
+
+def cached_layers(num_layers: int, layers: dict, x, kv_caches, body):
+    """The cached forward's layer loop, shared by the causal families:
+    `body(x, layer, (k, v, cache_len))` runs one layer against its slice
+    of the stacked caches and returns (x, (new_k, new_v, _)). Returns
+    (x, new_caches): for the serving pool, this step's K/V rows stacked
+    as [L, B, S, Hkv, D] beside the meta; for dense caches (extended in
+    place), the caches with cache_len advanced by S."""
+    ck, cv, cache_len = kv_caches
+    rows_k, rows_v = [], []
+    for i in range(num_layers):
+        x, (nk, nv, _) = body(x, layer_view(layers, i),
+                              (ck[i], cv[i], cache_len))
+        rows_k.append(nk)
+        rows_v.append(nv)
+    if getattr(ck, "is_paged_kv", False):
+        return x, (torch.stack(rows_k), torch.stack(rows_v), cache_len)
+    return x, (ck, cv, cache_len + x.shape[1])
 
 
 # --- sampling ---------------------------------------------------------------
@@ -277,3 +296,17 @@ def build_generate(forward, init_caches):
             input_ids.dtype)], dim=1)
 
     return generate
+
+
+def build_streamed_generate():
+    """A family's `streamed_generate` (weights streamed from the host
+    through `big_modeling`), which the port has not reached yet: the
+    returned function raises and names its queue item."""
+
+    def streamed_generate(*_a, **_k):
+        raise NotImplementedError(
+            "streamed_generate (weights streamed from the host, "
+            "big_modeling) arrives with the port's big_modeling slice "
+            "(ROADMAP.md, queue 1 item 8)")
+
+    return streamed_generate

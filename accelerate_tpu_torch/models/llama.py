@@ -17,33 +17,34 @@ with a later slice.
 from __future__ import annotations
 
 import dataclasses
-import functools
 from typing import Any
 
 import torch
 import torch.nn.functional as F
-from torch.utils.checkpoint import (
-    CheckpointPolicy,
-    checkpoint,
-    create_selective_checkpoint_contexts,
-)
+from torch.utils.checkpoint import checkpoint
 
-from ..device import resolve_device
 from ..ops.flash_attention import flash_attention
-from ..ops.fp8 import SCALED_MM_OP, stacked_fp8_metas
-from .common import (
+from ..ops.fp8 import stacked_fp8_metas
+from .common import (  # noqa: F401  (_HeadF32, _split_bf16: tests)
+    _HeadF32,
+    _split_bf16,
     apply_rope,
     cross_entropy_loss,
     dense_maybe_fp8,
     dot_product_attention,
+    logits_f32,
+    make_generator,
+    normal_init,
+    rematted,
     repeat_kv,
     rms_norm,
     rope_frequencies,
+    run_layers,
     shifted_padding_masks,
     token_nll,
 )
-from .decode import build_generate, decode_attention, make_kv_caches, \
-    rope_table_len
+from .decode import build_generate, cached_layers, decode_attention, \
+    make_kv_caches, rope_table_len
 
 
 @dataclasses.dataclass(frozen=True)
@@ -132,15 +133,12 @@ def init_params(config: LlamaConfig, generator: torch.Generator | int = 0,
                 dtype=torch.float32, device=None) -> dict:
     """Stacked-layer params, N(0, 0.02) kernels and unit norm scales,
     drawn from `generator` (or a seed) on `device` (CUDA unless "cpu")."""
-    dev = resolve_device(device)
-    if not isinstance(generator, torch.Generator):
-        generator = torch.Generator(device=dev).manual_seed(int(generator))
+    dev, g = make_generator(generator, device)
     h, kv = config.hidden_size, config.num_key_value_heads * config.head_dim
     L = config.num_hidden_layers
 
     def normal(*shape):
-        return torch.randn(shape, generator=generator, dtype=dtype,
-                           device=dev).mul_(0.02)
+        return normal_init(g, shape, 0.02, dtype)
 
     def stack(d_in, d_out, bias=False):
         out = {"kernel": normal(L, d_in, d_out)}
@@ -174,38 +172,6 @@ def init_params(config: LlamaConfig, generator: torch.Generator | int = 0,
     if not config.tie_word_embeddings:
         params["lm_head"] = {"kernel": normal(h, config.vocab_size)}
     return params
-
-
-def _layer_view(tree, i: int):
-    """Layer i of a stacked [L, ...] param tree, as views."""
-    if isinstance(tree, dict):
-        return {k: _layer_view(v, i) for k, v in tree.items()}
-    return tree[i]
-
-
-def _unstack(tree, n: int) -> list:
-    """The first n layers of a stacked [L, ...] param (or fp8 meta) tree,
-    as views, by one `unbind` per leaf. Its backward writes each leaf's
-    gradient once; indexing layer by layer would add a zero-padded
-    full-size gradient per layer (L times the traffic)."""
-    if isinstance(tree, dict):
-        parts = {k: _unstack(v, n) for k, v in tree.items()}
-        return [{k: p[i] for k, p in parts.items()} for i in range(n)]
-    if isinstance(tree, tuple):     # an Fp8Meta
-        parts = [_unstack(v, n) for v in tree]
-        return [type(tree)(*(p[i] for p in parts)) for i in range(n)]
-    return list(torch.unbind(tree)[:n])
-
-
-def _stack(trees: list):
-    """Per-layer trees of one structure stacked on a new layer dim."""
-    first = trees[0]
-    if isinstance(first, dict):
-        return {k: _stack([t[k] for t in trees]) for k in first}
-    if isinstance(first, tuple):    # an Fp8Meta
-        return type(first)(*(_stack([t[j] for t in trees])
-                             for j in range(len(first))))
-    return torch.stack(trees)
 
 
 def _attention(config: LlamaConfig, layer: dict, x, cos, sin, positions,
@@ -325,158 +291,38 @@ def forward(
     layers = params["layers"]
 
     if kv_caches is not None:
-        ck, cv, cache_len = kv_caches
-        rows_k, rows_v = [], []
-        for i in range(config.num_hidden_layers):
-            x, (nk, nv, _), _ = _layer_body(
-                config, x, _layer_view(layers, i), cos, sin, positions,
-                attention_mask, (ck[i], cv[i], cache_len))
-            rows_k.append(nk)
-            rows_v.append(nv)
+        x, new_caches = cached_layers(
+            config.num_hidden_layers, layers, x, kv_caches,
+            lambda x, layer, cache: _layer_body(
+                config, x, layer, cos, sin, positions, attention_mask,
+                cache)[:2])
         x = rms_norm(x, params["norm"]["scale"], config.rms_norm_eps)
-        logits = _project_out(config, params, x)
-        if getattr(ck, "is_paged_kv", False):
-            return logits, (torch.stack(rows_k), torch.stack(rows_v),
-                            cache_len)
-        # dense caches were extended in place
-        return logits, (ck, cv, cache_len + input_ids.shape[1])
+        return _project_out(config, params, x), new_caches
 
-    body = _remat_body(config)
-    n = config.num_hidden_layers
-    if fp8_state is None:
-        for layer in _unstack(layers, n):
-            x = body(x, layer, cos, sin, positions, attention_mask)
-        new_fp8_state = None
-    else:
-        new_metas = []
-        for layer, metas in zip(_unstack(layers, n),
-                                _unstack(fp8_state["layers"], n)):
-            x, new = body(x, layer, cos, sin, positions, attention_mask,
-                          metas)
-            new_metas.append(new)
-        new_fp8_state = {"layers": _stack(new_metas)}
+    # under `config.remat` the attention forward reruns in backward (with
+    # the flash backend: K1a launches twice per layer and step), as under
+    # the reference's policies
+    body = rematted(
+        lambda x, layer, f: _layer_body(config, x, layer, cos, sin,
+                                        positions, attention_mask,
+                                        fp8=f)[::2],
+        config.remat, config.remat_policy)
+    x, new_fp8_state = run_layers(
+        body, x, layers, config.num_hidden_layers,
+        None if fp8_state is None else fp8_state["layers"])
     x = rms_norm(x, params["norm"]["scale"], config.rms_norm_eps)
     out = x if return_hidden else _project_out(config, params, x)
     return out if fp8_state is None else (out, new_fp8_state)
 
 
-def _layer_step(x, layer, cos, sin, positions, mask, fp8=None, *, config):
-    """x, or (x, new metas) with `fp8`."""
-    x, _, new_fp8 = _layer_body(config, x, layer, cos, sin, positions, mask,
-                                fp8=fp8)
-    return x if fp8 is None else (x, new_fp8)
-
-
-def _save_matmuls(ctx, op, *args, **kwargs):
-    """Selective-checkpoint policy of remat "dots": keep the outputs of
-    products without batch dims (the projections, bf16 or fp8), as the
-    reference's `dots_with_no_batch_dims_saveable`; recompute everything
-    else, attention and the fp8 casts included."""
-    if op in (torch.ops.aten.mm.default, torch.ops.aten.addmm.default,
-              torch.ops.aten._scaled_mm.default, SCALED_MM_OP):
-        return CheckpointPolicy.MUST_SAVE
-    return CheckpointPolicy.PREFER_RECOMPUTE
-
-
-def _remat_body(config: LlamaConfig):
-    """The per-layer step `(x, layer, cos, sin, positions, mask[, fp8])
-    -> x` (or `(x, new metas)` with fp8 metas), under `torch.utils.checkpoint` when `config.remat`: "full" recomputes
-    the whole layer in backward, "dots" keeps the projections' outputs.
-    Either way the attention forward reruns in backward (with the flash
-    backend: K1a launches twice per layer and step), as under the
-    reference's policies."""
-    body = functools.partial(_layer_step, config=config)
-    if not config.remat:
-        return body
-    if config.remat_policy not in ("full", "dots"):
-        raise ValueError(f"unknown remat_policy {config.remat_policy!r}; "
-                         "use 'full' or 'dots'")
-    kw = {}
-    if config.remat_policy == "dots":
-        kw["context_fn"] = functools.partial(
-            create_selective_checkpoint_contexts, _save_matmuls)
-
-    def remat(*args):
-        return checkpoint(body, *args, use_reentrant=False, **kw)
-
-    return remat
-
-
-def _split_bf16(g: torch.Tensor) -> torch.Tensor:
-    """An f32 tensor [N, V] as three bf16 parts stacked to [3N, V] whose
-    sum is g exactly: each part takes the next 8 significant bits of
-    what the earlier parts left, and three hold all 24 of an f32 (for
-    |g| above 2^-110, where the third part is still a normal bf16)."""
-    parts, rest = [], g
-    for _ in range(3):
-        part = rest.to(torch.bfloat16)
-        parts.append(part)
-        rest = rest - part.float()
-    return torch.cat(parts)
-
-
-class _HeadF32(torch.autograd.Function):
-    """x2 [N, H] @ w [H, V] in bf16 or f16 with f32 logits out (cuBLAS's
-    GEMM with an f32 output: exact products, f32 accumulation, no
-    rounding of the logits), differentiable.
-
-    The backward follows the reference's transpose rule: the products are
-    taken against the f32 cotangent and rounded once, at the end, to the
-    operand's dtype. In bf16 that stays on the tensor cores: the cotangent
-    splits exactly into three bf16 parts (`_split_bf16`), whose products
-    with bf16 operands are exact and accumulate in f32, so dx and dw are
-    the f32-cotangent products up to the rounding of that accumulation
-    (the same as in any bf16 GEMM), at three times a bf16 GEMM's work.
-    f16's range cannot hold the parts, so f16 operands are upcast and
-    multiplied in f32."""
-
-    @staticmethod
-    def forward(ctx, x2, w):
-        ctx.save_for_backward(x2, w)
-        return torch.mm(x2, w, out_dtype=torch.float32)
-
-    @staticmethod
-    def backward(ctx, g):
-        x2, w = ctx.saved_tensors
-        g = g.float()
-        dx = dw = None
-        if x2.dtype != torch.bfloat16:
-            if ctx.needs_input_grad[0]:
-                dx = (g @ w.float().t()).to(x2.dtype)
-            if ctx.needs_input_grad[1]:
-                dw = (x2.float().t() @ g).to(w.dtype)
-            return dx, dw
-        parts = _split_bf16(g)
-        if ctx.needs_input_grad[0]:
-            # one GEMM over the stacked parts, f32 out, the three summed
-            dx = torch.mm(parts, w.t(), out_dtype=torch.float32).view(
-                3, *x2.shape).sum(0).to(x2.dtype)
-        if ctx.needs_input_grad[1]:
-            # the parts stacked along the contraction: one bf16 GEMM,
-            # f32 accumulation, rounded once to bf16
-            dw = torch.mm(x2.t().repeat(1, 3), parts)
-        return dx, dw
-
-
 def _project_out(config: LlamaConfig, params: dict, x):
-    """f32 logits from the head's product in x's dtype: bf16 inputs give
-    exact products accumulated in f32 and are NOT rounded to bf16 first
-    (a bf16 matmul followed by `.float()` would round, and flip near-tie
-    argmaxes). On CUDA that is `_HeadF32` (cuBLAS's bf16 GEMM with an f32
-    output, no upcast copy of the head); on the CPU the inputs are
-    upcast, which is exact, and autograd differentiates the upcast."""
+    """f32 logits from the head's product in x's dtype
+    (`common.logits_f32`)."""
     if config.tie_word_embeddings:
         w = params["embed_tokens"]["embedding"].to(x.dtype).t()
     else:
         w = params["lm_head"]["kernel"].to(x.dtype)
-    x2 = x.reshape(-1, x.shape[-1])
-    if x.dtype == torch.float32:
-        out = x2 @ w
-    elif x.is_cuda:
-        out = _HeadF32.apply(x2, w)
-    else:
-        out = x2.float() @ w.float()
-    return out.reshape(*x.shape[:-1], w.shape[-1])
+    return logits_f32(x, w)
 
 
 def causal_lm_loss(config: LlamaConfig, params: dict, batch: dict,

@@ -11,6 +11,8 @@ SAMPLER_NAME = "sampler"
 RNG_STATE_NAME = "random_states"
 SAFE_WEIGHTS_NAME = "model.safetensors"
 SAFE_WEIGHTS_INDEX_NAME = "model.safetensors.index.json"
+WEIGHTS_NAME = "pytorch_model.bin"
+WEIGHTS_INDEX_NAME = "pytorch_model.bin.index.json"
 CHECKPOINT_DIR_PREFIX = "checkpoint"
 
 # --- peak dense bf16 FLOP/s per GPU, by a substring of the device name ------

@@ -20,7 +20,8 @@ script exits non-zero:
    bound and a library yardstick (also at the new shapes);
 3b. small_parity: the default engine (paged kernel "auto") on
    `LlamaConfig.tiny()` (head_dim 16) on the card against the CPU
-   engine: greedy streams identical;
+   engine: greedy streams identical; zoo_small_parity: the same for the
+   tiny GPT-2, GPT-J, GPT-NeoX and OPT;
 4. engine: the serving engine at llama3-8B width and depth (random bf16
    weights from a seed), its programs captured as CUDA graphs, 12
    requests through the paged-decode kernel (launches counted through
@@ -38,13 +39,19 @@ script exits non-zero:
    drain during which new work gets 503; K2's launches in the HTTP run;
 5a'. serve_cli: `python -m accelerate_tpu_torch.commands.serve` with
    `--dry-run`, then serving for real on the card: one request over
-   HTTP through K2, then SIGTERM: it drains and exits 0;
+   HTTP through K2, then SIGTERM: it drains and exits 0; for `--family
+   llama` and `--family gpt2`;
 5b. speculative: a 2-layer draft, draft_k 4: greedy streams equal to
    the plain engine's in f32 at 4 layers, then the bf16 32-layer engine
    with its accept rate and the draft and verify programs' times;
 5c. host_tier: a pool too small for the traffic swaps a 512-token
    prefix out to host memory and back in, bf16 and int8 pools, streams
    equal to an ample pool's;
+5d. gptj_engine: GPT-J-6B at full width and depth (random bf16 weights
+   from a seed) served like phase engine's 12 requests through K2 at
+   head dim 256 with no GQA, graphs against eager, K2's launches through
+   replays, a 4-layer kernel-against-dense step in f32 activations, and
+   K2 at these shapes against its plain version, timed;
 6. train: the bf16 training step at llama3-8B width, 4 layers, remat
    "dots": 10 steps through the flash kernels, with the launch counts,
    step time, tokens/s, MFU, peak memory and a profiler split;
@@ -65,7 +72,14 @@ script exits non-zero:
 7. train_flash_vs_einsum: one step's loss and grads through the flash
    and einsum attention paths, 2 layers, f32 activations;
 8. head_grad: the bf16 head's gradient at the slice's shapes against
-   the exact products with the f32 cotangent, with its time.
+   the exact products with the f32 cotangent, with its time;
+9. mixtral_train: Mixtral-8x7B's width at 2 layers, bf16, remat,
+   trained through the flash kernels with the dense and then the sparse
+   (sort) expert dispatch: launch counts, step time, tokens/s, MFU over
+   the active parameters, peak memory and losses; a tiny Mixtral step
+   on the card against the CPU; sparse at full capacity against dense
+   in f32; K1a/b/c at this path's shape against their plain versions,
+   timed.
 
 The line before the last is the kernel table; the last line is
 {"ok": true, "device": {...}}. With no CUDA device the script exits
@@ -340,7 +354,7 @@ def phase_paged_kernel():
 
     tol = {torch.float32: 1e-4, torch.bfloat16: 2e-2, torch.int8: 2e-2,
            torch.float16: 4e-3}
-    ps, G = 16, 4
+    ps = 16
     timing = None
     shapes = {}
     bf16, f16 = torch.bfloat16, torch.float16
@@ -385,67 +399,71 @@ def phase_paged_kernel():
             shapes[case] = (q, kn, vn, pk, pv, meta, lengths, err)
     # timed at the engine's configuration: bf16 pool, no window
     q, kn, vn, pk, pv, meta, lengths, err = timing
-    ms = cuda_time_ms(
-        lambda: paged_decode_attention(q, kn, vn, pk, pv, meta), iters=200)
-    # back to back, a call costs the larger of the wrapper's host time and
-    # the kernels' device time: both are reported beside it
-    device_ms = _device_ms(
-        lambda: paged_decode_attention(q, kn, vn, pk, pv, meta),
-        "paged_decode", calls=20)
-    host_us = _host_us(
-        lambda: paged_decode_attention(q, kn, vn, pk, pv, meta), calls=200)
-    plain_ms = cuda_time_ms(
-        lambda: paged_decode_reference(q, kn, vn, pk, pv, meta), iters=20)
-    library_ms = cuda_time_ms(
-        _sdpa_yardstick(q, kn, vn, pk, pv, meta, lengths), iters=200)
-    bound_ms, bound_by = _paged_bound(q, pk, lengths, ps, G)
     row = {"name": "paged_decode", "route": "cuda",
            "source": "accelerate_tpu_torch/csrc/paged_decode.cu",
            "replaces": "accelerate_tpu/ops/paged_attention.py:157",
-           "launches": None, "max_abs_err": err, "ms": ms,
-           "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
-           "library_ms": library_ms,
+           "launches": None, "max_abs_err": err,
+           **_paged_times(q, kn, vn, pk, pv, meta, lengths),
            "library_scope": "scaled_dot_product_attention over K/V "
-                            "gathered from the pages beforehand",
-           "device_ms": device_ms, "wrapper_host_us": host_us}
+                            "gathered from the pages beforehand"}
     emit("kernel_time", **row)
     for case, (q, kn, vn, pk, pv, meta, lengths, err) in shapes.items():
         g = q.shape[2] // kn.shape[2]
-        bound_ms, bound_by = _paged_bound(q, pk, lengths, ps, g)
         emit("kernel_time_shape", name="paged_decode", case=case,
              shape={"S": q.shape[0], "Hkv": kn.shape[2], "G": g,
                     "D": q.shape[-1], "page_size": ps, "pool": "bfloat16"},
              max_abs_err=err,
-             ms=cuda_time_ms(lambda: paged_decode_attention(
-                 q, kn, vn, pk, pv, meta), iters=200),
-             device_ms=_device_ms(lambda: paged_decode_attention(
-                 q, kn, vn, pk, pv, meta), "paged_decode", calls=20),
-             plain_ms=cuda_time_ms(lambda: paged_decode_reference(
-                 q, kn, vn, pk, pv, meta), iters=20),
-             library_ms=cuda_time_ms(_sdpa_yardstick(
-                 q, kn, vn, pk, pv, meta, lengths), iters=100),
-             bound_ms=bound_ms, bound_by=bound_by)
+             **_paged_times(q, kn, vn, pk, pv, meta, lengths))
     return [row]
 
 
-def _device_ms(fn, substring, calls):
+def _paged_times(q, kn, vn, pk, pv, meta, lengths) -> dict:
+    """K2 on these inputs: back to back (`ms`: the larger of the
+    wrapper's host time and the kernels' device time, both reported
+    beside it), its plain version, SDPA over the K/V gathered
+    beforehand (never called by the port), and its bound."""
+    from accelerate_tpu_torch.ops.paged_attention import (
+        paged_decode_attention, paged_decode_reference)
+
+    def call():
+        return paged_decode_attention(q, kn, vn, pk, pv, meta)
+
+    bound_ms, bound_by = _paged_bound(q, pk, lengths, pk.data.shape[1],
+                                      q.shape[2] // kn.shape[2])
+    return {"ms": cuda_time_ms(call, iters=200),
+            "device_ms": _device_ms(call, "paged_decode", calls=20),
+            "wrapper_host_us": _host_us(call, calls=200),
+            "plain_ms": cuda_time_ms(lambda: paged_decode_reference(
+                q, kn, vn, pk, pv, meta), iters=20),
+            "library_ms": cuda_time_ms(_sdpa_yardstick(
+                q, kn, vn, pk, pv, meta, lengths), iters=200),
+            "bound_ms": bound_ms, "bound_by": bound_by}
+
+
+def _device_ms(fn, substring, calls, tries=3):
     """Device time per call of the kernels whose names hold `substring`
     (every kernel, memset and copy that `fn` puts on the device for ""),
-    from torch.profiler over `calls` calls."""
+    from torch.profiler over `calls` calls. A capture that records none
+    of them (late in a long run the profiler has been seen to drop a
+    capture's device events) is taken again; None when `tries` captures
+    recorded nothing."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
-            fn()
-        torch.cuda.synchronize()
-    us = sum(float(getattr(ev, "self_device_time_total", 0.0))
-             for ev in prof.key_averages()
-             if str(ev.device_type) == "DeviceType.CUDA"
-             and substring in ev.key)
-    return us / calls / 1e3
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        us = sum(float(getattr(ev, "self_device_time_total", 0.0))
+                 for ev in prof.key_averages()
+                 if str(ev.device_type) == "DeviceType.CUDA"
+                 and substring in ev.key)
+        if us > 0:
+            return us / calls / 1e3
+    return None
 
 
 def _host_us(fn, calls):
@@ -549,32 +567,15 @@ def phase_flash_kernel():
     dim 256 in bf16 and head dim 128 in f16 (the CUDA-core kernels)."""
     import torch
 
-    from accelerate_tpu_torch.ops import flash_attention as fa
-
     torch.cuda.reset_peak_memory_stats()
     failures = []
     timing = None
     for ci, (name, B, S, H, D, causal, mk, window) in enumerate(FLASH_CASES):
         for dtype in (torch.bfloat16, torch.float32, torch.float16):
             q, k, v, do, mask = _flash_inputs(B, S, H, D, mk, dtype, ci)
-            o, lse = fa.flash_forward(q, k, v, causal, mask, window,
-                                      save_residuals=True)
-            dq, dk, dv = fa.flash_backward(q, k, v, o, lse, do, causal,
-                                           mask, window)
-            ro, rlse = fa.flash_forward_reference(
-                q.float(), k.float(), v.float(), causal, mask, window)
-            rdq, rdk, rdv = fa.flash_backward_reference(
-                q.float(), k.float(), v.float(), ro, rlse, do.float(),
-                causal, mask, window)
-            torch.cuda.synchronize()
-            err = {"o": _max_abs(o, ro), "lse": _max_abs(lse, rlse)}
-            for n, a, b in (("dq", dq, rdq), ("dk", dk, rdk),
-                            ("dv", dv, rdv)):
-                err[n] = _max_abs(a, b)
-                err[n + "_rel_l2"] = _rel_l2(a.float(), b)
+            o, lse, err, finite = _flash_errors(q, k, v, do, causal, mask,
+                                                window)
             tol = FLASH_TOL[str(dtype)[6:]]
-            finite = all(bool(torch.isfinite(t.float()).all())
-                         for t in (o, lse, dq, dk, dv))
             ok = finite and all(err[n] <= t for n, t in tol.items())
             emit("flash_check", case=name, dtype=str(dtype)[6:], B=B, S=S,
                  H=H, D=D, causal=causal, key_mask=mk, window=window,
@@ -583,7 +584,7 @@ def phase_flash_kernel():
                 failures.append(f"{name}/{dtype}")
             if ci == 0 and dtype == torch.bfloat16:
                 timing = (q, k, v, do, o, lse, err)
-            del q, k, v, do, o, lse, dq, dk, dv, ro, rlse, rdq, rdk, rdv
+            del q, k, v, do, o, lse
     if failures:
         raise AssertionError(f"flash kernels disagree with their plain "
                              f"versions: {failures}")
@@ -592,6 +593,33 @@ def phase_flash_kernel():
                               (1, 2048, 8, 128, torch.float16)):
         _flash_shape_times(B, S, H, D, dtype)
     return rows
+
+
+def _flash_errors(q, k, v, do, causal, mask=None, window=None):
+    """K1a/b/c's outputs (o, lse) and gradients (dq, dk, dv, from `do`)
+    against the plain versions in f32 on the same inputs: (o, lse, the
+    errors by name, whether every output is finite)."""
+    import torch
+
+    from accelerate_tpu_torch.ops import flash_attention as fa
+
+    o, lse = fa.flash_forward(q, k, v, causal, mask, window,
+                              save_residuals=True)
+    dq, dk, dv = fa.flash_backward(q, k, v, o, lse, do, causal, mask,
+                                   window)
+    ro, rlse = fa.flash_forward_reference(q.float(), k.float(), v.float(),
+                                          causal, mask, window)
+    rdq, rdk, rdv = fa.flash_backward_reference(
+        q.float(), k.float(), v.float(), ro, rlse, do.float(), causal, mask,
+        window)
+    torch.cuda.synchronize()
+    err = {"o": _max_abs(o, ro), "lse": _max_abs(lse, rlse)}
+    for n, a, b in (("dq", dq, rdq), ("dk", dk, rdk), ("dv", dv, rdv)):
+        err[n] = _max_abs(a, b)
+        err[n + "_rel_l2"] = _rel_l2(a.float(), b)
+    finite = all(bool(torch.isfinite(t.float()).all())
+                 for t in (o, lse, dq, dk, dv))
+    return o, lse, err, finite
 
 
 def _flash_shape_times(B, S, H, D, dtype):
@@ -645,10 +673,11 @@ def _flash_times(q, k, v, do, o, lse, err):
     plain versions, and scaled_dot_product_attention as the yardstick
     (forward; backward alone), which the port never calls. The kernels
     are timed back to back with CUDA events (`ms`) and by the profiler
-    (`device_ms`); SDPA's backward call by the profiler as the device
-    time of every kernel it launches, whichever backend it picks
-    (`library_ms`), with the CUDA-event time around the autograd call,
-    host and autograd included, beside it."""
+    (`device_ms`); SDPA's backward call with CUDA events around the
+    autograd call (`library_ms`), with the profiler's device time of
+    every kernel it launches beside it (`library_device_ms`: late in a
+    long run the profiler has been seen to drop some of a capture's
+    device events, so it is not the row's number)."""
     import torch
     import torch.nn.functional as F
 
@@ -696,7 +725,7 @@ def _flash_times(q, k, v, do, o, lse, err):
          plain_fwd_ms=plain_fwd, plain_bwd_ms=plain_bwd,
          sdpa_fwd_ms=sdpa_fwd, sdpa_bwd_device_ms=sdpa_bwd,
          sdpa_bwd_host_clock_ms=sdpa_bwd_host,
-         sdpa_fwd_bwd_ms=sdpa_fwd + sdpa_bwd,
+         sdpa_fwd_bwd_ms=sdpa_fwd + sdpa_bwd_host,
          bounds={n: b[0] for n, b in bounds.items()},
          max_memory_allocated_gb=torch.cuda.max_memory_allocated() / 1e9)
     replaces = {"flash_fwd": "accelerate_tpu/ops/flash_attention.py:87",
@@ -724,14 +753,15 @@ def _flash_times(q, k, v, do, o, lse, err):
             "max_abs_err": errs[name], "ms": ms[name],
             "plain_ms": plain_fwd if fwd else plain_bwd,
             "bound_ms": bounds[name][0], "bound_by": bounds[name][1],
-            "library_ms": sdpa_fwd if fwd else sdpa_bwd,
+            "library_ms": sdpa_fwd if fwd else sdpa_bwd_host,
             "plain_scope": scopes[name][0],
             "library_scope": scopes[name][1] + ("" if fwd else
-                                                ", device time"),
+                                                ", CUDA events around "
+                                                "the call"),
             "device_ms": device_ms[name],
             "bwd_pair_ms": None if fwd else bwd_pair_ms,
-            "library_host_clock_ms": None if fwd else sdpa_bwd_host,
-            "library_fwd_bwd_ms": sdpa_fwd + sdpa_bwd})
+            "library_device_ms": None if fwd else sdpa_bwd,
+            "library_fwd_bwd_ms": sdpa_fwd + sdpa_bwd_host})
     return rows
 
 
@@ -1448,18 +1478,25 @@ async def _server_scenario(door, prompts, max_new, want, trace):
 
 
 def phase_serve_cli():
-    """`python -m accelerate_tpu_torch.commands.serve`: its --dry-run JSON,
-    then the default tiny config served on the card (port 0), one greedy
-    request over HTTP, the decode path's counter read from /metrics
+    """`python -m accelerate_tpu_torch.commands.serve`, `--family llama`
+    and `--family gpt2`: each one's --dry-run JSON, then its tiny config
+    served on the card (port 0), one greedy request over HTTP, the decode
+    path's counter read from /metrics
     (`serving_decode_path_total{path="kernel"}`: K2 served the steps),
     then SIGTERM: the process drains and exits 0."""
+    for family in ("llama", "gpt2"):
+        _serve_cli_family(family)
+
+
+def _serve_cli_family(family):
     import http.client
     import queue
     import re
     import signal
     import threading
 
-    cmd = [sys.executable, "-m", "accelerate_tpu_torch.commands.serve"]
+    cmd = [sys.executable, "-m", "accelerate_tpu_torch.commands.serve",
+           "--family", family]
     dry = subprocess.run(cmd + ["--dry-run"], capture_output=True,
                          text=True, timeout=300, check=True)
     conf = json.loads(dry.stdout.strip().splitlines()[-1])
@@ -1502,13 +1539,15 @@ def phase_serve_cli():
     while not lines.empty():
         rest.append(lines.get().strip())
     tokens = body["choices"][0]["token_ids"]
-    emit("serve_cli", dry_run=conf, status=resp.status, tokens=tokens,
-         request_s=request_s, kernel_decode_steps=kernel_steps,
-         exit_code=rc, log=rest[-3:])
-    if not (conf.get("dry_run") and resp.status == 200 and len(tokens) == 8
+    emit("serve_cli", family=family, dry_run=conf, status=resp.status,
+         tokens=tokens, request_s=request_s,
+         kernel_decode_steps=kernel_steps, exit_code=rc, log=rest[-3:])
+    if not (conf.get("dry_run") and conf.get("family") == family
+            and resp.status == 200 and len(tokens) == 8
             and kernel_steps > 0 and rc == 0
             and any("drained" in ln for ln in rest)):
-        raise AssertionError("serve_cli failed: see the serve_cli line")
+        raise AssertionError(f"serve_cli --family {family} failed: see "
+                             "the serve_cli line")
 
 
 # ---------------------------------------------------------------------------
@@ -1791,6 +1830,32 @@ def _train_batch(cfg):
         0, cfg.vocab_size, (2, 2049)).astype(np.int32)
 
 
+def _timed_steps(step, state, batch, n):
+    """n steps of `step` timed with CUDA events, the flash kernels' launch
+    counts set to 0 just before them and read just after: (state, the
+    losses as tensors, step ms, launches by kernel)."""
+    import torch
+
+    from accelerate_tpu_torch.ops import flash_attention as fa
+
+    kernels = {"flash_fwd": fa.flash_forward,
+               "flash_bwd_dq": fa.flash_backward_dq,
+               "flash_bwd_dkv": fa.flash_backward_dkv}
+    for fn in kernels.values():
+        fn.launches = 0
+    marks = [torch.cuda.Event(enable_timing=True) for _ in range(n + 1)]
+    losses = []
+    marks[0].record()
+    for i in range(n):
+        state, m = step(state, batch)
+        marks[i + 1].record()
+        losses.append(m["loss"])
+    torch.cuda.synchronize()
+    launches = {name: fn.launches for name, fn in kernels.items()}
+    return state, losses, [marks[i].elapsed_time(marks[i + 1])
+                           for i in range(n)], launches
+
+
 def phase_train(kernel_rows):
     """Accelerator(bf16, clip 1.0) + prepare(TrainState(adamw(3e-4))) +
     train_step(causal_lm_loss) at llama3-8B width with 4 layers, remat
@@ -1803,7 +1868,6 @@ def phase_train(kernel_rows):
     from accelerate_tpu_torch.accelerator import Accelerator
     from accelerate_tpu_torch.models import llama
     from accelerate_tpu_torch.models.common import count_params
-    from accelerate_tpu_torch.ops import flash_attention as fa
     from accelerate_tpu_torch.optimizers import adamw, tree_leaves
     from accelerate_tpu_torch.state import PartialState
     from accelerate_tpu_torch.training import TrainState
@@ -1819,25 +1883,10 @@ def phase_train(kernel_rows):
     (batch,) = list(loader)
     step = acc.train_step(lambda p, b: llama.causal_lm_loss(cfg, p, b))
     state, m = step(state, batch)                     # warm-up
-    losses = [m["loss"]]
     # the main path's run: every count at 0 just before, read just after
-    fa.flash_forward.launches = 0
-    fa.flash_backward_dq.launches = 0
-    fa.flash_backward_dkv.launches = 0
-    marks = [torch.cuda.Event(enable_timing=True)
-             for _ in range(TRAIN_STEPS + 1)]
-    marks[0].record()
-    for i in range(TRAIN_STEPS):
-        state, m = step(state, batch)
-        marks[i + 1].record()
-        losses.append(m["loss"])
-    torch.cuda.synchronize()
-    launches = {"flash_fwd": fa.flash_forward.launches,
-                "flash_bwd_dq": fa.flash_backward_dq.launches,
-                "flash_bwd_dkv": fa.flash_backward_dkv.launches}
-    step_ms = [marks[i].elapsed_time(marks[i + 1])
-               for i in range(TRAIN_STEPS)]
-    losses = [float(x) for x in losses]
+    state, timed, step_ms, launches = _timed_steps(step, state, batch,
+                                                   TRAIN_STEPS)
+    losses = [float(x) for x in [m["loss"], *timed]]
     med = float(np.median(step_ms))
     tokens = 2 * 2048
     tok_s = tokens / (med / 1e3)
@@ -1949,7 +1998,6 @@ def phase_fp8_train(kernel_rows, bf16):
     from accelerate_tpu_torch.accelerator import Accelerator
     from accelerate_tpu_torch.models import llama
     from accelerate_tpu_torch.models.common import count_params
-    from accelerate_tpu_torch.ops import flash_attention as fa
     from accelerate_tpu_torch.ops import fp8
     from accelerate_tpu_torch.optimizers import adamw
     from accelerate_tpu_torch.state import PartialState
@@ -1968,28 +2016,13 @@ def phase_fp8_train(kernel_rows, bf16):
     step = acc.train_step(lambda p, b, fp8_state=None: llama.causal_lm_loss(
         cfg, p, b, fp8_state=fp8_state))
     state, m = step(state, batch)                     # warm-up
-    losses = [m["loss"]]
     # the main path's run: every count at 0 just before, read just after
-    fa.flash_forward.launches = 0
-    fa.flash_backward_dq.launches = 0
-    fa.flash_backward_dkv.launches = 0
     fp8.fp8_gemm.launches.update(fwd=0, dx=0, dw=0)
-    marks = [torch.cuda.Event(enable_timing=True)
-             for _ in range(TRAIN_STEPS + 1)]
-    marks[0].record()
-    for i in range(TRAIN_STEPS):
-        state, m = step(state, batch)
-        marks[i + 1].record()
-        losses.append(m["loss"])
-    torch.cuda.synchronize()
-    launches = {"flash_fwd": fa.flash_forward.launches,
-                "flash_bwd_dq": fa.flash_backward_dq.launches,
-                "flash_bwd_dkv": fa.flash_backward_dkv.launches,
-                **{f"fp8_gemm_{r}": n
-                   for r, n in fp8.fp8_gemm.launches.items()}}
-    step_ms = [marks[i].elapsed_time(marks[i + 1])
-               for i in range(TRAIN_STEPS)]
-    losses = [float(x) for x in losses]
+    state, timed, step_ms, launches = _timed_steps(step, state, batch,
+                                                   TRAIN_STEPS)
+    launches.update({f"fp8_gemm_{r}": n
+                     for r, n in fp8.fp8_gemm.launches.items()})
+    losses = [float(x) for x in [m["loss"], *timed]]
     med = float(np.median(step_ms))
     tok_s = 2 * 2048 / (med / 1e3)
     flops_per_token = 6 * n_params + 12 * cfg.num_hidden_layers * \
@@ -2643,6 +2676,442 @@ def phase_head_grad():
         raise AssertionError(f"head gradient off the exact products: {res}")
 
 
+# ---------------------------------------------------------------------------
+# the model zoo: tiny engines of every causal family, GPT-J-6B served,
+# Mixtral-8x7B width trained
+# ---------------------------------------------------------------------------
+
+ZOO = {"gpt2": "GPT2Config", "gptj": "GPTJConfig",
+       "gpt_neox": "GPTNeoXConfig", "opt": "OPTConfig"}
+
+
+def phase_zoo_small_parity():
+    """Each causal family's tiny config (head dims 16, G=1) under the
+    default engine config: on the card "auto" runs the paged kernel, on
+    the CPU the dense-gather path, from the same f32 weights; greedy
+    streams identical, logprobs within 1e-3."""
+    import importlib
+
+    import numpy as np
+    import torch
+
+    from accelerate_tpu_torch.models.convert import params_from_numpy, \
+        params_to_numpy
+    from accelerate_tpu_torch.ops.paged_attention import \
+        paged_decode_attention
+    from accelerate_tpu_torch.serving import Engine, EngineConfig
+
+    results, bad = {}, []
+    kw = dict(num_slots=3, max_len=96, prefill_chunk=8, page_size=16,
+              cache_dtype=torch.float32)
+    for name, cfg_name in ZOO.items():
+        mod = importlib.import_module(f"accelerate_tpu_torch.models.{name}")
+        cfg = getattr(mod, cfg_name).tiny()
+        params = mod.init_params(cfg, 0)
+        cpu_params = params_from_numpy(params_to_numpy(params), device="cpu")
+        rng = np.random.default_rng(1)
+        prompts = [rng.integers(0, cfg.vocab_size, n).astype(np.int32)
+                   for n in (6, 13, 9, 40, 21)]
+        temps, keys = [0.0] * len(prompts), list(range(len(prompts)))
+        before = paged_decode_attention.launches
+        card = _serve(Engine(mod, cfg, params, EngineConfig(**kw)), prompts,
+                      temps, 8, keys)
+        launches = paged_decode_attention.launches - before
+        host = _serve(Engine(mod, cfg, cpu_params, EngineConfig(**kw),
+                             device="cpu"), prompts, temps, 8, keys)
+        same = [a.tokens for a in card] == [b.tokens for b in host]
+        lp_err = max(abs(x - y) for a, b in zip(card, host)
+                     for x, y in zip(a.logprobs, b.logprobs))
+        results[name] = {"head_dim": cfg.head_dim,
+                         "paged_decode_launches": launches,
+                         "tokens_identical": same,
+                         "logprob_max_abs_err": lp_err}
+        if not same or lp_err > 1e-3 or launches == 0:
+            bad.append(name)
+    emit("zoo_small_parity", paged_attention="auto", families=results,
+         logprob_tol=1e-3)
+    if bad:
+        raise AssertionError(f"card engines off the CPU engines, or no "
+                             f"paged kernel ran: {bad}")
+
+
+def _paged_row(path, launches, **shape):
+    """K2 at one path's shapes (bf16 pool, no window, the serving
+    lengths): checked against its plain version, then timed beside its
+    plain version, its bound and SDPA over pre-gathered K/V."""
+    import torch
+
+    from accelerate_tpu_torch.ops.paged_attention import (
+        paged_decode_attention, paged_decode_reference)
+
+    q, kn, vn, pk, pv, meta, lengths = _paged_inputs(torch.bfloat16,
+                                                     **shape)
+    out, (kr, vr) = paged_decode_attention(q, kn, vn, pk, pv, meta)
+    ref, (rk, rv) = paged_decode_reference(q, kn, vn, pk, pv, meta)
+    torch.cuda.synchronize()
+    err = _max_abs(out, ref)
+    if not (err <= 2e-2 and torch.equal(kr, rk) and torch.equal(vr, rv)):
+        raise AssertionError(f"paged_decode off its plain version at "
+                             f"{path}'s shapes: {err}")
+    row = {"name": f"paged_decode[{path}]", "route": "cuda",
+           "source": "accelerate_tpu_torch/csrc/paged_decode.cu",
+           "replaces": "accelerate_tpu/ops/paged_attention.py:157",
+           "launches": launches, "max_abs_err": err,
+           **_paged_times(q, kn, vn, pk, pv, meta, lengths),
+           "library_scope": "scaled_dot_product_attention over K/V "
+                            "gathered from the pages beforehand",
+           "shape": {"S": q.shape[0], "Hkv": kn.shape[2],
+                     "G": q.shape[2] // kn.shape[2], "D": q.shape[-1],
+                     "page_size": pk.data.shape[1], "pool": "bfloat16",
+                     "lengths": lengths}}
+    emit("kernel_time_path", **row)
+    return row
+
+
+GPTJ_CHECK_LAYERS = 4
+
+
+def phase_gptj_engine(kernel_rows):
+    """GPT-J-6B as published (28 layers, hidden 4096, 16 heads of 256, no
+    GQA, rotary 64, vocab 50400), random bf16 weights from seed 0, served
+    by the engine with its programs as CUDA graphs through the paged
+    kernel at D=256, G=1: phase `engine`'s 12 requests and config. Gated:
+    every request finishes, a prefix hit, K2's launches equal decode
+    steps x 28 (counted through replays), every program captured once,
+    greedy streams identical to the eager engine's; then one decode step
+    through the kernel and the dense-gather path at 4 layers in f32
+    activations, and K2 at these shapes against its plain version."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from accelerate_tpu_torch.models import gptj
+    from accelerate_tpu_torch.models.common import count_params
+    from accelerate_tpu_torch.ops.paged_attention import \
+        paged_decode_attention
+    from accelerate_tpu_torch.serving import Engine, EngineConfig
+
+    cfg = gptj.GPTJConfig()
+    t0 = time.perf_counter()
+    params = gptj.init_params(cfg, 0, dtype=torch.bfloat16)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    ec = EngineConfig(cache_dtype=torch.bfloat16, paged_attention=True,
+                      **ENGINE_CONFIG)
+    eng = Engine(gptj, cfg, params, ec)
+    prompts = _prompts(np.random.default_rng(0), cfg.vocab_size)
+    temps = [0.0 if i % 2 == 0 else 0.8 for i in range(12)]
+    torch.cuda.reset_peak_memory_stats()
+    # the path's run: the count at 0 just before, read just after
+    paged_decode_attention.launches = 0
+    reqs, decode_s, prefill_s, run_s = _drive(eng, prompts, temps)
+    launches = paged_decode_attention.launches
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    summary = eng.metrics_summary()
+    steps = eng.metrics.decode_steps
+    stats = eng.compile_stats()
+    capture_s = eng._graphs.capture_seconds()
+    del eng
+    eager = Engine(gptj, cfg, params, ec, _graphs=False)
+    ereqs, edecode_s, _, erun_s = _drive(eager, prompts, temps)
+    del eager
+    _drop()
+    greedy = [i for i, t in enumerate(temps) if t == 0.0]
+    greedy_same = all(reqs[i].tokens == ereqs[i].tokens for i in greedy)
+    decode_tokens = sum(len(r.tokens) for r in reqs) - len(reqs)
+    kvd = _gptj_kernel_vs_dense(dataclasses.replace(
+        cfg, num_hidden_layers=GPTJ_CHECK_LAYERS),
+        _truncated(params, GPTJ_CHECK_LAYERS))
+    emit("gptj_engine", config="GPTJConfig() (GPT-J-6B)",
+         layers=cfg.num_hidden_layers, head_dim=cfg.head_dim,
+         params=count_params(params), params_init_s=init_s, graphs=True,
+         requests=len(reqs),
+         prompt_tokens=int(sum(len(p) for p in prompts)),
+         finished=len(reqs) - len(_finished(reqs, cfg.vocab_size)),
+         decode_steps=steps, paged_decode_launches=launches,
+         compile_stats=stats, capture_s=capture_s,
+         prefill_chunks=summary["prefill_chunks"],
+         prefix_hit_rate=summary.get("prefix_hit_rate"),
+         ttft_p50_ms=summary.get("ttft_p50_ms"),
+         ttft_p99_ms=summary.get("ttft_p99_ms"),
+         decode_step_ms_median=float(np.median(decode_s)) * 1e3,
+         decode_step_ms_mean=float(np.mean(decode_s)) * 1e3,
+         prefill_chunk_ms_median=float(np.median(prefill_s)) * 1e3,
+         decode_tokens_per_s=decode_tokens / sum(decode_s),
+         tokens_per_s=sum(len(r.tokens) for r in reqs) / run_s, run_s=run_s,
+         eager_decode_step_ms_median=float(np.median(edecode_s)) * 1e3,
+         eager_run_s=erun_s, greedy_streams_identical=greedy_same,
+         kernel_vs_dense=kvd, max_memory_allocated_gb=peak_gb)
+    bad = _finished(reqs, cfg.vocab_size) + _finished(ereqs, cfg.vocab_size)
+    if bad:
+        raise AssertionError(f"requests {bad} did not finish with 32 tokens")
+    if not summary.get("prefix_hit_rate", 0.0) > 0:
+        raise AssertionError("no prefix-cache hit on the shared prefix")
+    if launches != steps * cfg.num_hidden_layers or launches == 0:
+        raise AssertionError(f"paged_decode launched {launches} times for "
+                             f"{steps} decode steps x 28 layers")
+    if stats != {"admit": 1, "prefill": 1, "decode": 1}:
+        raise AssertionError(f"programs not captured once each: {stats}")
+    if not greedy_same:
+        raise AssertionError("graphed greedy streams differ from eager")
+    if not (kvd["logits_rel_l2"] <= 2e-2 and kvd["finite"]):
+        raise AssertionError(f"kernel path logits off the dense path: {kvd}")
+    del params
+    _drop()
+    kernel_rows.append(_paged_row("gptj_engine", launches, Hkv=16, G=1,
+                                  D=256))
+
+
+def _gptj_kernel_vs_dense(cfg, params):
+    """From one pool state (8 slots at 200-1800 rows) of a GPT-J engine
+    cut to its first layers, one decode step through the kernel path and
+    the dense-gather path: the logits' distance in f32 activations (an
+    f32 embedding; bf16 weights and pool, upcast as read), gated by the
+    caller, and in bf16 beside it."""
+    import numpy as np
+    import torch
+
+    from accelerate_tpu_torch.models import gptj
+    from accelerate_tpu_torch.serving import Engine, EngineConfig, SlotState
+
+    eng = Engine(gptj, cfg, params, EngineConfig(
+        cache_dtype=torch.bfloat16, paged_attention=True, **ENGINE_CONFIG),
+        _graphs=False)
+    rng = np.random.default_rng(1)
+    for n in (200, 400, 700, 900, 1100, 1300, 1500, 1800):
+        eng.submit(rng.integers(0, cfg.vocab_size, n).astype(np.int32),
+                   max_new_tokens=200)
+    while not all(s.state is SlotState.DECODE for s in eng.scheduler.slots):
+        eng.step()
+    table = _device_table(eng)
+    kern, _, _ = eng._decode_forward(True, table)
+    dense, _, _ = eng._decode_forward(False, table)
+    eng.params = {**params, "wte": {
+        "embedding": params["wte"]["embedding"].float()}}
+    kern32, _, _ = eng._decode_forward(True, table)
+    dense32, _, _ = eng._decode_forward(False, table)
+    out = {"layers": cfg.num_hidden_layers,
+           "lengths": eng.cache.lengths.tolist(),
+           "logits_rel_l2": _rel_l2(kern32, dense32), "tol": 2e-2,
+           "activations": "float32",
+           "bf16_logits_rel_l2": _rel_l2(kern, dense),
+           "greedy_agree_bf16": int((kern.argmax(-1)
+                                     == dense.argmax(-1)).sum()),
+           "finite": bool(torch.isfinite(kern32).all()
+                          and torch.isfinite(kern).all())}
+    del eng
+    _drop()
+    return out
+
+
+MIXTRAL_LAYERS = 2    # full width; 2 layers' f32 state is about 51 GB
+MIXTRAL_STEPS = 5
+
+
+def _mixtral_run(cfg, batch):
+    """One Accelerator(bf16, clip 1.0) + adamw(3e-4, weight_decay=1e-4)
+    training run of `cfg` on `batch` from seed 0: a warm-up step, then
+    MIXTRAL_STEPS timed with CUDA events, the flash launch counts at 0
+    just before them and read just after."""
+    import numpy as np
+    import torch
+
+    from accelerate_tpu_torch.accelerator import Accelerator
+    from accelerate_tpu_torch.models import mixtral
+    from accelerate_tpu_torch.models.common import count_params
+    from accelerate_tpu_torch.optimizers import adamw
+    from accelerate_tpu_torch.state import PartialState
+    from accelerate_tpu_torch.training import TrainState
+
+    PartialState._reset_state()
+    torch.cuda.reset_peak_memory_stats()
+    acc = Accelerator(mixed_precision="bf16", gradient_clipping=1.0)
+    state = acc.prepare(TrainState.create(
+        apply_fn=None, params=mixtral.init_params(cfg, 0),
+        tx=adamw(3e-4, weight_decay=1e-4)))
+    n_params = count_params(state.params)
+    (b,) = list(acc.prepare([{"input_ids": batch}]))
+    step = acc.train_step(lambda p, bt: mixtral.causal_lm_loss(cfg, p, bt))
+    state, m = step(state, b)                          # warm-up
+    state, timed, step_ms, launches = _timed_steps(step, state, b,
+                                                   MIXTRAL_STEPS)
+    losses = [m["loss"], *timed]
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    split = _profile_train_step(step, state, b)
+    del state, step, b
+    med = float(np.median(step_ms))
+    S = batch.shape[1] - 1
+    tok_s = batch.shape[0] * S / (med / 1e3)
+    L, E, k = (cfg.num_hidden_layers, cfg.num_local_experts,
+               cfg.num_experts_per_tok)
+    # the parameters one token passes through: all but the E - k experts
+    # it is not routed to, in each layer
+    n_active = n_params - L * (E - k) * 3 * cfg.hidden_size * \
+        cfg.intermediate_size
+    flops_per_token = 6 * n_active + 12 * L * cfg.hidden_size * S
+    return {"moe_impl": cfg.moe_impl, "params": n_params,
+            "active_params": n_active, "losses": [float(x) for x in losses],
+            "step_ms": step_ms, "step_ms_median": med, "tokens_per_s": tok_s,
+            "mfu_active_params": flops_per_token * tok_s / BF16_FLOPS,
+            "max_memory_allocated_gb": peak_gb, "launches": launches,
+            "profile": split}
+
+
+def phase_mixtral_train(kernel_rows):
+    """`MixtralConfig.mixtral_8x7b(num_hidden_layers=2, remat=True)`
+    trained at full width through the Accelerator (bf16, clip 1.0,
+    adamw(3e-4) with weight_decay=1e-4), batch [1, 2049] from seed 0:
+    attention through the flash kernels ("auto" at S=2048), the experts
+    with moe_impl "dense", then "sparse" (at S=2048 the one-hot would be
+    2048*2*8*640 = 21 M elements, over the reference's 16 Mi threshold,
+    so the sort dispatch runs). Gated: losses finite and falling, K1a/b/c
+    2L/L/L launches a step (remat reruns the forward). Then a tiny
+    Mixtral step on the card against the CPU, sparse at full capacity
+    against dense in f32 (the sort path), and K1a/b/c at this path's
+    shape against their plain versions, timed."""
+    import dataclasses
+
+    import numpy as np
+
+    from accelerate_tpu_torch.models import mixtral
+
+    cfg = mixtral.MixtralConfig.mixtral_8x7b(
+        num_hidden_layers=MIXTRAL_LAYERS, remat=True)
+    batch = np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (1, 2049)).astype(np.int32)
+    runs = []
+    for impl in ("dense", "sparse"):
+        runs.append(_mixtral_run(dataclasses.replace(cfg, moe_impl=impl),
+                                 batch))
+        _drop()
+    want = {"flash_fwd": 2 * MIXTRAL_LAYERS * MIXTRAL_STEPS,
+            "flash_bwd_dq": MIXTRAL_LAYERS * MIXTRAL_STEPS,
+            "flash_bwd_dkv": MIXTRAL_LAYERS * MIXTRAL_STEPS}
+    tiny = _mixtral_tiny_parity()
+    svd = _mixtral_sparse_vs_dense()
+    emit("mixtral_train", config="mixtral_8x7b", layers=MIXTRAL_LAYERS,
+         remat="full", batch=[1, 2049], mixed_precision="bf16",
+         steps=MIXTRAL_STEPS, runs=runs, launches_per_run_expected=want,
+         mfu_note="6 x active params (attention, router, embeddings, head "
+                  "and 2 of 8 experts a layer) + 12 L h s, over the bf16 "
+                  "peak; the dense path computes all 8 experts",
+         tiny_card_vs_cpu=tiny, sparse_vs_dense_f32=svd)
+    for r in runs:
+        if not all(math.isfinite(x) for x in r["losses"]):
+            raise AssertionError(f"non-finite loss: {r['losses']}")
+        if not r["losses"][-1] < r["losses"][0]:
+            raise AssertionError(f"loss did not fall: {r['losses']}")
+        if r["launches"] != want:
+            raise AssertionError(f"flash launches {r['launches']} for "
+                                 f"{r['moe_impl']}, expected {want}")
+    if not tiny["ok"]:
+        raise AssertionError(f"tiny Mixtral step off the CPU: {tiny}")
+    if not svd["ok"]:
+        raise AssertionError(f"sparse at full capacity off dense: {svd}")
+    launches = {n: sum(r["launches"][n] for r in runs) for n in want}
+    kernel_rows.extend(_flash_rows_at("mixtral_train", launches,
+                                      1, 2048, 32, 128))
+
+
+def _flash_rows_at(path, launches, B, S, H, D):
+    """K1a/b/c at one path's causal bf16 shape: outputs and gradients
+    against the plain versions in f32 (the flash checks' tolerances),
+    then timed (`_flash_times`), as rows named for the path."""
+    import torch
+
+    q, k, v, do, _ = _flash_inputs(B, S, H, D, None, torch.bfloat16, 77)
+    o, lse, err, finite = _flash_errors(q, k, v, do, True)
+    tol = FLASH_TOL["bfloat16"]
+    ok = finite and all(err[n] <= t for n, t in tol.items())
+    emit("flash_check", case=path, dtype="bfloat16", B=B, S=S, H=H, D=D,
+         causal=True, key_mask=None, window=None, err=err, tol=tol,
+         finite=finite, ok=ok)
+    if not ok:
+        raise AssertionError(f"flash kernels off their plain versions at "
+                             f"{path}'s shape: {err}")
+    rows = _flash_times(q, k, v, do, o, lse, err)
+    for row in rows:
+        row["launches"] = launches[row["name"]]
+        row["name"] = f"{row['name']}[{path}]"
+        row["shape"] = [B, S, H, D]
+    return rows
+
+
+def _mixtral_tiny_parity():
+    """Two f32 steps of a tiny Mixtral (the flash backend, sparse
+    dispatch) through the Accelerator on the card and with cpu=True:
+    losses within 1e-5, params within 1e-4 (tests/test_torch_cuda.py)."""
+    import numpy as np
+
+    from accelerate_tpu_torch import optimizers as to
+    from accelerate_tpu_torch.accelerator import Accelerator
+    from accelerate_tpu_torch.models import mixtral
+    from accelerate_tpu_torch.models.convert import params_from_numpy, \
+        params_to_numpy
+    from accelerate_tpu_torch.state import PartialState
+    from accelerate_tpu_torch.training import TrainState
+
+    cfg = mixtral.MixtralConfig.tiny(hidden_size=128, moe_impl="sparse",
+                                     attention_backend="flash", remat=True)
+    init = params_to_numpy(mixtral.init_params(cfg, 0, device="cpu"))
+    ids = np.random.default_rng(0).integers(0, 256, (2, 65)).astype(np.int32)
+    results = []
+    for cpu in (False, True):
+        PartialState._reset_state()
+        acc = Accelerator(gradient_clipping=1.0, cpu=cpu)
+        state = acc.prepare(TrainState.create(
+            apply_fn=None, params=params_from_numpy(init, device=acc.device),
+            tx=to.adamw(1e-3, weight_decay=0.0)))
+        step = acc.train_step(lambda p, b: mixtral.causal_lm_loss(cfg, p, b))
+        losses = []
+        for _ in range(2):
+            state, m = step(state, {"input_ids": ids})
+            losses.append(float(m["loss"]))
+        results.append((losses, to.tree_leaves(
+            params_to_numpy(state.params))))
+    PartialState._reset_state()
+    (l_gpu, p_gpu), (l_cpu, p_cpu) = results
+    loss_err = max(abs(a - b) for a, b in zip(l_gpu, l_cpu))
+    param_err = max(float(np.abs(a - b).max()) for a, b in zip(p_gpu, p_cpu))
+    return {"losses_card": l_gpu, "losses_cpu": l_cpu,
+            "loss_max_abs_err": loss_err, "param_max_abs_err": param_err,
+            "loss_tol": 1e-5, "param_tol": 1e-4,
+            "ok": loss_err <= 1e-5 and param_err <= 1e-4}
+
+
+def _mixtral_sparse_vs_dense():
+    """Narrow Mixtral (8 experts, top 2) at S=2048 in f32 on the card:
+    moe_impl "sparse" with capacity_factor 8 (C = S k: nothing drops;
+    the sort dispatch) against "dense", from the same params. Gated as
+    tests/test_torch_moe.py: logits rtol 2e-4 atol 2e-5, aux rtol 1e-5."""
+    import dataclasses
+
+    import torch
+
+    from accelerate_tpu_torch.models import mixtral
+
+    dense_cfg = mixtral.MixtralConfig.tiny(
+        hidden_size=256, intermediate_size=512, num_local_experts=8,
+        max_position_embeddings=2048, attention_backend="einsum")
+    sparse_cfg = dataclasses.replace(dense_cfg, moe_impl="sparse",
+                                     capacity_factor=8.0)
+    params = mixtral.init_params(dense_cfg, 1)
+    ids = torch.randint(0, 256, (1, 2048), device="cuda",
+                        generator=torch.Generator("cuda").manual_seed(2))
+    cap = 2 * 2048
+    sort_path = 2048 * 2 * 8 * cap > mixtral._ONEHOT_DISPATCH_MAX_ELEMENTS
+    d_logits, d_aux = mixtral.forward(dense_cfg, params, ids)
+    s_logits, s_aux = mixtral.forward(sparse_cfg, params, ids)
+    ok_logits = bool(torch.allclose(s_logits, d_logits, rtol=2e-4,
+                                    atol=2e-5))
+    aux_rel = abs(float(s_aux) - float(d_aux)) / abs(float(d_aux))
+    return {"S": 2048, "capacity": cap, "sort_dispatch": sort_path,
+            "logits_max_abs_err": _max_abs(s_logits, d_logits),
+            "aux_rel_err": aux_rel,
+            "ok": ok_logits and aux_rel <= 1e-5 and sort_path}
+
+
 def _drop():
     """Free the device memory of a finished phase."""
     import gc
@@ -2665,6 +3134,7 @@ def main() -> int:
     kernels = phase_paged_kernel()
     kernels += phase_flash_kernel()
     phase_small_parity()
+    phase_zoo_small_parity()
     cfg, params, eng, prompts, temps, numbers = phase_engine(kernels[:1])
     phase_kernel_vs_dense(cfg, params, eng, numbers)
     phase_server(cfg, eng)
@@ -2676,6 +3146,8 @@ def main() -> int:
     phase_host_tier(cfg, params)
     del params
     _drop()
+    phase_gptj_engine(kernels)
+    _drop()
     bf16 = phase_train(kernels)
     _drop()
     phase_fp8_train(kernels, bf16)
@@ -2685,6 +3157,8 @@ def main() -> int:
     phase_train_flash_vs_einsum()
     _drop()
     phase_head_grad()
+    _drop()
+    phase_mixtral_train(kernels)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": info["name"], "count": info["count"]}}),

@@ -3,8 +3,10 @@ against its plain PyTorch version, the engine on the card against the
 engine on the CPU, the engine's programs as CUDA graphs against the same
 programs run eagerly (plain, speculative, with the host KV tier), the
 bf16 head's gradient, a training step on the card against the same
-step on the CPU, and the fp8 path: the `_scaled_mm` products against
-their plain version, an fp8 training step and an fp8 checkpoint.
+step on the CPU, the fp8 path: the `_scaled_mm` products against
+their plain version, an fp8 training step and an fp8 checkpoint, and
+the model zoo: a GPT-J engine at head dim 256 (K2 at D=256, G=1) and a
+Mixtral step through the flash kernels, each against the CPU.
 
 Without a card every test here skips with a reason. The file imports
 neither jax nor the JAX package, so it also runs where those are not
@@ -19,7 +21,7 @@ import torch
 
 from accelerate_tpu_torch import optimizers as to
 from accelerate_tpu_torch.accelerator import Accelerator
-from accelerate_tpu_torch.models import llama
+from accelerate_tpu_torch.models import gptj, llama, mixtral
 from accelerate_tpu_torch.models.convert import params_from_numpy, \
     params_to_numpy
 from accelerate_tpu_torch.ops import flash_attention as tf
@@ -759,6 +761,66 @@ def test_train_step_on_the_card_matches_cpu(cuda, backend):
         for _ in range(2):
             state, m = step(state, {"input_ids": ids})
             losses.append(float(m["loss"]))
+        results.append((losses, to.tree_leaves(
+            params_to_numpy(state.params))))
+    PartialState._reset_state()
+    (l_gpu, p_gpu), (l_cpu, p_cpu) = results
+    np.testing.assert_allclose(l_gpu, l_cpu, atol=1e-5, rtol=0)
+    for a, b in zip(p_gpu, p_cpu):
+        np.testing.assert_allclose(a, b, atol=1e-4, rtol=0)
+
+
+# --- the model zoo -----------------------------------------------------------
+
+
+def test_gptj_engine_at_head_dim_256_matches_the_cpu_engine(cuda):
+    """GPT-J tiny widened to head dim 256 (GPT-J-6B's; one query head per
+    KV head) under the default engine config: the paged kernel at D=256,
+    G=1 on the card, the dense path on the CPU (f32 weights and pool):
+    the same greedy streams."""
+    cfg = gptj.GPTJConfig.tiny(hidden_size=1024, rotary_dim=64)
+    assert cfg.head_dim == 256
+    params = gptj.init_params(cfg, 0)
+    host_params = params_from_numpy(params_to_numpy(params), device="cpu")
+    rng = np.random.default_rng(2)
+    prompts = [rng.integers(0, cfg.vocab_size, n).astype(np.int32)
+               for n in (5, 17, 33, 12)]
+    streams = []
+    for ps, dev in ((params, None), (host_params, "cpu")):
+        eng = Engine(gptj, cfg, ps, EngineConfig(cache_dtype=torch.float32),
+                     device=dev)
+        before = tp.paged_decode_attention.launches
+        reqs = [eng.submit(p, max_new_tokens=8) for p in prompts]
+        eng.run_until_idle()
+        assert (tp.paged_decode_attention.launches > before) == (dev is None)
+        streams.append([r.tokens for r in reqs])
+    assert streams[0] == streams[1]
+
+
+@pytest.mark.parametrize("moe_impl", ["dense", "sparse"])
+def test_mixtral_step_on_the_card_matches_cpu(cuda, moe_impl):
+    """Two f32 steps of a tiny Mixtral (head dim 32, the flash backend:
+    K1a/b/c on the card, their plain versions on the CPU) through the
+    Accelerator: losses within 1e-5, params within 1e-4 (as the llama
+    step's test)."""
+    cfg = mixtral.MixtralConfig.tiny(hidden_size=128, moe_impl=moe_impl,
+                                     attention_backend="flash", remat=True)
+    init = params_to_numpy(mixtral.init_params(cfg, 0, device="cpu"))
+    ids = np.random.default_rng(0).integers(0, 256, (2, 65)).astype(np.int32)
+    results = []
+    for cpu in (False, True):
+        PartialState._reset_state()
+        acc = Accelerator(gradient_clipping=1.0, cpu=cpu)
+        state = acc.prepare(TrainState.create(
+            apply_fn=None, params=params_from_numpy(init, device=acc.device),
+            tx=to.adamw(1e-3, weight_decay=0.0)))
+        step = acc.train_step(lambda p, b: mixtral.causal_lm_loss(cfg, p, b))
+        before = tf.flash_forward.launches
+        losses = []
+        for _ in range(2):
+            state, m = step(state, {"input_ids": ids})
+            losses.append(float(m["loss"]))
+        assert (tf.flash_forward.launches > before) == (not cpu)
         results.append((losses, to.tree_leaves(
             params_to_numpy(state.params))))
     PartialState._reset_state()

@@ -1,7 +1,8 @@
 """The PyTorch port stands alone: it imports neither jax nor the JAX
 package, nor the `safetensors` package (the card's machine has none; the
-port reads and writes the format itself), and `chip_smoke.py` refuses
-to report without a CUDA device.
+port reads and writes the format itself), nor `transformers` (HF import
+takes a config object or a dict and a state dict), and `chip_smoke.py`
+refuses to report without a CUDA device.
 
 The suite's conftest imports jax into every test process, so the import
 check runs in a fresh interpreter."""
@@ -27,6 +28,7 @@ for name in names:
 leaked = sorted(m for m in sys.modules
                 if m == "jax" or m.startswith("jax.")
                 or m == "safetensors" or m.startswith("safetensors.")
+                or m == "transformers" or m.startswith("transformers.")
                 or m == "accelerate_tpu" or m.startswith("accelerate_tpu."))
 print(json.dumps({"modules": names, "leaked": leaked}))
 """
@@ -46,7 +48,10 @@ def test_port_imports_no_jax_and_no_jax_package():
                  "telemetry.trace", "telemetry.export", "commands.serve",
                  "checkpointing", "hooks_registry", "utils.constants",
                  "utils.manifest", "utils.other", "utils.safetensors",
-                 "telemetry.aggregate", "telemetry.straggler"):
+                 "telemetry.aggregate", "telemetry.straggler",
+                 "models.gpt2", "models.gptj", "models.gpt_neox",
+                 "models.opt", "models.mixtral", "models.bert", "models.t5",
+                 "models.hf_import", "parallel.moe", "utils.modeling"):
         assert f"accelerate_tpu_torch.{name}" in out["modules"]
     assert out["leaked"] == []
 
@@ -67,7 +72,7 @@ def _imported_roots(path: pathlib.Path) -> set[str]:
 def test_no_source_names_jax_or_the_jax_package(path):
     """Function-level imports included, which a plain import never runs."""
     assert not _imported_roots(path) & {"jax", "jaxlib", "accelerate_tpu",
-                                        "safetensors"}
+                                        "safetensors", "transformers"}
 
 
 @pytest.mark.parametrize("alone", [False, True],

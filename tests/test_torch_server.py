@@ -236,23 +236,24 @@ def _dry_run(pkg, flags, capsys) -> dict:
 
 @pytest.mark.parametrize("flags", [
     [],
+    ["--family", "gpt2"],
     ["--slots", "8", "--max-len", "256", "--prefill-chunk", "16",
      "--port", "0", "--model-id", "m", "--debug-endpoints", "--trace"],
     ["--tenants", "gold:priority=0,weight=4,slo=0.25;bronze:weight=1",
      "--reject-unknown-tenants", "--no-prefix-cache", "--tokenizer",
      "byte", "--seed", "3", "--page-size", "8"],
-], ids=["defaults", "capacity_debug_trace", "tenants_policy"])
+], ids=["defaults", "family_gpt2", "capacity_debug_trace",
+        "tenants_policy"])
 def test_dry_run_json_equals_the_reference(flags, capsys):
     assert _dry_run("torch", flags, capsys) == _dry_run("jax", flags,
                                                         capsys)
 
 
 @pytest.mark.parametrize("flags,needs", [
-    (["--family", "gpt2"], "other model families"),
     (["--watchdog-timeout-s", "5"], "stall watchdog"),
     (["--strict", "warn"], "static-analysis"),
     (["--incident-dir", "x"], "incident bundles"),
-], ids=["gpt2", "watchdog", "strict", "incident_dir"])
+], ids=["watchdog", "strict", "incident_dir"])
 def test_serve_refuses_what_the_port_lacks(flags, needs, capsys):
     from accelerate_tpu_torch.commands.serve import main
 
@@ -1095,9 +1096,10 @@ class TestDebugEndpoints:
         assert doc["traceEvents"], "the capture recorded nothing"
 
 
-def test_port_server_drains_on_sigterm_and_exits_zero(tmp_path):
-    """`python -m accelerate_tpu_torch.commands.serve --device cpu` serves
-    one request, then SIGTERM drains it and the process exits 0."""
+def _serve_cli_once(flags, family, request):
+    """Run `python -m accelerate_tpu_torch.commands.serve --device cpu
+    --port 0 *flags`, send `request` to /v1/completions, then SIGTERM:
+    (status, body, the process's exit code, its later stderr lines)."""
     import queue
     import re
     import signal
@@ -1107,8 +1109,7 @@ def test_port_server_drains_on_sigterm_and_exits_zero(tmp_path):
     root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     proc = subprocess.Popen(
         [sys.executable, "-m", "accelerate_tpu_torch.commands.serve",
-         "--device", "cpu", "--port", "0", "--slots", "2", "--max-len",
-         "64", "--prefill-chunk", "8"],
+         "--device", "cpu", "--port", "0", *flags],
         cwd=root, stderr=subprocess.PIPE, stdout=subprocess.DEVNULL,
         text=True)
     lines: queue.Queue = queue.Queue()
@@ -1118,25 +1119,56 @@ def test_port_server_drains_on_sigterm_and_exits_zero(tmp_path):
     try:
         port = None
         while port is None:  # the first line that names the bound port
-            m = re.match(r"serving llama on 127\.0\.0\.1:(\d+)",
+            m = re.match(rf"serving {family} on 127\.0\.0\.1:(\d+)",
                          lines.get(timeout=120))
             port = int(m.group(1)) if m else None
-        st, head, body = asyncio.run(_call(
-            port, "/v1/completions",
-            {"prompt": [1, 2, 3], "max_tokens": 3, "temperature": 0}))
-        assert st == 200 and len(json.loads(body)["choices"][0][
-            "token_ids"]) == 3
+        st, _, body = asyncio.run(_call(port, "/v1/completions", request))
         proc.send_signal(signal.SIGTERM)
-        assert proc.wait(timeout=60) == 0
+        rc = proc.wait(timeout=60)
         reader.join(timeout=30)
         rest = []
         while not lines.empty():
             rest.append(lines.get())
-        assert any("drained and stopped" in ln for ln in rest), rest
+        return st, json.loads(body), rc, rest
     finally:
         if proc.poll() is None:
             proc.kill()
             proc.wait(timeout=30)
+
+
+def test_port_server_drains_on_sigterm_and_exits_zero(tmp_path):
+    """`python -m accelerate_tpu_torch.commands.serve --device cpu` serves
+    one request, then SIGTERM drains it and the process exits 0."""
+    st, body, rc, rest = _serve_cli_once(
+        ["--slots", "2", "--max-len", "64", "--prefill-chunk", "8"],
+        "llama", {"prompt": [1, 2, 3], "max_tokens": 3, "temperature": 0})
+    assert st == 200 and len(body["choices"][0]["token_ids"]) == 3
+    assert rc == 0
+    assert any("drained and stopped" in ln for ln in rest), rest
+
+
+def test_port_serves_family_gpt2_on_the_cpu():
+    """`--family gpt2` serves `GPT2Config.tiny()` with the weights of
+    `--seed`: the greedy tokens over HTTP equal the port's engine driven
+    directly on the same weights and pool, and SIGTERM drains to 0."""
+    from accelerate_tpu_torch.models import gpt2
+    from accelerate_tpu_torch.serving import Engine, EngineConfig
+
+    prompt = [5, 17, 3, 250, 9]
+    st, body, rc, rest = _serve_cli_once(
+        ["--family", "gpt2", "--seed", "3", "--slots", "2", "--max-len",
+         "64", "--prefill-chunk", "8"], "gpt2",
+        {"prompt": prompt, "max_tokens": 6, "temperature": 0})
+    assert st == 200 and rc == 0
+    assert any("drained and stopped" in ln for ln in rest), rest
+    cfg = gpt2.GPT2Config.tiny()
+    engine = Engine(gpt2, cfg, gpt2.init_params(cfg, 3, device="cpu"),
+                    EngineConfig(cache_dtype=torch.bfloat16, num_slots=2,
+                                 max_len=64, prefill_chunk=8),
+                    device="cpu")
+    req = engine.submit(np.asarray(prompt, np.int32), max_new_tokens=6)
+    engine.run_until_idle()
+    assert body["choices"][0]["token_ids"] == req.tokens
 
 
 def test_unported_engine_surface_stays_refused(weights):
