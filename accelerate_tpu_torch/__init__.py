@@ -25,7 +25,11 @@ Ported so far:
 - checkpointing (`checkpointing`: sync and async saves committed by
   manifest, resume, retention, safetensors export) and the resilient
   training loop (`training.run_resilient`, `profiler.StepTimer`,
-  `telemetry.StragglerMonitor`).
+  `telemetry.StragglerMonitor`);
+- big-model inference (`big_modeling`: meta init, device maps, host and
+  disk offload, int8/int4 weight loading, streamed decode), with the
+  memory helpers (`utils.memory`) and the estimator
+  (`python -m accelerate_tpu_torch.commands.estimate`).
 """
 
 from .device import resolve_device
@@ -59,6 +63,16 @@ _LAZY = {
     "render_prometheus": ".telemetry",
     "aggregate_snapshot": ".telemetry",
     "StragglerMonitor": ".telemetry",
+    "find_executable_batch_size": ".utils.memory",
+    "release_memory": ".utils.memory",
+    "init_empty_weights": ".big_modeling",
+    "infer_auto_device_map": ".big_modeling",
+    "get_balanced_memory": ".big_modeling",
+    "get_max_memory": ".big_modeling",
+    "load_checkpoint_and_dispatch": ".big_modeling",
+    "dispatch_model": ".big_modeling",
+    "prepare_pipeline": ".inference",
+    "prepare_sharded_inference": ".inference",
 }
 
 __all__ = ["resolve_device", *_LAZY]

@@ -69,6 +69,7 @@ from .utils.dataclasses import (
     PrecisionType,
     ProjectConfiguration,
 )
+from .utils.memory import release_memory
 from .utils.other import flatten_dict
 
 # reference arguments the port does not carry yet: the value that means
@@ -283,6 +284,17 @@ class Accelerator:
                           else self.gradient_clipping, donate)
 
     # ------------------------------------------------------------- data
+    def free_memory(self, *objects):
+        """Drop the prepared loaders' references, reset the step count and
+        return the card's cached free memory (`utils.memory.
+        release_memory`); use as `a, b = acc.free_memory(a, b)`."""
+        self._dataloaders = []
+        self.step = 0
+        return release_memory(*objects)
+
+    def clear(self, *objects):
+        return self.free_memory(*objects)
+
     def skip_first_batches(self, dataloader, num_batches: int = 0):
         """The loader with its first `num_batches` skipped (a resume in
         the middle of a pass)."""

@@ -187,11 +187,21 @@ def layer_norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
 # --- initializers -----------------------------------------------------------
 
 
+class _MetaGenerator:
+    """The generator of an `init_params` under `device.meta_init`: torch
+    has no generator on the meta device, and a draw there needs none."""
+
+    device = torch.device("meta")
+
+
 def make_generator(generator, device=None):
     """(device, generator) for an `init_params`: `device` resolved (CUDA
-    unless "cpu"), and `generator` as given or, for a seed, a new
-    `torch.Generator` on that device seeded with it."""
+    unless "cpu"; meta under `device.meta_init`), and `generator` as given
+    or, for a seed, a new `torch.Generator` on that device seeded with
+    it."""
     dev = resolve_device(device)
+    if dev.type == "meta":
+        return dev, _MetaGenerator()
     if not isinstance(generator, torch.Generator):
         generator = torch.Generator(device=dev).manual_seed(int(generator))
     elif torch.device(generator.device).type != dev.type:
@@ -202,7 +212,10 @@ def make_generator(generator, device=None):
 
 def normal_init(generator: torch.Generator, shape, stddev: float = 0.02,
                 dtype=torch.float32) -> torch.Tensor:
-    """N(0, stddev) of `shape` from `generator`, on its device."""
+    """N(0, stddev) of `shape` from `generator`, on its device (on the
+    meta device: the shape and dtype alone)."""
+    if generator.device.type == "meta":
+        return torch.empty(tuple(shape), dtype=dtype, device="meta")
     return torch.randn(tuple(shape), generator=generator, dtype=dtype,
                        device=generator.device).mul_(stddev)
 

@@ -262,6 +262,14 @@ def sample_token(logits, keys, temperature: float, positions=None):
     return torch.argmax(last.float() / temperature + noise, dim=-1)
 
 
+def cache_rows(config, total: int) -> int:
+    """The decode cache length for `total` tokens: the reference buckets
+    it to a multiple of 32, capped by the position table; rows past
+    `total` are never written and always masked."""
+    limit = getattr(config, "max_position_embeddings", None) or total
+    return min(max(-(-total // 32) * 32, total), max(limit, total))
+
+
 def build_generate(forward, init_caches):
     """Greedy/temperature `generate` for a causal family: prompt in,
     prompt + new tokens out. `forward(config, params, input_ids,
@@ -275,11 +283,8 @@ def build_generate(forward, init_caches):
         b, prompt_len = input_ids.shape
         dev = input_ids.device
         total = prompt_len + max_new_tokens
-        # the reference buckets the cache length to a multiple of 32;
-        # rows past `total` are never written and always masked
-        limit = getattr(config, "max_position_embeddings", None) or total
-        caches = init_caches(config, b, min(max(-(-total // 32) * 32, total),
-                                            max(limit, total)), device=dev)
+        caches = init_caches(config, b, cache_rows(config, total),
+                             device=dev)
         keys = torch.tensor([derive_key(key, i) for i in range(b)],
                             dtype=torch.int64, device=dev)
         logits, caches = forward(config, params, input_ids, kv_caches=caches)
@@ -298,15 +303,45 @@ def build_generate(forward, init_caches):
     return generate
 
 
-def build_streamed_generate():
-    """A family's `streamed_generate` (weights streamed from the host
-    through `big_modeling`), which the port has not reached yet: the
-    returned function raises and names its queue item."""
+def build_streamed_generate(make_layer_step, embed_fn, project_fn,
+                            cache_dims):
+    """A causal family's `streamed_generate`: weights streamed to the
+    device layer by layer (`big_modeling.streamed_generate`), around the
+    family's one-layer decode body, while each layer's KV cache stays on
+    the device.
 
-    def streamed_generate(*_a, **_k):
-        raise NotImplementedError(
-            "streamed_generate (weights streamed from the host, "
-            "big_modeling) arrives with the port's big_modeling slice "
-            "(ROADMAP.md, queue 1 item 8)")
+    - `make_layer_step(config)` -> `(layer, x, positions, (k, v,
+      cache_len)) -> (x, new_cache)`;
+    - `embed_fn(config, resident, ids, positions)` and
+      `project_fn(config, resident, x)` run on the resident modules;
+      `project_fn` includes the final norm, as the full forward does;
+    - `cache_dims(config)` -> (num_kv_heads, head_dim).
+
+    The caches are as long as `generate`'s (`cache_rows`), so on one
+    device both run the same products and decode the same tokens."""
+
+    def streamed_generate(config, params, input_ids,
+                          max_new_tokens: int = 32, temperature: float = 0.0,
+                          key: int = 0, device=None, dtype=torch.bfloat16,
+                          stats=None):
+        from ..big_modeling import streamed_generate as _streamed
+
+        dev = resolve_device(device)
+        cdt = dtype or torch.bfloat16
+        nh, hd = cache_dims(config)
+
+        def init_layer_cache(b, total):
+            shape = (b, cache_rows(config, total), nh, hd)
+            return (torch.zeros(shape, dtype=cdt, device=dev),
+                    torch.zeros(shape, dtype=cdt, device=dev))
+
+        return _streamed(
+            params, input_ids,
+            embed_fn=lambda res, ids, pos: embed_fn(config, res, ids, pos),
+            layer_step_fn=make_layer_step(config),
+            project_fn=lambda res, x: project_fn(config, res, x),
+            init_layer_cache=init_layer_cache,
+            max_new_tokens=max_new_tokens, temperature=temperature, key=key,
+            device=dev, dtype=dtype, stats=stats)
 
     return streamed_generate

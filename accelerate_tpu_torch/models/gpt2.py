@@ -213,5 +213,10 @@ def make_decode_layer_step(config: GPT2Config):
     return step
 
 
-# weights streamed from the host (`big_modeling`): raises until that slice
-streamed_generate = build_streamed_generate()
+# weights streamed to the device layer by layer (`big_modeling`)
+streamed_generate = build_streamed_generate(
+    make_decode_layer_step,
+    embed_fn=lambda config, res, ids, pos: _embed(res, ids, pos),
+    project_fn=_project_decode,
+    cache_dims=lambda c: (c.num_attention_heads, c.head_dim),
+)

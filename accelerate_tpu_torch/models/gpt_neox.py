@@ -229,5 +229,29 @@ def init_fp8_state(config: GPTNeoXConfig, history_len: int | None = None,
     }, history_len, device=device)
 
 
-# weights streamed from the host (`big_modeling`): raises until that slice
-streamed_generate = build_streamed_generate()
+def make_decode_layer_step(config: GPTNeoXConfig):
+    """The single-layer decode body `(layer, x, positions, kv_cache) ->
+    (x, new_cache)` of `streamed_generate`. The rotary table covers the
+    cache reach too: decoding past max_position_embeddings extends the
+    angles."""
+
+    def step(layer, x, positions, kv_cache):
+        max_len = max(config.max_position_embeddings, kv_cache[0].shape[1])
+        cos, sin = rope_frequencies(config.rotary_ndims, max_len,
+                                    config.rotary_emb_base, device=x.device)
+        y, cache, _ = _layer_body(config, x, layer, cos, sin, positions,
+                                  None, kv_cache)
+        return y, cache
+
+    return step
+
+
+# weights streamed to the device layer by layer (`big_modeling`);
+# _project_out includes the final layer norm
+streamed_generate = build_streamed_generate(
+    make_decode_layer_step,
+    embed_fn=lambda config, res, ids, pos: res["embed_in"]["embedding"][
+        ids.long()],
+    project_fn=_project_out,
+    cache_dims=lambda c: (c.num_attention_heads, c.head_dim),
+)

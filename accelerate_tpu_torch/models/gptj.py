@@ -239,5 +239,26 @@ def init_fp8_state(config: GPTJConfig, history_len: int | None = None,
     }, history_len, device=device)
 
 
-# weights streamed from the host (`big_modeling`): raises until that slice
-streamed_generate = build_streamed_generate()
+def make_decode_layer_step(config: GPTJConfig):
+    """The single-layer decode body `(layer, x, positions, kv_cache) ->
+    (x, new_cache)` of `streamed_generate`."""
+
+    def step(layer, x, positions, kv_cache):
+        max_len = max(config.max_position_embeddings, kv_cache[0].shape[1])
+        sin, cos = _tables(config, max_len, x.device)
+        y, cache, _ = _layer_body(config, x, layer, sin, cos, positions,
+                                  None, kv_cache)
+        return y, cache
+
+    return step
+
+
+# weights streamed to the device layer by layer (`big_modeling`);
+# _project_out includes ln_f, so it is the streamed path's projection
+streamed_generate = build_streamed_generate(
+    make_decode_layer_step,
+    embed_fn=lambda config, res, ids, pos: res["wte"]["embedding"][
+        ids.long()],
+    project_fn=_project_out,
+    cache_dims=lambda c: (c.num_attention_heads, c.head_dim),
+)

@@ -9,7 +9,9 @@ flash attention path (`ops/flash_attention.py`, CUDA kernels on the card),
 per-layer remat, and `causal_lm_loss` with its chunked path; and fp8
 training (`fp8_state`, `init_fp8_state`): every layer projection through
 `ops.fp8.fp8_dense` with per-layer metas, views of the stacked `[L]` and
-`[L, h]` tensors, and the new metas stacked back on the layer dim. The
+`[L, h]` tensors, and the new metas stacked back on the layer dim. And
+big-model inference: `forward_offloaded` and `streamed_generate` over
+params laid out by `big_modeling` across device, host and disk. The
 sequence-parallel backends ("ring", "ulysses", `sequence_parallel`) come
 with a later slice.
 """
@@ -43,8 +45,9 @@ from .common import (  # noqa: F401  (_HeadF32, _split_bf16: tests)
     shifted_padding_masks,
     token_nll,
 )
-from .decode import build_generate, cached_layers, decode_attention, \
-    make_kv_caches, rope_table_len
+from ..device import resolve_device
+from .decode import build_generate, build_streamed_generate, \
+    cached_layers, decode_attention, make_kv_caches, rope_table_len
 
 
 @dataclasses.dataclass(frozen=True)
@@ -421,3 +424,67 @@ def init_kv_caches(config: LlamaConfig, batch: int, max_len: int,
 # Greedy/temperature decode with a KV cache: one prefill, then a python
 # loop of one-token decode steps.
 generate = build_generate(forward, init_kv_caches)
+
+
+def forward_offloaded(config: LlamaConfig, dispatched_params: dict,
+                      input_ids: torch.Tensor,
+                      attention_mask: torch.Tensor | None = None,
+                      dtype=torch.bfloat16, device=None, stats=None):
+    """`forward`'s logits for params laid out by
+    `big_modeling.dispatch_model` (or `load_checkpoint_and_dispatch`)
+    over device, host and disk: each layer streams to the device while the
+    one before computes (`big_modeling.streamed_forward`), in `dtype`.
+    Attention resolves as in `forward`: "auto" is the flash kernel on the
+    card from 1024 tokens up."""
+    from ..big_modeling import streamed_forward
+
+    dev = resolve_device(device)
+    ids = input_ids.to(dev)
+    positions = torch.arange(ids.shape[1], device=dev).expand(ids.shape)
+    cos, sin = rope_frequencies(
+        config.head_dim, config.max_position_embeddings, config.rope_theta,
+        scaling=config.rope_scaling_dict, device=dev)
+    mask = None if attention_mask is None else attention_mask.to(dev)
+    return streamed_forward(
+        dispatched_params, ids,
+        embed_fn=lambda res, ids: res["embed_tokens"]["embedding"][
+            ids.long()],
+        layer_fn=lambda layer, x, i: _layer_body(
+            config, x, layer, cos, sin, positions, mask)[0],
+        final_fn=lambda res, x: _norm_project(config, res, x),
+        device=dev, dtype=dtype, stats=stats)
+
+
+def make_decode_layer_step(config: LlamaConfig):
+    """The single-layer decode body `(layer, x, positions, kv_cache) ->
+    (x, new_cache)` of `streamed_generate`; the rotary table is as long
+    as `forward`'s on the same cache."""
+
+    def step(layer, x, positions, kv_cache):
+        cos, sin = rope_frequencies(
+            config.head_dim,
+            max(config.max_position_embeddings, kv_cache[0].shape[1]),
+            config.rope_theta, scaling=config.rope_scaling_dict,
+            device=x.device)
+        y, cache, _ = _layer_body(config, x, layer, cos, sin, positions,
+                                  None, kv_cache)
+        return y, cache
+
+    return step
+
+
+def _norm_project(config: LlamaConfig, resident: dict, x):
+    # the full forward norms before projecting; the streamed paths must
+    # too, or real checkpoints (norm.scale != 1) decode wrong
+    x = rms_norm(x, resident["norm"]["scale"], config.rms_norm_eps)
+    return _project_out(config, resident, x)
+
+
+# weights streamed to the device layer by layer (`big_modeling`)
+streamed_generate = build_streamed_generate(
+    make_decode_layer_step,
+    embed_fn=lambda config, res, ids, pos: res["embed_tokens"]["embedding"][
+        ids.long()],
+    project_fn=_norm_project,
+    cache_dims=lambda c: (c.num_key_value_heads, c.head_dim),
+)

@@ -227,5 +227,28 @@ def init_fp8_state(config: OPTConfig, history_len: int | None = None,
     }, history_len, device=device)
 
 
-# weights streamed from the host (`big_modeling`): raises until that slice
-streamed_generate = build_streamed_generate()
+def make_decode_layer_step(config: OPTConfig):
+    """The single-layer decode body `(layer, x, positions, kv_cache) ->
+    (x, new_cache)` of `streamed_generate`."""
+
+    def step(layer, x, positions, kv_cache):
+        y, cache, _ = _layer_body(config, x, layer, None, positions, kv_cache)
+        return y, cache
+
+    return step
+
+
+def _embed_decode(config: OPTConfig, res: dict, ids, pos):
+    return (res["embed_tokens"]["embedding"][ids.long()]
+            + learned_positions(res["embed_positions"]["embedding"],
+                                pos + _POSITION_OFFSET))
+
+
+# weights streamed to the device layer by layer (`big_modeling`);
+# _project_out includes the final layer norm
+streamed_generate = build_streamed_generate(
+    make_decode_layer_step,
+    embed_fn=_embed_decode,
+    project_fn=_project_out,
+    cache_dims=lambda c: (c.num_attention_heads, c.head_dim),
+)

@@ -12,9 +12,9 @@ The reference runs T5 under f32 matmul precision (its unscaled attention
 amplifies bf16-input rounding); torch's f32 matmuls are f32 on the CPU,
 and on the card while TF32 stays off, which is torch's default.
 Incremental decode precomputes every decoder layer's cross-attention
-K/V once and keeps stacked self-attention caches. `streamed_generate`
-(weights streamed from the host through `big_modeling`) raises until
-that slice.
+K/V once and keeps stacked self-attention caches. `streamed_generate` is
+the hybrid big-model decode: the encoder's layers stream to the device
+through `big_modeling`, the decoder stays resident.
 """
 
 from __future__ import annotations
@@ -37,8 +37,8 @@ from .common import (
     token_nll,
     unstack_layers,
 )
+from ..device import resolve_device
 from .decode import (
-    build_streamed_generate,
     cached_attention_mask,
     derive_key,
     extend_cache,
@@ -336,6 +336,12 @@ def init_decode_state(config: T5Config, params: dict, input_ids,
     cross-attention K/V from it; the self-attention caches stack on the
     layer dim like the causal families'."""
     enc = _encoder(config, params, input_ids, attention_mask)
+    return _state_from_encoded(config, params, enc, max_new_tokens,
+                               attention_mask, dtype)
+
+
+def _state_from_encoded(config: T5Config, params: dict, enc,
+                        max_new_tokens: int, attention_mask, dtype) -> dict:
     nh, dk = config.num_heads, config.d_kv
     Ld = config.num_decoder_layers
     b, s_enc = enc.shape[:2]
@@ -398,10 +404,18 @@ def generate(config: T5Config, params: dict, input_ids,
     """Encoder-decoder greedy/temperature decode: the decoder ids WITH
     the start token, [B, 1 + max_new_tokens] (HF's generate layout). Row
     b samples with the stream `derive_key(key, b)`."""
-    b = input_ids.shape[0]
-    dev = input_ids.device
     state = init_decode_state(config, params, input_ids, max_new_tokens,
                               attention_mask)
+    return _decode_tokens(config, params, state, input_ids, max_new_tokens,
+                          temperature, key, decoder_start_token_id)
+
+
+def _decode_tokens(config: T5Config, params: dict, state: dict, input_ids,
+                   max_new_tokens: int, temperature: float, key: int,
+                   decoder_start_token_id: int):
+    """The decoder's token loop from the encoded state."""
+    b = input_ids.shape[0]
+    dev = input_ids.device
     keys = torch.tensor([derive_key(key, i) for i in range(b)],
                         dtype=torch.int64, device=dev)
     last = torch.full((b,), decoder_start_token_id, dtype=torch.int64,
@@ -416,9 +430,62 @@ def generate(config: T5Config, params: dict, input_ids,
     return torch.stack(out, dim=1).to(input_ids.dtype)
 
 
-# the hybrid big-model decode (encoder layers streamed from the host):
-# raises until the port's big_modeling slice
-streamed_generate = build_streamed_generate()
+def streamed_generate(config: T5Config, params: dict, input_ids,
+                      max_new_tokens: int = 32, temperature: float = 0.0,
+                      key: int = 0, attention_mask=None,
+                      decoder_start_token_id: int = 0, dtype=torch.bfloat16,
+                      device=None, stats=None):
+    """The hybrid big-model decode, for params laid out by
+    `big_modeling` (e.g. `cpu_offload`): the ENCODER layers stream to the
+    device once (the encoder runs once a prompt), while the decoder, which
+    runs every token, is fetched whole and stays, with the cross-attention
+    K/V computed once. Streaming costs where compute happens once; the
+    token loop runs at the device's memory rate. Same layout and tokens
+    as `generate`."""
+    from ..big_modeling import fetch_resident, make_layer_slicer, \
+        stream_layers
+
+    dev = resolve_device(device)
+    ids = torch.as_tensor(input_ids).to(dev)
+    mask = None if attention_mask is None else attention_mask.to(dev)
+    s_enc = ids.shape[1]
+    eps = config.layer_norm_epsilon
+
+    # the streamed encoder (runs once)
+    enc_res = fetch_resident(
+        {"shared": params["shared"],
+         "rel_bias": params["encoder"]["rel_bias"],
+         "final_ln": params["encoder"]["final_ln"]},
+        stacked_module="", device=dev, dtype=dtype)
+    n_layers, layer_slice = make_layer_slicer(
+        params["encoder"]["layers"], dev, dtype, stats)
+    bias = _position_bias(
+        enc_res["rel_bias"]["embedding"].float(), s_enc, s_enc, True,
+        config.relative_attention_num_buckets,
+        config.relative_attention_max_distance)
+    pad = mask[:, None, None, :] if mask is not None else None
+
+    def enc_layer(layer, i, x):
+        h = rms_norm(x, layer["ln_attn"]["scale"], eps)
+        x = x + _t5_attention(config, layer["attn"], h, h, bias, pad)[0]
+        return x + _t5_mlp(config, layer["mlp"],
+                           rms_norm(x, layer["ln_mlp"]["scale"], eps))[0]
+
+    x = stream_layers(layer_slice, n_layers, enc_layer,
+                      enc_res["shared"]["embedding"][ids.long()])
+    enc = rms_norm(x, enc_res["final_ln"]["scale"], eps)
+
+    # the resident decoder's token loop
+    dec_params = {"shared": enc_res["shared"],
+                  "decoder": fetch_resident(params["decoder"], "", dev,
+                                            dtype)}
+    if "lm_head" in params:
+        dec_params.update(fetch_resident({"lm_head": params["lm_head"]}, "",
+                                         dev, dtype))
+    state = _state_from_encoded(config, dec_params, enc, max_new_tokens,
+                                mask, dtype)
+    return _decode_tokens(config, dec_params, state, ids, max_new_tokens,
+                          temperature, key, decoder_start_token_id)
 
 
 def init_fp8_state(config: T5Config, history_len: int | None = None,

@@ -1,6 +1,6 @@
 """Configuration records (the part of `accelerate_tpu/utils/dataclasses.py`
-that the training step, fp8 and checkpointing need), copied without its
-jax imports."""
+that the training step, fp8, checkpointing and quantized loading need),
+copied without its jax imports."""
 
 from __future__ import annotations
 
@@ -110,3 +110,24 @@ class FP8RecipeKwargs(KwargsHandler):
     fp8_format: str = "E4M3"
     amax_history_len: int | None = None
     amax_compute_algo: str = "max_along_history"
+
+
+@dataclass
+class QuantizationConfig(KwargsHandler):
+    """Block-wise int8/int4 weight-only quantization for big-model
+    inference (`ops/quant.py`, `big_modeling.load_and_quantize_params`).
+    Weights whose path holds one of `skip_modules` stay unquantized."""
+
+    load_in_8bit: bool = False
+    load_in_4bit: bool = False
+    block_size: int = 128
+    skip_modules: tuple[str, ...] = ("lm_head",)
+    compute_dtype: str = "bfloat16"
+
+    @property
+    def bits(self) -> int:
+        if self.load_in_4bit:
+            return 4
+        if self.load_in_8bit:
+            return 8
+        return 16

@@ -21,7 +21,7 @@ import struct
 import torch
 
 __all__ = ["save_file", "load_file", "iter_file", "read_header",
-           "dtype_name"]
+           "dtype_name", "torch_dtype"]
 
 # in the order of the format's dtype enum, which sets the data layout
 _DTYPES = {
@@ -44,6 +44,11 @@ _MAX_HEADER = 100 << 20     # the package's own bound
 def dtype_name(dtype: torch.dtype) -> str:
     """The format's name of a torch dtype ("F32", "BF16", ...)."""
     return _NAMES[dtype]
+
+
+def torch_dtype(name: str) -> torch.dtype:
+    """The torch dtype of a format's dtype name."""
+    return _DTYPES[name]
 
 
 def _raw(t: torch.Tensor):

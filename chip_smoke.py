@@ -79,7 +79,16 @@ script exits non-zero:
    the active parameters, peak memory and losses; a tiny Mixtral step
    on the card against the CPU; sparse at full capacity against dense
    in f32; K1a/b/c at this path's shape against their plain versions,
-   timed.
+   timed;
+10. big_model: llama3-8B at full width and depth (bf16, random weights
+   from a seed) written as a sharded safetensors checkpoint, planned
+   for an 8 GiB card and 6 GiB of host memory, loaded onto the card,
+   pinned host memory and disk, and decoded with the layers streamed
+   to the card: tokens identical to the resident `generate`, the
+   streamed forward at 2048 tokens (K1a once a layer) against the
+   resident one, int8 and int4 quantized loading, an out-of-memory
+   recovery, and every family's tiny streamed decode (see
+   `phase_big_model`).
 
 The line before the last is the kernel table; the last line is
 {"ok": true, "device": {...}}. With no CUDA device the script exits
@@ -3112,6 +3121,452 @@ def _mixtral_sparse_vs_dense():
             "ok": ok_logits and aux_rel <= 1e-5 and sort_path}
 
 
+# ---------------------------------------------------------------------------
+# phase 10: big_model
+# ---------------------------------------------------------------------------
+
+# the planner's budgets: the card and host memory hold only part of
+# llama3-8B (16.1 GB in bf16), so its layer rows land on all three tiers
+BIG_MODEL_MAX_MEMORY = {0: "8GiB", "cpu": "6GiB"}
+BIG_MODEL_DISK_BYTES = 24e9   # the checkpoint, the offload files, headroom
+# loading may hold the pinned CPU tier, one checkpoint tensor, and the
+# 64 MiB staging buffers and allocator slack around them: not the
+# 16.1 GB checkpoint
+BIG_MODEL_RSS_SLACK = 1e9
+BIG_MODEL_NEW_TOKENS = 16
+BIG_MODEL_PROMPT = 128
+BIG_MODEL_FORWARD = 2048
+# the streamed forward runs the resident forward's kernels on the same
+# bf16 weights in the same order: the logits should agree to the bit
+BIG_MODEL_LOGITS_TOL = 1e-3   # relative L2
+# dequantized weights against bf16: the rounding error of one block of
+# 128 N(0, s) values is about absmax / qmax / sqrt(12), 0.6% (int8) and
+# 11% (int4) of s; logits after one full-width layer (embedding and
+# layer quantized, head not) are gated, the 32-layer logits printed:
+# random weights amplify a small change layer by layer until the logits
+# of any two models decorrelate (a narrow CPU model: 0.05 and 0.7 after
+# one layer, 0.2 and 1.1 after eight)
+BIG_MODEL_QUANT_WEIGHT_TOL = {8: 0.01, 4: 0.15}
+BIG_MODEL_QUANT_LOGITS_TOL = {8: 0.1, 4: 0.9}
+# a real out-of-memory error: the first attempt asks for 128 GiB
+BIG_MODEL_OOM_START = 128
+
+
+class _RssPeak:
+    """The host's resident set of this process, sampled every 5 ms on a
+    thread while the block runs: `base` before, `peak` during (bytes);
+    with the smallest MemAvailable seen beside the starting one."""
+
+    def __enter__(self):
+        import os
+        import threading
+
+        self._page = os.sysconf("SC_PAGE_SIZE")
+        self.base = self.peak = self._rss()
+        self.avail_base = self.avail_min = _meminfo_gb("MemAvailable")
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._run, daemon=True)
+        self._thread.start()
+        return self
+
+    def _rss(self) -> int:
+        with open("/proc/self/statm") as f:
+            return int(f.read().split()[1]) * self._page
+
+    def _run(self):
+        while not self._stop.wait(0.005):
+            self.peak = max(self.peak, self._rss())
+            self.avail_min = min(self.avail_min,
+                                 _meminfo_gb("MemAvailable"))
+
+    def __exit__(self, *exc):
+        self._stop.set()
+        self._thread.join(timeout=10)
+        self.peak = max(self.peak, self._rss())
+        return False
+
+
+def _tier_bytes(tree) -> dict:
+    """Bytes of a dispatched tree by tier ("device", "cpu", "disk")."""
+    import torch
+
+    from accelerate_tpu_torch.big_modeling import RowGroups
+
+    out = {"device": 0, "cpu": 0, "disk": 0}
+
+    def add(leaf):
+        if isinstance(leaf, dict):
+            for v in leaf.values():
+                add(v)
+        elif isinstance(leaf, RowGroups):
+            for (_, _, t), tier in zip(leaf.groups, leaf.tiers):
+                out[tier] += t.numel() * t.element_size()
+        elif isinstance(leaf, torch.Tensor):
+            tier = "device" if leaf.is_cuda else (
+                "cpu" if leaf.is_pinned() else "disk")
+            out[tier] += leaf.numel() * leaf.element_size()
+
+    add(tree)
+    return out
+
+
+def _pinned_h2d_gb_per_s(nbytes=1 << 30, reps=5) -> float:
+    """The host-to-card rate of one pinned copy of `nbytes`, CUDA events
+    around `reps` copies."""
+    import torch
+
+    src = torch.empty(nbytes, dtype=torch.uint8, pin_memory=True)
+    dst = torch.empty(nbytes, dtype=torch.uint8, device="cuda")
+    ms = cuda_time_ms(lambda: dst.copy_(src, non_blocking=True), iters=reps,
+                      warmup=1)
+    return nbytes / ms / 1e6
+
+
+def phase_big_model(kernel_rows):
+    """Big-model inference at llama3-8B width and depth (bf16, random
+    weights from seed 0) through `big_modeling`: a sharded safetensors
+    checkpoint written by the port's writer (on TMPDIR's disk, checked
+    for room first), `init_empty_weights` (no bytes on the card), a
+    device map planned for {0: 8 GiB, cpu: 6 GiB} (device, pinned host
+    and disk rows), `load_checkpoint_and_dispatch` (load time, peak host
+    RSS), greedy `llama.streamed_generate` (prompt 128, 16 new tokens;
+    twice, the second call the steady one) against the resident
+    `generate` (tokens identical; s/token, GB/token,
+    H2D rate beside a pinned copy's, share of the copying hidden under
+    compute), `llama.forward_offloaded` at 2048 tokens against the
+    resident forward (K1a once per streamed layer), int8 and int4
+    `load_and_quantize_params` (sizes, codes bit-equal to the host's
+    `quantize`, dequantized weights and logits against bf16),
+    `find_executable_batch_size` recovering from a real out-of-memory
+    error, and every family's tiny `streamed_generate` against its
+    `generate`."""
+    import shutil
+    import tempfile
+
+    root = tempfile.gettempdir()
+    free = shutil.disk_usage(root).free
+    if free < BIG_MODEL_DISK_BYTES:
+        raise AssertionError(
+            f"phase big_model needs {BIG_MODEL_DISK_BYTES / 1e9:.0f} GB of "
+            f"free disk under {root} for the llama3-8B checkpoint and its "
+            f"offload files; {free / 1e9:.1f} GB free")
+    work = tempfile.mkdtemp(prefix="big_model_", dir=root)
+    try:
+        _big_model(kernel_rows, work, free)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+
+
+def _big_model(kernel_rows, work, disk_free):
+    import os
+
+    import numpy as np
+    import torch
+
+    from accelerate_tpu_torch import big_modeling as bm
+    from accelerate_tpu_torch.checkpointing import save_model
+    from accelerate_tpu_torch.models import llama
+    from accelerate_tpu_torch.ops import flash_attention as fa
+    from accelerate_tpu_torch.optimizers import tree_leaves
+
+    t_phase = time.perf_counter()
+    cfg = llama.LlamaConfig.llama3_8b()
+    bf16 = torch.bfloat16
+    ckpt, offload = os.path.join(work, "ckpt"), os.path.join(work, "offload")
+    params = llama.init_params(cfg, 0, dtype=bf16)
+    t0 = time.perf_counter()
+    save_model(params, ckpt, max_shard_size="5GB")
+    save_s = time.perf_counter() - t0
+    shards = sorted(f for f in os.listdir(ckpt) if f.endswith(".safetensors"))
+    ckpt_bytes = sum(os.path.getsize(os.path.join(ckpt, f)) for f in shards)
+    _drop()
+
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    abstract = bm.init_empty_weights(llama.init_params, cfg, 0, dtype=bf16)
+    meta_moved = torch.cuda.memory_allocated() - before
+    leaves = tree_leaves(abstract)
+    all_meta = all(t.is_meta for t in leaves)
+
+    dmap = bm.infer_auto_device_map(abstract, max_memory=BIG_MODEL_MAX_MEMORY,
+                                    dtype=bf16)
+    rows = {"device": 0, "cpu": 0, "disk": 0}
+    for key, target in dmap.items():
+        if key.startswith("layers."):
+            rows["device" if isinstance(target, int) else target] += 1
+
+    with _RssPeak() as rss:
+        t0 = time.perf_counter()
+        off = bm.load_checkpoint_and_dispatch(
+            abstract, ckpt, device_map=dmap, offload_folder=offload,
+            dtype=bf16)
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+    tiers = _tier_bytes(off)
+    largest = max(t.numel() * t.element_size() for t in leaves)
+    rss_bound = tiers["cpu"] + largest + BIG_MODEL_RSS_SLACK
+    card_after_load = torch.cuda.memory_allocated() - before
+    load = {"seconds": load_s, "checkpoint_gb": ckpt_bytes / 1e9,
+            "read_gb_per_s": ckpt_bytes / load_s / 1e9,
+            "tier_gb": {k: v / 1e9 for k, v in tiers.items()},
+            "rss_base_gb": rss.base / 1e9, "rss_peak_gb": rss.peak / 1e9,
+            "rss_rise_gb": (rss.peak - rss.base) / 1e9,
+            "rss_rise_bound_gb": rss_bound / 1e9,
+            "largest_tensor_gb": largest / 1e9,
+            "mem_available_drop_gb": rss.avail_base - rss.avail_min,
+            "card_allocated_gb": card_after_load / 1e9,
+            "card_allocated_before_gb": before / 1e9}
+
+    rng = np.random.default_rng(0)
+    prompt = torch.from_numpy(rng.integers(
+        0, cfg.vocab_size, (1, BIG_MODEL_PROMPT))).cuda()
+    pinned_rate = _pinned_h2d_gb_per_s()
+    want = llama.generate(cfg, params, prompt,
+                          max_new_tokens=BIG_MODEL_NEW_TOKENS)
+    runs = []
+    for _ in range(2):    # the first call also warms up cuBLAS and the
+        stats = bm.StreamStats()   # allocator: the second is the steady one
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got = llama.streamed_generate(cfg, off, prompt,
+                                      max_new_tokens=BIG_MODEL_NEW_TOKENS,
+                                      stats=stats)
+        torch.cuda.synchronize()
+        runs.append((time.perf_counter() - t0, stats.summary(),
+                     bool(torch.equal(got, want))))
+    (first_s, _, first_same), (gen_s, s, same) = runs
+    passes = BIG_MODEL_NEW_TOKENS      # the prefill and 15 decode steps
+    decode = {"prompt": BIG_MODEL_PROMPT, "new_tokens": BIG_MODEL_NEW_TOKENS,
+              "tokens_identical": first_same and same,
+              "s_per_token_first_call": first_s / passes,
+              "seconds": gen_s, "s_per_token": gen_s / passes,
+              "gb_per_token": s["bytes"] / passes / 1e9,
+              "h2d_gb_per_s": s["gb_per_s"],
+              "pinned_copy_gb_per_s": pinned_rate,
+              "copy_hidden_share": s["hidden"],
+              "copy_ms": s["copy_ms"], "compute_ms": s["compute_ms"],
+              "layers_streamed": s["layers"],
+              "pinned_rate_again_gb_per_s": _pinned_h2d_gb_per_s()}
+
+    ids = torch.from_numpy(rng.integers(
+        0, cfg.vocab_size, (1, BIG_MODEL_FORWARD))).cuda()
+    fstats = bm.StreamStats()
+    fa.flash_forward.launches = 0
+    logits = llama.forward_offloaded(cfg, off, ids, stats=fstats)
+    torch.cuda.synchronize()
+    k1a = fa.flash_forward.launches
+    resident = llama.forward(cfg, params, ids)
+    fs = fstats.summary()
+    forward = {"tokens": BIG_MODEL_FORWARD, "flash_fwd_launches": k1a,
+               "max_abs_err": _max_abs(logits, resident),
+               "rel_l2": _rel_l2(logits, resident),
+               "rel_l2_tol": BIG_MODEL_LOGITS_TOL,
+               "finite": bool(torch.isfinite(logits).all()),
+               "copy_hidden_share": fs["hidden"],
+               "h2d_gb_per_s": fs["gb_per_s"]}
+    del logits, resident, off
+    _drop()
+
+    quant = {}
+    for bits in (8, 4):
+        quant[bits] = _big_model_quant(cfg, params, abstract, ckpt, bits,
+                                       ids[:, :BIG_MODEL_PROMPT])
+        _drop()
+    del params
+    _drop()
+
+    oom = _big_model_oom()
+    zoo = _big_model_zoo(os.path.join(work, "zoo"))
+    emit("big_model", config="llama3_8b", layers=cfg.num_hidden_layers,
+         dtype="bfloat16", max_memory=BIG_MODEL_MAX_MEMORY,
+         disk_free_gb=disk_free / 1e9, save_seconds=save_s,
+         shards=len(shards), init_empty_weights={
+             "card_bytes_moved": meta_moved, "all_meta": all_meta},
+         layer_rows=rows, load=load, streamed_generate=decode,
+         forward_offloaded=forward, quantized=quant, oom=oom, zoo=zoo,
+         seconds=time.perf_counter() - t_phase)
+    bad = []
+    if meta_moved or not all_meta:
+        bad.append("init_empty_weights allocated on the card")
+    if min(rows.values()) < 1:
+        bad.append(f"a tier holds no layer row: {rows}")
+    if load["rss_rise_gb"] > load["rss_rise_bound_gb"]:
+        bad.append("loading held more host memory than the CPU tier, "
+                   "one tensor and the slack")
+    if not decode["tokens_identical"]:
+        bad.append("streamed tokens differ from the resident generate's")
+    if not (forward["finite"] and forward["rel_l2"] <= BIG_MODEL_LOGITS_TOL):
+        bad.append("streamed forward off the resident forward")
+    if k1a != cfg.num_hidden_layers:
+        bad.append(f"{k1a} K1a launches, expected {cfg.num_hidden_layers}")
+    bad += [f"int{b}: {q['failed']}" for b, q in quant.items()
+            if q["failed"]]
+    if not oom["recovered"]:
+        bad.append("no out-of-memory recovery")
+    bad += [f"zoo {n} streamed tokens differ" for n, z in zoo.items()
+            if not z["tokens_identical"]]
+    if bad:
+        raise AssertionError(f"phase big_model: {bad}")
+    row = _flash_rows_at("big_model", {"flash_fwd": k1a, "flash_bwd_dq": 0,
+                                       "flash_bwd_dkv": 0},
+                         1, BIG_MODEL_FORWARD, cfg.num_attention_heads,
+                         cfg.head_dim)[0]
+    row["scope"] = ("K1a in llama.forward_offloaded, once per streamed "
+                    "layer (k/v repeated to 32 heads)")
+    kernel_rows.append(row)
+
+
+def _big_model_quant(cfg, params, abstract, ckpt, bits, ids):
+    """`load_and_quantize_params` at `bits` from the checkpoint: time,
+    `quantized_nbytes`, the card's memory; two leaves' codes and scales
+    against the host `quantize` of the same weights; every dequantized
+    weight's relative L2 against bf16; logits after one layer (gated)
+    and after all 32 (printed) against bf16's."""
+    import dataclasses
+
+    import torch
+
+    from accelerate_tpu_torch import big_modeling as bm
+    from accelerate_tpu_torch.models import llama
+    from accelerate_tpu_torch.ops import quant
+    from accelerate_tpu_torch.optimizers import tree_map
+    from accelerate_tpu_torch.utils.dataclasses import QuantizationConfig
+    from accelerate_tpu_torch.utils.other import flatten_dict
+
+    qc = QuantizationConfig(load_in_8bit=bits == 8, load_in_4bit=bits == 4)
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    q = bm.load_and_quantize_params(abstract, ckpt, qc, dtype=torch.bfloat16)
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    card = torch.cuda.memory_allocated() - before
+    nbytes = quant.quantized_nbytes(q)
+    flat_q, flat_p = flatten_dict(q), flatten_dict(params)
+    bit_equal = {}
+    for name in ("layers.attn.k_proj.kernel", "embed_tokens.embedding"):
+        host = quant.quantize(flat_p[name].cpu(), bits=bits,
+                              block_size=qc.block_size)
+        bit_equal[name] = bool(
+            torch.equal(flat_q[name].data.cpu(), host.data)
+            and torch.equal(flat_q[name].scales.cpu().view(torch.int16),
+                            host.scales.view(torch.int16)))
+    weight_err = {
+        name: _rel_l2(quant.dequantize(flat_q[name], torch.float32),
+                      flat_p[name].float())
+        for name in flat_q
+        if isinstance(flat_q[name], quant.QuantizedTensor)}
+    deq = quant.dequantize_params(q, dtype=torch.bfloat16)
+    del q, flat_q
+    logits = {}
+    for layers in (1, cfg.num_hidden_layers):
+        c = dataclasses.replace(cfg, num_hidden_layers=layers)
+
+        def cut(tree):
+            return {**tree, "layers": tree_map(lambda t: t[:layers],
+                                               tree["layers"])}
+
+        a = llama.forward(c, cut(deq), ids)
+        b = llama.forward(c, cut(params), ids)
+        logits[layers] = {"rel_l2": _rel_l2(a, b),
+                          "finite": bool(torch.isfinite(a).all())}
+        del a, b
+    del deq
+    worst = max(weight_err.values())
+    failed = []
+    if not all(bit_equal.values()):
+        failed.append(f"codes or scales off the host quantize: {bit_equal}")
+    if worst > BIG_MODEL_QUANT_WEIGHT_TOL[bits]:
+        failed.append(f"a dequantized weight {worst} off bf16")
+    if not all(v["finite"] for v in logits.values()) or \
+            logits[1]["rel_l2"] > BIG_MODEL_QUANT_LOGITS_TOL[bits]:
+        failed.append(f"logits off bf16: {logits}")
+    return {"seconds": load_s,
+            "quantized_nbytes_gb": nbytes / 1e9,
+            "card_allocated_gb": card / 1e9,
+            "codes_bit_equal": bit_equal,
+            "weight_rel_l2_max": worst,
+            "weight_rel_l2_tol": BIG_MODEL_QUANT_WEIGHT_TOL[bits],
+            "logits_rel_l2": {str(k): v["rel_l2"] for k, v in logits.items()},
+            "logits_rel_l2_tol_at_1_layer": BIG_MODEL_QUANT_LOGITS_TOL[bits],
+            "failed": failed}
+
+
+def _big_model_oom():
+    """`find_executable_batch_size` from 128 GiB: each attempt allocates
+    and writes `batch` GiB on the card, the ones that do not fit raise
+    torch.cuda.OutOfMemoryError, and the batch halves until one fits."""
+    import torch
+
+    from accelerate_tpu_torch.utils.memory import find_executable_batch_size
+
+    attempts, errors = [], []
+
+    @find_executable_batch_size(starting_batch_size=BIG_MODEL_OOM_START)
+    def fill(batch_size):
+        attempts.append(batch_size)
+        try:
+            x = torch.empty((batch_size, 1 << 30), dtype=torch.uint8,
+                            device="cuda")
+        except torch.cuda.OutOfMemoryError as e:
+            errors.append(type(e).__name__)
+            raise
+        x.fill_(1)
+        torch.cuda.synchronize()
+        del x
+        return batch_size
+
+    settled = fill()
+    _drop()
+    return {"start_gib": BIG_MODEL_OOM_START, "attempts_gib": attempts,
+            "errors": errors, "settled_gib": settled,
+            "recovered": bool(errors) and settled < BIG_MODEL_OOM_START
+            and len(errors) == len(attempts) - 1}
+
+
+def _big_model_zoo(folder):
+    """Every family's tiny config (f32, 4 layers) on the card:
+    `streamed_generate` against the family's resident `generate`, greedy
+    and sampled. The causal families stream layer rows from the card,
+    pinned host memory and disk; T5 from `cpu_offload` (its encoder
+    streams, its decoder is fetched whole)."""
+    import importlib
+    import os
+
+    import numpy as np
+    import torch
+
+    from accelerate_tpu_torch import big_modeling as bm
+
+    families = {"llama": "LlamaConfig", **ZOO, "t5": "T5Config"}
+    out = {}
+    for name, cfg_name in families.items():
+        mod = importlib.import_module(f"accelerate_tpu_torch.models.{name}")
+        if name == "t5":
+            cfg = mod.T5Config.tiny(num_layers=4, num_decoder_layers=4)
+            params = mod.init_params(cfg, 0)
+            off = bm.cpu_offload(params)
+        else:
+            cfg = getattr(mod, cfg_name).tiny(num_hidden_layers=4)
+            params = mod.init_params(cfg, 0)
+            dmap = {k: 0 for k in params if k != "layers"}
+            dmap.update({f"layers.{i}": 0 if i == 0 else (
+                "cpu" if i < 3 else "disk") for i in range(4)})
+            off = bm.dispatch_model(params, dmap,
+                                    offload_folder=os.path.join(folder, name))
+        ids = torch.from_numpy(np.random.default_rng(3).integers(
+            0, cfg.vocab_size, (2, 7))).cuda()
+        same = []
+        for kw in ({}, {"temperature": 0.8, "key": 5}):
+            got = mod.streamed_generate(cfg, off, ids, max_new_tokens=8,
+                                        dtype=torch.float32, **kw)
+            same.append(bool(torch.equal(
+                got, mod.generate(cfg, params, ids, max_new_tokens=8, **kw))))
+        out[name] = {"tier_bytes": _tier_bytes(off),
+                     "tokens_identical": all(same)}
+    return out
+
+
 def _drop():
     """Free the device memory of a finished phase."""
     import gc
@@ -3159,6 +3614,8 @@ def main() -> int:
     phase_head_grad()
     _drop()
     phase_mixtral_train(kernels)
+    _drop()
+    phase_big_model(kernels)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": info["name"], "count": info["count"]}}),

@@ -1106,3 +1106,98 @@ def test_fp8_checkpoint_of_a_cuda_state_restores_in_place(cuda, async_save,
     for k, v in flatten_dict(ts.fp8_state).items():
         assert v is live[k] and v.data_ptr() == ptrs[k]
         assert v.device.type == "cuda" and torch.equal(v, saved[k]), k
+
+
+# --- big-model inference ----------------------------------------------------
+
+
+def _tiered_llama(dev, tmp_path, layers=4):
+    """A tiny llama (f32, norm scales off one) and its dispatch over the
+    card (embeddings, head, the first rows), pinned host memory and
+    disk."""
+    from accelerate_tpu_torch import big_modeling as bm
+
+    cfg = llama.LlamaConfig.tiny(num_hidden_layers=layers)
+    params = llama.init_params(cfg, 3, device=dev)
+    params["norm"]["scale"].uniform_(0.5, 1.5)
+    dmap = {"embed_tokens": 0, "norm": 0, "lm_head": 0}
+    dmap.update({f"layers.{i}": 0 if i == 0 else (
+        "cpu" if i < layers - 1 else "disk") for i in range(layers)})
+    return cfg, params, bm.dispatch_model(params, dmap,
+                                          offload_folder=str(tmp_path))
+
+
+def test_row_groups_on_all_three_tiers(cuda, tmp_path):
+    _, params, off = _tiered_llama(cuda, tmp_path)
+    rg = off["layers"]["mlp"]["up_proj"]["kernel"]
+    assert rg.tiers == ["device", "cpu", "disk"]
+    (_, _, dev_rows), (_, _, host_rows), (_, _, disk_rows) = rg.groups
+    assert dev_rows.is_cuda
+    assert host_rows.device.type == "cpu" and host_rows.is_pinned()
+    assert disk_rows.device.type == "cpu" and not disk_rows.is_pinned()
+    for i in range(4):
+        assert torch.equal(rg.row(i).to(cuda),
+                           params["layers"]["mlp"]["up_proj"]["kernel"][i])
+
+
+def test_streamed_forward_from_pinned_and_disk_rows_equals_resident(
+        cuda, tmp_path):
+    """The same products in the same order, the copies on a side stream:
+    equal logits, and every streamed byte accounted for."""
+    from accelerate_tpu_torch import big_modeling as bm
+
+    cfg, params, off = _tiered_llama(cuda, tmp_path)
+    ids = torch.randint(0, cfg.vocab_size, (2, 33), device=cuda,
+                        generator=torch.Generator(cuda).manual_seed(0))
+    stats = bm.StreamStats()
+    got = llama.forward_offloaded(cfg, off, ids, dtype=torch.float32,
+                                  stats=stats)
+    torch.testing.assert_close(got, llama.forward(cfg, params, ids),
+                               rtol=0, atol=0)
+    s = stats.summary()
+    per_layer = sum(t[0].numel() * t.element_size() for t in
+                    [v for v in _leaves(params["layers"])])
+    assert s["layers"] == 4 and s["bytes"] == 3 * per_layer
+    want = llama.generate(cfg, params, ids[:, :9], max_new_tokens=6)
+    assert torch.equal(llama.streamed_generate(
+        cfg, off, ids[:, :9], max_new_tokens=6, dtype=torch.float32), want)
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        return [x for v in tree.values() for x in _leaves(v)]
+    return [tree]
+
+
+def test_init_empty_weights_allocates_nothing_on_the_card(cuda):
+    from accelerate_tpu_torch import big_modeling as bm
+
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    tree = bm.init_empty_weights(llama.init_params,
+                                 llama.LlamaConfig.llama3_8b(), 0)
+    assert torch.cuda.memory_allocated() == before
+    assert all(t.is_meta for t in _leaves(tree))
+
+
+def test_quantized_load_on_the_card_matches_the_host(cuda, tmp_path):
+    """The codes quantized on the host and moved to the card equal those
+    of the same weights quantized on the card."""
+    from accelerate_tpu_torch import big_modeling as bm
+    from accelerate_tpu_torch.checkpointing import save_model
+    from accelerate_tpu_torch.ops import quant
+    from accelerate_tpu_torch.utils.dataclasses import QuantizationConfig
+
+    cfg = llama.LlamaConfig.tiny()
+    params = llama.init_params(cfg, 1, device=cuda)
+    save_model(params, str(tmp_path))
+    got = bm.load_and_quantize_params(
+        bm.init_empty_weights(llama.init_params, cfg, 0), str(tmp_path),
+        QuantizationConfig(load_in_4bit=True, block_size=32))
+    w = params["layers"]["mlp"]["down_proj"]["kernel"]
+    on_card = quant.quantize(w, bits=4, block_size=32)
+    have = got["layers"]["mlp"]["down_proj"]["kernel"]
+    assert have.data.is_cuda
+    assert torch.equal(have.data, on_card.data)
+    assert torch.equal(have.scales.view(torch.int16),
+                       on_card.scales.view(torch.int16))

@@ -51,7 +51,9 @@ def test_port_imports_no_jax_and_no_jax_package():
                  "telemetry.aggregate", "telemetry.straggler",
                  "models.gpt2", "models.gptj", "models.gpt_neox",
                  "models.opt", "models.mixtral", "models.bert", "models.t5",
-                 "models.hf_import", "parallel.moe", "utils.modeling"):
+                 "models.hf_import", "parallel.moe", "utils.modeling",
+                 "big_modeling", "inference", "ops.quant", "utils.offload",
+                 "utils.memory", "commands.estimate"):
         assert f"accelerate_tpu_torch.{name}" in out["modules"]
     assert out["leaked"] == []
 

@@ -199,9 +199,25 @@ def test_t5_fp8_loss_matches_jax():
     assert set(nt) == {"encoder", "decoder"}
 
 
-def test_t5_streamed_generate_raises_and_names_its_item():
-    with pytest.raises(NotImplementedError, match="queue 1 item 8"):
-        tt.streamed_generate(tt.T5Config.tiny(), {}, None)
+def test_t5_streamed_generate_raises_and_names_its_item(monkeypatch):
+    """The hybrid streamed decode runs over the one-device "sharded"
+    dispatch and decodes `generate`'s tokens; over several cards that
+    dispatch needs the sharding planner, and raises naming queue 1
+    item 6."""
+    from accelerate_tpu_torch import big_modeling as tbm
+
+    cfg = tt.T5Config.tiny()
+    params = tt.init_params(cfg, 0, device="cpu")
+    ids = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (2, 6)))
+    placed = tbm.dispatch_model(params, "sharded", device="cpu")
+    assert torch.equal(
+        tt.streamed_generate(cfg, placed, ids, max_new_tokens=4,
+                             dtype=torch.float32, device="cpu"),
+        tt.generate(cfg, params, ids, max_new_tokens=4))
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 2)
+    with pytest.raises(NotImplementedError, match="queue 1 item 6"):
+        tbm.dispatch_model(params, "sharded", device="cpu")
 
 
 # --- BERT -------------------------------------------------------------------

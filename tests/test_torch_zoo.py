@@ -341,7 +341,23 @@ def test_entry_points_need_a_gpu_unless_asked_for_the_cpu(name, monkeypatch):
 
 
 @pytest.mark.parametrize("name", FAMILIES)
-def test_streamed_generate_raises_and_names_its_item(name):
+def test_streamed_generate_raises_and_names_its_item(name, monkeypatch):
+    """The streamed decode runs over the one-device "sharded" dispatch
+    (every leaf on device 0) and decodes `generate`'s tokens; over
+    several cards that dispatch needs the sharding planner, and raises
+    naming queue 1 item 6."""
+    from accelerate_tpu_torch import big_modeling as tbm
+
     _, tm = _mods(name)
-    with pytest.raises(NotImplementedError, match="queue 1 item 8"):
-        tm.streamed_generate(None, None, None)
+    cfg = getattr(tm, CONFIG[name]).tiny()
+    params = tm.init_params(cfg, 0, device="cpu")
+    ids = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (2, 5)))
+    placed = tbm.dispatch_model(params, "sharded", device="cpu")
+    assert torch.equal(
+        tm.streamed_generate(cfg, placed, ids, max_new_tokens=4,
+                             dtype=torch.float32, device="cpu"),
+        tm.generate(cfg, params, ids, max_new_tokens=4))
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 2)
+    with pytest.raises(NotImplementedError, match="queue 1 item 6"):
+        tbm.dispatch_model(params, "sharded", device="cpu")
