@@ -29,7 +29,12 @@ Ported so far:
 - big-model inference (`big_modeling`: meta init, device maps, host and
   disk offload, int8/int4 weight loading, streamed decode), with the
   memory helpers (`utils.memory`) and the estimator
-  (`python -m accelerate_tpu_torch.commands.estimate`).
+  (`python -m accelerate_tpu_torch.commands.estimate`);
+- the Accelerator's eager loop on one process (`prepare` of params,
+  optimizers, schedules and loaders; `accumulate`, `compute_gradients`,
+  `backward`, `clip_grad_norm_`, `AcceleratedOptimizer.step`,
+  `AcceleratedScheduler.step`), the process surface (`state`) and the
+  collectives at world size 1 (`utils.operations`).
 """
 
 from .device import resolve_device
@@ -40,6 +45,11 @@ __version__ = "0.1.0"
 # when its name is first read
 _LAZY = {
     "Accelerator": ".accelerator",
+    "AcceleratedOptimizer": ".optimizer",
+    "AcceleratedScheduler": ".scheduler",
+    "PartialState": ".state",
+    "AcceleratorState": ".state",
+    "GradientState": ".state",
     "TrainState": ".training",
     "DynamicLossScale": ".training",
     "run_resilient": ".training",
@@ -52,6 +62,7 @@ _LAZY = {
     "DataLoaderShard": ".data",
     "ProjectConfiguration": ".utils.dataclasses",
     "GradientAccumulationPlugin": ".utils.dataclasses",
+    "JitConfig": ".utils.dataclasses",
     "profile": ".profiler",
     "StepTimer": ".profiler",
     "device_memory_stats": ".profiler",

@@ -1,11 +1,14 @@
-"""The Accelerator facade for one process on one device (port of the
-training path of `accelerate_tpu/accelerator.py`).
+"""The Accelerator facade for one process on one device (port of
+`accelerate_tpu/accelerator.py`).
 
 Kept from the reference: `Accelerator(mixed_precision=...,
-gradient_accumulation_steps=..., gradient_clipping=..., cpu=...)`,
-`prepare` for a `TrainState`, a params dict or an iterable of batches,
-and `train_step(loss_fn)`, which returns `step(state, *batch) -> (state,
-{"loss": ...})` with the reference's semantics:
+gradient_accumulation_steps=..., gradient_clipping=..., cpu=...,
+device_placement=..., step_scheduler_with_optimizer=..., jit_config=...)`
+and its two training paths.
+
+The fused path: `train_step(loss_fn)` returns `step(state, *batch) ->
+(state, {"loss": ...})` over a prepared `TrainState`, with the
+reference's semantics:
 
 - the bf16 policy is an explicit cast of the f32 master params and of
   the float batch leaves inside the step (not `torch.autocast`), so
@@ -20,18 +23,39 @@ and `train_step(loss_fn)`, which returns `step(state, *batch) -> (state,
   `fp8_state` keyword and returns `(loss, new_fp8_state)`, and the step
   copies the new metas into `state.fp8_state` on every micro-step.
 
+The eager path, the reference's headline loop:
+
+    params = acc.prepare(params)
+    opt = acc.prepare_optimizer(adamw(3e-4), params=params)
+    sched = acc.prepare(schedule)            # a callable of the count
+    for batch in loader:
+        with acc.accumulate():
+            loss, grads = acc.compute_gradients(loss_fn, opt.params, batch)
+            acc.backward(grads)              # grads / k into the buffer
+            acc.clip_grad_norm_(max_norm=1.0)
+            opt.step(); sched.step(); opt.zero_grad()
+
+`compute_gradients` and the fused step share one gradient function
+(`_value_and_grad`), and `clip_grad_norm_` the fused step's clip, so the
+two paths give the same tensors on the same inputs. As in the
+reference, `backward` takes gradients, not a loss: the eager API has no
+backward tape. The collectives (`gather`, `gather_for_metrics`,
+`reduce`, `broadcast`, ...) and the process surface are the reference's
+at world size 1 (`utils/operations.py`, `state.py`).
+
 `kwargs_handlers` takes the reference's records: `AutocastKwargs`
 (`enabled=False` pins the compute to f32), `FP8RecipeKwargs` (its
 `amax_history_len` reaches every `init_fp8_state`) and
 `InitProcessGroupKwargs` without a timeout (one process has no group).
 
-The step is eager and updates the state's tensors in place (see
-`training.py`); `train_step(donate=False)` instead writes the update into
-new tensors and leaves its input state as it was. It runs on CUDA unless
-`cpu=True`; with no GPU and no `cpu=True` it raises.
+Both paths run eagerly and update the params and optimizer state in
+place (see `training.py`); `train_step(donate=False)` instead writes the
+update into new tensors and leaves its input state as it was. Work runs
+on CUDA unless `cpu=True`; with no GPU and no `cpu=True` it raises.
 
 The checkpoint surface is the reference's (`checkpointing.py`):
-`save_state` (sync or async), `wait_for_checkpoints`, `load_state`,
+`save_state` (sync or async; a `TrainState` and every prepared eager
+optimizer and scheduler), `wait_for_checkpoints`, `load_state`,
 `resume_latest`, versioned directories under `project_dir` with
 `ProjectConfiguration`, `register_for_checkpointing` and the save/load
 pre-hooks, `save_model`, `get_state_dict`, `skip_first_batches`, and
@@ -50,21 +74,26 @@ import os
 import shutil
 from typing import Any, Callable
 
+import numpy as np
 import torch
 
 from . import checkpointing
 from .data import DataLoaderShard, skip_first_batches, to_device
 from .hooks_registry import RemovableHandle
-from .optimizers import tree_leaves, tree_map
+from .optimizer import AcceleratedOptimizer
+from .optimizers import GradientTransformation, tree_leaves, tree_map
+from .scheduler import AcceleratedScheduler
 from .state import AcceleratorState, GradientState
 from .training import DynamicLossScale, TrainState, cast_floating, \
     clone_tree, global_norm
+from .utils import operations as ops
 from .utils.constants import CHECKPOINT_DIR_PREFIX
 from .utils.dataclasses import (
     AutocastKwargs,
     FP8RecipeKwargs,
     GradientAccumulationPlugin,
     InitProcessGroupKwargs,
+    JitConfig,
     KwargsHandler,
     PrecisionType,
     ProjectConfiguration,
@@ -85,14 +114,13 @@ _UNPORTED = {
     "sharding_rules": (None, "parallelism"),
     "rng_types": (None, "data-pipeline"),
     "log_with": (None, "tracking"),
-    "step_scheduler_with_optimizer": (True, "scheduler"),
-    "jit_config": (None, "CUDA-graph"),
     "metrics_port": (None, "telemetry"),
     "stall_timeout_s": (None, "telemetry"),
     "cost_sample_every": (None, "telemetry"),
     "strict": (None, "analysis"),
-    "device_placement": (True, "big-model"),
 }
+
+_ITEM_6 = "the port's parallelism slice (ROADMAP.md, queue 1 item 6)"
 
 
 def _unported(what: str, slice_name: str) -> NotImplementedError:
@@ -106,13 +134,76 @@ def _is_params(obj: Any) -> bool:
         isinstance(leaf, torch.Tensor) for leaf in tree_leaves(obj))
 
 
+def _is_optimizer(obj: Any) -> bool:
+    return isinstance(obj, GradientTransformation) or (
+        hasattr(obj, "init") and hasattr(obj, "update")
+        and not isinstance(obj, TrainState))
+
+
+def _is_dataloader(obj: Any) -> bool:
+    return hasattr(obj, "__iter__") and not isinstance(obj, (dict, str, bytes))
+
+
+def _refuse_torch_object(obj: Any) -> None:
+    """The reference prepares params dicts, optax-shaped transformations,
+    schedules and batch iterables; torch's stateful modules, optimizers
+    and LR schedulers are not among them, and the port adds no wrapper
+    of its own for them."""
+    if isinstance(obj, (torch.nn.Module, torch.optim.Optimizer,
+                        torch.optim.lr_scheduler.LRScheduler)):
+        raise TypeError(
+            f"prepare() does not take a {type(obj).__name__}: the "
+            "Accelerator prepares a params dict (the model), a TrainState, "
+            "a GradientTransformation from accelerate_tpu_torch.optimizers "
+            "(e.g. adamw), a schedule (a callable of the step count) or an "
+            "iterable of batches, as the reference does")
+
+
+def _value_and_grad(loss_fn: Callable, params, batch, dtype, *,
+                    tuple_out: bool, scale=None, **kwargs):
+    """The one gradient function of the fused step and
+    `compute_gradients`: the f32 masters (detached leaves of `params`
+    that require grad) cast to `dtype`, `loss_fn(cast, *batch,
+    **kwargs)`, and `autograd.grad` of its loss (`out[0]` with
+    `tuple_out`; times `scale` if given) at the masters. Each grad comes
+    back contiguous, since autograd may hand back an expanded view (the
+    grad of a sum) that the in-place passes after it cannot write, and a
+    param with no grad gets zeros. Returns (out, grads as a tree like
+    `params`)."""
+    masters = [p.detach().requires_grad_(True) for p in tree_leaves(params)]
+    it = iter(masters)
+    live = tree_map(lambda _: next(it), params)
+    with torch.enable_grad():
+        out = loss_fn(cast_floating(live, dtype), *batch, **kwargs)
+        loss = out[0] if tuple_out else out
+        grads = torch.autograd.grad(loss if scale is None else loss * scale,
+                                    masters, allow_unused=True)
+    it = iter([torch.zeros_like(p) if g is None else g.contiguous()
+               for p, g in zip(masters, grads)])
+    return out, tree_map(lambda _: next(it), params)
+
+
+def _clip_by_global_norm_(trees: list, max_norm: float) -> torch.Tensor:
+    """Scale every leaf of `trees` in place by min(1, max_norm / (norm +
+    1e-6)), the norm taken over all of them as one group; returns the
+    pre-clip norm."""
+    norm = global_norm(trees)
+    factor = torch.clamp(max_norm / (norm + 1e-6), max=1.0)
+    for leaf in tree_leaves(trees):
+        leaf.mul_(factor)
+    return norm
+
+
 class Accelerator:
     """One process, one device; see the module docstring."""
 
-    def __init__(self, *, mixed_precision: str | PrecisionType | None = None,
+    def __init__(self, *, device_placement: bool = True,
+                 mixed_precision: str | PrecisionType | None = None,
                  gradient_accumulation_steps: int = 1, cpu: bool = False,
                  gradient_accumulation_plugin:
                  GradientAccumulationPlugin | None = None,
+                 step_scheduler_with_optimizer: bool = True,
+                 jit_config: JitConfig | None = None,
                  gradient_clipping: float | None = None,
                  project_dir: str | None = None,
                  project_config: ProjectConfiguration | None = None,
@@ -160,24 +251,63 @@ class Accelerator:
             gradient_accumulation_plugin = GradientAccumulationPlugin(
                 num_steps=gradient_accumulation_steps)
         self.gradient_state = GradientState(gradient_accumulation_plugin)
+        self.device_placement = device_placement
+        self.step_scheduler_with_optimizer = step_scheduler_with_optimizer
+        # stored as the reference stores it: nothing reads its fields
+        self.jit_config = jit_config or JitConfig()
         self.gradient_clipping = gradient_clipping
         self.project_configuration = project_config or ProjectConfiguration(
             project_dir=project_dir)
         if project_dir is not None and \
                 self.project_configuration.project_dir is None:
             self.project_configuration.set_directories(project_dir)
-        # what save_state writes beside a TrainState (the port prepares no
-        # eager model, optimizer or scheduler yet: the hooks get no models)
+        self._optimizers: list[AcceleratedOptimizer] = []
+        self._schedulers: list[AcceleratedScheduler] = []
         self._dataloaders: list = []
+        self._models: list = []
         self._custom_objects: list = []
         self._save_model_state_pre_hook: dict = {}
         self._load_model_state_pre_hook: dict = {}
+        self.flag_tensor: torch.Tensor | None = None
         self.step = 0
 
     # ------------------------------------------------------------------ state
     @property
     def device(self) -> torch.device:
         return self.state.device
+
+    @property
+    def mesh(self):
+        raise NotImplementedError(
+            f"Accelerator.mesh (a device mesh) arrives with {_ITEM_6}")
+
+    @property
+    def num_processes(self) -> int:
+        return self.state.num_processes
+
+    @property
+    def process_index(self) -> int:
+        return self.state.process_index
+
+    @property
+    def local_process_index(self) -> int:
+        return self.state.local_process_index
+
+    @property
+    def is_main_process(self) -> bool:
+        return self.state.is_main_process
+
+    @property
+    def is_local_main_process(self) -> bool:
+        return self.state.is_local_main_process
+
+    @property
+    def is_last_process(self) -> bool:
+        return self.state.is_last_process
+
+    @property
+    def use_distributed(self) -> bool:
+        return self.state.use_distributed
 
     @property
     def mixed_precision(self) -> str:
@@ -202,6 +332,10 @@ class Accelerator:
     def gradient_accumulation_steps(self) -> int:
         return self.gradient_state.num_steps
 
+    @gradient_accumulation_steps.setter
+    def gradient_accumulation_steps(self, value: int) -> None:
+        self.gradient_state.plugin.num_steps = value
+
     @contextlib.contextmanager
     def autocast(self, autocast_handler=None):
         """A no-op context, as in the reference: the precision policy is
@@ -212,27 +346,93 @@ class Accelerator:
     def sync_gradients(self) -> bool:
         return self.gradient_state.sync_gradients
 
+    # ---------------------------------------------------------- process ctl
+    def wait_for_everyone(self) -> None:
+        self.state.wait_for_everyone()
+
+    def print(self, *args, **kwargs) -> None:
+        self.state.print(*args, **kwargs)
+
+    def split_between_processes(self, inputs, apply_padding: bool = False):
+        return self.state.split_between_processes(inputs, apply_padding)
+
+    def on_main_process(self, function):
+        return self.state.on_main_process(function)
+
+    def on_local_main_process(self, function):
+        return self.state.on_local_main_process(function)
+
+    def on_process(self, function, process_index: int = 0):
+        return self.state.on_process(function, process_index)
+
+    def main_process_first(self):
+        return self.state.main_process_first()
+
+    def local_main_process_first(self):
+        return self.state.local_main_process_first()
+
     # -------------------------------------------------------------- prepare
-    def prepare(self, *args):
-        """Place each object on the device, by type: a `TrainState` (its
-        params, optimizer state, accumulation buffer and loss scale; fp16
-        gets a loss scale if it has none), a params dict, or an iterable
-        of batches (-> `DataLoaderShard`)."""
-        out = []
-        for obj in args:
+    def prepare(self, *args, device_placement: list | None = None):
+        """Prepare each object by kind, in the reference's two passes:
+        first params dicts and `TrainState`s, then optimizers (bound to
+        the params prepared in the same call), schedules (callables) and
+        iterables of batches (-> `DataLoaderShard`). An object of no
+        known kind comes back unchanged. `device_placement`, one entry per
+        object, is checked for its length, as the reference checks it;
+        as there, placement follows the Accelerator's `device_placement`
+        (`prepare_params`/`prepare_data_loader` take a flag each)."""
+        if device_placement is not None and \
+                len(device_placement) != len(args):
+            raise ValueError(
+                f"device_placement has {len(device_placement)} entries for "
+                f"{len(args)} objects")
+        results: list[Any] = list(args)
+        prepared_params = None
+        for i, obj in enumerate(args):
+            _refuse_torch_object(obj)
             if isinstance(obj, TrainState):
-                out.append(self.prepare_train_state(obj))
+                results[i] = self.prepare_train_state(obj)
+                prepared_params = results[i].params
             elif _is_params(obj):
-                out.append(to_device(obj, self.device, non_blocking=False))
-            elif hasattr(obj, "__iter__") and not isinstance(
-                    obj, (dict, str, bytes)):
-                loader = DataLoaderShard(obj, self.device)
-                self._dataloaders.append(loader)
-                out.append(loader)
-            else:
-                raise _unported(f"prepare() of a {type(obj).__name__}",
-                                "optimizer/scheduler wrapper")
-        return out[0] if len(out) == 1 else tuple(out)
+                results[i] = self.prepare_params(obj)
+                prepared_params = results[i]
+        for i, obj in enumerate(results):
+            if isinstance(obj, TrainState) or obj is prepared_params:
+                continue
+            if _is_optimizer(obj):
+                results[i] = self.prepare_optimizer(obj,
+                                                    params=prepared_params)
+            elif isinstance(obj, (AcceleratedOptimizer, AcceleratedScheduler,
+                                  DataLoaderShard)):
+                pass
+            elif callable(obj) and not _is_dataloader(obj):
+                results[i] = self.prepare_scheduler(obj)
+            elif _is_dataloader(obj):
+                results[i] = self.prepare_data_loader(obj)
+        return results[0] if len(results) == 1 else tuple(results)
+
+    def prepare_params(self, params: Any,
+                       device_placement: bool | None = None) -> Any:
+        """The params on the device; with `device_placement=False` (here
+        or on the Accelerator) the params as they were given."""
+        place = (device_placement if device_placement is not None
+                 else self.device_placement)
+        if not place:
+            return params
+        return to_device(params, self.device, non_blocking=False)
+
+    def prepare_model(self, model: Any,
+                      device_placement: bool | None = None) -> Any:
+        """A params dict (the model here) or a `TrainState`, prepared;
+        anything else is recorded in `_models` (the checkpoint hooks get
+        it) and returned as it is."""
+        _refuse_torch_object(model)
+        if _is_params(model):
+            return self.prepare_params(model, device_placement)
+        if isinstance(model, TrainState):
+            return self.prepare_train_state(model)
+        self._models.append(model)
+        return model
 
     def prepare_train_state(self, ts: TrainState) -> TrainState:
         dev = self.device
@@ -248,6 +448,152 @@ class Accelerator:
             grad_accum=place(ts.grad_accum),
             loss_scale=None if loss_scale is None else loss_scale.to(dev),
             fp8_state=place(ts.fp8_state))
+
+    def prepare_optimizer(self, tx: GradientTransformation, params: Any = None,
+                          device_placement: bool | None = None
+                          ) -> AcceleratedOptimizer:
+        """An `AcceleratedOptimizer` over `tx`, bound to `params` (its
+        state initialised from them, on their device), recorded for
+        `backward`, the clips and checkpoints. `device_placement` is
+        taken for the reference's signature: the optimizer places
+        nothing itself."""
+        _refuse_torch_object(tx)
+        opt = AcceleratedOptimizer(tx, params=params)
+        self._optimizers.append(opt)
+        return opt
+
+    def prepare_scheduler(self, schedule: Callable) -> AcceleratedScheduler:
+        """An `AcceleratedScheduler` over `schedule` (a callable of the
+        step count), ticking with the prepared optimizers unless
+        `step_scheduler_with_optimizer=False`."""
+        sched = AcceleratedScheduler(
+            schedule, self._optimizers,
+            step_with_optimizer=self.step_scheduler_with_optimizer,
+            split_batches=False)
+        self._schedulers.append(sched)
+        return sched
+
+    def prepare_data_loader(self, data_loader,
+                            device_placement: bool | None = None
+                            ) -> DataLoaderShard:
+        """A `DataLoaderShard` over the iterable: batches on the device,
+        one ahead, unless `device_placement` (here, else the
+        Accelerator's) is False."""
+        place = (device_placement if device_placement is not None
+                 else self.device_placement)
+        loader = DataLoaderShard(data_loader, self.device if place else None)
+        self._dataloaders.append(loader)
+        return loader
+
+    # ------------------------------------------------------------- eager loop
+    @contextlib.contextmanager
+    def accumulate(self, *models):
+        """Count the micro-step and set `sync_gradients`: at every k-th
+        step, at the end of the loader (`sync_with_dataloader`), or on
+        every step (`sync_each_batch`)."""
+        self.step += 1
+        end = (self.gradient_state.sync_with_dataloader
+               and self.gradient_state.end_of_dataloader)
+        sync = (self.step % self.gradient_state.num_steps == 0 or end
+                or self.gradient_state.plugin.sync_each_batch)
+        self.gradient_state._set_sync_gradients(sync)
+        yield
+
+    @contextlib.contextmanager
+    def no_sync(self, model=None):
+        """Accumulate without an optimizer step inside the block."""
+        prev = self.gradient_state.sync_gradients
+        self.gradient_state._set_sync_gradients(False)
+        try:
+            yield
+        finally:
+            self.gradient_state._set_sync_gradients(prev)
+
+    def compute_gradients(self, loss_fn: Callable, params: Any, *batch,
+                          has_aux: bool = False):
+        """`(loss, grads)`, or `((loss, aux), grads)` with `has_aux`: the
+        grads of `loss_fn(params cast to the compute dtype, *batch)` at
+        the f32 params, by the fused step's gradient function. The batch
+        goes to the device and is not cast, as in the reference."""
+        if self.state.mixed_precision == PrecisionType.FP8:
+            raise NotImplementedError(
+                "mixed_precision='fp8' requires the fused "
+                "accelerator.train_step() path (it threads Fp8Meta state "
+                "through TrainState); the eager compute_gradients/backward "
+                "chain does not support fp8.")
+        batch = to_device(batch, self.device)
+        out, grads = _value_and_grad(loss_fn, params, batch,
+                                     self.compute_dtype, tuple_out=has_aux)
+        if has_aux:
+            return (out[0].detach(), out[1]), grads
+        return out.detach(), grads
+
+    def backward(self, loss_or_grads: Any = None, *, grads: Any = None,
+                 **kwargs) -> None:
+        """Add `grads / gradient_accumulation_steps` into every prepared
+        optimizer's buffer. It takes the gradients `compute_gradients`
+        returned; a loss raises, as in the reference."""
+        if grads is None:
+            grads = loss_or_grads
+        if grads is None or not tree_leaves(grads):
+            raise ValueError(
+                "accelerator.backward needs gradients: "
+                "loss, grads = accelerator.compute_gradients(loss_fn, "
+                "params, batch); accelerator.backward(grads)")
+        if isinstance(grads, (torch.Tensor, np.ndarray)) and \
+                np.ndim(grads) == 0:
+            raise ValueError(
+                "Got a scalar loss. The eager API has no backward tape: "
+                "compute grads with accelerator.compute_gradients(...) and "
+                "pass them here, or use the fused accelerator.train_step(...).")
+        scale = 1.0 / self.gradient_state.num_steps
+        for opt in self._optimizers:
+            opt.accumulate_grads(grads, scale)
+
+    @torch.no_grad()
+    def clip_grad_norm_(self, parameters=None, max_norm: float = 1.0,
+                        norm_type: int = 2):
+        """Clip every prepared optimizer's buffer as one group, in place,
+        by min(1, max_norm / (norm + 1e-6)) (the fused step's clip), and
+        return the pre-clip global norm; None off a sync boundary or with
+        no buffer. `parameters` is taken for the signature: the grads
+        live on the optimizers."""
+        if norm_type != 2:
+            raise NotImplementedError(
+                "only L2 global-norm clipping is supported")
+        if not self.sync_gradients:
+            return None
+        buffers = [o.gradients for o in self._optimizers
+                   if o.gradients is not None]
+        if not buffers:
+            return None
+        return _clip_by_global_norm_(buffers, max_norm)
+
+    @torch.no_grad()
+    def clip_grad_value_(self, parameters=None, clip_value: float = 1.0):
+        """Clamp every prepared optimizer's buffer to [-clip_value,
+        clip_value] in place, at a sync boundary."""
+        if not self.sync_gradients:
+            return
+        for opt in self._optimizers:
+            if opt.gradients is not None:
+                for g in tree_leaves(opt.gradients):
+                    g.clamp_(-clip_value, clip_value)
+
+    def eval_step(self, eval_fn: Callable) -> Callable:
+        """`fn(params, *batch)`: `eval_fn` on the params (and, under
+        bf16, the float batch leaves) cast to the compute dtype, under
+        `torch.no_grad()`."""
+        dtype = self.compute_dtype
+
+        @torch.no_grad()
+        def step_fn(params, *batch):
+            batch = to_device(batch, self.device)
+            if dtype == torch.bfloat16:
+                batch = cast_floating(batch, dtype)
+            return eval_fn(cast_floating(params, dtype), *batch)
+
+        return step_fn
 
     # ------------------------------------------------------------- hot loop
     def train_step(self, loss_fn: Callable, has_aux: bool = False,
@@ -283,12 +629,135 @@ class Accelerator:
                           max_grad_norm if max_grad_norm is not None
                           else self.gradient_clipping, donate)
 
+    # --------------------------------------------------------- collectives
+    def gather(self, tensor):
+        return ops.gather(tensor)
+
+    def gather_for_metrics(self, input_data, use_gather_object: bool = False):
+        """`gather`, then the final uneven batch's duplicated tail samples
+        dropped (the active loader's `remainder` and `tail_layout`, where
+        it has them)."""
+        leaves = ops._leaves(input_data)
+        recursively = bool(leaves) and all(ops.is_tensor(x) for x in leaves)
+        if use_gather_object or not recursively:
+            data = ops.gather_object(input_data)
+            data = [x for sub in data
+                    for x in (sub if isinstance(sub, list) else [sub])]
+        else:
+            data = self.gather(input_data)
+        remainder = self.gradient_state.remainder
+        if self.gradient_state.end_of_dataloader and remainder is not None \
+                and remainder > 0:
+            layout = self.gradient_state.tail_layout
+
+            def truncate(x):
+                if layout is not None and x.shape[0] == layout[0] * layout[1]:
+                    procs, padded, real = layout
+                    blocks = x.reshape((procs, padded) + tuple(x.shape[1:]))
+                    return blocks[:, :real].reshape(
+                        (procs * real,) + tuple(x.shape[1:]))
+                return x[:remainder]
+
+            data = (ops.recursively_apply(truncate, data) if recursively
+                    else data[:remainder])
+        return data
+
+    def reduce(self, tensor, reduction: str = "sum", scale: float = 1.0):
+        return ops.reduce(tensor, reduction, scale)
+
+    def pad_across_processes(self, tensor, dim: int = 0, pad_index: int = 0,
+                             pad_first: bool = False):
+        return ops.pad_across_processes(tensor, dim, pad_index, pad_first)
+
+    def broadcast(self, tensor, from_process: int = 0):
+        return ops.broadcast(tensor, from_process)
+
+    # --------------------------------------------- early stop coordination
+    def set_trigger(self) -> None:
+        """Raise the early-stop flag on this process."""
+        self.flag_tensor = torch.ones(1, device=self.device)
+
+    def check_trigger(self) -> bool:
+        """True, and the flag cleared, if any process raised it."""
+        local = (self.flag_tensor if self.flag_tensor is not None
+                 else torch.zeros(1, device=self.device))
+        if float(ops.reduce(local, "sum")[0]) >= 1:
+            self.flag_tensor = None
+            return True
+        return False
+
+    def context_attention(self, q, k, v, causal: bool = True,
+                          window: int | None = None):
+        """The reference's sequence-parallel attention (ring or Ulysses
+        over the mesh) arrives with the parallelism slice."""
+        raise NotImplementedError(
+            f"context_attention (ring/Ulysses over a mesh) arrives with "
+            f"{_ITEM_6}")
+
+    # --------------------------------------------------------- profiling
+    def profile(self, logdir: str):
+        """`profiler.profile(logdir)`: a torch.profiler trace of the block
+        written to `<logdir>/trace.json`."""
+        from .profiler import profile as _profile
+
+        return _profile(logdir)
+
+    def step_timer(self, flops_per_step: float = 0.0,
+                   tokens_per_step: int = 0, fresh: bool = True, **kwargs):
+        """A `profiler.StepTimer` on the shared telemetry registry; with
+        `fresh=True` its series start empty."""
+        from .profiler import StepTimer
+        from .telemetry.registry import get_registry
+
+        kwargs.setdefault("registry", get_registry())
+        timer = StepTimer(flops_per_step=flops_per_step,
+                          tokens_per_step=tokens_per_step, **kwargs)
+        if fresh:
+            timer.reset()
+        return timer
+
+    @contextlib.contextmanager
+    def join_uneven_inputs(self, joinables, even_batches: bool | None = None):
+        """Inside, every prepared loader (and the loaders and samplers it
+        wraps) that has an `even_batches` flag takes the given value."""
+        if even_batches is None:
+            yield
+            return
+        overridden = []
+        seen: set[int] = set()
+
+        def walk(obj, depth=0):
+            if obj is None or depth > 4 or id(obj) in seen:
+                return
+            seen.add(id(obj))
+            if hasattr(obj, "even_batches"):
+                overridden.append((obj, obj.even_batches))
+                obj.even_batches = even_batches
+            for attr in ("loader", "batch_sampler", "sampler"):
+                walk(getattr(obj, attr, None), depth + 1)
+
+        for dl in self._dataloaders:
+            walk(dl)
+        try:
+            yield
+        finally:
+            for obj, old in overridden:
+                obj.even_batches = old
+
+    def unwrap_model(self, model, keep_fp32_wrapper: bool = True):
+        """No wrappers exist: the model as it is."""
+        return model
+
     # ------------------------------------------------------------- data
     def free_memory(self, *objects):
-        """Drop the prepared loaders' references, reset the step count and
-        return the card's cached free memory (`utils.memory.
-        release_memory`); use as `a, b = acc.free_memory(a, b)`."""
+        """Drop the references to the prepared optimizers, schedulers,
+        loaders and models, reset the step count and return the card's
+        cached free memory (`utils.memory.release_memory`); use as `a, b =
+        acc.free_memory(a, b)`."""
+        self._optimizers = []
+        self._schedulers = []
         self._dataloaders = []
+        self._models = []
         self.step = 0
         return release_memory(*objects)
 
@@ -333,18 +802,21 @@ class Accelerator:
     def save_state(self, output_dir: str | None = None,
                    state: TrainState | None = None,
                    async_save: bool = False) -> str:
-        """Checkpoint `state` and the registered objects into `output_dir`
-        (default: the next versioned directory under `project_dir`).
+        """Checkpoint `state`, the prepared eager optimizers and schedulers
+        and the registered objects into `output_dir` (default: the next
+        versioned directory under `project_dir`).
         `async_save=True` overlaps the file writes with later steps (drain
         with `wait_for_checkpoints()`; `load_state`/`end_training` drain
         too)."""
         if output_dir is None:
             output_dir = self._checkpoint_dir(new=True)
         for hook in self._save_model_state_pre_hook.values():
-            hook([], None, output_dir)
+            hook(self._models, None, output_dir)
         return checkpointing.save_accelerator_state(
             output_dir,
             train_states=[state] if state is not None else [],
+            optimizers=self._optimizers,
+            schedulers=self._schedulers,
             dataloaders=self._dataloaders,
             custom_objects=self._custom_objects,
             step=self.step,
@@ -357,15 +829,18 @@ class Accelerator:
 
     def load_state(self, input_dir: str | None = None,
                    state: TrainState | None = None):
-        """Restore a checkpoint into `state` in place (default: the newest
-        versioned directory under `project_dir`)."""
+        """Restore a checkpoint into `state` and the prepared eager
+        optimizers and schedulers, in place (default: the newest versioned
+        directory under `project_dir`)."""
         if input_dir is None:
             input_dir = self._checkpoint_dir(new=False)
         for hook in self._load_model_state_pre_hook.values():
-            hook([], input_dir)
+            hook(self._models, input_dir)
         result = checkpointing.load_accelerator_state(
             input_dir,
             train_states=[state] if state is not None else [],
+            optimizers=self._optimizers,
+            schedulers=self._schedulers,
             dataloaders=self._dataloaders,
             custom_objects=self._custom_objects,
         )
@@ -383,10 +858,12 @@ class Accelerator:
             input_dir = os.path.join(
                 self.project_configuration.project_dir or ".", "checkpoints")
         for hook in self._load_model_state_pre_hook.values():
-            hook([], input_dir)
+            hook(self._models, input_dir)
         result = checkpointing.resume_latest(
             input_dir,
             train_states=[state] if state is not None else [],
+            optimizers=self._optimizers,
+            schedulers=self._schedulers,
             dataloaders=self._dataloaders,
             custom_objects=self._custom_objects,
             **kwargs,
@@ -502,46 +979,34 @@ class _TrainStep:
                 grad_accum=clone_tree(state.grad_accum),
                 fp8_state=clone_tree(state.fp8_state))
         batch = to_device(batch, acc.device)
-        leaves = tree_leaves(state.params)
-        masters = [p.detach().requires_grad_(True) for p in leaves]
-        it = iter(masters)
-        params = tree_map(lambda _: next(it), state.params)
         # bf16 casts float batch leaves too; fp16 keeps them f32, as the
         # reference does (targets may overflow fp16)
         if dtype == torch.bfloat16:
             batch = cast_floating(batch, dtype)
-        with torch.enable_grad():
-            if use_fp8:
-                # the fp8 casts happen inside the model's fp8_dense calls
-                out = self.loss_fn(cast_floating(params, dtype), *batch,
-                                   fp8_state=state.fp8_state)
-                loss, aux, new_fp8 = (out if self.has_aux
-                                      else (out[0], None, out[1]))
-            else:
-                out = self.loss_fn(cast_floating(params, dtype), *batch)
-                loss = out[0] if self.has_aux else out
-                aux = out[1] if self.has_aux else None
-            scaled = loss * state.loss_scale.scale if use_scale else loss
-            grads = torch.autograd.grad(scaled, masters, allow_unused=True)
+        # the fp8 casts happen inside the model's fp8_dense calls
+        out, grads = _value_and_grad(
+            self.loss_fn, state.params, batch, dtype,
+            tuple_out=self.has_aux or use_fp8,
+            scale=state.loss_scale.scale if use_scale else None,
+            **({"fp8_state": state.fp8_state} if use_fp8 else {}))
         if use_fp8:
+            loss, aux, new_fp8 = out if self.has_aux else (out[0], None,
+                                                           out[1])
             # every micro-step, accumulating or not (the amax window is a
             # per-step statistic); after the backward, which under remat
             # reruns the forward with this step's scales
             _copy_metas(state.fp8_state, new_fp8)
-        # contiguous: autograd may hand back an expanded view (the grad
-        # of a sum), which the in-place unscale and clip cannot write
-        grads = [torch.zeros_like(p) if g is None else g.contiguous()
-                 for p, g in zip(masters, grads)]
-        del masters, params, out, scaled
+        else:
+            loss = out[0] if self.has_aux else out
+            aux = out[1] if self.has_aux else None
+        del out
         if use_scale:
             inv = 1.0 / state.loss_scale.scale
-            for g in grads:
+            for g in tree_leaves(grads):
                 g.mul_(inv)
             finite = torch.isfinite(global_norm(grads))
         else:
             finite = torch.ones((), dtype=torch.bool, device=acc.device)
-        it = iter(grads)
-        grads = tree_map(lambda _: next(it), state.params)
 
         if k > 1:
             # a non-finite micro-batch adds nothing to the buffer
@@ -572,11 +1037,9 @@ class _TrainStep:
         return new_state, metrics
 
     def _clipped(self, grads):
-        """Grads scaled in place by min(1, max_norm / (norm + 1e-6)). They
-        are the step's own: fresh grads, or the accumulation buffer, which
-        is zeroed right after the update."""
+        """Grads clipped in place (`_clip_by_global_norm_`). They are the
+        step's own: fresh grads, or the accumulation buffer, which is
+        zeroed right after the update."""
         if self.max_grad_norm is not None:
-            factor = torch.clamp(
-                self.max_grad_norm / (global_norm(grads) + 1e-6), max=1.0)
-            tree_map(lambda g: g.mul_(factor), grads)
+            _clip_by_global_norm_([grads], self.max_grad_norm)
         return grads

@@ -1,8 +1,9 @@
 """Checkpoint save and load (port of `accelerate_tpu/checkpointing.py`).
 
 What a checkpoint holds is the reference's: each train state's `step`,
-`params`, `opt_state` and loss scale; the schedulers' and dataloaders'
-pickles (`scheduler_{i}.bin`, `sampler_{i}.bin` with the epoch);
+`params`, `opt_state` and loss scale; each eager optimizer's
+(`AcceleratedOptimizer`) `opt_state` and `params` in
+`optimizer_{i}.safetensors`; the schedulers' and dataloaders' pickles (`scheduler_{i}.bin`, `sampler_{i}.bin` with the epoch);
 `custom_checkpoint_{i}.pkl` for registered objects;
 `accelerator_state.json`; and the host RNG streams in
 `random_states_0.pkl` (keys `python`, `numpy`, `torch`). Where the
@@ -68,6 +69,7 @@ from .telemetry.trace import span
 from .utils import safetensors as st
 from .utils.constants import (
     MODEL_NAME,
+    OPTIMIZER_NAME,
     RNG_STATE_NAME,
     SAFE_WEIGHTS_INDEX_NAME,
     SAFE_WEIGHTS_NAME,
@@ -385,14 +387,10 @@ def save_accelerator_state(
     """Write a checkpoint into `output_dir` and commit it. With
     `async_save=True` the file writes overlap later steps; call
     `wait_for_checkpoints()` (or `load`) before relying on the files."""
-    if optimizers:
-        raise NotImplementedError(
-            "saving eager optimizer wrappers is not ported yet: it arrives "
-            "with the port's eager Accelerator slice (save a TrainState)")
     t0 = time.perf_counter()
     with span("checkpoint.save"):
         out = _save_accelerator_state(
-            output_dir, train_states, schedulers, dataloaders,
+            output_dir, train_states, optimizers, schedulers, dataloaders,
             custom_objects, step, async_save,
         )
     reg = get_registry()
@@ -403,8 +401,15 @@ def save_accelerator_state(
     return out
 
 
-def _save_accelerator_state(output_dir, train_states, schedulers,
-                            dataloaders, custom_objects, step,
+def _optimizer_payload(opt) -> dict:
+    """An eager optimizer's live tensors: its state and the params it
+    updates (the eager path's weights live on the optimizer)."""
+    return {k: v for k, v in (("opt_state", opt.opt_state),
+                              ("params", opt.params)) if v is not None}
+
+
+def _save_accelerator_state(output_dir, train_states, optimizers,
+                            schedulers, dataloaders, custom_objects, step,
                             async_save) -> str:
     output_dir = _abspath(output_dir)
     os.makedirs(output_dir, exist_ok=True)
@@ -426,6 +431,12 @@ def _save_accelerator_state(output_dir, train_states, schedulers,
                 small[f"{MODEL_NAME}_{i}_fp8.json"] = json.dumps({
                     "amax_history_len":
                         fp8_state_history_len(ts.fp8_state)}).encode()
+        for i, opt in enumerate(optimizers):
+            payload = _optimizer_payload(opt)
+            if payload:
+                name = f"{OPTIMIZER_NAME}_{i}.safetensors"
+                payloads[os.path.join(output_dir, name)] = payload
+                pending.add(name)
         if payloads:
             _save_payloads(payloads, async_save)
 
@@ -561,15 +572,12 @@ def load_accelerator_state(
     load_rng: bool = True,
 ) -> dict:
     """Restore a checkpoint written by `save_accelerator_state`: each
-    train state's tensors in place, its `step`, and the host objects."""
-    if optimizers:
-        raise NotImplementedError(
-            "loading eager optimizer wrappers is not ported yet: it arrives "
-            "with the port's eager Accelerator slice (load a TrainState)")
+    train state's and eager optimizer's tensors in place, the train
+    states' `step`, and the host objects."""
     t0 = time.perf_counter()
     with span("checkpoint.restore"):
         out = _load_accelerator_state(
-            input_dir, train_states, schedulers, dataloaders,
+            input_dir, train_states, optimizers, schedulers, dataloaders,
             custom_objects, load_rng,
         )
     reg = get_registry()
@@ -579,7 +587,7 @@ def load_accelerator_state(
     return out
 
 
-def _load_accelerator_state(input_dir, train_states, schedulers,
+def _load_accelerator_state(input_dir, train_states, optimizers, schedulers,
                             dataloaders, custom_objects, load_rng) -> dict:
     # a load must see every async save committed
     wait_for_checkpoints()
@@ -595,6 +603,12 @@ def _load_accelerator_state(input_dir, train_states, schedulers,
         if ts.fp8_state is not None and os.path.exists(fp8_path):
             _restore_fp8_state(fp8_path, ts.fp8_state)
         out["train_states"].append(ts)
+
+    for i, opt in enumerate(optimizers):
+        path = os.path.join(input_dir, f"{OPTIMIZER_NAME}_{i}.safetensors")
+        payload = _optimizer_payload(opt)
+        if payload and os.path.exists(path):
+            _restore_into(path, payload)
 
     for i, sched in enumerate(schedulers):
         path = os.path.join(input_dir, f"{SCHEDULER_NAME}_{i}.bin")

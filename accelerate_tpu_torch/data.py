@@ -47,11 +47,12 @@ def to_device(batch: Any, device, non_blocking: bool = True) -> Any:
 
 class DataLoaderShard:
     """Iterate `loader`'s batches on `device`, the next one's copy in
-    flight while the current one is in use."""
+    flight while the current one is in use; with `device=None` the
+    batches come as the source gives them (`device_placement=False`)."""
 
     def __init__(self, loader: Iterable, device):
         self.loader = loader
-        self.device = torch.device(device)
+        self.device = None if device is None else torch.device(device)
         self.gradient_state = GradientState()
         self.end_of_dataloader = False
         self.epoch = 0
@@ -68,19 +69,22 @@ class DataLoaderShard:
     def __len__(self) -> int:
         return len(self.loader)
 
+    def _place(self, batch):
+        return batch if self.device is None else to_device(batch, self.device)
+
     def __iter__(self):
         self.gradient_state._add_dataloader(self)
         self.end_of_dataloader = False
         try:
             it = iter(self.loader)
             try:
-                nxt = to_device(next(it), self.device)
+                nxt = self._place(next(it))
             except StopIteration:
                 return
             while True:
                 current = nxt
                 try:
-                    nxt = to_device(next(it), self.device)
+                    nxt = self._place(next(it))
                 except StopIteration:
                     self.end_of_dataloader = True
                     yield current

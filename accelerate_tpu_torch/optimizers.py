@@ -60,6 +60,11 @@ def _lr(learning_rate, count):
     return learning_rate(count) if callable(learning_rate) else learning_rate
 
 
+def constant_schedule(value: float) -> Callable[[Any], float]:
+    """optax.constant_schedule: `value` at every step count."""
+    return lambda count: value
+
+
 def adamw(learning_rate, b1: float = 0.9, b2: float = 0.999,
           eps: float = 1e-8, weight_decay: float = 1e-4
           ) -> GradientTransformation:

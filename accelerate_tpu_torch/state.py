@@ -1,7 +1,12 @@
 """Process and precision singletons for one process on one device (port
 of `accelerate_tpu/state.py`: `PartialState`, `AcceleratorState`,
 `GradientState`). Multi-process worlds (`torch.distributed`) come with
-the port's parallelism slice.
+the port's parallelism slice (ROADMAP.md, queue 1 item 6).
+
+The process surface is the reference's, at world size 1: one process,
+rank 0, main, local main and last; barriers return at once, the
+`on_*_process` decorators run their function, `split_between_processes`
+hands the whole input to the one process.
 
 As in the reference, every instance of a class aliases one shared dict,
 and `_reset_state` clears them all (for tests).
@@ -9,7 +14,10 @@ and `_reset_state` clears them all (for tests).
 
 from __future__ import annotations
 
-from typing import Any
+from contextlib import contextmanager
+from typing import Any, Callable, Iterator
+
+import torch
 
 from .device import resolve_device
 from .utils.dataclasses import (
@@ -32,9 +40,11 @@ class PartialState:
         if kwargs:
             raise NotImplementedError(
                 f"PartialState options {sorted(kwargs)} (process groups) "
-                "arrive with the port's parallelism slice")
+                "arrive with the port's parallelism slice (ROADMAP.md, "
+                "queue 1 item 6)")
         self.device = resolve_device("cpu" if cpu else None)
         self.backend = self.device.type
+        self.debug = False
 
     @property
     def initialized(self) -> bool:
@@ -47,6 +57,7 @@ class PartialState:
         AcceleratorState._shared_state.clear()
         GradientState._shared_state.clear()
 
+    # -- topology: one process driving one device ----------------------------
     num_processes = 1
     process_index = 0
     local_process_index = 0
@@ -54,13 +65,105 @@ class PartialState:
     is_local_main_process = True
     is_last_process = True
     use_distributed = False
+    device_count = 1
+    local_device_count = 1
 
+    @property
+    def devices(self) -> list[torch.device]:
+        return [self.device]
+
+    # -- process control (the reference's, at world size 1) ------------------
     def wait_for_everyone(self) -> None:
         """A barrier across processes: nothing to wait for with one."""
+
+    @contextmanager
+    def main_process_first(self) -> Iterator[None]:
+        """The main process runs the body first: the only one does."""
+        yield
+
+    @contextmanager
+    def local_main_process_first(self) -> Iterator[None]:
+        yield
+
+    @contextmanager
+    def split_between_processes(self, inputs,
+                                apply_padding: bool = False) -> Iterator[Any]:
+        """This process's share of a list, tuple, dict (of equal-length
+        values) or tensor: contiguous, the first `len % num_processes`
+        processes one item longer; `apply_padding` pads the shorter shares
+        to that length. With one process, all of it, unpadded (as in the
+        reference)."""
+        if self.num_processes == 1:
+            yield inputs
+            return
+        if isinstance(inputs, dict):
+            lengths = {k: len(v) for k, v in inputs.items()}
+            if len(set(lengths.values())) != 1:
+                raise ValueError("All dict values must share a length to be "
+                                 f"split, got {lengths}")
+            length = next(iter(lengths.values()))
+        else:
+            length = len(inputs)
+        per, remainder = divmod(length, self.num_processes)
+        rank = self.process_index
+        start = rank * per + min(rank, remainder)
+        end = start + per + (1 if rank < remainder else 0)
+        if isinstance(inputs, dict):
+            result = {k: v[start:end] for k, v in inputs.items()}
+        else:
+            result = inputs[start:end]
+        if apply_padding and per * self.num_processes != length:
+            if isinstance(result, dict):
+                result = {k: _pad_slice(v, per + 1)
+                          for k, v in result.items()}
+            else:
+                result = _pad_slice(result, per + 1)
+        yield result
+
+    def on_main_process(self, function: Callable) -> Callable:
+        """`function`, run only on global rank 0: here, always."""
+        return self.on_process(function, 0)
+
+    def on_local_main_process(self, function: Callable) -> Callable:
+        return self.on_process(function, 0)
+
+    def on_last_process(self, function: Callable) -> Callable:
+        return self.on_process(function, self.num_processes - 1)
+
+    def on_process(self, function: Callable,
+                   process_index: int = 0) -> Callable:
+        """`function`, run only on `process_index` (None elsewhere)."""
+        def wrapper(*args, **kwargs):
+            if self.process_index == process_index:
+                return function(*args, **kwargs)
+
+        return wrapper
+
+    def print(self, *args: Any, **kwargs: Any) -> None:
+        """Print on the main process only."""
+        if self.is_main_process:
+            print(*args, **kwargs)
+
+    def destroy_process_group(self) -> None:
+        """One process joined no group: nothing to leave."""
 
     def __repr__(self) -> str:
         return (f"PartialState(num_processes=1, process_index=0, "
                 f"device={self.device})")
+
+
+def _pad_slice(seq, pad_to: int):
+    """`seq` padded to `pad_to` items: a tensor with zero rows, a list or
+    tuple by repeating its last item (the reference's `_pad_slice`)."""
+    if hasattr(seq, "shape"):
+        if seq.shape[0] >= pad_to:
+            return seq
+        pad = seq.new_zeros((pad_to - seq.shape[0], *seq.shape[1:]))
+        return torch.cat([seq, pad])
+    if len(seq) >= pad_to:
+        return seq
+    filler = seq[-1:] * (pad_to - len(seq)) if len(seq) else seq
+    return seq + filler
 
 
 class AcceleratorState:
@@ -95,6 +198,11 @@ class AcceleratorState:
     def _reset_state(cls) -> None:
         PartialState._reset_state()
 
+    @property
+    def dp_size(self) -> int:
+        """The batch-sharding degree: 1 on one device."""
+        return 1
+
     def __getattr__(self, name: str):
         # topology and process control come from PartialState
         if name in ("partial_state", "_shared_state"):
@@ -113,7 +221,9 @@ class AcceleratorState:
 
 class GradientState:
     """Gradient-accumulation bookkeeping: the plugin, whether this step
-    is a sync boundary, and the active dataloader."""
+    is a sync boundary, and the active dataloader (whose `remainder` and
+    `tail_layout`, where it has them, trim the uneven tail in
+    `gather_for_metrics`)."""
 
     _shared_state: dict[str, Any] = {}
 
@@ -137,6 +247,14 @@ class GradientState:
         return self.plugin.num_steps
 
     @property
+    def adjust_scheduler(self) -> bool:
+        return self.plugin.adjust_scheduler
+
+    @property
+    def sync_with_dataloader(self) -> bool:
+        return self.plugin.sync_with_dataloader
+
+    @property
     def in_dataloader(self) -> bool:
         return self.active_dataloader is not None
 
@@ -145,6 +263,24 @@ class GradientState:
         if not self.in_dataloader:
             return False
         return getattr(self.active_dataloader, "end_of_dataloader", False)
+
+    @property
+    def remainder(self) -> int:
+        """Real samples in the final uneven batch, or -1."""
+        if not self.in_dataloader:
+            return -1
+        return getattr(self.active_dataloader, "remainder", -1)
+
+    @property
+    def tail_layout(self):
+        """(processes, padded rows, real rows) of the final uneven batch,
+        or None."""
+        if not self.in_dataloader:
+            return None
+        return getattr(self.active_dataloader, "tail_layout", None)
+
+    def _set_sync_gradients(self, sync: bool) -> None:
+        self.sync_gradients = sync
 
     def _add_dataloader(self, dataloader) -> None:
         self.active_dataloader = dataloader
@@ -161,6 +297,11 @@ class GradientState:
     @classmethod
     def _reset_state(cls) -> None:
         cls._shared_state.clear()
+
+    def __repr__(self) -> str:
+        return (f"GradientState(num_steps={self.num_steps}, "
+                f"sync_gradients={self.sync_gradients}, "
+                f"in_dataloader={self.in_dataloader})")
 
 
 def is_initialized() -> bool:

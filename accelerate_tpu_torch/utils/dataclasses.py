@@ -1,6 +1,6 @@
 """Configuration records (the part of `accelerate_tpu/utils/dataclasses.py`
-that the training step, fp8, checkpointing and quantized loading need),
-copied without its jax imports."""
+that the training step, fp8, checkpointing, quantized loading and the
+Accelerator's arguments need), copied without its jax imports."""
 
 from __future__ import annotations
 
@@ -110,6 +110,18 @@ class FP8RecipeKwargs(KwargsHandler):
     fp8_format: str = "E4M3"
     amax_history_len: int | None = None
     amax_compute_algo: str = "max_along_history"
+
+
+@dataclass
+class JitConfig(KwargsHandler):
+    """The reference's record of how its train step is compiled. The
+    reference's Accelerator stores it (`accelerator.jit_config`) and reads
+    none of its fields; the port does the same."""
+
+    donate_params: bool = True
+    remat_policy: str | None = None
+    scan_layers: bool = True
+    static_argnames: tuple[str, ...] = ()
 
 
 @dataclass

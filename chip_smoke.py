@@ -55,6 +55,14 @@ script exits non-zero:
 6. train: the bf16 training step at llama3-8B width, 4 layers, remat
    "dots": 10 steps through the flash kernels, with the launch counts,
    step time, tokens/s, MFU, peak memory and a profiler split;
+6'. eager_train: the reference's eager loop (prepare of params, an
+   optimizer and a schedule; accumulate, compute_gradients, backward,
+   clip_grad_norm_, the optimizer's and the scheduler's step, zero_grad)
+   on phase train's config, init and batch: its 11 losses equal to phase
+   train's bit for bit, the same flash launches, its step time, tokens/s,
+   MFU and peak memory beside phase train's, each call's device time;
+   4 micro-steps at gradient_accumulation_steps=2 (2 layers) through
+   the eager loop and the fused step: losses and params equal;
 6a. fp8_train: the same step with mixed_precision="fp8": every layer
    projection through `_scaled_mm`, the flash kernels, its launch
    counts, step time, tokens/s, MFU, peak memory and a profiler split
@@ -1968,6 +1976,219 @@ def _profile_train_step(step, state, batch):
 
 
 # ---------------------------------------------------------------------------
+# phase 6': the Accelerator's eager loop at llama3-8B width
+# ---------------------------------------------------------------------------
+
+EAGER_ACCUM_LAYERS = 2    # the accumulation check: 4 micro-steps at k=2
+EAGER_ACCUM_STEPS = 4
+
+
+def _eager_step(acc, opt, sched, loss_fn):
+    """The reference's eager loop as a `_timed_steps` step: one
+    micro-step of accumulate -> compute_gradients -> backward ->
+    clip_grad_norm_ -> optimizer step -> scheduler step -> zero_grad at
+    the sync boundary (the reference's `zero_grad` drops the buffer
+    whatever the boundary). It returns its params argument unchanged:
+    the optimizer updates the params in place."""
+    def step(params, batch):
+        with acc.accumulate():
+            loss, grads = acc.compute_gradients(loss_fn, opt.params, batch)
+            acc.backward(grads)
+            acc.clip_grad_norm_(max_norm=1.0)
+            opt.step()
+            sched.step()
+            if acc.sync_gradients:
+                opt.zero_grad()
+        return params, {"loss": loss}
+
+    return step
+
+
+def _eager_call_ms(acc, opt, sched, loss_fn, batch):
+    """One eager step with CUDA events between its calls: the device
+    time of each (the host issues ahead of the card, so each interval is
+    the card's work for that call)."""
+    import torch
+
+    marks = [torch.cuda.Event(enable_timing=True) for _ in range(6)]
+    torch.cuda.synchronize()
+    with acc.accumulate():
+        marks[0].record()
+        _, grads = acc.compute_gradients(loss_fn, opt.params, batch)
+        marks[1].record()
+        acc.backward(grads)                  # buffer fill + in-place add
+        marks[2].record()
+        acc.clip_grad_norm_(max_norm=1.0)
+        marks[3].record()
+        opt.step()
+        marks[4].record()
+        sched.step()
+        opt.zero_grad()
+        marks[5].record()
+    torch.cuda.synchronize()
+    names = ("compute_gradients", "backward", "clip_grad_norm_",
+             "optimizer_step", "scheduler_step_zero_grad")
+    return {n: marks[i].elapsed_time(marks[i + 1])
+            for i, n in enumerate(names)}
+
+
+def _eager_accumulation_check():
+    """4 micro-steps at gradient_accumulation_steps=2 (2 layers, bf16,
+    clip 1.0, four batches from seed 1) through the fused
+    `train_step(use_grad_accum_buffer=True)` and through the eager loop:
+    the losses and the final params must be equal, bit for bit."""
+    import numpy as np
+    import torch
+
+    from accelerate_tpu_torch.accelerator import Accelerator
+    from accelerate_tpu_torch.models import llama
+    from accelerate_tpu_torch.optimizers import adamw, constant_schedule, \
+        tree_leaves
+    from accelerate_tpu_torch.state import PartialState
+    from accelerate_tpu_torch.training import TrainState
+
+    cfg = _train_config(EAGER_ACCUM_LAYERS, remat=True, remat_policy="dots")
+    rng = np.random.default_rng(1)
+    batches = [{"input_ids": torch.from_numpy(rng.integers(
+        0, cfg.vocab_size, (2, 2049)).astype(np.int32))}
+        for _ in range(EAGER_ACCUM_STEPS)]
+
+    def loss_fn(p, b):
+        return llama.causal_lm_loss(cfg, p, b)
+
+    PartialState._reset_state()
+    acc = Accelerator(mixed_precision="bf16", gradient_clipping=1.0,
+                      gradient_accumulation_steps=2)
+    state = acc.prepare(TrainState.create(
+        apply_fn=None, params=llama.init_params(cfg, 0), tx=adamw(3e-4),
+        use_grad_accum_buffer=True))
+    step = acc.train_step(loss_fn)
+    fused = []
+    for b in batches:
+        state, m = step(state, b)
+        fused.append(float(m["loss"]))
+    fused_params = state.params
+    del state, step, acc
+    _drop()
+    PartialState._reset_state()
+    acc = Accelerator(mixed_precision="bf16", gradient_accumulation_steps=2)
+    params = acc.prepare(llama.init_params(cfg, 0))
+    opt = acc.prepare_optimizer(adamw(3e-4), params=params)
+    sched = acc.prepare(constant_schedule(3e-4))
+    step = _eager_step(acc, opt, sched, loss_fn)
+    eager = [float(step(params, b)[1]["loss"]) for b in batches]
+    params_equal = all(torch.equal(a, b) for a, b in zip(
+        tree_leaves(fused_params), tree_leaves(params)))
+    out = {"layers": EAGER_ACCUM_LAYERS, "micro_steps": EAGER_ACCUM_STEPS,
+           "gradient_accumulation_steps": 2, "fused_losses": fused,
+           "eager_losses": eager, "losses_equal": fused == eager,
+           "params_equal": params_equal, "scheduler_count": sched.count,
+           "ok": fused == eager and params_equal and sched.count == 2}
+    del fused_params, params, opt, sched, step, acc
+    _drop()
+    return out
+
+
+def phase_eager_train(kernel_rows, train):
+    """The reference's headline loop on phase `train`'s config, init and
+    batch (llama3-8B width, 4 layers, remat "dots", bf16, seed 0,
+    `[2, 2049]`): Accelerator(bf16), prepare(params),
+    prepare_optimizer(adamw(3e-4), params), prepare(a constant
+    schedule), then 1 warm-up and 10 timed eager steps (`_eager_step`).
+    Gates: the 11 losses equal to phase `train`'s bit for bit (the same
+    kernels in the same order on the same data), the scheduler's count
+    11, `eval_step(loss_fn)(params0, batch)` equal to the first loss,
+    the flash launches of phase `train`, and the accumulation check."""
+    import numpy as np
+    import torch
+
+    from accelerate_tpu_torch.accelerator import Accelerator
+    from accelerate_tpu_torch.models import llama
+    from accelerate_tpu_torch.models.common import count_params
+    from accelerate_tpu_torch.optimizers import adamw, constant_schedule, \
+        tree_leaves
+    from accelerate_tpu_torch.state import PartialState
+
+    cfg = _train_config(TRAIN_LAYERS, remat=True, remat_policy="dots")
+    PartialState._reset_state()
+    torch.cuda.reset_peak_memory_stats()
+    acc = Accelerator(mixed_precision="bf16")
+    params = acc.prepare(llama.init_params(cfg, 0))
+    n_params = count_params(params)
+    opt = acc.prepare_optimizer(adamw(3e-4), params=params)
+    sched = acc.prepare(constant_schedule(3e-4))
+    loader = acc.prepare([{"input_ids": _train_batch(cfg)}])
+    (batch,) = list(loader)
+
+    def loss_fn(p, b):
+        return llama.causal_lm_loss(cfg, p, b)
+
+    eval0 = float(acc.eval_step(loss_fn)(params, batch))
+    step = _eager_step(acc, opt, sched, loss_fn)
+    _, m = step(params, batch)                        # warm-up
+    # the main path's run: every count at 0 just before, read just after
+    _, timed, step_ms, launches = _timed_steps(step, params, batch,
+                                               TRAIN_STEPS)
+    losses = [float(x) for x in [m["loss"], *timed]]
+    count = sched.count
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    med = float(np.median(step_ms))
+    tok_s = 2 * 2048 / (med / 1e3)
+    flops_per_token = 6 * n_params + 12 * cfg.num_hidden_layers * \
+        cfg.hidden_size * 2048
+    masters_f32 = all(t.dtype == torch.float32 for t in tree_leaves(params))
+    split = _profile_train_step(step, params, batch)
+    calls = [_eager_call_ms(acc, opt, sched, loss_fn, batch)
+             for _ in range(3)]
+    del params, opt, sched, step, loader, batch, acc
+    _drop()
+    accum = _eager_accumulation_check()
+    first_diff = next((i for i, (a, b) in enumerate(zip(losses,
+                                                        train["losses"]))
+                       if a != b), None)
+    emit("eager_train", config="llama3_8b", layers=cfg.num_hidden_layers,
+         remat=cfg.remat_policy, params=n_params, batch=[2, 2049],
+         mixed_precision="bf16", steps=TRAIN_STEPS, losses=losses,
+         train_losses=train["losses"], losses_bit_equal=first_diff is None,
+         first_differing_step=first_diff, eval_step_loss=eval0,
+         scheduler_count=count, step_ms=step_ms, step_ms_median=med,
+         train_step_ms_median=train["step_ms_median"], tokens_per_s=tok_s,
+         train_tokens_per_s=train["tokens_per_s"],
+         mfu=flops_per_token * tok_s / BF16_FLOPS,
+         train_mfu=train["mfu_bf16_peak"], max_memory_allocated_gb=peak_gb,
+         train_max_memory_allocated_gb=train["max_memory_allocated_gb"],
+         master_params_f32=masters_f32, launches=launches, profile=split,
+         train_device_ms_total=train["device_ms_total"],
+         call_ms=calls, accumulation=accum)
+    want = {"flash_fwd": 2 * TRAIN_LAYERS * TRAIN_STEPS,
+            "flash_bwd_dq": TRAIN_LAYERS * TRAIN_STEPS,
+            "flash_bwd_dkv": TRAIN_LAYERS * TRAIN_STEPS}
+    if first_diff is not None:
+        raise AssertionError(
+            f"eager losses differ from phase train's from step "
+            f"{first_diff}: {losses} against {train['losses']}")
+    if count != TRAIN_STEPS + 1:
+        raise AssertionError(f"scheduler count {count}, expected "
+                             f"{TRAIN_STEPS + 1}")
+    if eval0 != losses[0]:
+        raise AssertionError(f"eval_step loss {eval0} against the first "
+                             f"training loss {losses[0]}")
+    if not masters_f32:
+        raise AssertionError("master params left float32")
+    if launches != want:
+        raise AssertionError(f"flash launches {launches}, expected {want}")
+    if not accum["ok"]:
+        raise AssertionError(f"eager accumulation off the fused step: "
+                             f"{accum}")
+    # the kernels ran at phase train's shape, [2, 2048, 32, 128] bf16
+    # causal: their checks and times are the main rows', measured in this
+    # run; the launches are this path's
+    for row in [r for r in kernel_rows if r["name"] in want]:
+        kernel_rows.append(dict(row, name=f"{row['name']}[eager_train]",
+                                launches=launches[row["name"]]))
+
+
+# ---------------------------------------------------------------------------
 # phase 6a: the fp8 training step at llama3-8B width
 # ---------------------------------------------------------------------------
 
@@ -3604,6 +3825,8 @@ def main() -> int:
     phase_gptj_engine(kernels)
     _drop()
     bf16 = phase_train(kernels)
+    _drop()
+    phase_eager_train(kernels, bf16)
     _drop()
     phase_fp8_train(kernels, bf16)
     _drop()

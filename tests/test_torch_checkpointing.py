@@ -9,6 +9,9 @@
   scale, the step): the same tensor objects after the load, and a shape
   or dtype mismatch raising with the flattened key;
 - custom objects, the sampler's epoch and the host RNG streams;
+- the eager loop's optimizer (params and AdamW state) and scheduler
+  round trip, sync and async, and a JAX eager checkpoint continued by
+  the port's eager loop;
 - async saves invisible until the drain, a failing writer re-raising at
   `wait_for_checkpoints` and dropping its commit, torn saves skipped, and
   the stage ordered before the next in-place step;
@@ -21,7 +24,8 @@
   sync and async, and across a change of window length as the JAX
   package restores them.
 
-Tolerance: exact everywhere (bytes are copied, not computed)."""
+Tolerance: exact (bytes are copied, not computed), except where the
+JAX eager loop and the port's compute: f32 losses within 1e-5."""
 
 from __future__ import annotations
 
@@ -374,9 +378,148 @@ def test_hooks_run_before_save_and_load_and_remove(tmp_path):
     assert calls == [("save", str(tmp_path)), ("load", str(tmp_path))]
 
 
-def test_optimizer_wrappers_are_not_ported(tmp_path):
-    with pytest.raises(NotImplementedError, match="eager Accelerator"):
-        ckpt.save_accelerator_state(str(tmp_path), optimizers=[object()])
+
+
+# --- the eager loop's optimizers and schedulers --------------------------------
+
+
+def _eager_setup(pn, cpu_acc=True):
+    """The port's eager loop on the tiny llama: (acc, opt, sched, step)
+    with `step(batch) -> loss` one micro-step of the reference's loop."""
+    from accelerate_tpu_torch.models import llama as tl
+    from accelerate_tpu_torch.models.convert import params_from_numpy
+
+    cfg = tl.LlamaConfig.tiny()
+    acc = Accelerator(cpu=cpu_acc)
+    opt = acc.prepare_optimizer(to.adamw(3e-3), params=acc.prepare(
+        params_from_numpy(pn, device="cpu")))
+    sched = acc.prepare(lambda count: 1.0 - count / 100)
+
+    def step(batch):
+        with acc.accumulate():
+            loss, grads = acc.compute_gradients(
+                lambda p, b: tl.causal_lm_loss(cfg, p, b), opt.params,
+                {"input_ids": torch.tensor(batch)})
+            acc.backward(grads)
+            acc.clip_grad_norm_(max_norm=1.0)
+            opt.step()
+            sched.step()
+            opt.zero_grad()
+        return float(loss)
+
+    return acc, opt, sched, step
+
+
+def _tiny_init():
+    from accelerate_tpu.models import llama as jl
+
+    return jax.tree_util.tree_map(np.asarray, jl.init_params(
+        jl.LlamaConfig.tiny(), jax.random.key(0)))
+
+
+def _eager_batches(n):
+    rng = np.random.default_rng(4)
+    return [rng.integers(0, 256, (8, 17)).astype(np.int32) for _ in range(n)]
+
+
+@pytest.mark.parametrize("async_save", [False, True], ids=["sync", "async"])
+def test_eager_optimizer_and_scheduler_round_trip(async_save, tmp_path):
+    """save_state writes the eager optimizer's params and AdamW state to
+    `optimizer_0.safetensors` and the scheduler's count to
+    `scheduler_0.bin`; load_state restores them in place (the same
+    tensors), and the loop then continues to the losses of a run that
+    never stopped."""
+    pn = _tiny_init()
+    batches = _eager_batches(5)
+    acc, opt, sched, step = _eager_setup(pn)
+    for b in batches[:2]:
+        step(b)
+    def live():
+        return {k: v for k, v in flatten_dict(
+            {"opt_state": opt.opt_state, "params": opt.params}).items()
+            if v is not None}
+
+    acc.save_state(str(tmp_path), async_save=async_save)
+    saved = {k: v.clone() for k, v in live().items()}
+    rest = [step(b) for b in batches[2:]]
+    assert sched.count == 5
+    acc.wait_for_checkpoints()
+    keys = set(st.read_header(str(tmp_path / "optimizer_0.safetensors"))[0])
+    assert {"opt_state.count", "opt_state.mu.embed_tokens.embedding",
+            "params.lm_head.kernel"} <= keys
+    before = live()
+    acc.load_state(str(tmp_path))
+    assert acc.step == 2 and sched.count == 2
+    for k, v in live().items():
+        assert v is before[k]
+        _same(v, saved[k])
+    assert [step(b) for b in batches[2:]] == rest
+
+
+def test_jax_eager_checkpoint_continues_in_the_port(tmp_path):
+    """The JAX eager loop trains 3 steps and saves; the port's eager loop
+    takes that checkpoint and both continue 2 steps to the same losses
+    (f32, within 1e-5 as the loop parity tests). The scheduler's count
+    and the step come through the port's `load_state` from the JAX
+    package's `scheduler_0.bin` and `accelerator_state.json`; the arrays
+    are orbax files the port does not read, so they cross through numpy
+    into `AcceleratedOptimizer.load_state_dict` and the params."""
+    import optax
+
+    from accelerate_tpu.models import llama as jl
+    from accelerate_tpu_torch.models.convert import params_from_numpy
+
+    pn = _tiny_init()
+    batches = _eager_batches(5)
+    cfg = jl.LlamaConfig.tiny()
+    at.PartialState._reset_state()
+    jacc = at.Accelerator(split_batches=True)
+    jopt = jacc.prepare_optimizer(optax.adamw(3e-3), params=jacc.prepare(
+        jax.tree_util.tree_map(jnp.asarray, pn)))
+    jsched = jacc.prepare(optax.linear_schedule(1.0, 0.0, 100))
+
+    def jstep(batch):
+        with jacc.accumulate():
+            loss, grads = jacc.compute_gradients(
+                lambda p, b: jl.causal_lm_loss(cfg, p, b), jopt.params,
+                {"input_ids": jnp.asarray(batch)})
+            jacc.backward(grads)
+            jacc.clip_grad_norm_(max_norm=1.0)
+            jopt.step()
+            jsched.step()
+            jopt.zero_grad()
+        return float(loss)
+
+    for b in batches[:3]:
+        jstep(b)
+    jacc.save_state(str(tmp_path))
+    jacc.wait_for_checkpoints()
+    want = [jstep(b) for b in batches[3:]]
+    # restore the JAX checkpoint with the JAX package, for its arrays
+    at.PartialState._reset_state()
+    jacc2 = at.Accelerator(split_batches=True)
+    jopt2 = jacc2.prepare_optimizer(optax.adamw(3e-3), params=jacc2.prepare(
+        jax.tree_util.tree_map(jnp.zeros_like, pn)))
+    jacc2.load_state(str(tmp_path))
+    adam = jopt2.opt_state[0]
+    at.PartialState._reset_state()
+
+    acc, opt, sched, step = _eager_setup(pn)
+    out = acc.load_state(str(tmp_path))
+    assert out["step"] == 3 and acc.step == 3 and sched.count == 3
+    assert sched.last_lr == pytest.approx(0.97, abs=1e-7)
+    host = lambda tree: params_from_numpy(  # noqa: E731
+        jax.tree_util.tree_map(np.asarray, tree), device="cpu")
+    opt.load_state_dict({"opt_state": to.ScaleByAdamState(
+        torch.tensor(int(adam.count), dtype=torch.int32), host(adam.mu),
+        host(adam.nu))})
+    with torch.no_grad():
+        for p, v in zip(to.tree_leaves(opt.params),
+                        to.tree_leaves(host(jopt2.params))):
+            p.copy_(v)
+    got = [step(b) for b in batches[3:]]
+    np.testing.assert_allclose(got, want, atol=1e-5, rtol=0)
+    assert sched.count == 5
 
 
 # --- async saves, failures and torn saves ------------------------------------

@@ -3,7 +3,7 @@ against its plain PyTorch version, the engine on the card against the
 engine on the CPU, the engine's programs as CUDA graphs against the same
 programs run eagerly (plain, speculative, with the host KV tier), the
 bf16 head's gradient, a training step on the card against the same
-step on the CPU, the fp8 path: the `_scaled_mm` products against
+step on the CPU (fused, and the eager loop), the fp8 path: the `_scaled_mm` products against
 their plain version, an fp8 training step and an fp8 checkpoint, and
 the model zoo: a GPT-J engine at head dim 256 (K2 at D=256, G=1) and a
 Mixtral step through the flash kernels, each against the CPU.
@@ -763,6 +763,49 @@ def test_train_step_on_the_card_matches_cpu(cuda, backend):
             losses.append(float(m["loss"]))
         results.append((losses, to.tree_leaves(
             params_to_numpy(state.params))))
+    PartialState._reset_state()
+    (l_gpu, p_gpu), (l_cpu, p_cpu) = results
+    np.testing.assert_allclose(l_gpu, l_cpu, atol=1e-5, rtol=0)
+    for a, b in zip(p_gpu, p_cpu):
+        np.testing.assert_allclose(a, b, atol=1e-4, rtol=0)
+
+
+def test_eager_loop_on_the_card_matches_cpu(cuda):
+    """Three f32 steps of the reference's eager loop (prepare of params,
+    adamw and a schedule; accumulate, compute_gradients, backward,
+    clip_grad_norm_, the optimizer's and scheduler's step, zero_grad) on
+    a tiny llama (head_dim 32, the flash kernels) on the card and with
+    cpu=True: losses within 1e-5, params within 1e-4 (as the fused
+    step's card test), and the flash kernels launched on the card."""
+    cfg = llama.LlamaConfig.tiny(hidden_size=128, attention_backend="flash")
+    init = params_to_numpy(llama.init_params(cfg, 0, device="cpu"))
+    ids = np.random.default_rng(0).integers(0, 256, (4, 33)).astype(np.int32)
+    results = []
+    for cpu in (False, True):
+        PartialState._reset_state()
+        acc = Accelerator(cpu=cpu)
+        params = acc.prepare(params_from_numpy(init, device="cpu"))
+        opt = acc.prepare_optimizer(to.adamw(1e-3), params=params)
+        sched = acc.prepare(to.constant_schedule(1e-3))
+        launches = tf.flash_forward.launches
+        losses = []
+        for _ in range(3):
+            with acc.accumulate():
+                loss, grads = acc.compute_gradients(
+                    lambda p, b: llama.causal_lm_loss(cfg, p, b),
+                    opt.params, {"input_ids": ids})
+                acc.backward(grads)
+                acc.clip_grad_norm_(max_norm=1.0)
+                opt.step()
+                sched.step()
+                opt.zero_grad()
+            losses.append(float(loss))
+        assert params["lm_head"]["kernel"].device.type == acc.device.type
+        assert sched.count == 3
+        if not cpu:
+            assert tf.flash_forward.launches - launches == \
+                3 * cfg.num_hidden_layers
+        results.append((losses, to.tree_leaves(params_to_numpy(params))))
     PartialState._reset_state()
     (l_gpu, p_gpu), (l_cpu, p_cpu) = results
     np.testing.assert_allclose(l_gpu, l_cpu, atol=1e-5, rtol=0)

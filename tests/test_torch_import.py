@@ -53,7 +53,8 @@ def test_port_imports_no_jax_and_no_jax_package():
                  "models.opt", "models.mixtral", "models.bert", "models.t5",
                  "models.hf_import", "parallel.moe", "utils.modeling",
                  "big_modeling", "inference", "ops.quant", "utils.offload",
-                 "utils.memory", "commands.estimate"):
+                 "utils.memory", "commands.estimate", "optimizer",
+                 "scheduler", "utils.operations"):
         assert f"accelerate_tpu_torch.{name}" in out["modules"]
     assert out["leaked"] == []
 

@@ -35,7 +35,8 @@ from accelerate_tpu_torch.models import llama as tl
 from accelerate_tpu_torch.models.convert import params_from_numpy, \
     params_to_numpy
 from accelerate_tpu_torch.state import PartialState
-from accelerate_tpu_torch.utils.dataclasses import InitProcessGroupKwargs
+from accelerate_tpu_torch.utils.dataclasses import InitProcessGroupKwargs, \
+    JitConfig
 
 STEPS = 5
 LR = 3e-3
@@ -194,6 +195,10 @@ def test_defaults_of_unported_arguments_are_accepted():
                       device_placement=True, split_batches=False,
                       mixed_precision="bf16")
     assert acc.compute_dtype == torch.bfloat16
+    PartialState._reset_state()
+    acc = Accelerator(cpu=True, jit_config=JitConfig(),
+                      device_placement=False)
+    assert acc.jit_config == JitConfig() and not acc.device_placement
     with pytest.raises(TypeError, match="unexpected"):
         Accelerator(cpu=True, no_such_argument=1)
 
@@ -211,8 +216,9 @@ def test_prepare_places_batches_one_ahead_and_flags_the_last():
     assert not acc.gradient_state.in_dataloader
     params = acc.prepare({"w": torch.ones(2)})
     assert params["w"].device.type == "cpu"
-    with pytest.raises(NotImplementedError, match="slice"):
-        acc.prepare(3)
+    # an object of no known kind comes back unchanged, as in the reference
+    at.PartialState._reset_state()
+    assert acc.prepare(3) == at.Accelerator().prepare(3) == 3
 
 
 def test_accumulation_applies_every_kth_call_and_tracks_sync():
