@@ -380,7 +380,7 @@ class Accelerator:
         known kind comes back unchanged. `device_placement`, one entry per
         object, is checked for its length, as the reference checks it;
         as there, placement follows the Accelerator's `device_placement`
-        (`prepare_params`/`prepare_data_loader` take a flag each)."""
+        (`prepare_data_loader` takes a flag of its own)."""
         if device_placement is not None and \
                 len(device_placement) != len(args):
             raise ValueError(
@@ -411,13 +411,10 @@ class Accelerator:
                 results[i] = self.prepare_data_loader(obj)
         return results[0] if len(results) == 1 else tuple(results)
 
-    def prepare_params(self, params: Any,
-                       device_placement: bool | None = None) -> Any:
-        """The params on the device; with `device_placement=False` (here
-        or on the Accelerator) the params as they were given."""
-        place = (device_placement if device_placement is not None
-                 else self.device_placement)
-        if not place:
+    def prepare_params(self, params: Any) -> Any:
+        """The params on the device; with the Accelerator's
+        `device_placement=False`, the params as they were given."""
+        if not self.device_placement:
             return params
         return to_device(params, self.device, non_blocking=False)
 
@@ -425,10 +422,11 @@ class Accelerator:
                       device_placement: bool | None = None) -> Any:
         """A params dict (the model here) or a `TrainState`, prepared;
         anything else is recorded in `_models` (the checkpoint hooks get
-        it) and returned as it is."""
+        it) and returned as it is. `device_placement` is taken for the
+        reference's signature and, as there, not read."""
         _refuse_torch_object(model)
         if _is_params(model):
-            return self.prepare_params(model, device_placement)
+            return self.prepare_params(model)
         if isinstance(model, TrainState):
             return self.prepare_train_state(model)
         self._models.append(model)
@@ -634,33 +632,15 @@ class Accelerator:
         return ops.gather(tensor)
 
     def gather_for_metrics(self, input_data, use_gather_object: bool = False):
-        """`gather`, then the final uneven batch's duplicated tail samples
-        dropped (the active loader's `remainder` and `tail_layout`, where
-        it has them)."""
+        """`gather` (objects through `gather_object`). With one process
+        the port's loaders pad no final batch, so no tail is dropped."""
         leaves = ops._leaves(input_data)
-        recursively = bool(leaves) and all(ops.is_tensor(x) for x in leaves)
-        if use_gather_object or not recursively:
+        if use_gather_object or not leaves or \
+                not all(ops.is_tensor(x) for x in leaves):
             data = ops.gather_object(input_data)
-            data = [x for sub in data
+            return [x for sub in data
                     for x in (sub if isinstance(sub, list) else [sub])]
-        else:
-            data = self.gather(input_data)
-        remainder = self.gradient_state.remainder
-        if self.gradient_state.end_of_dataloader and remainder is not None \
-                and remainder > 0:
-            layout = self.gradient_state.tail_layout
-
-            def truncate(x):
-                if layout is not None and x.shape[0] == layout[0] * layout[1]:
-                    procs, padded, real = layout
-                    blocks = x.reshape((procs, padded) + tuple(x.shape[1:]))
-                    return blocks[:, :real].reshape(
-                        (procs * real,) + tuple(x.shape[1:]))
-                return x[:remainder]
-
-            data = (ops.recursively_apply(truncate, data) if recursively
-                    else data[:remainder])
-        return data
+        return self.gather(input_data)
 
     def reduce(self, tensor, reduction: str = "sum", scale: float = 1.0):
         return ops.reduce(tensor, reduction, scale)

@@ -408,6 +408,22 @@ def _optimizer_payload(opt) -> dict:
                               ("params", opt.params)) if v is not None}
 
 
+def _optimizer_file(input_dir: str, i: int) -> str:
+    """The path of eager optimizer `i`'s tensors, raising where the
+    checkpoint holds none for it (an optimizer left at its initial state
+    would train on from fresh weights)."""
+    path = os.path.join(input_dir, f"{OPTIMIZER_NAME}_{i}.safetensors")
+    if os.path.exists(path):
+        return path
+    if os.path.isdir(os.path.join(input_dir, f"{OPTIMIZER_NAME}_{i}")):
+        raise ValueError(
+            f"{input_dir}: optimizer {i} is saved as orbax arrays "
+            f"({OPTIMIZER_NAME}_{i}/, the JAX package's layout); the port "
+            "reads no orbax arrays")
+    raise FileNotFoundError(
+        f"{path}: the checkpoint holds no state for prepared optimizer {i}")
+
+
 def _save_accelerator_state(output_dir, train_states, optimizers,
                             schedulers, dataloaders, custom_objects, step,
                             async_save) -> str:
@@ -605,10 +621,9 @@ def _load_accelerator_state(input_dir, train_states, optimizers, schedulers,
         out["train_states"].append(ts)
 
     for i, opt in enumerate(optimizers):
-        path = os.path.join(input_dir, f"{OPTIMIZER_NAME}_{i}.safetensors")
         payload = _optimizer_payload(opt)
-        if payload and os.path.exists(path):
-            _restore_into(path, payload)
+        if payload:
+            _restore_into(_optimizer_file(input_dir, i), payload)
 
     for i, sched in enumerate(schedulers):
         path = os.path.join(input_dir, f"{SCHEDULER_NAME}_{i}.bin")

@@ -6,7 +6,8 @@ the port's parallelism slice (ROADMAP.md, queue 1 item 6).
 The process surface is the reference's, at world size 1: one process,
 rank 0, main, local main and last; barriers return at once, the
 `on_*_process` decorators run their function, `split_between_processes`
-hands the whole input to the one process.
+hands the whole input to the one process. The forms across processes
+raise and name queue 1 item 6.
 
 As in the reference, every instance of a class aliases one shared dict,
 and `_reset_state` clears them all (for tests).
@@ -88,37 +89,10 @@ class PartialState:
     @contextmanager
     def split_between_processes(self, inputs,
                                 apply_padding: bool = False) -> Iterator[Any]:
-        """This process's share of a list, tuple, dict (of equal-length
-        values) or tensor: contiguous, the first `len % num_processes`
-        processes one item longer; `apply_padding` pads the shorter shares
-        to that length. With one process, all of it, unpadded (as in the
-        reference)."""
-        if self.num_processes == 1:
-            yield inputs
-            return
-        if isinstance(inputs, dict):
-            lengths = {k: len(v) for k, v in inputs.items()}
-            if len(set(lengths.values())) != 1:
-                raise ValueError("All dict values must share a length to be "
-                                 f"split, got {lengths}")
-            length = next(iter(lengths.values()))
-        else:
-            length = len(inputs)
-        per, remainder = divmod(length, self.num_processes)
-        rank = self.process_index
-        start = rank * per + min(rank, remainder)
-        end = start + per + (1 if rank < remainder else 0)
-        if isinstance(inputs, dict):
-            result = {k: v[start:end] for k, v in inputs.items()}
-        else:
-            result = inputs[start:end]
-        if apply_padding and per * self.num_processes != length:
-            if isinstance(result, dict):
-                result = {k: _pad_slice(v, per + 1)
-                          for k, v in result.items()}
-            else:
-                result = _pad_slice(result, per + 1)
-        yield result
+        """This process's share of a list, tuple, dict or tensor: with one
+        process, all of it, unpadded (as in the reference)."""
+        _one_process("split_between_processes")
+        yield inputs
 
     def on_main_process(self, function: Callable) -> Callable:
         """`function`, run only on global rank 0: here, always."""
@@ -152,18 +126,13 @@ class PartialState:
                 f"device={self.device})")
 
 
-def _pad_slice(seq, pad_to: int):
-    """`seq` padded to `pad_to` items: a tensor with zero rows, a list or
-    tuple by repeating its last item (the reference's `_pad_slice`)."""
-    if hasattr(seq, "shape"):
-        if seq.shape[0] >= pad_to:
-            return seq
-        pad = seq.new_zeros((pad_to - seq.shape[0], *seq.shape[1:]))
-        return torch.cat([seq, pad])
-    if len(seq) >= pad_to:
-        return seq
-    filler = seq[-1:] * (pad_to - len(seq)) if len(seq) else seq
-    return seq + filler
+def _one_process(op: str) -> None:
+    """Raise for `op` across processes: those forms arrive with the
+    port's parallelism slice."""
+    if PartialState.num_processes > 1:
+        raise NotImplementedError(
+            f"{op} across processes arrives with the port's parallelism "
+            "slice (ROADMAP.md, queue 1 item 6)")
 
 
 class AcceleratorState:
@@ -221,9 +190,8 @@ class AcceleratorState:
 
 class GradientState:
     """Gradient-accumulation bookkeeping: the plugin, whether this step
-    is a sync boundary, and the active dataloader (whose `remainder` and
-    `tail_layout`, where it has them, trim the uneven tail in
-    `gather_for_metrics`)."""
+    is a sync boundary, and the active dataloader (with its `remainder`
+    and `tail_layout`, where it has them)."""
 
     _shared_state: dict[str, Any] = {}
 

@@ -20,11 +20,7 @@ import numpy as np
 import torch
 
 from ..data import to_device
-from ..state import PartialState
-
-
-class DistributedOperationException(Exception):
-    """Raised by debug-mode shape verification when processes disagree."""
+from ..state import PartialState, _one_process
 
 
 def is_tensor(x: Any) -> bool:
@@ -132,13 +128,6 @@ convert_outputs_to_fp32 = convert_to_fp32
 # ---------------------------------------------------------------------------
 
 
-def _one_process(op: str) -> None:
-    if PartialState.num_processes > 1:
-        raise NotImplementedError(
-            f"{op} across processes arrives with the port's parallelism "
-            "slice (ROADMAP.md, queue 1 item 6)")
-
-
 def gather(tensor):
     """Each leaf concatenated along dim 0 across processes: with one
     process, the leaf itself."""
@@ -241,6 +230,5 @@ class PartialStateDebug:
 
 def verify_operation(tensor, op_name: str) -> None:
     """Check that every process passes leaves of the same shapes and
-    dtypes to `op_name`, raising `DistributedOperationException` with
-    the table where they differ; one process always agrees."""
+    dtypes to `op_name`: one process always agrees."""
     _one_process(f"verify_operation({op_name})")

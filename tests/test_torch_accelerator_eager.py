@@ -421,15 +421,10 @@ def test_gather_for_metrics_and_world_size_1_surface():
         assert a.gather_for_metrics("label") == ["label"]
         assert a.gather_for_metrics(["a", "b"], use_gather_object=True) == \
             ["a", "b"]
-    # a loader that padded its final batch (remainder 4 of 8) trims it
-    loader = acc.prepare([{"x": x[:8]}, {"x": x[:8]}])
-    loader.remainder = 4
-    rows = [acc.gather_for_metrics(b["x"]).shape[0] for b in loader]
-    assert rows == [8, 4]
-    loader.tail_layout = (2, 4, 3)
+    # the final short batch comes back whole: one process pads no tail
+    loader = acc.prepare([{"x": x[i:i + 8]} for i in range(0, 20, 8)])
     rows = [acc.gather_for_metrics({"x": b["x"]})["x"] for b in loader]
-    torch.testing.assert_close(rows[1], torch.cat([rows[0][:3],
-                                                   rows[0][4:7]]))
+    torch.testing.assert_close(torch.cat(rows), torch.from_numpy(x))
     t = torch.arange(4.0)
     assert acc.gather(t) is t and acc.broadcast(t) is t
     torch.testing.assert_close(acc.reduce(t, scale=0.5), t * 0.5)
@@ -474,6 +469,8 @@ def test_device_placement_like_jax():
                       (jacc, jax.tree_util.tree_map(jnp.asarray, pn))):
         assert a.prepare_params(params) is params
         assert a.prepare(params) is params
+        # prepare_model takes the flag and, as the reference, reads none
+        assert a.prepare_model(params, device_placement=True) is params
         with pytest.raises(ValueError, match="device_placement has 1 "
                                              "entries for 2 objects"):
             a.prepare(params, batches, device_placement=[True])
@@ -494,7 +491,6 @@ def test_device_placement_like_jax():
     out, loader = acc.prepare(params, batches, device_placement=[False,
                                                                  False])
     assert isinstance(next(iter(loader))["x"], torch.Tensor)
-    assert acc.prepare_params(params, device_placement=False) is params
 
 
 def test_prepare_by_kind_like_jax():

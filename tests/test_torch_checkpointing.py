@@ -456,14 +456,29 @@ def test_eager_optimizer_and_scheduler_round_trip(async_save, tmp_path):
     assert [step(b) for b in batches[2:]] == rest
 
 
+def test_checkpoint_without_the_optimizers_file_raises(tmp_path):
+    """A prepared eager optimizer with no `optimizer_{i}.safetensors` in
+    the checkpoint raises, as a train state with no file does, before
+    the step or the scheduler moves."""
+    acc, opt, sched, step = _eager_setup(_tiny_init())
+    step(_eager_batches(1)[0])
+    acc.save_state(str(tmp_path))
+    os.remove(tmp_path / "optimizer_0.safetensors")
+    with pytest.raises(FileNotFoundError, match="prepared optimizer 0"):
+        acc.load_state(str(tmp_path))
+    assert acc.step == 1 and sched.count == 1
+
+
 def test_jax_eager_checkpoint_continues_in_the_port(tmp_path):
     """The JAX eager loop trains 3 steps and saves; the port's eager loop
     takes that checkpoint and both continue 2 steps to the same losses
-    (f32, within 1e-5 as the loop parity tests). The scheduler's count
-    and the step come through the port's `load_state` from the JAX
-    package's `scheduler_0.bin` and `accelerator_state.json`; the arrays
-    are orbax files the port does not read, so they cross through numpy
-    into `AcceleratedOptimizer.load_state_dict` and the params."""
+    (f32, within 1e-5 as the loop parity tests). The arrays are orbax
+    files (`optimizer_0/`) the port does not read, so the port's
+    `load_state` raises rather than leave the weights at init; they
+    cross through numpy into `AcceleratedOptimizer.load_state_dict` and
+    the params. The scheduler's count and the step come through the
+    port's `load_accelerator_state` from the JAX package's
+    `scheduler_0.bin` and `accelerator_state.json`."""
     import optax
 
     from accelerate_tpu.models import llama as jl
@@ -505,8 +520,12 @@ def test_jax_eager_checkpoint_continues_in_the_port(tmp_path):
     at.PartialState._reset_state()
 
     acc, opt, sched, step = _eager_setup(pn)
-    out = acc.load_state(str(tmp_path))
-    assert out["step"] == 3 and acc.step == 3 and sched.count == 3
+    with pytest.raises(ValueError, match="reads no orbax arrays"):
+        acc.load_state(str(tmp_path))
+    assert acc.step == 0 and sched.count == 0
+    out = ckpt.load_accelerator_state(str(tmp_path), schedulers=[sched])
+    acc.step = out["step"]
+    assert out["step"] == 3 and sched.count == 3
     assert sched.last_lr == pytest.approx(0.97, abs=1e-7)
     host = lambda tree: params_from_numpy(  # noqa: E731
         jax.tree_util.tree_map(np.asarray, tree), device="cpu")

@@ -3,16 +3,15 @@
 
 - the topology of one process (rank 0: main, local main and last);
 - `split_between_processes` on lists, dicts of lists and arrays, with
-  and without `apply_padding`, at world size 1 and, with both packages'
-  `num_processes`/`process_index` patched, at 2 and 3 processes for
-  every rank; `_pad_slice` by itself;
+  and without `apply_padding`, at world size 1; with `num_processes`
+  patched to 2 or 3 it raises and names queue 1 item 6;
 - the `on_*_process` decorators, `main_process_first`, `print`;
 - `GradientState`'s sync flag, plugin fields, and the active loader's
   `remainder`/`tail_layout` with their defaults.
 
 The JAX suite runs on 8 virtual CPU devices, so the device counts and
 `use_distributed` differ by construction: the port drives one device.
-Tolerance: exact (slicing and padding copy values)."""
+Tolerance: exact (one process gets its input as it is)."""
 
 from types import SimpleNamespace
 
@@ -75,41 +74,22 @@ def _inputs():
 
 
 @pytest.mark.parametrize("pad", [False, True])
-@pytest.mark.parametrize("world", [1, 2, 3])
-def test_split_between_processes_matches_jax(world, pad, monkeypatch):
+def test_split_between_processes_matches_jax(pad):
     port, ref = _pair()
-    for rank in range(world):
-        monkeypatch.setattr(tstate.PartialState, "num_processes", world)
-        monkeypatch.setattr(tstate.PartialState, "process_index", rank)
-        monkeypatch.setattr(jstate.PartialState, "num_processes",
-                            property(lambda self, w=world: w))
-        monkeypatch.setattr(jstate.PartialState, "process_index",
-                            property(lambda self, r=rank: r))
-        for name, tin, jin in _inputs():
-            with port.split_between_processes(tin, apply_padding=pad) as a, \
-                    ref.split_between_processes(jin, apply_padding=pad) as b:
-                assert _values(a) == _values(b), (name, rank)
+    for name, tin, jin in _inputs():
+        with port.split_between_processes(tin, apply_padding=pad) as a, \
+                ref.split_between_processes(jin, apply_padding=pad) as b:
+            assert _values(a) == _values(b), name
+            assert a is tin
 
 
-def test_split_dict_of_unequal_lengths_raises_like_jax(monkeypatch):
-    port, ref = _pair()
-    monkeypatch.setattr(tstate.PartialState, "num_processes", 2)
-    monkeypatch.setattr(jstate.PartialState, "num_processes",
-                        property(lambda self: 2))
-    bad = {"a": [1, 2, 3], "b": [1]}
-    for st in (port, ref):
-        with pytest.raises(ValueError, match="share a length"):
-            with st.split_between_processes(bad):
-                pass
-
-
-@pytest.mark.parametrize("seq", [[1, 2], [], [4, 5, 6, 7],
-                                 np.arange(6.0).reshape(2, 3)],
-                         ids=["short", "empty", "long", "array"])
-def test_pad_slice_matches_jax(seq):
-    tin = torch.tensor(seq) if isinstance(seq, np.ndarray) else seq
-    assert _values(tstate._pad_slice(tin, 4)) == \
-        _values(jstate._pad_slice(seq, 4))
+@pytest.mark.parametrize("world", [2, 3])
+def test_split_across_processes_raises_and_names_item_6(world, monkeypatch):
+    port = tstate.PartialState(cpu=True)
+    monkeypatch.setattr(tstate.PartialState, "num_processes", world)
+    with pytest.raises(NotImplementedError, match="queue 1 item 6"):
+        with port.split_between_processes(list(range(7))):
+            pass
 
 
 def test_process_decorators_main_first_and_print_match_jax(capsys):
