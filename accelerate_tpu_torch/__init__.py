@@ -34,7 +34,12 @@ Ported so far:
   optimizers, schedules and loaders; `accumulate`, `compute_gradients`,
   `backward`, `clip_grad_norm_`, `AcceleratedOptimizer.step`,
   `AcceleratedScheduler.step`), the process surface (`state`) and the
-  collectives at world size 1 (`utils.operations`).
+  collectives at world size 1 (`utils.operations`);
+- the data pipeline (`data.prepare_data_loader`, the two-stage
+  prefetching `DataLoaderShard`, the samplers and sharding iterables),
+  the native token loader (`native.TokenCorpusLoader`, host C++ built
+  with g++ at first use), the trackers (`tracking`), `logging` and
+  `utils.random`.
 """
 
 from .device import resolve_device
@@ -58,8 +63,15 @@ _LAZY = {
     "latest_complete_checkpoint": ".checkpointing",
     "prune_checkpoints": ".checkpointing",
     "wait_for_checkpoints": ".checkpointing",
+    "get_logger": ".logging",
+    "set_seed": ".utils.random",
+    "prepare_data_loader": ".data",
     "skip_first_batches": ".data",
     "DataLoaderShard": ".data",
+    "DataLoaderDispatcher": ".data",
+    "DevicePrefetchIterator": ".data",
+    "TokenCorpusLoader": ".native",
+    "DataLoaderConfiguration": ".utils.dataclasses",
     "ProjectConfiguration": ".utils.dataclasses",
     "GradientAccumulationPlugin": ".utils.dataclasses",
     "JitConfig": ".utils.dataclasses",

@@ -53,6 +53,14 @@ place (see `training.py`); `train_step(donate=False)` instead writes the
 update into new tensors and leaves its input state as it was. Work runs
 on CUDA unless `cpu=True`; with no GPU and no `cpu=True` it raises.
 
+The data pipeline and the trackers are the reference's at one process:
+`prepare` of an iterable of batches goes through
+`data.prepare_data_loader` with the Accelerator's `dataloader_config`
+and `rng_types` (host prep on a thread, copies to the card on a side
+stream, `prefetch_size`/`device_prefetch_depth` ahead), and
+`Accelerator(log_with=...)` with `init_trackers`, `log`, `get_tracker`,
+`log_telemetry` and `end_training` drive `tracking.py`'s trackers.
+
 The checkpoint surface is the reference's (`checkpointing.py`):
 `save_state` (sync or async; a `TrainState` and every prepared eager
 optimizer and scheduler), `wait_for_checkpoints`, `load_state`,
@@ -78,18 +86,21 @@ import numpy as np
 import torch
 
 from . import checkpointing
-from .data import DataLoaderShard, skip_first_batches, to_device
+from .data import DataLoaderDispatcher, DataLoaderShard, \
+    prepare_data_loader, skip_first_batches, to_device
 from .hooks_registry import RemovableHandle
 from .optimizer import AcceleratedOptimizer
 from .optimizers import GradientTransformation, tree_leaves, tree_map
 from .scheduler import AcceleratedScheduler
 from .state import AcceleratorState, GradientState
+from .telemetry.registry import get_registry
 from .training import DynamicLossScale, TrainState, cast_floating, \
     clone_tree, global_norm
 from .utils import operations as ops
 from .utils.constants import CHECKPOINT_DIR_PREFIX
 from .utils.dataclasses import (
     AutocastKwargs,
+    DataLoaderConfiguration,
     FP8RecipeKwargs,
     GradientAccumulationPlugin,
     InitProcessGroupKwargs,
@@ -105,15 +116,12 @@ from .utils.other import flatten_dict
 # "unused", and the slice that brings them
 _UNPORTED = {
     "split_batches": (False, "parallelism"),
-    "dataloader_config": (None, "data-pipeline"),
     "deepspeed_plugin": (None, "parallelism"),
     "fsdp_plugin": (None, "parallelism"),
     "megatron_lm_plugin": (None, "parallelism"),
     "context_parallel_plugin": (None, "parallelism"),
     "mesh_config": (None, "parallelism"),
     "sharding_rules": (None, "parallelism"),
-    "rng_types": (None, "data-pipeline"),
-    "log_with": (None, "tracking"),
     "metrics_port": (None, "telemetry"),
     "stall_timeout_s": (None, "telemetry"),
     "cost_sample_every": (None, "telemetry"),
@@ -208,6 +216,9 @@ class Accelerator:
                  project_dir: str | None = None,
                  project_config: ProjectConfiguration | None = None,
                  kwargs_handlers: list | None = None,
+                 dataloader_config: DataLoaderConfiguration | None = None,
+                 rng_types: list | None = None,
+                 log_with=None,
                  **unported: Any):
         for name, value in unported.items():
             if name not in _UNPORTED:
@@ -252,6 +263,9 @@ class Accelerator:
                 num_steps=gradient_accumulation_steps)
         self.gradient_state = GradientState(gradient_accumulation_plugin)
         self.device_placement = device_placement
+        self.dataloader_config = dataloader_config or \
+            DataLoaderConfiguration()
+        self.rng_types = rng_types
         self.step_scheduler_with_optimizer = step_scheduler_with_optimizer
         # stored as the reference stores it: nothing reads its fields
         self.jit_config = jit_config or JitConfig()
@@ -270,6 +284,13 @@ class Accelerator:
         self._load_model_state_pre_hook: dict = {}
         self.flag_tensor: torch.Tensor | None = None
         self.step = 0
+        self.log_with = log_with if isinstance(log_with, (list, tuple)) else (
+            [log_with] if log_with is not None else [])
+        self.trackers: list = []
+        # the process-wide registry: StepTimer and checkpointing record into
+        # it, and log_telemetry snapshots it
+        self.telemetry = get_registry()
+        self._c_logs = self.telemetry.counter("accelerator_log_calls_total")
 
     # ------------------------------------------------------------------ state
     @property
@@ -403,7 +424,7 @@ class Accelerator:
                 results[i] = self.prepare_optimizer(obj,
                                                     params=prepared_params)
             elif isinstance(obj, (AcceleratedOptimizer, AcceleratedScheduler,
-                                  DataLoaderShard)):
+                                  DataLoaderShard, DataLoaderDispatcher)):
                 pass
             elif callable(obj) and not _is_dataloader(obj):
                 results[i] = self.prepare_scheduler(obj)
@@ -467,21 +488,27 @@ class Accelerator:
         sched = AcceleratedScheduler(
             schedule, self._optimizers,
             step_with_optimizer=self.step_scheduler_with_optimizer,
-            split_batches=False)
+            split_batches=self.dataloader_config.split_batches)
         self._schedulers.append(sched)
         return sched
 
     def prepare_data_loader(self, data_loader,
-                            device_placement: bool | None = None
-                            ) -> DataLoaderShard:
-        """A `DataLoaderShard` over the iterable: batches on the device,
-        one ahead, unless `device_placement` (here, else the
-        Accelerator's) is False."""
-        place = (device_placement if device_placement is not None
-                 else self.device_placement)
-        loader = DataLoaderShard(data_loader, self.device if place else None)
-        self._dataloaders.append(loader)
-        return loader
+                            device_placement: bool | None = None,
+                            slice_fn_for_dispatch=None):
+        """`data.prepare_data_loader` over the iterable with the
+        Accelerator's `dataloader_config` and `rng_types`: a
+        `DataLoaderShard` (or, with `dispatch_batches`, a
+        `DataLoaderDispatcher`) whose batches land on the device, unless
+        `device_placement` (here, else the Accelerator's) is False.
+        `slice_fn_for_dispatch` is taken for the reference's signature,
+        which reads it nowhere either."""
+        put_on_device = (device_placement if device_placement is not None
+                         else self.device_placement)
+        prepared = prepare_data_loader(
+            data_loader, device=self.device, put_on_device=put_on_device,
+            rng_types=self.rng_types, config=self.dataloader_config)
+        self._dataloaders.append(prepared)
+        return prepared
 
     # ------------------------------------------------------------- eager loop
     @contextlib.contextmanager
@@ -749,9 +776,72 @@ class Accelerator:
         the middle of a pass)."""
         return skip_first_batches(dataloader, num_batches)
 
+    # ------------------------------------------------------------- trackers
+    def init_trackers(self, project_name: str, config: dict | None = None,
+                      init_kwargs: dict | None = None) -> None:
+        """Start the `log_with` trackers for `project_name` (under
+        `ProjectConfiguration.logging_dir` where a backend writes files)
+        and store `config` with each."""
+        from .tracking import filter_trackers
+
+        self.trackers = filter_trackers(
+            self.log_with, self.project_configuration.logging_dir,
+            project_name, init_kwargs or {})
+        if config is not None:
+            for tracker in self.trackers:
+                tracker.store_init_configuration(config)
+
+    def log(self, values: dict, step: int | None = None,
+            log_kwargs: dict | None = None) -> None:
+        """Log `values` to every tracker (on the main process);
+        `log_kwargs[name]` goes to that tracker's `log`."""
+        self._c_logs.inc()
+        self._record_hbm_high_water()
+        if self.is_main_process:
+            for tracker in self.trackers:
+                tracker.log(values, step=step,
+                            **((log_kwargs or {}).get(tracker.name, {})))
+
+    def _record_hbm_high_water(self) -> None:
+        """The card's allocation high-water mark into a gauge (at log
+        boundaries only, not per step); nothing on the CPU."""
+        if self.device.type == "cuda":
+            self.telemetry.gauge("device_hbm_bytes_in_use_peak").set_max(
+                float(torch.cuda.max_memory_allocated(self.device)))
+
+    def log_telemetry(self, step: int | None = None,
+                      aggregate: bool = True) -> dict[str, float]:
+        """A snapshot of the telemetry registry (`telemetry/...` keys:
+        counters, gauges, each histogram's count, mean and quantiles)
+        logged through the trackers, and returned. With one process the
+        snapshot is this process's, as the reference's is; `aggregate` is
+        taken for its signature."""
+        from .telemetry.export import snapshot_for_tracking
+
+        self._record_hbm_high_water()
+        flat = snapshot_for_tracking(self.telemetry)
+        if self.is_main_process:
+            for tracker in self.trackers:
+                tracker.log(flat, step=step)
+        return flat
+
+    def get_tracker(self, name: str, unwrap: bool = False):
+        """The started tracker named `name` (its backend object with
+        `unwrap=True`); raises if none is."""
+        for tracker in self.trackers:
+            if tracker.name == name:
+                return tracker.tracker if unwrap else tracker
+        raise ValueError(
+            f"tracker {name} not initialized; call init_trackers first")
+
     def end_training(self) -> None:
-        """Drain the async checkpoint writes (a failed one re-raises)."""
-        checkpointing.wait_for_checkpoints()
+        """Drain the async checkpoint writes (a failed one re-raises),
+        then finish every tracker whatever the drain did."""
+        try:
+            checkpointing.wait_for_checkpoints()
+        finally:
+            for tracker in self.trackers:
+                tracker.finish()
 
     # --------------------------------------------------------- checkpoints
     def register_for_checkpointing(self, *objects) -> None:

@@ -1,23 +1,30 @@
-"""Prometheus text exposition of a metrics registry.
+"""Prometheus text exposition and JSONL snapshots of a metrics registry.
 
 The exposition half of `accelerate_tpu/telemetry/export.py`, copied:
 `render_prometheus` (text format 0.0.4, or OpenMetrics with trace-id
 exemplars on the latency histograms) and `negotiate_exposition`, the
-Accept-header negotiation the HTTP front door's `/metrics` route serves.
-The standalone exporter thread (`start_metrics_server`, `metrics_port`)
-and the JSONL snapshot helpers are not ported yet: `EngineConfig(
-metrics_port=...)` raises until the telemetry exporters arrive.
+Accept-header negotiation the HTTP front door's `/metrics` route serves;
+and its snapshot helpers, `snapshot_for_tracking` (what
+`Accelerator.log_telemetry` logs through the trackers) and
+`write_snapshot`. The standalone exporter thread (`start_metrics_server`,
+`metrics_port`) is not ported yet: `EngineConfig(metrics_port=...)`
+raises until the telemetry exporters arrive.
 """
 
 from __future__ import annotations
 
-from .registry import MetricsRegistry, get_registry
+import json
+import time
+
+from .registry import MetricsRegistry, flatten_snapshot, get_registry
 
 __all__ = [
     "render_prometheus",
     "PROMETHEUS_CONTENT_TYPE",
     "OPENMETRICS_CONTENT_TYPE",
     "negotiate_exposition",
+    "snapshot_for_tracking",
+    "write_snapshot",
 ]
 
 _QUANTILES = (0.5, 0.9, 0.99)
@@ -144,3 +151,22 @@ def negotiate_exposition(accept: str | None,
     body = render_prometheus(registry, openmetrics=om)
     return body, (OPENMETRICS_CONTENT_TYPE if om
                   else PROMETHEUS_CONTENT_TYPE)
+
+
+def snapshot_for_tracking(registry: MetricsRegistry | None = None,
+                          prefix: str = "telemetry/") -> dict[str, float]:
+    """A flat str -> float snapshot shaped for `GeneralTracker.log` (the
+    JSONL tracker writes it as one line)."""
+    registry = registry or get_registry()
+    return flatten_snapshot(registry.snapshot(), prefix=prefix)
+
+
+def write_snapshot(path: str,
+                   registry: MetricsRegistry | None = None) -> dict:
+    """Append one JSON line of the current snapshot to `path`, for callers
+    outside the tracker fan-out."""
+    registry = registry or get_registry()
+    record = {"ts": time.time(), **flatten_snapshot(registry.snapshot())}
+    with open(path, "a") as f:
+        f.write(json.dumps(record) + "\n")
+    return record

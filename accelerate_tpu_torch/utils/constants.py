@@ -21,3 +21,8 @@ CHECKPOINT_DIR_PREFIX = "checkpoint"
 GPU_PEAK_FLOPS = {
     "h100": 989e12,
 }
+
+# --- the mesh axes a batch's leading dim shards over (the reference's
+# `BATCH_AXES`); one process on one card has no mesh, so the loaders
+# store it for the reference's signature
+BATCH_AXES = ("data", "fsdp")

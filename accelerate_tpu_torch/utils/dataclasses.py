@@ -1,6 +1,7 @@
 """Configuration records (the part of `accelerate_tpu/utils/dataclasses.py`
-that the training step, fp8, checkpointing, quantized loading and the
-Accelerator's arguments need), copied without its jax imports."""
+that the training step, fp8, checkpointing, quantized loading, the data
+pipeline, the trackers and the Accelerator's arguments need), copied
+without its jax imports."""
 
 from __future__ import annotations
 
@@ -18,6 +19,47 @@ class PrecisionType(str, enum.Enum):
     FP16 = "fp16"
     BF16 = "bf16"
     FP8 = "fp8"
+
+    def __str__(self) -> str:
+        return self.value
+
+    @classmethod
+    def list(cls) -> list[str]:
+        return [v.value for v in cls]
+
+
+class RNGType(str, enum.Enum):
+    """Host RNG streams a loader may synchronise at each epoch
+    (`rng_types`). "jax" is kept for the reference's names: it stands for
+    explicit keys, which hold no global state and never need it."""
+
+    JAX = "jax"
+    NUMPY = "numpy"
+    PYTHON = "python"
+    TORCH = "torch"
+    GENERATOR = "generator"
+
+    def __str__(self) -> str:
+        return self.value
+
+    @classmethod
+    def list(cls) -> list[str]:
+        return [v.value for v in cls]
+
+
+class LoggerType(str, enum.Enum):
+    """Tracker names of `Accelerator(log_with=...)`; "jsonl" is the
+    dependency-free local tracker, "all" every available one."""
+
+    ALL = "all"
+    TENSORBOARD = "tensorboard"
+    WANDB = "wandb"
+    COMETML = "comet_ml"
+    AIM = "aim"
+    MLFLOW = "mlflow"
+    CLEARML = "clearml"
+    DVCLIVE = "dvclive"
+    JSONL = "jsonl"
 
     def __str__(self) -> str:
         return self.value
@@ -122,6 +164,24 @@ class JitConfig(KwargsHandler):
     remat_policy: str | None = None
     scan_layers: bool = True
     static_argnames: tuple[str, ...] = ()
+
+
+@dataclass
+class DataLoaderConfiguration(KwargsHandler):
+    """How `prepare_data_loader` wraps a loader. `prefetch_size` batches
+    are prepared ahead on the host thread; `device_prefetch_depth`
+    batches' host-to-device copies stay in flight ahead of the step on a
+    side stream (`data.DevicePrefetchIterator`), and 0 issues each copy
+    when its batch is handed out. Both knobs apply to the sharded path;
+    the dispatcher (`dispatch_batches=True`) ignores them."""
+
+    split_batches: bool = False
+    dispatch_batches: bool | None = None
+    even_batches: bool = True
+    use_seedable_sampler: bool = True
+    non_blocking: bool = True
+    prefetch_size: int = 2
+    device_prefetch_depth: int = 2
 
 
 @dataclass

@@ -63,6 +63,16 @@ script exits non-zero:
    MFU and peak memory beside phase train's, each call's device time;
    4 micro-steps at gradient_accumulation_steps=2 (2 layers) through
    the eager loop and the fused step: losses and params equal;
+6''. data_train: phase train's step fed by the input pipeline as a user
+   builds it: a token file written from a seed, the native
+   `TokenCorpusLoader` (built with g++ here), an Accelerator with
+   `dataloader_config` (host prep 2 ahead, 2 copies in flight on a side
+   stream), `rng_types` and the JSONL tracker; 11 steps under a
+   `StepTimer`: losses equal, bit for bit, to the same step on the numpy
+   fallback's batches copied synchronously, the flash launches, the batch
+   copy on a side stream (a profiled step), the tracker file, the input
+   stall per step, and the stall behind a source that sleeps 100 ms a
+   batch;
 6a. fp8_train: the same step with mixed_precision="fp8": every layer
    projection through `_scaled_mm`, the flash kernels, its launch
    counts, step time, tokens/s, MFU, peak memory and a profiler split
@@ -2189,6 +2199,352 @@ def phase_eager_train(kernel_rows, train):
 
 
 # ---------------------------------------------------------------------------
+# phase 6'': the data pipeline feeding the training step
+# ---------------------------------------------------------------------------
+
+DATA_SAMPLES = 64         # samples of 2049 int32 tokens in the corpus file
+DATA_SLOW_PREP_S = 0.1    # the slow source's host prep per batch
+DATA_SLOW_STEPS = (3, 5)  # its warm-up and measured steps
+DATA_STALL_MAX_MS = 10.0  # its input stall per step after the first
+DATA_RESIDENT_STEPS = 5   # the loop's steps on a resident batch
+BATCH_BYTES = 2 * 2049 * 4
+
+
+class _SlowSource:
+    """A sized batch source whose host prep sleeps `delay` seconds per
+    batch (on the loader's prefetch thread, which iterates it)."""
+
+    def __init__(self, source, delay):
+        self.source, self.delay = source, delay
+
+    def __len__(self):
+        return len(self.source)
+
+    def __iter__(self):
+        for batch in self.source:
+            time.sleep(self.delay)
+            yield batch
+
+
+def _token_corpus(folder, vocab):
+    """The token file: DATA_SAMPLES x 2049 int32 ids below `vocab` from
+    `np.random.default_rng(0)` (uint16 cannot hold llama3's 128,256)."""
+    import os
+
+    import numpy as np
+
+    from accelerate_tpu_torch import native
+
+    path = os.path.join(folder, "corpus.bin")
+    native.write_token_file(path, np.random.default_rng(0).integers(
+        0, vocab, DATA_SAMPLES * 2049, dtype=np.int32))
+    return path
+
+
+def _data_reference_losses(cfg, path, n):
+    """Phase data_train's step on the first `n` batches of the numpy
+    fallback loader, each moved with a plain synchronous `.to("cuda")`,
+    from the same init: its losses as floats."""
+    import itertools
+
+    import torch
+
+    from accelerate_tpu_torch import native
+    from accelerate_tpu_torch.accelerator import Accelerator
+    from accelerate_tpu_torch.models import llama
+    from accelerate_tpu_torch.optimizers import adamw
+    from accelerate_tpu_torch.state import PartialState
+    from accelerate_tpu_torch.training import TrainState
+
+    src = native.TokenCorpusLoader(path, sample_len=2049, batch_size=2,
+                                   shuffle=True, seed=0, force_fallback=True)
+    batches = [b["input_ids"] for b in itertools.islice(iter(src), n)]
+    PartialState._reset_state()
+    acc = Accelerator(mixed_precision="bf16", gradient_clipping=1.0)
+    state = acc.prepare(TrainState.create(
+        apply_fn=None, params=llama.init_params(cfg, 0), tx=adamw(3e-4)))
+    step = acc.train_step(lambda p, b: llama.causal_lm_loss(cfg, p, b))
+    losses = []
+    for ids in batches:
+        state, m = step(state, {"input_ids": torch.from_numpy(ids).to(
+            "cuda")})
+        losses.append(m["loss"])
+    out = [float(x) for x in losses]
+    del state, step, acc
+    _drop()
+    return batches, out
+
+
+def _synced_steps(step, state, batch, n):
+    """The loop's step without the loader: `n` steps on one resident
+    batch, each followed by the card-wide wait and the loss read the
+    loop makes (`StepTimer.tick`, the logged loss), timed with CUDA
+    events: what the loop costs before any input stall."""
+    import torch
+
+    marks = [torch.cuda.Event(enable_timing=True) for _ in range(n + 1)]
+    marks[0].record()
+    for i in range(n):
+        state, m = step(state, batch)
+        marks[i + 1].record()
+        torch.cuda.synchronize()
+        float(m["loss"])
+    return [marks[i].elapsed_time(marks[i + 1]) for i in range(n)]
+
+
+def _copy_streams(loader_iter, step, state, tries=3):
+    """One step under torch.profiler (device activity only), the next
+    batch taken from the prefetching loader while the step runs (so the
+    loader issues a copy then, as in training): the CUDA streams of the
+    batch-sized host-to-device copies in the window and of the flash
+    kernels, with every copy the trace holds. The copy comes after the
+    step's first kernels: late in this script, a window that took its
+    batch first held the step's own copies in its trace but not the
+    batch copy at its very start. A window whose trace holds no batch
+    copy is profiled again, up to `tries` windows."""
+    import json as _json
+    import os
+    import tempfile
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    copies, kernels, seen = set(), set(), []
+    batch = next(loader_iter)
+    for attempt in range(1, tries + 1):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            step(state, batch)
+            batch = next(loader_iter)
+            torch.cuda.synchronize()
+        with tempfile.TemporaryDirectory() as d:
+            path = os.path.join(d, "trace.json")
+            prof.export_chrome_trace(path)
+            with open(path) as f:
+                events = _json.load(f).get("traceEvents", [])
+        for ev in events:
+            args = ev.get("args") or {}
+            name = str(ev.get("name", ""))
+            if ev.get("cat") == "gpu_memcpy":
+                seen.append([attempt, name, args.get("bytes"),
+                             args.get("stream")])
+                if "HtoD" in name and args.get("bytes") == BATCH_BYTES:
+                    copies.add(args.get("stream"))
+            elif ev.get("cat") == "kernel" and "flash_" in name:
+                kernels.add(args.get("stream"))
+        if copies:
+            break
+    return {"htod_batch_streams": sorted(copies, key=str),
+            "flash_kernel_streams": sorted(kernels, key=str),
+            "windows": attempt, "memcpy_events": seen[:24]}
+
+
+def phase_data_train(kernel_rows, train):
+    """The training step of phase `train` (llama3-8B width, 4 layers,
+    remat "dots", bf16, clip 1.0, adamw(3e-4), seed 0) fed by the input
+    pipeline as a user builds it: a token file, the native
+    `TokenCorpusLoader(sample_len=2049, batch_size=2, shuffle=True,
+    seed=0)`, `Accelerator(dataloader_config=DataLoaderConfiguration(
+    prefetch_size=2, device_prefetch_depth=2), rng_types=["torch"],
+    log_with="jsonl")`, `init_trackers`, `prepare` of the state and the
+    loader; 1 warm-up and 10 timed steps under a `StepTimer`, each loss
+    logged, then `log_telemetry` and `end_training`.
+
+    Gates: the native library built; the 11 losses equal, bit for bit,
+    the same step's on the numpy fallback's batches copied synchronously
+    (`_data_reference_losses`); flash launches 80/40/40; one profiled
+    step's batch copy on a stream other than the flash kernels'; the
+    JSONL file's config line, 11 losses and telemetry line with the
+    timer's input-stall series; and a second run on a source that sleeps
+    DATA_SLOW_PREP_S per batch whose input stall after its first step
+    stays under DATA_STALL_MAX_MS. Beside them it times the step on a
+    resident batch with the loop's per-step waits and no loader
+    (`_synced_steps`), the loop's cost before any input stall."""
+    import itertools
+    import json as _json
+    import os
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from accelerate_tpu_torch import native
+    from accelerate_tpu_torch.accelerator import Accelerator
+    from accelerate_tpu_torch.models import llama
+    from accelerate_tpu_torch.models.common import count_params
+    from accelerate_tpu_torch.ops import flash_attention as fa
+    from accelerate_tpu_torch.optimizers import adamw
+    from accelerate_tpu_torch.state import PartialState
+    from accelerate_tpu_torch.training import TrainState
+    from accelerate_tpu_torch.utils.dataclasses import \
+        DataLoaderConfiguration
+
+    cfg = _train_config(TRAIN_LAYERS, remat=True, remat_policy="dots")
+    built = native.is_available()
+    if not built:
+        print(native.build_error(), file=sys.stderr, flush=True)
+        raise AssertionError("the native token loader did not build")
+    build_s = native.build_info["seconds"]
+    folder = tempfile.mkdtemp(prefix="data_train_")
+    path = _token_corpus(folder, cfg.vocab_size)
+    n = 1 + TRAIN_STEPS
+    ref_batches, ref_losses = _data_reference_losses(cfg, path, n)
+    orders_equal = all(np.array_equal(a["input_ids"], b) for a, b in zip(
+        itertools.islice(iter(native.TokenCorpusLoader(
+            path, 2049, 2, shuffle=True, seed=0)), n), ref_batches))
+
+    src = native.TokenCorpusLoader(path, sample_len=2049, batch_size=2,
+                                   shuffle=True, seed=0)
+    if not src.native:
+        raise AssertionError("TokenCorpusLoader fell back to numpy")
+    PartialState._reset_state()
+    torch.cuda.reset_peak_memory_stats()
+    acc = Accelerator(
+        mixed_precision="bf16", gradient_clipping=1.0,
+        dataloader_config=DataLoaderConfiguration(prefetch_size=2,
+                                                  device_prefetch_depth=2),
+        rng_types=["torch"], log_with="jsonl", project_dir=folder)
+    acc.init_trackers("data_train", config={
+        "config": "llama3_8b", "layers": TRAIN_LAYERS, "batch": [2, 2049],
+        "corpus_samples": DATA_SAMPLES})
+    state = acc.prepare(TrainState.create(
+        apply_fn=None, params=llama.init_params(cfg, 0), tx=adamw(3e-4)))
+    n_params = count_params(state.params)
+    loader = acc.prepare(src)
+    step = acc.train_step(lambda p, b: llama.causal_lm_loss(cfg, p, b))
+    flops_per_token = 6 * n_params + 12 * cfg.num_hidden_layers * \
+        cfg.hidden_size * 2048
+    timer = acc.step_timer(flops_per_step=flops_per_token * 4096,
+                           tokens_per_step=4096)
+    kernels = {"flash_fwd": fa.flash_forward,
+               "flash_bwd_dq": fa.flash_backward_dq,
+               "flash_bwd_dkv": fa.flash_backward_dkv}
+    it = iter(loader)
+    losses, stall_ms = [], []
+    marks = [torch.cuda.Event(enable_timing=True) for _ in range(n)]
+    for i in range(n):
+        if i == 1:
+            # the main path's run: every count at 0 just before, read
+            # just after
+            for fn in kernels.values():
+                fn.launches = 0
+            marks[0].record()
+        t0 = time.perf_counter()
+        with timer.input_stall():
+            batch = next(it)
+        stall_ms.append((time.perf_counter() - t0) * 1e3)
+        state, m = step(state, batch)
+        if i >= 1:
+            marks[i].record()
+        timer.tick(state)
+        acc.log({"loss": m["loss"]}, step=i)
+        losses.append(float(m["loss"]))
+    launches = {name: fn.launches for name, fn in kernels.items()}
+    step_ms = [marks[i].elapsed_time(marks[i + 1]) for i in range(n - 1)]
+    flat = acc.log_telemetry(step=TRAIN_STEPS)
+    acc.end_training()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    resident_ms = _synced_steps(step, state, batch, DATA_RESIDENT_STEPS)
+    streams = _copy_streams(it, step, state)
+    del it, batch
+
+    slow = acc.prepare(_SlowSource(native.TokenCorpusLoader(
+        path, sample_len=2049, batch_size=2, shuffle=True, seed=1),
+        DATA_SLOW_PREP_S))
+    slow_it = iter(slow)
+    slow_stall_ms = []
+    for i in range(sum(DATA_SLOW_STEPS)):
+        t0 = time.perf_counter()
+        batch = next(slow_it)
+        slow_stall_ms.append((time.perf_counter() - t0) * 1e3)
+        state, m = step(state, batch)
+        torch.cuda.synchronize()
+    del slow_it, batch, state, step, loader, acc
+    _drop()
+
+    with open(os.path.join(folder, "data_train", "metrics.jsonl")) as f:
+        lines = [_json.loads(line) for line in f]
+    shutil.rmtree(folder, ignore_errors=True)
+    configs = [x for x in lines if x["event"] == "config"]
+    logged = [x for x in lines if x["event"] == "log" and "loss" in x]
+    tele = [x for x in lines if x["event"] == "log"
+            and any(k.startswith("telemetry/") for k in x)]
+    stall_keys = sorted(k for k in (tele[0] if tele else {})
+                        if "input_stall" in k)
+    jsonl_ok = (len(configs) == 1 and len(tele) == 1 and
+                [x["loss"] for x in logged] == losses and
+                [x["step"] for x in logged] == list(range(n)) and
+                bool(stall_keys))
+    med = float(np.median(step_ms))
+    tok_s = 4096 / (med / 1e3)
+    first_diff = next((i for i, (a, b) in enumerate(zip(losses, ref_losses))
+                       if a != b), None)
+    copy_off_stream = bool(streams["htod_batch_streams"]) and not (
+        set(streams["htod_batch_streams"]) &
+        set(streams["flash_kernel_streams"]))
+    slow_after = slow_stall_ms[1:]
+    emit("data_train", config="llama3_8b", layers=cfg.num_hidden_layers,
+         remat=cfg.remat_policy, params=n_params, batch=[2, 2049],
+         corpus=[DATA_SAMPLES, 2049], native_built=built,
+         native_build_s=build_s, native_fallback_orders_equal=orders_equal,
+         losses=losses, reference_losses=ref_losses,
+         losses_bit_equal=first_diff is None,
+         first_differing_step=first_diff, train_losses=train["losses"],
+         step_ms=step_ms, step_ms_median=med,
+         train_step_ms_median=train["step_ms_median"],
+         resident_synced_step_ms=resident_ms,
+         resident_synced_step_ms_median=float(np.median(resident_ms)),
+         tokens_per_s=tok_s, train_tokens_per_s=train["tokens_per_s"],
+         mfu=flops_per_token * tok_s / BF16_FLOPS,
+         train_mfu=train["mfu_bf16_peak"], input_stall_ms=stall_ms,
+         input_stall_ms_mean=float(np.mean(stall_ms[1:])),
+         input_stall_ms_max=float(np.max(stall_ms[1:])),
+         timer=timer.summary(), max_memory_allocated_gb=peak_gb,
+         train_max_memory_allocated_gb=train["max_memory_allocated_gb"],
+         launches=launches, streams=streams,
+         copy_off_step_stream=copy_off_stream,
+         jsonl={"config_lines": len(configs), "loss_lines": len(logged),
+                "telemetry_lines": len(tele), "input_stall_keys": stall_keys,
+                "ok": jsonl_ok},
+         telemetry_keys=len(flat),
+         slow_source={"prep_s": DATA_SLOW_PREP_S,
+                      "steps": list(DATA_SLOW_STEPS),
+                      "input_stall_ms": slow_stall_ms,
+                      "input_stall_ms_mean_after_first":
+                          float(np.mean(slow_after)),
+                      "input_stall_ms_max_after_first":
+                          float(np.max(slow_after))})
+    want = {"flash_fwd": 2 * TRAIN_LAYERS * TRAIN_STEPS,
+            "flash_bwd_dq": TRAIN_LAYERS * TRAIN_STEPS,
+            "flash_bwd_dkv": TRAIN_LAYERS * TRAIN_STEPS}
+    if not orders_equal:
+        raise AssertionError("native and fallback batches differ")
+    if first_diff is not None:
+        raise AssertionError(
+            f"losses through the loader differ from synchronous feeding from "
+            f"step {first_diff}: {losses} against {ref_losses}")
+    if launches != want:
+        raise AssertionError(f"flash launches {launches}, expected {want}")
+    if not copy_off_stream:
+        raise AssertionError(f"the batch copy is not on a side stream: "
+                             f"{streams}")
+    if not jsonl_ok:
+        raise AssertionError(f"tracker file off: {len(configs)} config, "
+                             f"{len(logged)} loss, {len(tele)} telemetry "
+                             f"lines, stall keys {stall_keys}")
+    if max(slow_after) >= DATA_STALL_MAX_MS:
+        raise AssertionError(f"input stall behind a slow source "
+                             f"{slow_stall_ms} ms")
+    # the kernels ran at phase train's shape, [2, 2048, 32, 128] bf16
+    # causal: their checks and times are the main rows', measured in this
+    # run; the launches are this path's
+    for row in [r for r in kernel_rows if r["name"] in want]:
+        kernel_rows.append(dict(row, name=f"{row['name']}[data_train]",
+                                launches=launches[row["name"]]))
+
+
+# ---------------------------------------------------------------------------
 # phase 6a: the fp8 training step at llama3-8B width
 # ---------------------------------------------------------------------------
 
@@ -3827,6 +4183,8 @@ def main() -> int:
     bf16 = phase_train(kernels)
     _drop()
     phase_eager_train(kernels, bf16)
+    _drop()
+    phase_data_train(kernels, bf16)
     _drop()
     phase_fp8_train(kernels, bf16)
     _drop()

@@ -6,7 +6,9 @@ bf16 head's gradient, a training step on the card against the same
 step on the CPU (fused, and the eager loop), the fp8 path: the `_scaled_mm` products against
 their plain version, an fp8 training step and an fp8 checkpoint, and
 the model zoo: a GPT-J engine at head dim 256 (K2 at D=256, G=1) and a
-Mixtral step through the flash kernels, each against the CPU.
+Mixtral step through the flash kernels, each against the CPU; and the
+data pipeline: the loader's side-stream copies against the host's
+batches, and a tracker's log of card scalars.
 
 Without a card every test here skips with a reason. The file imports
 neither jax nor the JAX package, so it also runs where those are not
@@ -1244,3 +1246,58 @@ def test_quantized_load_on_the_card_matches_the_host(cuda, tmp_path):
     assert torch.equal(have.data, on_card.data)
     assert torch.equal(have.scales.view(torch.int16),
                        on_card.scales.view(torch.int16))
+
+
+def test_side_stream_prefetch_matches_host_batches_behind_a_long_kernel(
+        cuda):
+    """The prepared loader's copies run on a side stream. Depth 1 with
+    32 MB batches read at once: a consumer that did not wait on a batch's
+    event would read it half-copied. Depth 2 with a long kernel queued on
+    the consumer stream before each read: without `record_stream`, the
+    allocator could give a handed-out batch's memory to a later batch's
+    copy, which runs at once on the idle side stream, before the queued
+    read. Every batch read on the card equals the host's."""
+    from accelerate_tpu_torch.data import DataLoaderShard
+
+    PartialState._reset_state()
+    rng = np.random.default_rng(0)
+    host = [{"x": rng.integers(0, 1 << 30, (2048, 4096)).astype(np.int32)}
+            for _ in range(6)]
+    for depth, sleep_cycles in ((1, 0), (2, 50_000_000)):
+        loader = DataLoaderShard(host, device=cuda,
+                                 device_prefetch_depth=depth)
+        got = []
+        for batch in loader:
+            assert batch["x"].is_cuda
+            if sleep_cycles:
+                torch.cuda._sleep(sleep_cycles)
+            got.append(batch["x"].clone())
+            del batch
+        torch.cuda.synchronize()
+        assert len(got) == len(host)
+        for g, h in zip(got, host):
+            np.testing.assert_array_equal(g.cpu().numpy(), h["x"])
+
+
+def test_tracker_log_moves_card_scalars_in_one_transfer_per_dtype(cuda):
+    from accelerate_tpu_torch import tracking
+
+    values = {"loss": torch.tensor(0.5, device=cuda),
+              "norm": torch.tensor(2.25, device=cuda),
+              "bf": torch.tensor(1.5, device=cuda, dtype=torch.bfloat16),
+              "step": torch.tensor(7, device=cuda), "host": 3.0}
+    calls = []
+    stack = torch.stack
+
+    def spy(tensors, *a, **kw):
+        calls.append(len(tensors))
+        return stack(tensors, *a, **kw)
+
+    torch.stack = spy
+    try:
+        out = tracking._scalarize_all(values)
+    finally:
+        torch.stack = stack
+    assert out == {"loss": 0.5, "norm": 2.25, "bf": 1.5, "step": 7,
+                   "host": 3.0}
+    assert sorted(calls) == [1, 1, 2]

@@ -1,7 +1,8 @@
 """The PyTorch port stands alone: it imports neither jax nor the JAX
 package, nor the `safetensors` package (the card's machine has none; the
 port reads and writes the format itself), nor `transformers` (HF import
-takes a config object or a dict and a state dict), and `chip_smoke.py`
+takes a config object or a dict and a state dict), nor a tracker backend
+(each imports its package when it is constructed), and `chip_smoke.py`
 refuses to report without a CUDA device.
 
 The suite's conftest imports jax into every test process, so the import
@@ -25,11 +26,11 @@ import accelerate_tpu_torch as pkg
 names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")]
 for name in names:
     importlib.import_module(name)
+banned = ("jax", "safetensors", "transformers", "accelerate_tpu",
+          "tensorboard", "tensorboardX", "torch.utils.tensorboard", "wandb",
+          "mlflow", "comet_ml", "aim", "clearml", "dvclive")
 leaked = sorted(m for m in sys.modules
-                if m == "jax" or m.startswith("jax.")
-                or m == "safetensors" or m.startswith("safetensors.")
-                or m == "transformers" or m.startswith("transformers.")
-                or m == "accelerate_tpu" or m.startswith("accelerate_tpu."))
+                if any(m == b or m.startswith(b + ".") for b in banned))
 print(json.dumps({"modules": names, "leaked": leaked}))
 """
 
@@ -54,7 +55,8 @@ def test_port_imports_no_jax_and_no_jax_package():
                  "models.hf_import", "parallel.moe", "utils.modeling",
                  "big_modeling", "inference", "ops.quant", "utils.offload",
                  "utils.memory", "commands.estimate", "optimizer",
-                 "scheduler", "utils.operations"):
+                 "scheduler", "utils.operations", "native", "tracking",
+                 "logging", "utils.random", "utils.imports"):
         assert f"accelerate_tpu_torch.{name}" in out["modules"]
     assert out["leaked"] == []
 

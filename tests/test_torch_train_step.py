@@ -179,7 +179,9 @@ def test_accelerator_needs_a_gpu_unless_cpu_is_asked(monkeypatch):
 
 @pytest.mark.parametrize("kwargs", [
     {"mesh_config": "a mesh"}, {"fsdp_plugin": "a plugin"},
-    {"metrics_port": 0}, {"strict": "error"}, {"log_with": "jsonl"},
+    {"metrics_port": 0}, {"strict": "error"},
+    # log_with is ported; a device-cost sampler beside it is not
+    {"log_with": "jsonl", "cost_sample_every": 16},
     {"stall_timeout_s": 10.0}, {"split_batches": True},
     # fp8 is ported; a process-group timeout beside it is not
     {"mixed_precision": "fp8",
