@@ -69,6 +69,16 @@ optimizer and scheduler), `wait_for_checkpoints`, `load_state`,
 pre-hooks, `save_model`, `get_state_dict`, `skip_first_batches`, and
 `end_training`'s drain.
 
+Telemetry is the reference's at one process: `metrics_port` serves the
+process registry over HTTP (127.0.0.1, 0 = ephemeral), `stall_timeout_s`
+arms a stall watchdog that every train step and `log` tick, and
+`cost_table` holds each built train step's analytic cost (`train_step`,
+`train_step_2`, ...) with its device time sampled at call 2 and every
+`cost_sample_every`-th call after (16 by default). None turns the
+exporter and the watchdog off; the port reads no environment variable.
+The reference's watchdog writes a bundle only into the directory of its
+`ACCELERATE_TPU_INCIDENT_DIR` variable, so the port's writes none.
+
 Arguments of the reference that the port does not carry yet raise
 `NotImplementedError` when set, naming their slice.
 """
@@ -93,7 +103,11 @@ from .optimizer import AcceleratedOptimizer
 from .optimizers import GradientTransformation, tree_leaves, tree_map
 from .scheduler import AcceleratedScheduler
 from .state import AcceleratorState, GradientState
+from .telemetry.cost import CostTable, device_peaks, fence, \
+    resolve_sample_every
+from .telemetry.export import start_metrics_server
 from .telemetry.registry import get_registry
+from .telemetry.watchdog import StallWatchdog, resolve_stall_timeout
 from .training import DynamicLossScale, TrainState, cast_floating, \
     clone_tree, global_norm
 from .utils import operations as ops
@@ -122,9 +136,6 @@ _UNPORTED = {
     "context_parallel_plugin": (None, "parallelism"),
     "mesh_config": (None, "parallelism"),
     "sharding_rules": (None, "parallelism"),
-    "metrics_port": (None, "telemetry"),
-    "stall_timeout_s": (None, "telemetry"),
-    "cost_sample_every": (None, "telemetry"),
     "strict": (None, "analysis"),
 }
 
@@ -219,6 +230,9 @@ class Accelerator:
                  dataloader_config: DataLoaderConfiguration | None = None,
                  rng_types: list | None = None,
                  log_with=None,
+                 metrics_port: int | None = None,
+                 stall_timeout_s: float | None = None,
+                 cost_sample_every: int | None = None,
                  **unported: Any):
         for name, value in unported.items():
             if name not in _UNPORTED:
@@ -290,7 +304,24 @@ class Accelerator:
         # the process-wide registry: StepTimer and checkpointing record into
         # it, and log_telemetry snapshots it
         self.telemetry = get_registry()
+        # opt-in exporter and stall watchdog (off unless asked for)
+        self.metrics_server = start_metrics_server(
+            metrics_port, registry=self.telemetry)
+        self.stall_watchdog: StallWatchdog | None = None
+        wd_timeout = resolve_stall_timeout(stall_timeout_s)
+        if wd_timeout is not None:
+            self.stall_watchdog = StallWatchdog(
+                wd_timeout, name=f"accelerator-rank{self.process_index}"
+            ).start()
+        self._c_train_steps = self.telemetry.counter(
+            "accelerator_train_steps_total")
         self._c_logs = self.telemetry.counter("accelerator_log_calls_total")
+        # each built train step's analytic cost and sampled device time
+        self.cost_table = CostTable(
+            registry=self.telemetry,
+            sample_every=resolve_sample_every(cost_sample_every),
+            peaks=device_peaks(self.device), num_chips=1)
+        self._cost_names_built = 0
 
     # ------------------------------------------------------------------ state
     @property
@@ -650,9 +681,22 @@ class Accelerator:
                     "fp8_state kwarg and returns (loss, new_fp8_state) — "
                     "e.g. models.llama.causal_lm_loss. fp8 never silently "
                     "degrades to full precision.")
+        # each built step gets its own cost-table name: two steps sharing
+        # one would overwrite each other's FLOPs and merge their samples
+        self._cost_names_built += 1
+        n = self._cost_names_built
         return _TrainStep(self, loss_fn, has_aux,
                           max_grad_norm if max_grad_norm is not None
-                          else self.gradient_clipping, donate)
+                          else self.gradient_clipping, donate,
+                          cost_name="train_step" if n == 1
+                          else f"train_step_{n}")
+
+    def _note_train_dispatch(self) -> None:
+        """Per-step heartbeat: counts the step and ticks the stall
+        watchdog."""
+        self._c_train_steps.inc()
+        if self.stall_watchdog is not None:
+            self.stall_watchdog.tick()
 
     # --------------------------------------------------------- collectives
     def gather(self, tensor):
@@ -796,6 +840,10 @@ class Accelerator:
         """Log `values` to every tracker (on the main process);
         `log_kwargs[name]` goes to that tracker's `log`."""
         self._c_logs.inc()
+        if self.stall_watchdog is not None:
+            # log boundaries are heartbeats too: eager loops that never
+            # call the fused step still feed the watchdog
+            self.stall_watchdog.tick()
         self._record_hbm_high_water()
         if self.is_main_process:
             for tracker in self.trackers:
@@ -836,12 +884,19 @@ class Accelerator:
 
     def end_training(self) -> None:
         """Drain the async checkpoint writes (a failed one re-raises),
-        then finish every tracker whatever the drain did."""
+        then, whatever the drain did, finish every tracker and stop the
+        exporter and the watchdog."""
         try:
             checkpointing.wait_for_checkpoints()
         finally:
             for tracker in self.trackers:
                 tracker.finish()
+            if self.metrics_server is not None:
+                self.metrics_server.stop()
+                self.metrics_server = None
+            if self.stall_watchdog is not None:
+                self.stall_watchdog.stop()
+                self.stall_watchdog = None
 
     # --------------------------------------------------------- checkpoints
     def register_for_checkpointing(self, *objects) -> None:
@@ -1011,16 +1066,101 @@ def _copy_metas(dst, src) -> None:
             t.copy_(new[key])
 
 
+def _token_ids(batch):
+    """A causal-LM batch's token ids (a tensor or a numpy array): the
+    `input_ids` of its first dict argument, else its first 2-D integer
+    array."""
+    for arg in batch:
+        if isinstance(arg, dict) and np.ndim(arg.get("input_ids")) == 2:
+            return arg["input_ids"]
+    for leaf in tree_leaves(list(batch)):
+        if np.ndim(leaf) == 2 and (
+                leaf.dtype.kind in "iu" if isinstance(leaf, np.ndarray)
+                else isinstance(leaf, torch.Tensor)
+                and not leaf.is_floating_point()):
+            return leaf
+    return None
+
+
+def _train_step_cost(params, ids_shape, accum_steps: int,
+                     elt: int) -> tuple[float, float]:
+    """Analytic (flops, bytes) of one train-step call on a causal-LM
+    batch of token ids of shape [B, T] (T - 1 predicted tokens a row).
+
+    FLOPs: `causal_lm_train_flops(N, B*(T-1), L, h, T-1)`, bench.py's
+    reckoning, 6N + 12*L*h*(T-1) a token, with L and h read off the
+    first leaf of a stacked `params["layers"]` (its first norm's scale,
+    [L, h]; the attention term is left out without one).
+
+    Bytes, a floor: per optimizer update AdamW's f32 traffic of 28 B a
+    parameter (read the master, its gradient and both moments; write the
+    master and both moments), spread over the `accum_steps` calls an
+    update takes, plus three reads a call of the weights in the compute
+    dtype (`elt` bytes each: the forward, its recompute and the
+    backward)."""
+    from .models.common import count_params
+    from .profiler import causal_lm_train_flops
+
+    n = count_params(params)
+    rows, seq = ids_shape[0], ids_shape[1] - 1
+    layers, hidden = 0, 0
+    stacked = params.get("layers") if isinstance(params, dict) else None
+    first = tree_leaves(stacked)[:1] if isinstance(stacked, dict) else []
+    if first and first[0].dim() == 2:
+        layers, hidden = first[0].shape
+    flops = causal_lm_train_flops(n, rows * seq, layers, hidden, seq)
+    nbytes = n * (28.0 / accum_steps + 3 * elt)
+    return flops, nbytes
+
+
 class _TrainStep:
     def __init__(self, acc: Accelerator, loss_fn: Callable, has_aux: bool,
-                 max_grad_norm: float | None, donate: bool):
+                 max_grad_norm: float | None, donate: bool,
+                 cost_name: str = "train_step"):
         self.acc = acc
         self.loss_fn = loss_fn
         self.has_aux = has_aux
         self.max_grad_norm = max_grad_norm
         self.donate = donate
+        self._cost_name = cost_name
+        self._cost_key = None
 
     def __call__(self, state: TrainState, *batch):
+        """One step; its device time is fence-sampled at the cost table's
+        cadence (a synchronize before and after the call, outside it)."""
+        acc = self.acc
+        table = acc.cost_table
+        self._register_cost(state, batch)
+        sampling = table.sample_due(self._cost_name)
+        if sampling:
+            fence(state)
+            t0 = table.clock()
+        out = self._step(state, *batch)
+        if sampling:
+            fence(out)
+            table.record_device_time(self._cost_name, table.clock() - t0)
+        acc._note_train_dispatch()
+        return out
+
+    def _register_cost(self, state: TrainState, batch) -> None:
+        """The analytic cost, registered at the first call and again when
+        the batch's shape or the accumulation count changes; a batch
+        without token ids registers nothing."""
+        ids = _token_ids(batch)
+        key = (None if ids is None else tuple(ids.shape),
+               self.acc.gradient_accumulation_steps)
+        if key == self._cost_key:
+            return
+        self._cost_key = key
+        if ids is None:
+            return
+        elt = torch.finfo(self.acc.compute_dtype).bits // 8
+        self.acc.cost_table.register(
+            self._cost_name, replace=True,
+            fallback=lambda: _train_step_cost(state.params, key[0], key[1],
+                                              elt))
+
+    def _step(self, state: TrainState, *batch):
         acc = self.acc
         k = acc.gradient_accumulation_steps
         dtype = acc.compute_dtype

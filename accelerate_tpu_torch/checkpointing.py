@@ -53,7 +53,6 @@ import logging
 import os
 import pickle
 import random as _py_random
-import threading
 import time
 from concurrent.futures import ThreadPoolExecutor
 from concurrent.futures import wait as _wait_all
@@ -64,6 +63,7 @@ import torch
 
 from .device import resolve_device
 from .ops.fp8 import adapt_history_len, fp8_state_history_len
+from .telemetry.lockwatch import maybe_tracked
 from .telemetry.registry import get_registry
 from .telemetry.trace import span
 from .utils import safetensors as st
@@ -146,7 +146,7 @@ class _SnapshotStager:
     written."""
 
     def __init__(self):
-        self._lock = threading.Lock()
+        self._lock = maybe_tracked("checkpoint-commit")
         self._sealed: list[_PendingCommit] = []
         self._publishing: list[_PendingCommit] = []
 

@@ -6,10 +6,13 @@ serve`): the same flags, the same `--dry-run` JSON line, and the same
 engine (`--family llama` serves `LlamaConfig.tiny()`, `--family gpt2`
 `GPT2Config.tiny()`, with random weights from `--seed`, a bf16 KV pool,
 the engine knobs from the flags), plus one flag, `--device`: the engine
-runs on the CUDA device unless `--device cpu` is given. Not ported yet,
-and refused with a message naming what brings them: the flags whose
-engine machinery the port lacks (`--watchdog-timeout-s`, `--strict`,
-`--incident-dir`, through `serving.engine._UNPORTED`).
+runs on the CUDA device unless `--device cpu` is given.
+`--watchdog-timeout-s` arms the engine's stall watchdog (`/healthz`
+degrades to 503 while it has fired) and `--incident-dir` is where a
+stall or a dead drive loop writes its bundle (the port reads no
+environment variable for it). Not ported yet, and refused with a
+message naming what brings it: `--strict` (through
+`serving.engine._UNPORTED`).
 
 `--dry-run` builds the whole configuration — engine config, tenant
 specs, tokenizer, server config — prints one JSON line describing it and
@@ -70,10 +73,14 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument("--drain-timeout-s", type=float, default=30.0)
     parser.add_argument(
         "--watchdog-timeout-s", type=float, default=None,
-        help="the engine stall watchdog (not ported yet: refused)")
+        help="arm the engine stall watchdog; /healthz degrades to 503 "
+             "while it has fired")
     parser.add_argument(
         "--incident-dir", default=None, metavar="DIR",
-        help="incident bundles (not ported yet: refused)")
+        help="write a self-contained incident bundle (metrics, trace, "
+             "stacks, scheduler dump) here when the watchdog fires or "
+             "the drive loop dies; inspect with `python -m "
+             "accelerate_tpu_torch.commands.incident`")
     parser.add_argument(
         "--debug-endpoints", action="store_true",
         help="enable the read-only /debug/{requests,slots,pages,"

@@ -5,12 +5,13 @@
 - `StepTimer`: wall-clock per-step timing with warmup skipping, the
   host-overhead breakdown, goodput and its stall taxonomy, tokens/s and
   MFU against the GPU's peak;
-- `causal_lm_train_flops`, `peak_flops_per_chip` (an H100 table in place
-  of the reference's TPU generations) and `device_memory_stats` (on
-  `torch.cuda.memory_stats`).
+- `causal_lm_train_flops`, `causal_lm_infer_flops`, `peak_flops_per_chip`
+  (a table of GPU parts in place of the reference's TPU generations) and
+  `device_memory_stats` (on `torch.cuda.memory_stats`).
 
 MFU math: a causal-LM training step costs ~6 FLOPs per parameter per token
-(fwd 2 + bwd 4), plus attention ~12*L*H*S per token when `attention=True`.
+(fwd 2 + bwd 4), plus attention ~12*L*H*S per token when `attention=True`;
+decoding costs ~2 per parameter per token plus ~4*L*H*kv_len.
 """
 
 from __future__ import annotations
@@ -25,10 +26,11 @@ from typing import Any, Iterator
 import torch
 
 from .telemetry.registry import StreamingHistogram
-from .utils.constants import GPU_PEAK_FLOPS
+from .utils.constants import gpu_peaks
 
 __all__ = ["profile", "StepTimer", "causal_lm_train_flops",
-           "peak_flops_per_chip", "device_memory_stats"]
+           "causal_lm_infer_flops", "peak_flops_per_chip",
+           "device_memory_stats"]
 
 
 @contextlib.contextmanager
@@ -64,15 +66,13 @@ def device_memory_stats(device=None) -> dict[str, int]:
 
 
 def peak_flops_per_chip(device=None) -> float:
-    """Peak dense bf16 FLOP/s of this GPU (`GPU_PEAK_FLOPS`, by the
-    device's name); 0.0 for a GPU the table lacks, or without one."""
+    """Peak dense bf16 FLOP/s of this GPU (`utils.constants.GPU_PEAKS`,
+    by the device's name); 0.0 for a GPU the table lacks, or without
+    one."""
     if not torch.cuda.is_available():
         return 0.0
-    name = torch.cuda.get_device_name(device).lower()
-    for key, flops in GPU_PEAK_FLOPS.items():
-        if key in name:
-            return flops
-    return 0.0
+    peaks = gpu_peaks(torch.cuda.get_device_name(device))
+    return peaks[0] if peaks is not None else 0.0
 
 
 def _num_gpus() -> int:
@@ -113,6 +113,20 @@ def causal_lm_train_flops(n_params: int, tokens: int,
         flops += 12.0 * num_layers * hidden_size * seq_len * tokens
     return flops
 
+
+def causal_lm_infer_flops(n_params: int, tokens: int,
+                          num_layers: int = 0, hidden_size: int = 0,
+                          kv_len: int = 0, attention: bool = True) -> float:
+    """FLOPs to decode `tokens` tokens (forward only): ~2 per parameter
+    per token for the weight products, plus ~4 * L * h * kv_len per token
+    for attention over `kv_len` cached positions (QK^T and AV, 2 each;
+    GQA shrinks the cache read, not the query-side FLOPs, so
+    `hidden_size` stays the full width). The serving cost table's
+    analytic costs use it."""
+    flops = 2.0 * n_params * tokens
+    if attention and num_layers and kv_len:
+        flops += 4.0 * num_layers * hidden_size * kv_len * tokens
+    return flops
 
 
 @dataclass

@@ -1,11 +1,10 @@
 """Asyncio glue between the HTTP layer and the serving engine.
 
-A copy of `accelerate_tpu/server/service.py` on the port's `Engine`. One
-change: when the drive loop dies, the reference writes an incident
-bundle if an incident directory is configured; the port has no incident
-bundles yet (`EngineConfig.incident_dir` raises), so it logs the failure
-with its traceback and writes nothing, as the reference does with no
-directory set.
+A copy of `accelerate_tpu/server/service.py` on the port's `Engine`.
+When the drive loop dies it writes the reference's `drive-loop`
+incident bundle under the engine's `incident_dir` (the port reads no
+environment variable for it), and `/healthz` degrades while the
+engine's stall watchdog has fired.
 
 One background *drive task* steps the engine whenever it has work — the
 engine is not thread-safe and its step() is a quick host dispatch, so
@@ -36,7 +35,6 @@ mid-stream.
 from __future__ import annotations
 
 import asyncio
-import logging
 import time
 from typing import AsyncIterator
 
@@ -103,8 +101,8 @@ class InferenceService:
             except BaseException:
                 pass  # already recorded as _drive_error and surfaced
             self._drive_task = None
-        # engine.close() joins the host-tier thread — seconds of blocking
-        # if it is mid-drain. The drive task is already dead, so no
+        # engine.close() joins the watchdog / metrics-server / host-tier
+        # threads — seconds of blocking if one is mid-drain. The drive task is already dead, so no
         # engine call races this; run it off the loop so health checks
         # and other servers on this loop keep answering while we tear
         # down.
@@ -214,15 +212,32 @@ class InferenceService:
             raise
 
     def _write_incident(self, exc: BaseException) -> None:
-        """Report a dead drive loop: its exception with the traceback,
-        and the engine's scheduler/slot/page dumps frozen at death, to
-        the log. Incident bundles on disk arrive with the port's
-        telemetry slice."""
+        """Best-effort drive-death bundle: the stall watchdog's format,
+        kind 'drive-loop', with the exception traceback and the engine's
+        scheduler/slot/page dumps and cost table frozen at death. Written
+        when the engine has an `incident_dir`; the port reads no
+        environment variable for one."""
         try:
-            logging.getLogger(__name__).error(
-                "engine drive loop died (%s); engine state: %s",
-                type(exc).__name__, self.engine.incident_dumps(),
-                exc_info=exc)
+            from ..telemetry.watchdog import (
+                build_exception_report,
+                resolve_incident_dir,
+                write_incident_bundle,
+            )
+
+            incident_dir = resolve_incident_dir(
+                getattr(self.engine.engine_config, "incident_dir", None))
+            if incident_dir is None:
+                return
+            report = build_exception_report(exc, name="drive-loop")
+            path = write_incident_bundle(
+                incident_dir, report, registry=self.engine.registry,
+                dumps=self.engine.incident_dumps(), name="drive-loop")
+            from ..logging import get_logger
+
+            get_logger(__name__).error(
+                f"engine drive loop died ({type(exc).__name__}); incident "
+                f"bundle written: {path} (python -m "
+                "accelerate_tpu_torch.commands.incident show)")
         except Exception:
             pass  # forensics must never mask the original failure
 

@@ -56,7 +56,20 @@ step ends in one read of the [S] token vector (and its logprobs) to the
 host; a finished prefill reads one token.
 
 `EngineConfig(sanitize=True)` checks the cross-structure invariants of
-`serving/sanitizer.py` after every step.
+`serving/sanitizer.py` after every step; with `incident_dir` set, a
+violation first writes an incident bundle.
+
+Device cost (`telemetry/cost.py`): every engine keeps a cost table on its
+registry with each program's analytic FLOPs and bytes (`_analytic_cost`)
+and samples the device time of call 2 and every `cost_sample_every`-th
+call after (16 by default): a fence pair around the program's launch or
+replay, outside the captured body. `metrics_summary()` derives the decode
+and prefill device times, `decode_mfu`, `decode_hbm_bw_util`,
+`decode_mxu_idle_fraction`, `decode_arith_intensity` and `goodput` from
+it, and a serving `StepTimer` meters each program's host dispatch.
+`metrics_port` serves the registry over HTTP, and `watchdog_timeout_s`
+arms a stall watchdog that `step()` ticks (with `incident_dir`, a stall
+writes a bundle holding the engine's dumps and its cost table).
 
 Request tracing is the reference's: with `telemetry.trace` enabled every
 request gets a trace id at submit (or joins the caller's, as the HTTP
@@ -81,10 +94,14 @@ import numpy as np
 import torch
 
 from ..device import resolve_device
+from ..models.common import count_params
 from ..models.decode import derive_key, gumbel_noise, sample_token, \
     stream_key, uniform
 from ..ops import paged_attention as _paged
 from ..ops.paged_attention import PagedDecodeMeta, PagedKV
+from ..profiler import StepTimer, causal_lm_infer_flops
+from ..telemetry.cost import CostTable, device_peaks, resolve_sample_every
+from ..telemetry.export import start_metrics_server
 from ..telemetry.registry import MetricsRegistry
 from ..telemetry.trace import (
     head_sample,
@@ -94,6 +111,7 @@ from ..telemetry.trace import (
     span,
     tracing_enabled,
 )
+from ..telemetry.watchdog import StallWatchdog, resolve_stall_timeout
 from .cache import (
     PagedAllocator,
     PagedKVCache,
@@ -111,7 +129,7 @@ from .cache import (
 )
 from .graphs import GraphRunner
 from .metrics import ServingMetrics
-from .sanitizer import check_engine, resolve_sanitize
+from .sanitizer import SanitizerViolation, check_engine, resolve_sanitize
 from .scheduler import Request, Scheduler, Slot, SlotState
 
 __all__ = ["Engine", "EngineConfig"]
@@ -187,7 +205,9 @@ class EngineConfig:
 
     Fields whose machinery the port has not reached yet raise
     NotImplementedError when set (see `_UNPORTED`); the port reads none
-    of the reference's environment variables."""
+    of the reference's environment variables, so None means off for
+    `metrics_port`, `watchdog_timeout_s` and `incident_dir`, and 16 for
+    `cost_sample_every` (0 turns sampling off)."""
 
     num_slots: int = 4
     max_len: int = 512
@@ -237,12 +257,6 @@ _UNPORTED = {
     "mesh": (lambda v: v is not None, "sharded (pod) serving"),
     "strict": (lambda v: v is not None, "the static-analysis audits"),
     "contracts": (lambda v: v is not None, "the static-analysis audits"),
-    "metrics_port": (lambda v: v is not None, "the telemetry exporters"),
-    "watchdog_timeout_s": (lambda v: v is not None,
-                           "the stall watchdog"),
-    "cost_sample_every": (lambda v: v is not None,
-                          "the device-cost table"),
-    "incident_dir": (lambda v: v is not None, "incident bundles"),
 }
 
 
@@ -363,6 +377,17 @@ class Engine:
                 dtype=ec.cache_dtype, pad_slack=self._pad_slack, device=dev)
         self.registry = MetricsRegistry()
         self.metrics = ServingMetrics(registry=self.registry)
+        self.timer = StepTimer(warmup_steps=1, registry=self.registry,
+                               name="serving_step")
+        # per-program rooflines: analytic FLOPs/bytes registered at a
+        # program's first call, sampled fence-pair device time; one card
+        self.cost = CostTable(registry=self.registry,
+                              sample_every=resolve_sample_every(
+                                  ec.cost_sample_every),
+                              peaks=device_peaks(dev), num_chips=1)
+        # parameter counts, taken at the first registration
+        self._n_params: int | None = None
+        self._n_draft_params: int | None = None
         # host-side page accounting; the lambdas read self.metrics at call
         # time, so reset_metrics()'s replacement keeps receiving events
         self.allocator = PagedAllocator(
@@ -413,9 +438,18 @@ class Engine:
         # admission hook: on_admit(slot, request) at the end of every
         # admission, after the slot's page table and state are installed
         self.on_admit: Any = None
-        # the stall watchdog is not ported (`watchdog_timeout_s` raises);
-        # the HTTP service reads this attribute for its health check
-        self.watchdog = None
+        # opt-in observability, started last so a construction error
+        # leaks no bound port and no thread; the HTTP service reads
+        # `watchdog` for its health check
+        self.metrics_server = start_metrics_server(
+            ec.metrics_port, registry=self.registry)
+        self.watchdog: StallWatchdog | None = None
+        wd_timeout = resolve_stall_timeout(ec.watchdog_timeout_s)
+        if wd_timeout is not None:
+            self.watchdog = StallWatchdog(
+                wd_timeout, name="serving-engine",
+                incident_dir=ec.incident_dir, registry=self.registry,
+                dumps=self.incident_dumps).start()
 
     # -- device programs -----------------------------------------------------
 
@@ -638,6 +672,65 @@ class Engine:
             torch.where(live, cache.lengths, self._in_restore))
         return committed, counts, n_acc, lps
 
+    def _ensure_cost(self, name: str) -> None:
+        """Register the program's static cost once, at its first call.
+        The port has no lowering to read a cost from: the cost is
+        `_analytic_cost`'s."""
+        if not self.cost.has(name):
+            self.cost.register(name,
+                               fallback=lambda: self._analytic_cost(name))
+
+    def _analytic_cost(self, name: str) -> tuple[float, float]:
+        """The reference's analytic (flops, bytes) per program call: ~2
+        FLOPs/param/token plus attention over the cache
+        (`profiler.causal_lm_infer_flops`); bytes = one full weight read
+        plus the KV rows touched. The context length mid-stream is not
+        known statically: max_len/2 stands for it."""
+        cfg, ec = self.config, self.engine_config
+        if name in ("draft", "draft_prefill"):
+            cfg = self._draft_config
+            if self._n_draft_params is None:
+                self._n_draft_params = count_params(self._draft_params)
+            n = self._n_draft_params
+        else:
+            if self._n_params is None:
+                self._n_params = count_params(self.params)
+            n = self._n_params
+        num_layers, num_kv, head_dim = _cache_spec(cfg)
+        hidden = getattr(cfg, "hidden_size", 0) or (
+            getattr(cfg, "num_attention_heads", 1) * head_dim)
+        avg_ctx = max(1, ec.max_len // 2)
+        elt = 2  # bf16 weights/activations
+        kv_row = num_kv * head_dim * elt * 2  # one K row + one V row
+        if name == "decode":
+            tokens = ec.num_slots
+            flops = causal_lm_infer_flops(n, tokens, num_layers, hidden,
+                                          kv_len=avg_ctx)
+            nbytes = n * elt + tokens * num_layers * avg_ctx * kv_row
+        elif name == "verify":
+            # one K-token forward per slot
+            tokens = ec.num_slots * ec.draft_k
+            flops = causal_lm_infer_flops(n, tokens, num_layers, hidden,
+                                          kv_len=avg_ctx)
+            nbytes = (n * elt
+                      + ec.num_slots * num_layers * avg_ctx * kv_row)
+        elif name == "draft":
+            # K sequential one-token draft steps over every slot
+            tokens = ec.num_slots * ec.draft_k
+            flops = causal_lm_infer_flops(n, tokens, num_layers, hidden,
+                                          kv_len=avg_ctx)
+            nbytes = ec.draft_k * n * elt \
+                + tokens * num_layers * avg_ctx * kv_row
+        elif name in ("prefill", "draft_prefill"):
+            tokens = ec.prefill_chunk
+            flops = causal_lm_infer_flops(n, tokens, num_layers, hidden,
+                                          kv_len=avg_ctx)
+            nbytes = (n * elt + tokens * num_layers * kv_row
+                      + num_layers * avg_ctx * kv_row)
+        else:  # admit: per-slot bookkeeping only, no model math
+            flops, nbytes = 0.0, float(ec.num_slots * 16)
+        return float(flops), float(nbytes)
+
     def compile_stats(self) -> dict[str, int]:
         """Captures per engine program (first eager builds on a CPU
         engine): the recompile guard, each 1 however the request mix
@@ -802,12 +895,14 @@ class Engine:
         batched decode step). Returns False when the engine is idle."""
         if self.metrics.started_at is None:
             self.metrics.started_at = self._clock()
+        if self.watchdog is not None:
+            self.watchdog.tick()
         self._admit_pending()
         action = self.scheduler.next_action()
         if action is None:
             self.metrics.stopped_at = self._clock()
             if self._sanitize:
-                check_engine(self)
+                self._sanity_check()
             return False
         t0 = self._clock()
         if action[0] == "prefill":
@@ -819,9 +914,42 @@ class Engine:
         self.metrics.observe_step(self.scheduler.live_slots,
                                   self.engine_config.num_slots,
                                   self.scheduler.queue_depth)
+        # keep the goodput gauge live for mid-run scrapes (host floats)
+        self._goodput()
         if self._sanitize:
-            check_engine(self)
+            self._sanity_check()
         return True
+
+    def _sanity_check(self) -> None:
+        """The serving-state sanitizer after a step; a violation writes
+        an incident bundle (with `incident_dir` set) before it
+        propagates."""
+        try:
+            check_engine(self)
+        except SanitizerViolation as e:
+            self._write_sanitizer_incident(e)
+            raise
+
+    def _write_sanitizer_incident(self, e: SanitizerViolation) -> None:
+        from ..telemetry.watchdog import (
+            build_exception_report,
+            resolve_incident_dir,
+            write_incident_bundle,
+        )
+
+        incident_dir = resolve_incident_dir(
+            self.engine_config.incident_dir)
+        if incident_dir is None:
+            return
+        try:
+            report = build_exception_report(e, name="sanitizer")
+            report["check"] = e.check
+            report["details"] = e.details
+            write_incident_bundle(
+                incident_dir, report, registry=self.registry,
+                dumps=self.incident_dumps(), name="sanitizer")
+        except Exception:
+            pass  # the violation itself must still propagate
 
     def run_until_idle(self) -> None:
         while self.step():
@@ -950,10 +1078,13 @@ class Engine:
                         parent=req.span_id, tenant=req.tenant)
         if self._spec:
             slot.draft_done = 0
-        with self._request_span("serving.admit", req, slot=slot.index,
-                                reused_len=alloc.reused_len):
-            self._graphs("admit", slot.index, key, req.temperature,
-                         alloc.reused_len)
+        self._ensure_cost("admit")
+        with self.cost.maybe_sample("admit", fence_in=self.cache) as sample:
+            with self._request_span("serving.admit", req, slot=slot.index,
+                                    reused_len=alloc.reused_len):
+                self._graphs("admit", slot.index, key, req.temperature,
+                             alloc.reused_len)
+            sample(self.cache)
         if self.on_admit is not None:
             self.on_admit(slot, req)
 
@@ -973,10 +1104,21 @@ class Engine:
         start = slot.draft_done
         real = min(self.engine_config.prefill_chunk, upto - start)
         self._upload_chunk(slot, start, real)
-        with self._request_span("serving.draft_prefill", slot.request,
-                                slot=slot.index, chunk_start=start,
-                                chunk_tokens=real):
-            self._graphs("draft_prefill")
+        self._draft_prefill_call(slot, real)
+
+    def _draft_prefill_call(self, slot: Slot, real: int) -> None:
+        """Run the draft_prefill program on the chunk already in the
+        input buffers (`real` tokens from `slot.draft_done`)."""
+        self._ensure_cost("draft_prefill")
+        with self.cost.maybe_sample(
+                "draft_prefill", fence_in=self._draft_cache) as sample:
+            with self._request_span("serving.draft_prefill", slot.request,
+                                    slot=slot.index,
+                                    chunk_start=slot.draft_done,
+                                    chunk_tokens=real), \
+                    self.timer.dispatch():
+                self._graphs("draft_prefill")
+            sample(self._draft_cache)
         slot.draft_done += real
 
     def _run_prefill_chunk(self, slot: Slot) -> None:
@@ -993,19 +1135,19 @@ class Engine:
         real = min(chunk, req.prompt_len - start)
         self._upload_chunk(slot, start, real)
         self._graphs.upload("table", self._table)
-        with self._request_span("serving.prefill", req, slot=slot.index,
-                                chunk_start=start, chunk_tokens=real):
-            lp = self._graphs("prefill")
+        self._ensure_cost("prefill")
+        with self.cost.maybe_sample(
+                "prefill", fence_in=(self.cache, self._tokens)) as sample:
+            with self._request_span("serving.prefill", req, slot=slot.index,
+                                    chunk_start=start, chunk_tokens=real), \
+                    self.timer.dispatch():
+                lp = self._graphs("prefill")
+            sample(self.cache)
         self.metrics.note_prefill_chunk()
         if self._spec:
             # joint chunk: the draft processes the same window (the
             # buffers still hold it), so both prompts complete together
-            with self._request_span("serving.draft_prefill", req,
-                                    slot=slot.index,
-                                    chunk_start=slot.draft_done,
-                                    chunk_tokens=real):
-                self._graphs("draft_prefill")
-            slot.draft_done += real
+            self._draft_prefill_call(slot, real)
         done = self.scheduler.note_prefill_chunk(slot, real)
         if req.share_prompt:
             # fork parent: every full prompt page this chunk completed
@@ -1034,10 +1176,16 @@ class Engine:
         # one decode step serves every live slot, so the step span
         # belongs to no single request: span links carry each sampled
         # request's trace id instead (bounded by num_slots)
-        with span("serving.decode", links=_links(slots)):
-            lps = self._graphs("decode")
+        self._ensure_cost("decode")
+        with self.cost.maybe_sample(
+                "decode", fence_in=(self.cache, self._tokens)) as sample:
+            with span("serving.decode", links=_links(slots)), \
+                    self.timer.dispatch():
+                lps = self._graphs("decode")
+            sample(self.cache)
         toks = self._tokens.cpu().numpy()  # the per-step host read
         lps = lps.cpu().numpy()
+        self.timer.tick(block_on=None)
         self.metrics.note_decode_step(
             "kernel" if self._use_paged_kernel else "dense")
         for s in slots:
@@ -1062,14 +1210,23 @@ class Engine:
                 restore[s.index] = s.draft_done
         self._graphs.upload("restore", restore)
         links = _links(slots)
-        with span("serving.draft", links=links):
-            self._graphs("draft")
-        with span("serving.verify", links=links):
-            committed, counts, n_acc, lps = self._graphs("verify")
+        self._ensure_cost("draft")
+        with self.cost.maybe_sample(
+                "draft", fence_in=self._draft_cache) as sample:
+            with span("serving.draft", links=links), self.timer.dispatch():
+                self._graphs("draft")
+            sample(self._draft_cache)
+        self._ensure_cost("verify")
+        with self.cost.maybe_sample(
+                "verify", fence_in=(self.cache, self._tokens)) as sample:
+            with span("serving.verify", links=links), self.timer.dispatch():
+                committed, counts, n_acc, lps = self._graphs("verify")
+            sample(self.cache)
         toks = committed.cpu().numpy()   # [S, K]: the per-step host read
         cnts = counts.cpu().numpy()
         accs = n_acc.cpu().numpy()
         lps = lps.cpu().numpy()
+        self.timer.tick(block_on=None)
         self.metrics.note_decode_step("speculative")
         for s in slots:
             self.metrics.note_speculation(K, int(accs[s.index]))
@@ -1190,10 +1347,11 @@ class Engine:
         return self.scheduler.debug_state()
 
     def incident_dumps(self) -> dict:
-        """What an incident report freezes about this engine: the /debug
-        snapshots plus the capture counts (the reference also carries its
-        device-cost table, which the port has not reached). Per-section
-        best-effort: one section's failure must not cost the others."""
+        """What an incident bundle freezes about this engine: the /debug
+        snapshots, the capture counts and the device-cost table.
+        Per-section best-effort: the watchdog thread calls this while the
+        engine may still be mutating, and one section's failure must not
+        cost the others."""
         out: dict[str, Any] = {}
         for name, build in (
             ("requests", self.debug_requests),
@@ -1201,6 +1359,7 @@ class Engine:
             ("pages", self.debug_pages),
             ("scheduler", self.debug_scheduler),
             ("compile_stats", self.compile_stats),
+            ("cost_table", self.cost.snapshot),
         ):
             try:
                 out[name] = build()
@@ -1210,12 +1369,49 @@ class Engine:
 
     # -- metrics -----------------------------------------------------------
 
+    def _goodput(self) -> float | None:
+        """Serving goodput: estimated device seconds spent producing
+        tokens that were delivered, over wall-clock. Decode device time
+        (sampled mean x steps) counts the fraction of slot lanes whose
+        tokens reached a request; prefill counts the finished fraction of
+        admissions. Queue waits, sheds and idle gaps are the gap to 1.0.
+        None until a device-time sample and a wall window exist; the
+        `serving_goodput` gauge tracks the latest value."""
+        m = self.metrics
+        if (m.started_at is None or m.stopped_at is None
+                or m.stopped_at <= m.started_at):
+            return None
+        wall = m.stopped_at - m.started_at
+        useful = 0.0
+        # a speculative engine's verify step is its decode
+        dec = self.cost.mean_device_time(
+            "verify" if self._spec else "decode")
+        steps = m.decode_steps
+        lanes = self.engine_config.num_slots * (
+            self.engine_config.draft_k if self._spec else 1)
+        if dec is not None and steps:
+            useful += dec * steps * min(1.0, m.tokens_out / (steps * lanes))
+        pre = self.cost.mean_device_time("prefill")
+        if pre is not None and m.prefill_chunks and m.prefix_lookups:
+            useful += pre * m.prefill_chunks * min(
+                1.0, m.finished / m.prefix_lookups)
+        if useful <= 0.0:
+            return None
+        g = min(1.0, useful / wall)
+        m.set_goodput(g)
+        return g
+
     def reset_metrics(self) -> None:
         """Drop accumulated samples (e.g. after a warm-up pass). Captured
         programs, slot state and in-flight requests are untouched. The
-        registry's series objects survive (zeroed in place)."""
+        registry's series objects survive (zeroed in place); the static
+        program costs are set again, and the device-time samples restart
+        empty."""
         self.registry.reset()
         self.metrics = ServingMetrics(registry=self.registry)
+        self.cost.republish()
+        self.timer = StepTimer(warmup_steps=0, registry=self.registry,
+                               name="serving_step")
         # page-pool gauges reflect CURRENT state, not a window: re-sync
         self._set_page_gauges()
         if self._host_tier is not None:
@@ -1227,16 +1423,48 @@ class Engine:
 
     def metrics_summary(self) -> dict[str, float]:
         """Flat serving metrics (TTFT/per-token percentiles, occupancy,
-        queue depth, tokens/sec, prefix reuse) plus the pool capacity and
-        the program capture counts."""
+        queue depth, tokens/sec, prefix reuse), the pool capacity, the
+        host dispatch meter, the decode and prefill rooflines (on a
+        speculative engine the decode keys read the verify program),
+        goodput and the program capture counts."""
         out = self.metrics.summary()
         out["pages_capacity"] = float(self.cache.num_pages)
+        if self.timer._dispatch_hist.count:
+            out["host_dispatch_us_mean"] = self.timer.host_dispatch_us
+        decode_prog = "verify" if self._spec else "decode"
+        for prog in (decode_prog, "prefill"):
+            sheet = self.cost.roofline(prog) or {}
+            name = "decode" if prog == decode_prog else prog
+            if "device_time_mean_s" in sheet:
+                out[f"{name}_device_time_mean_ms"] = (
+                    sheet["device_time_mean_s"] * 1e3)
+                out[f"{name}_device_time_p99_ms"] = (
+                    sheet["device_time_p99_s"] * 1e3)
+            if prog == decode_prog:
+                for src, dst in (("mfu", "decode_mfu"),
+                                 ("mxu_idle_fraction",
+                                  "decode_mxu_idle_fraction"),
+                                 ("hbm_bw_util", "decode_hbm_bw_util"),
+                                 ("arith_intensity",
+                                  "decode_arith_intensity")):
+                    if src in sheet:
+                        out[dst] = float(sheet[src])
+        g = self._goodput()
+        if g is not None:
+            out["goodput"] = g
         out.update({f"compiles_{k}": float(v)
                     for k, v in self.compile_stats().items()})
         return out
 
     def close(self) -> None:
-        """Stop the host tier's drain thread. Idempotent; the engine
-        itself stays usable (evictions then destroy pages)."""
+        """Stop the background threads (exporter, watchdog, the host
+        tier's drain). Idempotent; the engine itself stays usable
+        (evictions then destroy pages)."""
+        if self.metrics_server is not None:
+            self.metrics_server.stop()
+            self.metrics_server = None
+        if self.watchdog is not None:
+            self.watchdog.stop()
+            self.watchdog = None
         if self._host_tier is not None:
             self._host_tier.close()

@@ -48,6 +48,8 @@ from __future__ import annotations
 import queue
 import threading
 
+from ..telemetry.lockwatch import maybe_tracked
+
 __all__ = ["HostTier"]
 
 
@@ -65,7 +67,7 @@ class _HostEntry:
         self.node = node
         self.pending = pending
         self.data = None
-        self.lock = threading.Lock()
+        self.lock = maybe_tracked("host-tier-entry")
         self.cancelled = False
 
 

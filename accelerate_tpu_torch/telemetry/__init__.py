@@ -1,9 +1,37 @@
 """Telemetry of the port: the metrics registry, host-span request
-tracing with its flight recorder, the Prometheus exposition, the
-one-host snapshot aggregate and the straggler monitor."""
+tracing with its flight recorder, the Prometheus exposition and its
+exporter thread, the one-host snapshot aggregate, the straggler monitor,
+the device-cost table (rooflines and goodput), the stall watchdog with
+its incident bundles, and lockwatch.
+
+Nothing here starts a thread or binds a port unless asked, and nothing
+reads the reference's environment variables."""
 
 from .aggregate import aggregate_snapshot
-from .export import negotiate_exposition, render_prometheus
+from .cost import (
+    CostTable,
+    ProgramCost,
+    device_peaks,
+    extract_cost_analysis,
+    resolve_sample_every,
+)
+from .export import (
+    MetricsServer,
+    negotiate_exposition,
+    render_prometheus,
+    resolve_metrics_port,
+    snapshot_for_tracking,
+    start_metrics_server,
+    write_snapshot,
+)
+from .lockwatch import (
+    LockOrderViolation,
+    TrackedLock,
+    lockwatch_enabled,
+    lockwatch_state,
+    maybe_tracked,
+    reset_lockwatch,
+)
 from .registry import MetricsRegistry, get_registry
 from .straggler import StragglerMonitor
 from .trace import (
@@ -22,6 +50,16 @@ from .trace import (
     trace_events,
     tracing_enabled,
 )
+from .watchdog import (
+    StallError,
+    StallWatchdog,
+    build_exception_report,
+    list_incident_bundles,
+    load_incident_bundle,
+    resolve_incident_dir,
+    resolve_stall_timeout,
+    write_incident_bundle,
+)
 
 __all__ = [
     "aggregate_snapshot",
@@ -30,6 +68,11 @@ __all__ = [
     "get_registry",
     "render_prometheus",
     "negotiate_exposition",
+    "MetricsServer",
+    "resolve_metrics_port",
+    "start_metrics_server",
+    "snapshot_for_tracking",
+    "write_snapshot",
     "span",
     "record_span",
     "configure_tracing",
@@ -44,4 +87,23 @@ __all__ = [
     "export_chrome_trace",
     "drain_spans",
     "ingest_spans",
+    "CostTable",
+    "ProgramCost",
+    "device_peaks",
+    "extract_cost_analysis",
+    "resolve_sample_every",
+    "StallWatchdog",
+    "StallError",
+    "resolve_stall_timeout",
+    "resolve_incident_dir",
+    "write_incident_bundle",
+    "build_exception_report",
+    "list_incident_bundles",
+    "load_incident_bundle",
+    "LockOrderViolation",
+    "TrackedLock",
+    "lockwatch_enabled",
+    "lockwatch_state",
+    "maybe_tracked",
+    "reset_lockwatch",
 ]

@@ -1,20 +1,25 @@
-"""Prometheus text exposition and JSONL snapshots of a metrics registry.
+"""Prometheus text exposition, the metrics exporter thread, and JSONL
+snapshots of a metrics registry (a copy of
+`accelerate_tpu/telemetry/export.py`).
 
-The exposition half of `accelerate_tpu/telemetry/export.py`, copied:
-`render_prometheus` (text format 0.0.4, or OpenMetrics with trace-id
-exemplars on the latency histograms) and `negotiate_exposition`, the
-Accept-header negotiation the HTTP front door's `/metrics` route serves;
-and its snapshot helpers, `snapshot_for_tracking` (what
-`Accelerator.log_telemetry` logs through the trackers) and
-`write_snapshot`. The standalone exporter thread (`start_metrics_server`,
-`metrics_port`) is not ported yet: `EngineConfig(metrics_port=...)`
-raises until the telemetry exporters arrive.
+- `render_prometheus` (text format 0.0.4, or OpenMetrics with trace-id
+  exemplars on the latency histograms) and `negotiate_exposition`, the
+  Accept-header negotiation that both the exporter and the HTTP front
+  door's `/metrics` route serve;
+- `MetricsServer` / `start_metrics_server`: `/metrics` (GET and HEAD) on
+  a background thread, bound to 127.0.0.1 unless a host is given; port
+  0 binds an ephemeral port, and an explicit port that cannot bind
+  raises. The port reads no environment variable: no port, no exporter;
+- `snapshot_for_tracking` (what `Accelerator.log_telemetry` logs through
+  the trackers) and `write_snapshot`.
 """
 
 from __future__ import annotations
 
 import json
+import threading
 import time
+from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 
 from .registry import MetricsRegistry, flatten_snapshot, get_registry
 
@@ -23,6 +28,9 @@ __all__ = [
     "PROMETHEUS_CONTENT_TYPE",
     "OPENMETRICS_CONTENT_TYPE",
     "negotiate_exposition",
+    "MetricsServer",
+    "resolve_metrics_port",
+    "start_metrics_server",
     "snapshot_for_tracking",
     "write_snapshot",
 ]
@@ -151,6 +159,92 @@ def negotiate_exposition(accept: str | None,
     body = render_prometheus(registry, openmetrics=om)
     return body, (OPENMETRICS_CONTENT_TYPE if om
                   else PROMETHEUS_CONTENT_TYPE)
+
+
+class _Handler(BaseHTTPRequestHandler):
+    registry: MetricsRegistry | None = None  # set per server subclass
+
+    def _respond(self, include_body: bool) -> None:
+        if self.path.split("?")[0] not in ("/metrics", "/"):
+            self.send_response(404)
+            self.end_headers()
+            return
+        text, ctype = negotiate_exposition(self.headers.get("Accept"),
+                                           self.registry)
+        body = text.encode()
+        self.send_response(200)
+        self.send_header("Content-Type", ctype)
+        self.send_header("Content-Length", str(len(body)))
+        self.end_headers()
+        if include_body:
+            self.wfile.write(body)
+
+    def do_GET(self):  # noqa: N802 (stdlib API)
+        self._respond(include_body=True)
+
+    def do_HEAD(self):  # noqa: N802 — health probes HEAD before scraping
+        self._respond(include_body=False)
+
+    def log_message(self, *args):  # scrapes are not log lines
+        pass
+
+
+class MetricsServer:
+    """Prometheus endpoint on a background daemon thread.
+
+    `port=0` binds an ephemeral port; read the bound one from `.port`.
+    Binds loopback by default: telemetry carries workload details, so
+    serving it beyond the host is an explicit `host=`."""
+
+    def __init__(self, registry: MetricsRegistry | None = None,
+                 port: int = 0, host: str = "127.0.0.1"):
+        self.registry = registry or get_registry()
+        handler = type("_BoundHandler", (_Handler,),
+                       {"registry": self.registry})
+        self._httpd = ThreadingHTTPServer((host, port), handler)
+        self._httpd.daemon_threads = True
+        self._thread: threading.Thread | None = None
+
+    @property
+    def port(self) -> int:
+        return self._httpd.server_address[1]
+
+    def start(self) -> "MetricsServer":
+        if self._thread is None:
+            self._thread = threading.Thread(
+                target=self._httpd.serve_forever,
+                name="accelerate-tpu-metrics", daemon=True,
+            )
+            self._thread.start()
+        return self
+
+    def stop(self) -> None:
+        if self._thread is not None:
+            self._httpd.shutdown()
+            self._thread.join(timeout=5)
+            self._thread = None
+        self._httpd.server_close()
+
+
+def resolve_metrics_port(explicit: int | None = None) -> int | None:
+    """The port to serve on: the explicit value; None means the exporter
+    stays off. 0 binds an ephemeral port."""
+    if explicit is not None:
+        return int(explicit)
+    return None
+
+
+def start_metrics_server(port: int | None = None,
+                         registry: MetricsRegistry | None = None,
+                         host: str | None = None) -> MetricsServer | None:
+    """Start the exporter when a port is given; returns the running
+    server, or None when none is asked for. A port that cannot bind
+    raises (the caller asked for it). `host` defaults to 127.0.0.1."""
+    resolved = resolve_metrics_port(port)
+    if resolved is None:
+        return None
+    return MetricsServer(registry=registry, port=resolved,
+                         host=host or "127.0.0.1").start()
 
 
 def snapshot_for_tracking(registry: MetricsRegistry | None = None,

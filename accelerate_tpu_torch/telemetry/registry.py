@@ -2,8 +2,10 @@
 
 A copy of `accelerate_tpu/telemetry/registry.py` (which imports no jax,
 but importing it runs the JAX package's `__init__`). The one change: the
-registry's own lock is a plain `threading.Lock` — the lock-order
-sanitizer hook arrives with the telemetry slice of the port.
+registry's own lock is a plain `threading.Lock`. The reference tracks it
+with lockwatch when its environment variable says so; the port's
+lockwatch switch is an explicit argument, which the registry never
+passes.
 
 The registry is the one place a metric lives: named series with optional
 labels, get-or-create semantics so instrumentation sites and exporters

@@ -8,8 +8,8 @@ to the fleet mean for one histogram (the step-time series by default)
 and, when a host stays slow past a patience window, escalates instead of
 just observing:
 
-- writes a ``straggler`` incident bundle in the reference (not yet
-  ported, see below),
+- writes a ``straggler`` incident bundle (the stall watchdog's format
+  and location) when an ``incident_dir`` is given,
 - attributes the excess seconds into the caller's `StepTimer` taxonomy
   (``note_lost("straggler", ...)``) when a timer is wired,
 - invokes ``on_straggler(report)`` — the hook a pod deployment points at
@@ -21,10 +21,9 @@ the strike counter; only a PERSISTENT straggler past `ratio_threshold`
 for `patience` consecutive observations fires, and it fires once per
 episode (the ratio must recover below threshold to re-arm).
 
-A copy of `accelerate_tpu/telemetry/straggler.py`. Incident bundles
-arrive with the port's telemetry slice (the stall watchdog's bundle
-writer), so `incident_dir` raises until then and a report's
-`bundle_path` is None.
+A copy of `accelerate_tpu/telemetry/straggler.py`; the port reads no
+environment variable for the incident directory, so without
+`incident_dir` a report's `bundle_path` is None.
 """
 
 from __future__ import annotations
@@ -55,10 +54,6 @@ class StragglerMonitor:
         on_straggler: Callable[[dict], Any] | None = None,
         timer: Any = None,
     ):
-        if incident_dir is not None:
-            raise NotImplementedError(
-                "StragglerMonitor(incident_dir=...) is not ported yet: "
-                "incident bundles arrive with the port's telemetry slice")
         if ratio_threshold <= 1.0:
             raise ValueError("ratio_threshold must be > 1.0 "
                              f"(got {ratio_threshold})")
@@ -145,5 +140,14 @@ class StragglerMonitor:
         return report
 
     def _write_bundle(self, report: dict) -> str | None:
-        """No bundle writer in the port yet (see the module docstring)."""
-        return None
+        from .watchdog import resolve_incident_dir, write_incident_bundle
+
+        base = resolve_incident_dir(self.incident_dir)
+        if base is None:
+            return None
+        try:
+            return write_incident_bundle(base, dict(report),
+                                         registry=self._registry,
+                                         name="straggler")
+        except Exception:
+            return None     # escalation must never crash the train loop

@@ -307,10 +307,10 @@ def run_resilient(
 
 
 def _write_crash_bundle(exc: BaseException, accelerator) -> str | None:
-    """The reference writes an incident bundle for a step-time crash when
-    its incident directory is set. The port has no bundle writer yet (it
-    arrives with the telemetry slice, the stall watchdog's), and reads no
-    environment variable for the directory: no bundle, None."""
+    """The reference writes an incident bundle for a step-time crash into
+    the directory of its `ACCELERATE_TPU_INCIDENT_DIR` environment
+    variable, and only there: `run_resilient` takes no directory. The
+    port reads no environment variable, so it writes no bundle: None."""
     return None
 
 

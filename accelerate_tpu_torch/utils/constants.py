@@ -15,12 +15,22 @@ WEIGHTS_NAME = "pytorch_model.bin"
 WEIGHTS_INDEX_NAME = "pytorch_model.bin.index.json"
 CHECKPOINT_DIR_PREFIX = "checkpoint"
 
-# --- peak dense bf16 FLOP/s per GPU, by a substring of the device name ------
-# (NVIDIA's data sheet, SXM part, without sparsity; the reference keeps a
-# table of TPU generations in its place)
-GPU_PEAK_FLOPS = {
-    "h100": 989e12,
+# --- peaks per GPU part: (dense bf16 FLOP/s, device-memory bytes/s) -------
+# NVIDIA H100 Tensor Core GPU data sheet, without sparsity: the SXM5 part
+# ("NVIDIA H100 80GB HBM3") 989.4 TFLOP/s bf16 and 3.35 TB/s HBM3; the
+# PCIe part ("NVIDIA H100 PCIe") 756 TFLOP/s and 2.0 TB/s HBM2e. Keyed on
+# the lower-cased `torch.cuda.get_device_name` text, so one part is never
+# read with another's peaks; a name the table lacks has no entry.
+GPU_PEAKS = {
+    "nvidia h100 80gb hbm3": (989e12, 3.35e12),
+    "nvidia h100 pcie": (756e12, 2.0e12),
 }
+
+
+def gpu_peaks(name: str) -> tuple[float, float] | None:
+    """(FLOP/s, bytes/s) of the GPU named `name`, or None."""
+    return GPU_PEAKS.get(name.strip().lower())
+
 
 # --- the mesh axes a batch's leading dim shards over (the reference's
 # `BATCH_AXES`); one process on one card has no mesh, so the loaders

@@ -41,6 +41,15 @@ script exits non-zero:
    `--dry-run`, then serving for real on the card: one request over
    HTTP through K2, then SIGTERM: it drains and exits 0; for `--family
    llama` and `--family gpt2`;
+5a''. telemetry: phase engine's llama3-8B engine and 12 requests with
+   the exporter on, a 5 s stall watchdog, device-time sampling at every
+   call and an incident directory: greedy streams equal phase engine's,
+   captures flat, K2's launches through replays, the reference's
+   roofline and goodput keys on the H100's peaks, the sampled decode
+   time against the profiled forward, both expositions of /metrics;
+   then the engine left unstepped: the watchdog fires, /healthz 503,
+   the bundle's files, `python -m accelerate_tpu_torch.commands.incident
+   list/show` on it, no thread left after close();
 5b. speculative: a 2-layer draft, draft_k 4: greedy streams equal to
    the plain engine's in f32 at 4 layers, then the bf16 32-layer engine
    with its accept rate and the draft and verify programs' times;
@@ -73,6 +82,11 @@ script exits non-zero:
    copy on a side stream (a profiled step), the tracker file, the input
    stall per step, and the stall behind a source that sleeps 100 ms a
    batch;
+6t. telemetry_train: phase train's step with `cost_sample_every=1`,
+   `stall_timeout_s=60` and `metrics_port=0`: its 11 losses equal phase
+   train's bit for bit, the flash launches, the cost table's analytic
+   FLOPs equal to bench.py's reckoning and its MFU within 10% of phase
+   train's, `program_mfu` on the exporter;
 6a. fp8_train: the same step with mixed_precision="fp8": every layer
    projection through `_scaled_mm`, the flash kernels, its launch
    counts, step time, tokens/s, MFU, peak memory and a profiler split
@@ -998,6 +1012,8 @@ def phase_engine(kernel_rows):
         row["launches"] = launches
     engine_numbers = {"decode_step_ms_median":
                       float(np.median(decode_s)) * 1e3,
+                      "prefill_chunk_ms_median":
+                      float(np.median(prefill_s)) * 1e3,
                       "greedy": {i: reqs[i].tokens for i in greedy}}
     return cfg, params, eng, prompts, temps, engine_numbers
 
@@ -1169,6 +1185,7 @@ def _decode_breakdown(eng, table, engine_numbers, reqs):
     lengths = eng.cache.lengths.tolist()
     profile = _profile_step(eng, table)
     forward_device_ms = profile["device_ms_total"]
+    engine_numbers["decode_forward_device_ms"] = forward_device_ms
     # the captured decode program, replayed back to back: each replay is
     # a real step for the 8 live lanes (lengths advance by one)
     eng._upload_step([s for s in eng.scheduler.slots
@@ -1575,6 +1592,189 @@ def _serve_cli_family(family):
             and any("drained" in ln for ln in rest)):
         raise AssertionError(f"serve_cli --family {family} failed: see "
                              "the serve_cli line")
+
+
+# ---------------------------------------------------------------------------
+# phase 5a'': telemetry on the serving path
+# ---------------------------------------------------------------------------
+
+# the keys the reference's default engine reports and the port's did not
+TELEMETRY_KEYS = ("decode_device_time_mean_ms", "decode_device_time_p99_ms",
+                  "prefill_device_time_mean_ms", "prefill_device_time_p99_ms",
+                  "decode_mfu", "decode_hbm_bw_util",
+                  "decode_mxu_idle_fraction", "decode_arith_intensity",
+                  "goodput", "host_dispatch_us_mean")
+TELEMETRY_WATCHDOG_S = 5.0
+# the sampled decode program (forward, sampling, append, host launch)
+# against the eager forward's profiled device time at phase engine's
+# pool state: the pool state differs, so the band is wide
+TELEMETRY_DECODE_BAND = 0.20
+BUNDLE_FILES = ("report.json", "stacks.txt", "trace.json", "metrics.json",
+                "metrics.prom", "device_memory.json", "cost_table.json")
+
+
+def _scrape(port, accept=None) -> str:
+    import urllib.request
+
+    req = urllib.request.Request(f"http://127.0.0.1:{port}/metrics",
+                                 headers={"Accept": accept} if accept
+                                 else {})
+    with urllib.request.urlopen(req, timeout=30) as resp:
+        return resp.read().decode()
+
+
+async def _healthz_on_stall(door, eng):
+    """/healthz of a door over the stalled engine, then after a tick.
+    An idle door ticks the watchdog itself (idle is progress), so the
+    door starts with the watchdog set aside and gets it back once its
+    drive loop waits for work, as the reference's test does."""
+    import asyncio
+
+    wd, eng.watchdog = eng.watchdog, None
+    await door.start()
+    try:
+        await asyncio.sleep(0.1)
+        eng.watchdog = wd
+        st, _, body = await _http(door.port, "/healthz")
+        wd.tick()
+        st_after, _, _ = await _http(door.port, "/healthz")
+        return {"stalled": st, "reason": json.loads(body),
+                "after_tick": st_after}
+    finally:
+        await door.stop()
+
+
+def phase_telemetry(cfg, params, prompts, temps, engine_numbers,
+                    kernel_rows):
+    """Phase engine's llama3-8B engine (32 layers, bf16, 8 slots, 12
+    requests) with every telemetry knob on: the exporter on an ephemeral
+    port, a 5 s stall watchdog, device-time sampling at every call and
+    an incident directory. Gated: greedy streams equal phase engine's,
+    each program captured once, K2's launches through replays, every
+    telemetry key of the reference's summary with non-nominal peaks,
+    `decode_mfu` and `decode_hbm_bw_util` in (0, 1.05], the sampled
+    decode time within 20% of the eager forward's profiled device time,
+    both expositions of /metrics carrying the decode device time and
+    goodput; then, left unstepped, the watchdog fires, /healthz answers
+    503 (200 after a tick), the bundle holds the reference's files and
+    the incident CLI lists and shows it; close() leaves no thread.
+    Reported beside phase engine's (sampling every 16th call): the
+    decode step and prefill chunk medians."""
+    import asyncio
+    import os
+    import shutil
+    import tempfile
+    import threading
+
+    import numpy as np
+    import torch
+
+    from accelerate_tpu_torch.models import llama
+    from accelerate_tpu_torch.ops.paged_attention import \
+        paged_decode_attention
+    from accelerate_tpu_torch.server import (
+        HttpFrontDoor, InferenceService, ServerConfig, get_tokenizer)
+    from accelerate_tpu_torch.serving import Engine, EngineConfig
+    from accelerate_tpu_torch.telemetry import list_incident_bundles
+
+    incidents = tempfile.mkdtemp(prefix="chip_smoke_incidents_")
+    ec = EngineConfig(cache_dtype=torch.bfloat16, paged_attention=True,
+                      metrics_port=0,
+                      watchdog_timeout_s=TELEMETRY_WATCHDOG_S,
+                      cost_sample_every=1, incident_dir=incidents,
+                      **ENGINE_CONFIG)
+    eng = Engine(llama, cfg, params, ec)
+    port = eng.metrics_server.port
+    # the main path's run: every count at 0 just before, read just after
+    paged_decode_attention.launches = 0
+    reqs, decode_s, prefill_s, run_s = _drive(eng, prompts, temps)
+    launches = paged_decode_attention.launches
+    steps = eng.metrics.decode_steps
+    stats = eng.compile_stats()
+    summary = eng.metrics_summary()
+    sheets = {p: eng.cost.roofline(p) for p in ("admit", "prefill",
+                                                "decode")}
+    stalls_while_driven = eng.watchdog.stall_count
+    scrapes = {"prometheus": _scrape(port),
+               "openmetrics": _scrape(port, "application/openmetrics-text")}
+    scrape_ok = {k: 'program_device_time_seconds{program="decode"' in v
+                 and "serving_goodput" in v for k, v in scrapes.items()}
+    greedy = engine_numbers["greedy"]
+    greedy_same = all(reqs[i].tokens == toks for i, toks in greedy.items())
+    # left unstepped past the timeout: the watchdog's own thread fires
+    t0 = time.perf_counter()
+    while not eng.watchdog.stalled and \
+            time.perf_counter() - t0 < 4 * TELEMETRY_WATCHDOG_S:
+        time.sleep(0.25)
+    fired_after_s = time.perf_counter() - t0
+    bundles = list_incident_bundles(incidents)
+    bundle = bundles[0]["path"] if bundles else None
+    files = sorted(os.listdir(bundle)) if bundle else []
+    door = HttpFrontDoor(InferenceService(
+        eng, get_tokenizer("auto", cfg.vocab_size), ServerConfig(port=0)))
+    health = asyncio.run(_healthz_on_stall(door, eng))
+    cli = {}
+    for args in (["list"], ["show", bundle or "0"]):
+        proc = subprocess.run(
+            [sys.executable, "-m", "accelerate_tpu_torch.commands.incident",
+             *args, "--dir", incidents],
+            capture_output=True, text=True, timeout=120)
+        cli[args[0]] = {"rc": proc.returncode,
+                        "names_bundle": bool(bundle) and
+                        os.path.basename(bundle) in proc.stdout,
+                        "cost_block": "device cost (per call)" in proc.stdout}
+    eng.close()
+    shutil.rmtree(incidents, ignore_errors=True)
+    left = [t.name for t in threading.enumerate()
+            if t.is_alive() and ("watchdog" in t.name
+                                 or t.name == "accelerate-tpu-metrics")]
+    forward_ms = engine_numbers["decode_forward_device_ms"]
+    decode_ms = summary.get("decode_device_time_mean_ms", float("nan"))
+    missing = [k for k in TELEMETRY_KEYS if k not in summary]
+    emit("telemetry", config="llama3_8b", layers=cfg.num_hidden_layers,
+         cost_sample_every=1, watchdog_timeout_s=TELEMETRY_WATCHDOG_S,
+         requests=len(reqs),
+         finished=len(reqs) - len(_finished(reqs, cfg.vocab_size)),
+         decode_steps=steps, paged_decode_launches=launches,
+         compile_stats=stats, greedy_streams_equal_engine=greedy_same,
+         summary={k: summary.get(k) for k in TELEMETRY_KEYS},
+         rooflines=sheets, missing_keys=missing,
+         decode_forward_device_ms=forward_ms,
+         sampled_decode_over_forward=decode_ms / forward_ms,
+         decode_step_ms_median=float(np.median(decode_s)) * 1e3,
+         engine_decode_step_ms_median=engine_numbers[
+             "decode_step_ms_median"],
+         prefill_chunk_ms_median=float(np.median(prefill_s)) * 1e3,
+         engine_prefill_chunk_ms_median=engine_numbers[
+             "prefill_chunk_ms_median"],
+         run_s=run_s, scrape_ok=scrape_ok,
+         stalls_while_driven=stalls_while_driven,
+         watchdog_fired_after_s=fired_after_s, healthz=health,
+         bundle=bundle, bundle_files=files, incident_cli=cli,
+         threads_left=left)
+    failed = [k for k, ok in (
+        ("finished", not _finished(reqs, cfg.vocab_size)),
+        ("greedy_streams", greedy_same),
+        ("captures", stats == {"admit": 1, "prefill": 1, "decode": 1}),
+        ("launches", launches == steps * cfg.num_hidden_layers > 0),
+        ("summary_keys", not missing),
+        ("peaks_nominal", sheets["decode"].get("peaks_nominal") == 0.0),
+        ("decode_mfu", 0.0 < summary.get("decode_mfu", 0.0) <= 1.05),
+        ("decode_hbm_bw_util",
+         0.0 < summary.get("decode_hbm_bw_util", 0.0) <= 1.05),
+        ("decode_time", abs(decode_ms / forward_ms - 1.0)
+         <= TELEMETRY_DECODE_BAND),
+        ("scrape", all(scrape_ok.values())),
+        ("watchdog_fired", health["stalled"] == 503
+         and health["after_tick"] == 200),
+        ("bundle", set(BUNDLE_FILES) <= set(files)),
+        ("incident_cli", all(c["rc"] == 0 and c["names_bundle"]
+                             for c in cli.values())
+         and cli["show"]["cost_block"]),
+        ("threads", not left)) if not ok]
+    if failed:
+        raise AssertionError(f"telemetry phase failed: {failed}")
+    kernel_rows.append(_paged_row("telemetry", launches))
 
 
 # ---------------------------------------------------------------------------
@@ -2542,6 +2742,103 @@ def phase_data_train(kernel_rows, train):
     for row in [r for r in kernel_rows if r["name"] in want]:
         kernel_rows.append(dict(row, name=f"{row['name']}[data_train]",
                                 launches=launches[row["name"]]))
+
+
+# ---------------------------------------------------------------------------
+# phase 6t: telemetry on the training path
+# ---------------------------------------------------------------------------
+
+TELEMETRY_MFU_BAND = 0.10   # cost-table MFU against phase train's
+
+
+def phase_telemetry_train(kernel_rows, train):
+    """Phase train's step (llama3-8B width, 4 layers, remat "dots", bf16,
+    clip 1.0, adamw(3e-4), one [2, 2049] batch from seed 0) on an
+    Accelerator with `cost_sample_every=1`, `stall_timeout_s=60` and
+    `metrics_port=0`: every step after the warm-up is fenced and timed
+    into the cost table. Gated: the 11 losses equal phase train's bit for
+    bit (a fence changes no arithmetic), the flash launches, the
+    analytic cost's FLOPs equal to bench.py's reckoning, the cost-table
+    MFU within 10% of phase train's (the fenced step exposes the host's
+    issue, so it reads low), and `program_mfu{program="train_step"}` on
+    the exporter. Reported: the step time beside phase train's."""
+    import numpy as np
+    import torch
+
+    from accelerate_tpu_torch.accelerator import Accelerator
+    from accelerate_tpu_torch.models import llama
+    from accelerate_tpu_torch.models.common import count_params
+    from accelerate_tpu_torch.optimizers import adamw
+    from accelerate_tpu_torch.state import PartialState
+    from accelerate_tpu_torch.training import TrainState
+
+    cfg = _train_config(TRAIN_LAYERS, remat=True, remat_policy="dots")
+    PartialState._reset_state()
+    acc = Accelerator(mixed_precision="bf16", gradient_clipping=1.0,
+                      cost_sample_every=1, stall_timeout_s=60,
+                      metrics_port=0)
+    # the cost table lives on the process registry, where phase train's
+    # step (sampled at its call 2) left a `train_step` sample: start the
+    # series empty
+    acc.telemetry.reset()
+    try:
+        state = acc.prepare(TrainState.create(
+            apply_fn=None, params=llama.init_params(cfg, 0),
+            tx=adamw(3e-4)))
+        n_params = count_params(state.params)
+        (batch,) = list(acc.prepare([{"input_ids": _train_batch(cfg)}]))
+        step = acc.train_step(lambda p, b: llama.causal_lm_loss(cfg, p, b))
+        state, m = step(state, batch)                     # warm-up
+        # the main path's run: every count at 0 just before, read just
+        # after
+        state, timed, step_ms, launches = _timed_steps(step, state, batch,
+                                                       TRAIN_STEPS)
+        losses = [float(x) for x in [m["loss"], *timed]]
+        sheet = acc.cost_table.roofline("train_step")
+        scrape = _scrape(acc.metrics_server.port)
+        stalls = acc.stall_watchdog.stall_count
+    finally:
+        acc.end_training()
+    del state, step, batch
+    bench_flops = (6 * n_params + 12 * cfg.num_hidden_layers
+                   * cfg.hidden_size * 2048) * 2 * 2048
+    med = float(np.median(step_ms))
+    first_diff = next((i for i, (a, b) in enumerate(zip(losses,
+                                                        train["losses"]))
+                       if a != b), None)
+    emit("telemetry_train", config="llama3_8b",
+         layers=cfg.num_hidden_layers, cost_sample_every=1,
+         losses=losses, train_losses=train["losses"],
+         losses_bit_equal=first_diff is None, launches=launches,
+         roofline=sheet, bench_flops=bench_flops,
+         cost_table_mfu=sheet.get("mfu"), train_mfu=train["mfu_bf16_peak"],
+         cost_table_step_ms_mean=sheet.get("device_time_mean_s", 0.0) * 1e3,
+         step_ms=step_ms, step_ms_median=med,
+         train_step_ms_median=train["step_ms_median"],
+         exporter_has_program_mfu='program_mfu{program="train_step"}'
+         in scrape, stalls=stalls)
+    want = {"flash_fwd": 2 * TRAIN_LAYERS * TRAIN_STEPS,
+            "flash_bwd_dq": TRAIN_LAYERS * TRAIN_STEPS,
+            "flash_bwd_dkv": TRAIN_LAYERS * TRAIN_STEPS}
+    failed = [k for k, ok in (
+        ("losses", first_diff is None),
+        ("launches", launches == want),
+        ("cost_source", sheet.get("cost_source") == "analytic"),
+        ("flops", sheet.get("flops") == bench_flops),
+        ("samples", sheet.get("device_time_samples") == TRAIN_STEPS),
+        ("mfu", abs(sheet.get("mfu", 0.0) / train["mfu_bf16_peak"] - 1.0)
+         <= TELEMETRY_MFU_BAND),
+        ("exporter", 'program_mfu{program="train_step"}' in scrape))
+        if not ok]
+    if failed:
+        raise AssertionError(f"telemetry_train phase failed: {failed}")
+    # the kernels ran at phase train's shape, [2, 2048, 32, 128] bf16
+    # causal: their checks and times are the main rows', measured in this
+    # run; the launches are this path's
+    for row in [r for r in kernel_rows if r["name"] in want]:
+        kernel_rows.append(dict(row, name=f"{row['name']}[telemetry]",
+                                launches=launches[row["name"]]))
+    torch.cuda.synchronize()
 
 
 # ---------------------------------------------------------------------------
@@ -4172,6 +4469,8 @@ def main() -> int:
     phase_server(cfg, eng)
     del eng
     _drop()
+    phase_telemetry(cfg, params, prompts, temps, numbers, kernels)
+    _drop()
     phase_serve_cli()
     phase_speculative(cfg, params, prompts, temps, numbers)
     _drop()
@@ -4185,6 +4484,8 @@ def main() -> int:
     phase_eager_train(kernels, bf16)
     _drop()
     phase_data_train(kernels, bf16)
+    _drop()
+    phase_telemetry_train(kernels, bf16)
     _drop()
     phase_fp8_train(kernels, bf16)
     _drop()

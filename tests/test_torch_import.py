@@ -56,7 +56,9 @@ def test_port_imports_no_jax_and_no_jax_package():
                  "big_modeling", "inference", "ops.quant", "utils.offload",
                  "utils.memory", "commands.estimate", "optimizer",
                  "scheduler", "utils.operations", "native", "tracking",
-                 "logging", "utils.random", "utils.imports"):
+                 "logging", "utils.random", "utils.imports",
+                 "telemetry.cost", "telemetry.watchdog",
+                 "telemetry.lockwatch", "commands.incident"):
         assert f"accelerate_tpu_torch.{name}" in out["modules"]
     assert out["leaked"] == []
 

@@ -287,9 +287,10 @@ class TestEngineIntrospection:
         assert dbg["queued"] == [] and dbg["running"] == []
 
     def test_incident_dumps_match_the_reference_sections(self, weights):
-        """The reference's sections, less its device-cost table (not
-        ported), each equal in shape to the reference's for the same
-        state."""
+        """The reference's sections, each equal in shape to the
+        reference's for the same state; the device-cost table has the
+        same programs, calls and cadence (its costs are the port's
+        analytic ones, the reference's from XLA)."""
         dumps = {}
         for pkg in ("jax", "torch"):
             eng = _engine(weights, pkg)
@@ -297,11 +298,17 @@ class TestEngineIntrospection:
             eng.run_until_idle()
             assert r.status.value == "finished"
             dumps[pkg] = eng.incident_dumps()
-        assert set(dumps["jax"]) - set(dumps["torch"]) == {"cost_table"}
-        assert set(dumps["torch"]) == {"requests", "slots", "pages",
-                                       "scheduler", "compile_stats"}
+        assert set(dumps["torch"]) == set(dumps["jax"]) == {
+            "requests", "slots", "pages", "scheduler", "compile_stats",
+            "cost_table"}
         for section in ("requests", "slots", "pages", "compile_stats"):
             assert dumps["torch"][section] == dumps["jax"][section]
+        tables = {pkg: d["cost_table"] for pkg, d in dumps.items()}
+        assert tables["torch"]["sample_every"] == tables["jax"][
+            "sample_every"] == 16
+        assert {n: p["calls"] for n, p in tables["torch"]["programs"].items()
+                } == {n: p["calls"]
+                      for n, p in tables["jax"]["programs"].items()}
 
 
 class TestStreamKeys:

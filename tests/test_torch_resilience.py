@@ -304,8 +304,8 @@ def test_stall_taxonomy_buckets():
 
 
 def test_straggler_monitor_closed_loop():
-    """The reference's loop; incident bundles are not ported yet, so a
-    report's `bundle_path` is None (and `incident_dir` raises)."""
+    """The reference's loop; without an `incident_dir` a report's
+    `bundle_path` is None."""
     reg = MetricsRegistry()
     fired = []
     timer = StepTimer(warmup_steps=0, name="straggler_timer")
@@ -342,10 +342,25 @@ def test_straggler_monitor_closed_loop():
 
 
 def test_straggler_monitor_rejects_bad_threshold_and_incident_dir(tmp_path):
+    """A threshold at or below 1 raises; an `incident_dir` is taken, and
+    a fired straggler writes the reference's `straggler` bundle there,
+    which the JAX package's loader reads."""
+    from accelerate_tpu.telemetry.watchdog import load_incident_bundle
+
     with pytest.raises(ValueError):
         StragglerMonitor(ratio_threshold=1.0)
-    with pytest.raises(NotImplementedError, match="telemetry slice"):
-        StragglerMonitor(incident_dir=str(tmp_path))
+    reg = MetricsRegistry()
+    mon = StragglerMonitor("step_time_seconds", ratio_threshold=1.5,
+                           patience=1, registry=reg,
+                           incident_dir=str(tmp_path))
+    report = mon.observe({"num_hosts": 2, "histograms": {
+        "step_time_seconds": {"count": 8.0, "mean": 0.01,
+                              "slowest_host_mean": 0.03}}})
+    assert report["bundle_path"].startswith(str(tmp_path))
+    bundle = load_incident_bundle(report["bundle_path"])
+    assert bundle["manifest"]["kind"] == "straggler"
+    assert bundle["files"]["report.json"]["ratio"] == pytest.approx(3.0)
+    assert "metrics.json" in bundle["files"]
 
 
 def test_run_resilient_restart_on_straggler(tmp_path):

@@ -250,13 +250,20 @@ def test_dry_run_json_equals_the_reference(flags, capsys):
 
 
 @pytest.mark.parametrize("flags,needs", [
-    (["--watchdog-timeout-s", "5"], "stall watchdog"),
+    (["--watchdog-timeout-s", "5"], None),
     (["--strict", "warn"], "static-analysis"),
-    (["--incident-dir", "x"], "incident bundles"),
+    (["--incident-dir", "x"], None),
 ], ids=["watchdog", "strict", "incident_dir"])
 def test_serve_refuses_what_the_port_lacks(flags, needs, capsys):
+    """`--strict` is still refused (exit 2, naming its slice); the
+    watchdog and incident-dir flags pass the dry run with the
+    reference's JSON line."""
     from accelerate_tpu_torch.commands.serve import main
 
+    if needs is None:
+        assert _dry_run("torch", flags, capsys) == _dry_run("jax", flags,
+                                                            capsys)
+        return
     assert main(["--dry-run", *flags]) == 2
     assert needs in capsys.readouterr().err
 
@@ -1172,12 +1179,21 @@ def test_port_serves_family_gpt2_on_the_cpu():
 
 
 def test_unported_engine_surface_stays_refused(weights):
-    """The service reads `engine.watchdog` (None: the watchdog is not
-    ported) and the engine refuses the knobs whose machinery is missing,
-    naming what brings them."""
+    """The service reads `engine.watchdog`: None unless armed, a running
+    watchdog when armed. `incident_dumps()` carries the reference's
+    sections, the cost table included. `strict` is still refused,
+    naming what brings it."""
     engine, _ = _make_engine("torch", weights)
     assert engine.watchdog is None
-    assert set(engine.incident_dumps()) == {"requests", "slots", "pages",
-                                            "scheduler", "compile_stats"}
-    with pytest.raises(NotImplementedError, match="stall watchdog"):
-        _make_engine("torch", weights, watchdog_timeout_s=1.0)
+    ref, _ = _make_engine("jax", weights)
+    assert set(engine.incident_dumps()) == set(ref.incident_dumps()) == {
+        "requests", "slots", "pages", "scheduler", "compile_stats",
+        "cost_table"}
+    ref.close()
+    armed, _ = _make_engine("torch", weights, watchdog_timeout_s=1.0)
+    try:
+        assert armed.watchdog is not None and not armed.watchdog.stalled
+    finally:
+        armed.close()
+    with pytest.raises(NotImplementedError, match="static-analysis"):
+        _make_engine("torch", weights, strict="warn")

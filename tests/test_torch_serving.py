@@ -177,6 +177,26 @@ def test_auto_decode_path_is_dense_on_the_cpu(weights):
                                 path="dense").value == 2
 
 
+def test_metrics_summary_keys_like_jax(weights):
+    """The default engine of each package (sampling every 16th program
+    call, a serving StepTimer) serves the same requests with the same
+    weights: the port's summary holds every key of the reference's, the
+    device times, rooflines, goodput and host dispatch included. Values
+    are clock readings and are not compared."""
+    cfg_j, cfg_t, pj, pt = weights
+    jeng = JEngine(jl, cfg_j, pj, JConfig(cache_dtype=jnp.float32, **BASE))
+    teng = Engine(tl, cfg_t, pt, EngineConfig(cache_dtype=torch.float32,
+                                              **BASE), device="cpu")
+    for eng in (jeng, teng):
+        _run(eng, _waves(), budget=6)
+    want = set(jeng.metrics_summary())
+    assert {"decode_device_time_mean_ms", "decode_mfu", "goodput",
+            "host_dispatch_us_mean"} <= want
+    assert want <= set(teng.metrics_summary())
+    jeng.close()
+    teng.close()
+
+
 @pytest.mark.parametrize("field,value", [
     ("mesh", object()),
     ("strict", "error"),
@@ -187,10 +207,32 @@ def test_auto_decode_path_is_dense_on_the_cpu(weights):
     ("incident_dir", "incidents"),
 ])
 def test_unported_config_fields_raise(weights, field, value):
+    """`mesh`, `strict` and `contracts` still raise, naming themselves.
+    The telemetry fields construct: the exporter binds an ephemeral
+    port, the watchdog runs, the cost table takes the cadence, the
+    incident directory is kept; `close()` stops the threads."""
     _, cfg_t, _, pt = weights
-    with pytest.raises(NotImplementedError, match=field):
-        Engine(tl, cfg_t, pt, EngineConfig(**BASE, **{field: value}),
-               device="cpu")
+    if field in ("mesh", "strict", "contracts"):
+        with pytest.raises(NotImplementedError, match=field):
+            Engine(tl, cfg_t, pt, EngineConfig(**BASE, **{field: value}),
+                   device="cpu")
+        return
+    eng = Engine(tl, cfg_t, pt, EngineConfig(**BASE, **{field: value}),
+                 device="cpu")
+    try:
+        if field == "metrics_port":
+            assert eng.metrics_server.port > 0
+        elif field == "watchdog_timeout_s":
+            assert eng.watchdog.timeout_s == value
+            assert eng.watchdog._thread.is_alive()
+        elif field == "cost_sample_every":
+            assert eng.cost.sample_every == value
+        else:
+            assert eng.watchdog is None
+            assert eng.engine_config.incident_dir == value
+    finally:
+        eng.close()
+    assert eng.metrics_server is None and eng.watchdog is None
 
 
 def test_overload_rejects_and_cancel_and_finish(weights):

@@ -188,8 +188,26 @@ def test_accelerator_needs_a_gpu_unless_cpu_is_asked(monkeypatch):
      "kwargs_handlers": [InitProcessGroupKwargs()]}],
     ids=lambda kw: next(iter(kw)))
 def test_unported_arguments_raise_and_name_their_slice(kwargs):
-    with pytest.raises(NotImplementedError, match="slice"):
-        Accelerator(cpu=True, **kwargs)
+    """The parallelism and analysis arguments still raise, naming their
+    slice; the telemetry ones (`metrics_port`, `cost_sample_every`,
+    `stall_timeout_s`) construct, and `end_training` stops their
+    threads."""
+    telemetry = {"metrics_port", "cost_sample_every", "stall_timeout_s"}
+    if not telemetry & set(kwargs):
+        with pytest.raises(NotImplementedError, match="slice"):
+            Accelerator(cpu=True, **kwargs)
+        return
+    acc = Accelerator(cpu=True, **kwargs)
+    try:
+        if "metrics_port" in kwargs:
+            assert acc.metrics_server.port > 0
+        if "cost_sample_every" in kwargs:
+            assert acc.cost_table.sample_every == 16
+        if "stall_timeout_s" in kwargs:
+            assert acc.stall_watchdog.timeout_s == 10.0
+    finally:
+        acc.end_training()
+    assert acc.metrics_server is None and acc.stall_watchdog is None
 
 
 def test_defaults_of_unported_arguments_are_accepted():
