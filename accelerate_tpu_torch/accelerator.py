@@ -41,12 +41,29 @@ two paths give the same tensors on the same inputs. As in the
 reference, `backward` takes gradients, not a loss: the eager API has no
 backward tape. The collectives (`gather`, `gather_for_metrics`,
 `reduce`, `broadcast`, ...) and the process surface are the reference's
-at world size 1 (`utils/operations.py`, `state.py`).
+(`utils/operations.py`, `state.py`).
+
+Data parallelism: launched as N processes (`python -m
+accelerate_tpu_torch.commands.launch --num_processes N script.py`, or
+torchrun), each process owns one device and a replica of the params,
+its loaders take its share of each global batch, and the gradients are
+averaged across processes inside `compute_gradients` and the fused step,
+before the clip, the fp16 finite check and the optimizer: as under the
+reference's GSPMD, both return the gradient of the global batch mean,
+and the step's loss (and numeric aux) is the global mean. Every process
+then makes the same update, so the replicas stay bit-identical. Under
+fp8 every amax is the global batch's too (`ops.fp8`), so every process
+holds the same delayed-scaling metas. The
+average runs in flat buckets (`utils.operations.all_reduce_mean_`), one
+`all_reduce` a bucket. `Accelerator.mesh` is the data-parallel mesh
+over the processes (`state.ProcessMesh`): `mesh_config`, else the
+launcher's `--mesh_shape`, else every process on `data`.
 
 `kwargs_handlers` takes the reference's records: `AutocastKwargs`
 (`enabled=False` pins the compute to f32), `FP8RecipeKwargs` (its
 `amax_history_len` reaches every `init_fp8_state`) and
-`InitProcessGroupKwargs` without a timeout (one process has no group).
+`InitProcessGroupKwargs` (the process group's backend, rendezvous and
+timeout; a world of one joins no group).
 
 Both paths run eagerly and update the params and optimizer state in
 place (see `training.py`); `train_step(donate=False)` instead writes the
@@ -99,6 +116,7 @@ from . import checkpointing
 from .data import DataLoaderDispatcher, DataLoaderShard, \
     prepare_data_loader, skip_first_batches, to_device
 from .hooks_registry import RemovableHandle
+from .ops import fp8
 from .optimizer import AcceleratedOptimizer
 from .optimizers import GradientTransformation, tree_leaves, tree_map
 from .scheduler import AcceleratedScheduler
@@ -111,7 +129,7 @@ from .telemetry.watchdog import StallWatchdog, resolve_stall_timeout
 from .training import DynamicLossScale, TrainState, cast_floating, \
     clone_tree, global_norm
 from .utils import operations as ops
-from .utils.constants import CHECKPOINT_DIR_PREFIX
+from .utils.constants import CHECKPOINT_DIR_PREFIX, ENV_GRAD_ACCUM_STEPS
 from .utils.dataclasses import (
     AutocastKwargs,
     DataLoaderConfiguration,
@@ -120,32 +138,44 @@ from .utils.dataclasses import (
     InitProcessGroupKwargs,
     JitConfig,
     KwargsHandler,
+    MeshConfig,
     PrecisionType,
     ProjectConfiguration,
 )
 from .utils.memory import release_memory
 from .utils.other import flatten_dict
 
+_ITEM_6B = "sharded-parallelism slice (ROADMAP.md, queue 1 item 6b)"
+
 # reference arguments the port does not carry yet: the value that means
 # "unused", and the slice that brings them
 _UNPORTED = {
-    "split_batches": (False, "parallelism"),
-    "deepspeed_plugin": (None, "parallelism"),
-    "fsdp_plugin": (None, "parallelism"),
-    "megatron_lm_plugin": (None, "parallelism"),
-    "context_parallel_plugin": (None, "parallelism"),
-    "mesh_config": (None, "parallelism"),
-    "sharding_rules": (None, "parallelism"),
-    "strict": (None, "analysis"),
+    "deepspeed_plugin": (None, _ITEM_6B),
+    "fsdp_plugin": (None, _ITEM_6B),
+    "megatron_lm_plugin": (None, _ITEM_6B),
+    "context_parallel_plugin": (None, _ITEM_6B),
+    "sharding_rules": (None, _ITEM_6B),
+    "strict": (None, "analysis slice"),
 }
-
-_ITEM_6 = "the port's parallelism slice (ROADMAP.md, queue 1 item 6)"
 
 
 def _unported(what: str, slice_name: str) -> NotImplementedError:
     return NotImplementedError(
-        f"{what} is not ported yet: it arrives with the port's {slice_name} "
-        "slice")
+        f"{what} is not ported yet: it arrives with the port's {slice_name}")
+
+
+def _all_reduce_metric(value):
+    """A step's loss or aux leaf averaged across processes: floating
+    tensors are, other leaves stay as they are (one process: as is)."""
+    if ops._world() == 1:
+        return value
+
+    def mean(x):
+        if isinstance(x, torch.Tensor) and x.is_floating_point():
+            return ops.reduce(x.detach(), "mean")
+        return x
+
+    return ops._map(mean, value)
 
 
 def _is_params(obj: Any) -> bool:
@@ -233,6 +263,8 @@ class Accelerator:
                  metrics_port: int | None = None,
                  stall_timeout_s: float | None = None,
                  cost_sample_every: int | None = None,
+                 split_batches: bool = False,
+                 mesh_config: MeshConfig | None = None,
                  **unported: Any):
         for name, value in unported.items():
             if name not in _UNPORTED:
@@ -264,21 +296,29 @@ class Accelerator:
                     f"Unsupported kwargs handler type "
                     f"{type(handler).__name__}: GradScaler/DDP handlers are "
                     "not part of the reference.")
-        if self.init_handler is not None and \
-                self.init_handler.timeout is not None:
-            raise _unported("InitProcessGroupKwargs(timeout=...)",
-                            "parallelism")
+        group_kwargs: dict[str, Any] = {}
+        if self.init_handler is not None:
+            group_kwargs = {k: v for k, v in (
+                ("backend", self.init_handler.backend),
+                ("init_method", self.init_handler.init_method),
+                ("timeout", self.init_handler.timeout)) if v is not None}
+        # mesh: explicit, then the launcher's --mesh_shape, then every
+        # process on `data` (AcceleratorState)
         self.state = AcceleratorState(mixed_precision=mixed_precision,
-                                      cpu=cpu)
+                                      cpu=cpu, mesh_config=mesh_config,
+                                      **group_kwargs)
         # read by ops.fp8.resolve_history_len (the models' init_fp8_state)
         self.state.fp8_recipe_handler = self.fp8_recipe_handler
         if gradient_accumulation_plugin is None:
+            # the launcher's --gradient_accumulation_steps, as the
+            # reference reads its own variable
             gradient_accumulation_plugin = GradientAccumulationPlugin(
-                num_steps=gradient_accumulation_steps)
+                num_steps=int(os.environ.get(ENV_GRAD_ACCUM_STEPS,
+                                             gradient_accumulation_steps)))
         self.gradient_state = GradientState(gradient_accumulation_plugin)
         self.device_placement = device_placement
         self.dataloader_config = dataloader_config or \
-            DataLoaderConfiguration()
+            DataLoaderConfiguration(split_batches=split_batches)
         self.rng_types = rng_types
         self.step_scheduler_with_optimizer = step_scheduler_with_optimizer
         # stored as the reference stores it: nothing reads its fields
@@ -330,8 +370,10 @@ class Accelerator:
 
     @property
     def mesh(self):
-        raise NotImplementedError(
-            f"Accelerator.mesh (a device mesh) arrives with {_ITEM_6}")
+        """The processes' mesh (`state.ProcessMesh`): `.shape` is
+        {axis: size}, `.axis_names` its names, `.groups` each axis's
+        process group."""
+        return self.state.mesh
 
     @property
     def num_processes(self) -> int:
@@ -580,9 +622,13 @@ class Accelerator:
         batch = to_device(batch, self.device)
         out, grads = _value_and_grad(loss_fn, params, batch,
                                      self.compute_dtype, tuple_out=has_aux)
+        # the global batch's gradient and loss, as under the reference's
+        # GSPMD: averaged across processes here, not at the boundary
+        ops.all_reduce_mean_(tree_leaves(grads))
         if has_aux:
-            return (out[0].detach(), out[1]), grads
-        return out.detach(), grads
+            return (_all_reduce_metric(out[0].detach()),
+                    _all_reduce_metric(out[1])), grads
+        return _all_reduce_metric(out.detach()), grads
 
     def backward(self, loss_or_grads: Any = None, *, grads: Any = None,
                  **kwargs) -> None:
@@ -667,7 +713,7 @@ class Accelerator:
         `fp8_state` keyword (or `**kwargs`) and return `(loss,
         new_fp8_state)`; fp8 never degrades to full precision silently."""
         if contract is not None or replication_threshold != 1 << 26:
-            raise _unported("train_step(contract=...)", "analysis")
+            raise _unported("train_step(contract=...)", "analysis slice")
         if self.state.mixed_precision == PrecisionType.FP8:
             try:
                 params = inspect.signature(loss_fn).parameters
@@ -703,15 +749,35 @@ class Accelerator:
         return ops.gather(tensor)
 
     def gather_for_metrics(self, input_data, use_gather_object: bool = False):
-        """`gather` (objects through `gather_object`). With one process
-        the port's loaders pad no final batch, so no tail is dropped."""
+        """`gather` (objects through `gather_object`, flattened), then, in
+        the final batch of a loader whose tail was padded, the pad rows
+        dropped: with the loader's `tail_layout` (processes, padded, real)
+        each process's block keeps its `real` rows, else the first
+        `remainder` rows are kept."""
         leaves = ops._leaves(input_data)
-        if use_gather_object or not leaves or \
-                not all(ops.is_tensor(x) for x in leaves):
+        recursively = bool(leaves) and all(ops.is_tensor(x) for x in leaves)
+        if use_gather_object or not recursively:
             data = ops.gather_object(input_data)
-            return [x for sub in data
+            data = [x for sub in data
                     for x in (sub if isinstance(sub, list) else [sub])]
-        return self.gather(input_data)
+        else:
+            data = self.gather(input_data)
+        remainder = self.gradient_state.remainder
+        if not (self.gradient_state.end_of_dataloader
+                and remainder is not None and remainder > 0):
+            return data
+        layout = self.gradient_state.tail_layout
+
+        def truncate(x):
+            if layout is not None and getattr(x, "ndim", 0):
+                hosts, padded, real = layout
+                if x.shape[0] == hosts * padded:
+                    blocks = x.reshape((hosts, padded) + tuple(x.shape[1:]))
+                    return blocks[:, :real].reshape(
+                        (hosts * real,) + tuple(x.shape[1:]))
+            return x[:remainder]
+
+        return ops._map(truncate, data) if recursively else data[:remainder]
 
     def reduce(self, tensor, reduction: str = "sum", scale: float = 1.0):
         return ops.reduce(tensor, reduction, scale)
@@ -740,10 +806,10 @@ class Accelerator:
     def context_attention(self, q, k, v, causal: bool = True,
                           window: int | None = None):
         """The reference's sequence-parallel attention (ring or Ulysses
-        over the mesh) arrives with the parallelism slice."""
+        over the mesh) arrives with sharded parallelism."""
         raise NotImplementedError(
-            f"context_attention (ring/Ulysses over a mesh) arrives with "
-            f"{_ITEM_6}")
+            f"context_attention (ring/Ulysses over a mesh) arrives with the "
+            f"port's {_ITEM_6B}")
 
     # --------------------------------------------------------- profiling
     def profile(self, logdir: str):
@@ -1001,13 +1067,31 @@ class Accelerator:
         """`<project_dir>/checkpoints`, or with automatic naming its
         `checkpoint_<n>`: the next index (pruning the oldest beyond
         `total_limit`, after draining the async saves that are still
-        writing one of them) or the newest. One process decides alone;
-        the reference's broadcast of the decision to every process
-        arrives with the parallelism slice."""
+        writing one of them) or the newest. The main process lists and
+        prunes, and broadcasts its decision (or its error) to the others,
+        so every process writes into one directory."""
         base = os.path.join(self.project_configuration.project_dir or ".",
                             "checkpoints")
         if not self.project_configuration.automatic_checkpoint_naming:
             return base
+        decision = None
+        if self.is_main_process:
+            # an error here must still reach the broadcast, or every other
+            # process waits in it for rank 0
+            try:
+                decision = self._decide_checkpoint_dir(base, new)
+            except Exception as e:
+                decision = e
+        if self.num_processes > 1:
+            (decision,) = ops.broadcast_object_list([decision])
+        if isinstance(decision, Exception):
+            raise decision
+        if new:
+            self.project_configuration.iteration = int(
+                decision.rsplit("_", 1)[1])
+        return decision
+
+    def _decide_checkpoint_dir(self, base: str, new: bool) -> str:
         os.makedirs(base, exist_ok=True)
         existing = sorted(
             int(d.rsplit("_", 1)[1])
@@ -1033,7 +1117,6 @@ class Accelerator:
                 self.wait_for_checkpoints()
             for path in victims:
                 shutil.rmtree(path, ignore_errors=True)
-        self.project_configuration.iteration = idx
         return os.path.join(base, f"{CHECKPOINT_DIR_PREFIX}_{idx}")
 
     def save_model(self, params: Any, save_directory: str,
@@ -1204,12 +1287,17 @@ class _TrainStep:
                                                            out[1])
             # every micro-step, accumulating or not (the amax window is a
             # per-step statistic); after the backward, which under remat
-            # reruns the forward with this step's scales
+            # reruns the forward with this step's scales; across
+            # processes the new windows become the global batch's
             _copy_metas(state.fp8_state, new_fp8)
+            fp8.all_reduce_metas_(state.fp8_state)
         else:
             loss = out[0] if self.has_aux else out
             aux = out[1] if self.has_aux else None
         del out
+        # the global batch's gradient, before the clip, the finite check
+        # and the update, so every process decides and updates alike
+        ops.all_reduce_mean_(tree_leaves(grads))
         if use_scale:
             inv = 1.0 / state.loss_scale.scale
             for g in tree_leaves(grads):
@@ -1241,9 +1329,9 @@ class _TrainStep:
         if use_scale:
             new_state = dataclasses.replace(
                 new_state, loss_scale=state.loss_scale.update(finite))
-        metrics = {"loss": loss.detach()}
+        metrics = {"loss": _all_reduce_metric(loss.detach())}
         if self.has_aux:
-            metrics["aux"] = aux
+            metrics["aux"] = _all_reduce_metric(aux)
         return new_state, metrics
 
     def _clipped(self, grads):

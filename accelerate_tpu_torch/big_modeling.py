@@ -24,7 +24,7 @@ Device-map indices mean CUDA devices unless the entry point gets
 pinned. Without a GPU and without `device="cpu"` the entry points raise.
 The reference's one-device `"sharded"` dispatch places every leaf on
 device 0; on several cards it needs the sharding planner, which arrives
-with the parallelism slice (ROADMAP.md, queue 1 item 6).
+with the sharded-parallelism slice (ROADMAP.md, queue 1 item 6b).
 """
 
 from __future__ import annotations
@@ -262,7 +262,7 @@ def _single_device_map(mode) -> dict:
         raise NotImplementedError(
             f"device_map={mode!r} over {torch.cuda.device_count()} devices "
             "needs the sharding planner, which arrives with the port's "
-            "parallelism slice (ROADMAP.md, queue 1 item 6)")
+            "sharded-parallelism slice (ROADMAP.md, queue 1 item 6b)")
     return {"": 0}
 
 

@@ -41,8 +41,15 @@ down; no later write publishes after it.
 (index-sharded) safetensors, which the JAX package's `load_model` and
 the `safetensors` package read.
 
-One process: the port has no multi-process world yet, so rank 0 writes
-everything and nothing waits at a barrier.
+Across processes the replicas are identical, so the main process
+writes the replicated state (tensors, schedulers, samplers, custom
+objects, `accelerator_state.json`) and commits the manifest; each
+process writes its own host RNG streams (`random_states_{i}.pkl`), and
+a barrier ends every save, so no process moves on before every file but
+the main process's async writes exists. A load first drains this
+process's async writes and meets the others at a barrier, then every
+process reads the replicated files and its own RNG streams. A
+checkpoint written by one process loads as before.
 """
 
 from __future__ import annotations
@@ -62,6 +69,7 @@ import numpy as np
 import torch
 
 from .device import resolve_device
+from .state import PartialState
 from .ops.fp8 import adapt_history_len, fp8_state_history_len
 from .telemetry.lockwatch import maybe_tracked
 from .telemetry.registry import get_registry
@@ -103,6 +111,12 @@ __all__ = [
 ]
 
 logger = logging.getLogger(__name__)
+
+
+def _barrier() -> None:
+    """Wait for every process of the world (none with one)."""
+    if PartialState.num_processes > 1:
+        torch.distributed.barrier()
 
 
 def _abspath(path: str) -> str:
@@ -429,10 +443,12 @@ def _save_accelerator_state(output_dir, train_states, optimizers,
                             async_save) -> str:
     output_dir = _abspath(output_dir)
     os.makedirs(output_dir, exist_ok=True)
+    main = PartialState.is_main_process
+    rank = PartialState.process_index
     pending = _stager.stage(output_dir, step)
+    payloads, small = {}, {}
     try:
-        payloads, small = {}, {}
-        for i, ts in enumerate(train_states):
+        for i, ts in enumerate(train_states if main else ()):
             name = f"{MODEL_NAME}_{i}.safetensors"
             payloads[os.path.join(output_dir, name)] = \
                 _train_state_payload(ts)
@@ -447,7 +463,7 @@ def _save_accelerator_state(output_dir, train_states, optimizers,
                 small[f"{MODEL_NAME}_{i}_fp8.json"] = json.dumps({
                     "amax_history_len":
                         fp8_state_history_len(ts.fp8_state)}).encode()
-        for i, opt in enumerate(optimizers):
+        for i, opt in enumerate(optimizers if main else ()):
             payload = _optimizer_payload(opt)
             if payload:
                 name = f"{OPTIMIZER_NAME}_{i}.safetensors"
@@ -456,19 +472,21 @@ def _save_accelerator_state(output_dir, train_states, optimizers,
         if payloads:
             _save_payloads(payloads, async_save)
 
-        for i, sched in enumerate(schedulers):
+        for i, sched in enumerate(schedulers if main else ()):
             small[f"{SCHEDULER_NAME}_{i}.bin"] = pickle.dumps(
                 sched.state_dict())
-        for i, loader in enumerate(dataloaders):
+        for i, loader in enumerate(dataloaders if main else ()):
             small[f"{SAMPLER_NAME}_{i}.bin"] = pickle.dumps(
                 {"epoch": getattr(loader, "epoch", 0)})
-        for i, obj in enumerate(custom_objects):
+        for i, obj in enumerate(custom_objects if main else ()):
             small[f"custom_checkpoint_{i}.pkl"] = pickle.dumps(
                 obj.state_dict())
-        small["accelerator_state.json"] = json.dumps({"step": step}).encode()
-        # host RNG streams; the model's randomness is explicit (seeds and
-        # generators), as in the reference
-        small[f"{RNG_STATE_NAME}_0.pkl"] = pickle.dumps({
+        if main:
+            small["accelerator_state.json"] = json.dumps(
+                {"step": step}).encode()
+        # this process's host RNG streams; the model's randomness is
+        # explicit (seeds and generators), as in the reference
+        small[f"{RNG_STATE_NAME}_{rank}.pkl"] = pickle.dumps({
             "python": _py_random.getstate(),
             "numpy": np.random.get_state(),
             "torch": torch.get_rng_state(),
@@ -478,12 +496,20 @@ def _save_accelerator_state(output_dir, train_states, optimizers,
                 f.write(data)
                 f.flush()
                 os.fsync(f.fileno())
-            pending.add(name)
+            # the manifest lists rank 0's RNG streams, the one file every
+            # resuming process can count on
+            if main and not name.startswith(RNG_STATE_NAME) or \
+                    name == f"{RNG_STATE_NAME}_0.pkl":
+                pending.add(name)
+        _barrier()
     except BaseException:
         # abandon the commit: the directory stays manifest-less and
         # resume_latest falls back to the previous complete checkpoint
         _stager.rollback(pending)
         raise
+    if not main:
+        # the main process commits the directory
+        return output_dir
     # a save with no array payload has nothing in flight: it commits now
     _stager.commit(pending, deferred=async_save and bool(payloads))
     return output_dir
@@ -605,8 +631,9 @@ def load_accelerator_state(
 
 def _load_accelerator_state(input_dir, train_states, optimizers, schedulers,
                             dataloaders, custom_objects, load_rng) -> dict:
-    # a load must see every async save committed
+    # a load must see every async save committed, on every process
     wait_for_checkpoints()
+    _barrier()
     input_dir = _abspath(input_dir)
     out: dict[str, Any] = {"train_states": [], "step": 0}
 
@@ -650,7 +677,8 @@ def _load_accelerator_state(input_dir, train_states, optimizers, schedulers,
         with open(meta_path) as f:
             out["step"] = json.load(f).get("step", 0)
 
-    rng_path = os.path.join(input_dir, f"{RNG_STATE_NAME}_0.pkl")
+    rng_path = os.path.join(
+        input_dir, f"{RNG_STATE_NAME}_{PartialState.process_index}.pkl")
     if load_rng and os.path.exists(rng_path):
         with open(rng_path, "rb") as f:
             rng_states = pickle.load(f)
@@ -796,6 +824,10 @@ def save_model(
     host tensors to `model.pkl` instead."""
     save_directory = _abspath(save_directory)
     os.makedirs(save_directory, exist_ok=True)
+    if not PartialState.is_main_process:
+        # the replicas are identical: the main process writes them
+        _barrier()
+        return save_directory
     flat = {k: v.detach().to("cpu").contiguous()
             for k, v in flatten_dict(params).items()}
     if safe_serialization:
@@ -809,6 +841,7 @@ def save_model(
     else:
         with open(os.path.join(save_directory, "model.pkl"), "wb") as f:
             pickle.dump(flat, f)
+    _barrier()
     return save_directory
 
 

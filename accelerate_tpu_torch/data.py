@@ -21,15 +21,19 @@ The pipeline of a prepared loader, in two stages as in the reference:
 The host-side sharding keeps the reference's semantics whole:
 `SeedableRandomSampler`, `BatchSamplerShard`, `ShardedBatchIterable` and
 `IterableDatasetShard` take `num_processes` and `process_index`
-explicitly, and `prepare_data_loader` re-shards a torch `DataLoader`, an
-unsized iterable or a sized batch stream across processes. The port runs
-one process on one card, so the Accelerator passes world size 1; a
-device mesh, and the dispatcher's broadcast across processes, raise
-until the parallelism slice (ROADMAP.md, queue 1 item 6).
+explicitly (default: the process state's), and `prepare_data_loader`
+re-shards a torch `DataLoader`, an unsized iterable or a sized batch
+stream across processes. A loader takes the port's mesh
+(`state.ProcessMesh`), and the dispatcher broadcasts each batch from
+process 0 to the others.
 
 A batch of `n` rows is padded only where `n` is not a multiple of the
 process's share of the data-parallel devices (the reference's
-`per_host` rule); on one card that share is 1, so nothing is padded.
+`per_host` rule); each process owns one device, so that share is 1 and
+the loader pads nothing: an uneven tail across processes is padded by
+the sharding layer below it (`ShardedBatchIterable`,
+`BatchSamplerShard`), whose `remainder` and `tail_layout` the loader
+hands to `GradientState`.
 """
 
 from __future__ import annotations
@@ -49,7 +53,7 @@ import torch
 
 from .logging import get_logger
 from .optimizers import tree_leaves
-from .state import GradientState, PartialState
+from .state import GradientState, PartialState, ProcessMesh
 from .telemetry.trace import span
 from .utils.constants import BATCH_AXES
 from .utils.dataclasses import DataLoaderConfiguration
@@ -58,7 +62,6 @@ from .utils.random import synchronize_rng_states
 logger = get_logger(__name__)
 
 _SENTINEL = object()
-_ITEM_6 = "the port's parallelism slice (ROADMAP.md, queue 1 item 6)"
 
 
 def to_device(batch: Any, device, non_blocking: bool = True) -> Any:
@@ -785,10 +788,13 @@ class DataLoaderStateMixin:
         self.gradient_state._remove_dataloader(self)
 
 
-def _no_mesh(mesh, what: str) -> None:
-    if mesh is not None:
-        raise NotImplementedError(
-            f"{what}(mesh=...) (a device mesh) arrives with {_ITEM_6}")
+def _check_mesh(mesh, what: str) -> None:
+    """A loader's mesh is the port's `ProcessMesh` (or None)."""
+    if mesh is not None and not isinstance(mesh, ProcessMesh):
+        raise TypeError(
+            f"{what}(mesh=...) takes the port's mesh "
+            "(Accelerator.mesh or AcceleratorState().mesh, a "
+            f"state.ProcessMesh), got {type(mesh).__name__}")
 
 
 class DataLoaderShard(DataLoaderStateMixin):
@@ -805,8 +811,8 @@ class DataLoaderShard(DataLoaderStateMixin):
       issued as its batch is handed out.
 
     `device` is where batches land (default: the process's device);
-    `put_on_device=False` hands out the host batches as numpy. A device
-    mesh raises until the parallelism slice.
+    `put_on_device=False` hands out the host batches as numpy. `mesh` is
+    the port's `ProcessMesh` (default: one device a process).
     """
 
     def __init__(
@@ -822,7 +828,7 @@ class DataLoaderShard(DataLoaderStateMixin):
         device_prefetch_depth: int = 2,
         device=None,
     ):
-        _no_mesh(mesh, "DataLoaderShard")
+        _check_mesh(mesh, "DataLoaderShard")
         self.loader = loader
         self.mesh = mesh
         self.batch_axes = batch_axes
@@ -846,8 +852,14 @@ class DataLoaderShard(DataLoaderStateMixin):
 
     @property
     def dp_size(self) -> int:
-        """Data-parallel devices: one process drives one card."""
-        return 1
+        """Data-parallel devices: the mesh's batch axes, else one device a
+        process."""
+        if self.mesh is not None:
+            size = 1
+            for axis in self.batch_axes:
+                size *= self.mesh.shape.get(axis, 1)
+            return size
+        return PartialState.num_processes
 
     def _device(self) -> torch.device:
         return self.device if self.device is not None else \
@@ -873,7 +885,7 @@ class DataLoaderShard(DataLoaderStateMixin):
                 batch, keep_device_arrays=self.put_on_device)
             n = _batch_size(batch)
             processes = PartialState.num_processes
-            per_host = self.dp_size // processes
+            per_host = max(self.dp_size // processes, 1)
             remainder = -1
             tail_layout = None
             if (
@@ -963,8 +975,7 @@ class DataLoaderShard(DataLoaderStateMixin):
 class DataLoaderDispatcher(DataLoaderStateMixin):
     """Process 0 reads the iterable and broadcasts each batch; every
     process takes its slice. For streams that cannot be sharded at the
-    source. With one process the broadcast is the identity; across
-    processes it raises until the parallelism slice."""
+    source. With one process the broadcast is the identity."""
 
     def __init__(
         self,
@@ -975,7 +986,7 @@ class DataLoaderDispatcher(DataLoaderStateMixin):
         put_on_device: bool = True,
         device=None,
     ):
-        _no_mesh(mesh, "DataLoaderDispatcher")
+        _check_mesh(mesh, "DataLoaderDispatcher")
         self.loader = loader
         self.mesh = mesh
         self.batch_axes = batch_axes

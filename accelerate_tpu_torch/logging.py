@@ -3,11 +3,10 @@
 
 `get_logger(name)` returns a `MultiProcessAdapter`: a record logs on the
 main process only unless `main_process_only=False`, and `in_order=True`
-logs rank by rank. One process is a world of one: it is the main
-process, and `in_order` logs its record as rank 0; across processes
-`in_order` raises until the parallelism slice (queue 1 item 6). The
-level is an argument (`log_level`); the port reads no environment
-variable for it.
+logs rank by rank, with a barrier after each rank's turn. One process
+is a world of one: it is the main process, and `in_order` logs its
+record as rank 0. The level is an argument (`log_level`); the port
+reads no environment variable for it.
 """
 
 from __future__ import annotations
@@ -15,7 +14,9 @@ from __future__ import annotations
 import functools
 import logging
 
-from .state import PartialState, _one_process
+import torch
+
+from .state import PartialState
 
 
 class MultiProcessAdapter(logging.LoggerAdapter):
@@ -34,10 +35,14 @@ class MultiProcessAdapter(logging.LoggerAdapter):
         in_order = kwargs.pop("in_order", False)
         kwargs.setdefault("stacklevel", 2)
         if in_order:
-            _one_process("log(in_order=True)")
             msg, kwargs = self.process(msg, kwargs)
-            self.logger.log(level, f"[rank {PartialState.process_index}] "
-                            f"{msg}", *args, **kwargs)
+            world = PartialState.num_processes
+            for rank in range(world):
+                if rank == PartialState.process_index:
+                    self.logger.log(level, f"[rank {rank}] {msg}", *args,
+                                    **kwargs)
+                if world > 1:
+                    torch.distributed.barrier()
             return
         if self._should_log(main_process_only):
             msg, kwargs = self.process(msg, kwargs)

@@ -27,11 +27,11 @@ NEG_INF = -1e30
 
 
 def sp_constrain(x, axis=None):
-    """Megatron sequence parallelism's activation constraint. The port
-    has no mesh yet: it arrives with the parallelism slice."""
+    """Megatron sequence parallelism's activation constraint. It needs a
+    sharded mesh: it arrives with the sharded-parallelism slice."""
     raise NotImplementedError(
         "sequence parallelism (sp_constrain) arrives with the port's "
-        "parallelism slice (ROADMAP.md, queue 1 item 6)")
+        "sharded-parallelism slice (ROADMAP.md, queue 1 item 6b)")
 
 
 def dense(x: torch.Tensor, kernel: torch.Tensor,

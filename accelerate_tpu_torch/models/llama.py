@@ -128,7 +128,7 @@ def select_attention_backend(backend: str, *, on_cuda: bool, decoding: bool,
     if backend in ("ring", "ulysses"):
         raise NotImplementedError(
             f"attention_backend={backend!r} arrives with the port's "
-            "parallelism slice")
+            "sharded-parallelism slice (ROADMAP.md, queue 1 item 6b)")
     raise ValueError(f"unknown attention_backend {backend!r}")
 
 
@@ -282,7 +282,8 @@ def forward(
                          "(kv_caches) runs bf16")
     if config.sequence_parallel:
         raise NotImplementedError(
-            "sequence_parallel arrives with the port's parallelism slice")
+            "sequence_parallel arrives with the port's sharded-parallelism "
+            "slice (ROADMAP.md, queue 1 item 6b)")
     x = params["embed_tokens"]["embedding"][input_ids.long()]
     if positions is None:
         positions = torch.arange(input_ids.shape[1],

@@ -16,8 +16,8 @@ load-balancing loss. `moe_impl` picks the dispatch, as in the reference:
   their tokens ride the residual.
 
 `moe_impl="a2a"` (token-sharded expert parallelism) and
-`sequence_parallel=True` need a mesh and raise until the port's
-parallelism slice.
+`sequence_parallel=True` need a sharded mesh and raise until the port's
+sharded-parallelism slice (queue 1 item 6b).
 """
 
 from __future__ import annotations
@@ -186,8 +186,8 @@ def moe_block(config: MixtralConfig, moe: dict, x: torch.Tensor,
     if config.moe_impl == "a2a":
         raise NotImplementedError(
             "moe_impl='a2a' (token-sharded expert parallelism) arrives "
-            "with the port's parallelism slice (ROADMAP.md, queue 1 item "
-            "6); use 'dense' or 'sparse'")
+            "with the port's sharded-parallelism slice (ROADMAP.md, queue 1 "
+            "item 6b); use 'dense' or 'sparse'")
     if config.moe_impl != "dense":
         raise ValueError(f"unknown moe_impl {config.moe_impl!r}; use "
                          "'dense', 'sparse', or 'a2a'")
@@ -308,8 +308,8 @@ def forward(config: MixtralConfig, params: dict, input_ids: torch.Tensor,
     new_fp8_state)."""
     if config.sequence_parallel:
         raise NotImplementedError(
-            "sequence_parallel arrives with the port's parallelism slice "
-            "(ROADMAP.md, queue 1 item 6)")
+            "sequence_parallel arrives with the port's sharded-parallelism "
+            "slice (ROADMAP.md, queue 1 item 6b)")
     lcfg = config._as_llama()
     x = params["embed_tokens"]["embedding"][input_ids.long()]
     positions = torch.arange(input_ids.shape[1],

@@ -10,6 +10,12 @@ gradient to float8_e5m2 with a scale from its own amax, so no gradient
 state crosses steps. A cast is `clip(t.float() * scale, +-max)` and then
 the round-to-nearest-even conversion, as the reference's `_cast8`.
 
+Across processes every amax is the global batch's, as the reference's
+`jnp.max` over a batch sharded by GSPMD: the backward's gradient amax
+is the max across processes before its scale is taken, and
+`all_reduce_metas_` makes each step's new windows and scales the
+global batch's, so every process holds the same metas.
+
 The products. The reference's is `jnp.dot` on fp8 operands outside any
 Pallas kernel, so its counterpart here is a library GEMM: on a CUDA
 tensor `fp8_gemm` calls `torch._scaled_mm` (cuBLASLt's fp8 GEMM on
@@ -64,6 +70,7 @@ __all__ = [
     "resolve_history_len",
     "stacked_fp8_metas",
     "init_fp8_state",
+    "all_reduce_metas_",
 ]
 
 E4M3_MAX = 448.0
@@ -235,8 +242,9 @@ def fp8_dot(x: torch.Tensor, w: torch.Tensor, x_meta: Fp8Meta,
 
 class _Fp8Matmul(torch.autograd.Function):
     """x [..., D] @ w [D, O]: E4M3 forward with the given delayed scales,
-    bf16 out; E5M2 backward with the gradient's scale from its own amax.
-    dX and dW take the primals' dtypes (f32 primals get f32 gradients)."""
+    bf16 out; E5M2 backward with the gradient's scale from its own amax
+    (the max across processes). dX and dW take the primals' dtypes (f32
+    primals get f32 gradients)."""
 
     @staticmethod
     def forward(ctx, x, w, x_scale, w_scale):
@@ -251,10 +259,14 @@ class _Fp8Matmul(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
+        from ..utils.operations import all_reduce_max_
+
         x8, w8, x_scale, w_scale = ctx.saved_tensors
         x_shape, x_dtype, w_dtype = ctx.shapes
         g2 = g.reshape(-1, g.shape[-1])
-        g_scale = _ratio(E5M2_MAX, _amax(g2))
+        g_amax = _amax(g2)
+        all_reduce_max_([g_amax])
+        g_scale = _ratio(E5M2_MAX, g_amax)
         g8 = _cast8(g2, g_scale, torch.float8_e5m2, E5M2_MAX)
         dx = dw = None
         if ctx.needs_input_grad[0]:
@@ -365,6 +377,24 @@ def resolve_history_len(explicit: int | None = None) -> int:
     if recipe is not None and recipe.amax_history_len is not None:
         return recipe.amax_history_len
     return 16
+
+
+def all_reduce_metas_(fp8_state) -> None:
+    """Every Fp8Meta of `fp8_state` made the global batch's, in place:
+    each amax window takes its elementwise max across processes (one
+    `all_reduce` for them all) and its scale is derived again from it,
+    as `update_meta` derives it for the models' projections (E4M3,
+    margin 0), one scale a window. The windows before the step are the
+    same on every process, so only the newest entry changes: the max of
+    the processes' amaxes, the global batch's. With one process, nothing
+    happens."""
+    from ..utils.operations import all_reduce_max_
+
+    metas = list(_metas(fp8_state))
+    all_reduce_max_([m.amax_history for m in metas])
+    with torch.no_grad():
+        for m in metas:
+            m.scale.copy_(_ratio(E4M3_MAX, m.amax_history.amax(dim=-1)))
 
 
 def stacked_fp8_metas(num_layers: int, groups: dict[str, tuple],

@@ -16,8 +16,8 @@ dropped assignments and is then cut off. Ties in the top-k keep the
 lower expert index first, as `jax.lax.top_k` does.
 
 The expert-parallel entry points (`expert_parallel_moe`,
-`expert_parallel_moe_a2a`) need a mesh and arrive with the port's
-parallelism slice: they raise.
+`expert_parallel_moe_a2a`) need a sharded mesh and arrive with the port's
+sharded-parallelism slice (queue 1 item 6b): they raise.
 """
 
 from __future__ import annotations
@@ -94,7 +94,7 @@ def _dropped_fraction(info) -> torch.Tensor:
 def _unported(name: str):
     raise NotImplementedError(
         f"{name} needs a device mesh; it arrives with the port's "
-        "parallelism slice (ROADMAP.md, queue 1 item 6)")
+        "sharded-parallelism slice (ROADMAP.md, queue 1 item 6b)")
 
 
 def expert_parallel_moe(*args, **kwargs):

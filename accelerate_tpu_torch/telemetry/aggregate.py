@@ -10,17 +10,16 @@ The reference all-gathers every host's snapshot and reduces it:
   true global p50/p99 — and `slowest_host_mean` exposes the worst
   per-host mean (the straggler signal a merged distribution hides).
 
-The port runs one process: with no `snapshots` given, the aggregate is
-this process's own registry as a one-host world (`snapshots=[local]`),
-which `StragglerMonitor.poll` reads. A `torch.distributed` world of more
-than one process raises: the gather arrives with the parallelism slice.
+With no `snapshots` given, every process's registry snapshot is
+all-gathered (`utils.operations.gather_object`: a collective, call it on
+every process) and every process gets the aggregate; a world of one
+aggregates its own registry (`snapshots=[local]`). `StragglerMonitor.poll`
+reads it.
 """
 
 from __future__ import annotations
 
 import math
-
-import torch
 
 from .registry import MetricsRegistry, StreamingHistogram, get_registry
 
@@ -56,7 +55,7 @@ def _reduce_scalar(values: list[float]) -> dict[str, float]:
 def aggregate_snapshot(registry: MetricsRegistry | None = None,
                        snapshots: list[dict] | None = None) -> dict:
     """Reduce per-host snapshots: `snapshots` when given (offline use),
-    else this process's own registry as a one-host aggregate.
+    else every process's registry, all-gathered (a collective).
 
     Returns::
 
@@ -67,14 +66,10 @@ def aggregate_snapshot(registry: MetricsRegistry | None = None,
                               "slowest_host_mean": ...}}}
     """
     if snapshots is None:
-        if torch.distributed.is_available() and \
-                torch.distributed.is_initialized() and \
-                torch.distributed.get_world_size() > 1:
-            raise NotImplementedError(
-                "aggregating snapshots across processes is not ported yet: "
-                "it arrives with the port's parallelism slice")
-        snapshots = [(registry or get_registry()).snapshot(
-            include_sketch=True)]
+        from ..utils.operations import gather_object
+
+        snapshots = gather_object((registry or get_registry()).snapshot(
+            include_sketch=True))
     out: dict = {"num_hosts": len(snapshots), "counters": {}, "gauges": {},
                  "histograms": {}}
 

@@ -21,9 +21,10 @@ the strike counter; only a PERSISTENT straggler past `ratio_threshold`
 for `patience` consecutive observations fires, and it fires once per
 episode (the ratio must recover below threshold to re-arm).
 
-A copy of `accelerate_tpu/telemetry/straggler.py`; the port reads no
-environment variable for the incident directory, so without
-`incident_dir` a report's `bundle_path` is None.
+A copy of `accelerate_tpu/telemetry/straggler.py`, whose `poll` reads
+the world's aggregate across processes where the reference's reads its
+own host; the port reads no environment variable for the incident
+directory, so without `incident_dir` a report's `bundle_path` is None.
 """
 
 from __future__ import annotations
@@ -74,14 +75,13 @@ class StragglerMonitor:
         return self._registry
 
     def poll(self) -> dict | None:
-        """Single-process convenience: observe this process's own
-        registry as a one-host aggregate. The ratio is 1.0 by
-        construction on one host — this keeps the loop wired (and the
-        gauge exported) so multi-host deployments only swap the input."""
+        """Observe the world's registries, all-gathered by
+        `aggregate_snapshot` (a collective across processes: call it on
+        every process). With one process the ratio is 1.0 by
+        construction; the loop stays wired and the gauge exported."""
         from .aggregate import aggregate_snapshot
 
-        snap = self._reg().snapshot(include_sketch=True)
-        return self.observe(aggregate_snapshot(snapshots=[snap]))
+        return self.observe(aggregate_snapshot(self._reg()))
 
     def observe(self, aggregate: dict) -> dict | None:
         """Feed one `aggregate_snapshot()` result. Returns the incident

@@ -36,3 +36,33 @@ def gpu_peaks(name: str) -> tuple[float, float] | None:
 # `BATCH_AXES`); one process on one card has no mesh, so the loaders
 # store it for the reference's signature
 BATCH_AXES = ("data", "fsdp")
+
+# --- mesh axis names (the reference's): the port carries only `data`
+# across processes; the others arrive with sharded parallelism
+AXIS_DATA = "data"
+AXIS_FSDP = "fsdp"
+AXIS_MODEL = "model"
+AXIS_SEQ = "seq"
+AXIS_EXPERT = "expert"
+AXIS_STAGE = "stage"
+MESH_AXES = (AXIS_DATA, AXIS_FSDP, AXIS_STAGE, AXIS_EXPERT, AXIS_SEQ,
+             AXIS_MODEL)
+
+# --- the launch protocol ---------------------------------------------------
+# Topology travels in torchrun's variables, which PartialState reads and
+# `python -m accelerate_tpu_torch.commands.launch` sets.
+ENV_RANK = "RANK"
+ENV_WORLD_SIZE = "WORLD_SIZE"
+ENV_LOCAL_RANK = "LOCAL_RANK"
+ENV_LOCAL_WORLD_SIZE = "LOCAL_WORLD_SIZE"
+ENV_MASTER_ADDR = "MASTER_ADDR"
+ENV_MASTER_PORT = "MASTER_PORT"
+# The launcher's config flags reach the children under one prefix of the
+# port's own, read where the reference reads its `ACCELERATE_TPU_*` ones
+# (the port reads none of those).
+ENV_PREFIX = "ACCELERATE_TORCH_"
+ENV_MIXED_PRECISION = ENV_PREFIX + "MIXED_PRECISION"
+ENV_GRAD_ACCUM_STEPS = ENV_PREFIX + "GRADIENT_ACCUMULATION_STEPS"
+ENV_MESH_SHAPE = ENV_PREFIX + "MESH_SHAPE"
+ENV_DEBUG_MODE = ENV_PREFIX + "DEBUG"
+ENV_CPU = ENV_PREFIX + "USE_CPU"

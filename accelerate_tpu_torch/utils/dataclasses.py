@@ -1,15 +1,35 @@
 """Configuration records (the part of `accelerate_tpu/utils/dataclasses.py`
 that the training step, fp8, checkpointing, quantized loading, the data
-pipeline, the trackers and the Accelerator's arguments need), copied
-without its jax imports."""
+pipeline, the trackers, the process group, the mesh and the
+Accelerator's arguments need), copied without its jax imports."""
 
 from __future__ import annotations
 
 import dataclasses
 import enum
+import os
 from dataclasses import dataclass, field
 from datetime import timedelta
 from typing import Any
+
+from .constants import AXIS_DATA, ENV_MESH_SHAPE, ENV_MIXED_PRECISION, \
+    MESH_AXES
+from .environment import parse_mesh_shape
+
+
+class DistributedType(str, enum.Enum):
+    """How many processes take part, and on what: one process (NO), or a
+    `torch.distributed` world of processes each on one card (MULTI_GPU)
+    or on the CPU (MULTI_CPU). The reference's JAX and MULTI_HOST name
+    one process over several chips and a world of hosts; in the port each
+    process owns one device."""
+
+    NO = "NO"
+    MULTI_GPU = "MULTI_GPU"
+    MULTI_CPU = "MULTI_CPU"
+
+    def __str__(self) -> str:
+        return self.value
 
 
 class PrecisionType(str, enum.Enum):
@@ -70,8 +90,11 @@ class LoggerType(str, enum.Enum):
 
 
 def resolve_mixed_precision(value) -> PrecisionType:
-    """None means "no": the port reads no environment variable for it."""
-    return PrecisionType(str("no" if value is None else value).lower())
+    """None takes the launcher's `--mixed_precision` (its
+    `ACCELERATE_TORCH_MIXED_PRECISION` variable), else "no"."""
+    if value is None:
+        value = os.environ.get(ENV_MIXED_PRECISION, "no")
+    return PrecisionType(str(value).lower())
 
 
 @dataclass
@@ -133,12 +156,16 @@ class AutocastKwargs(KwargsHandler):
 
 @dataclass
 class InitProcessGroupKwargs(KwargsHandler):
-    """The process group's backend, address and timeout. One process has
-    no group: a timeout raises until the parallelism slice."""
+    """The process group's backend ("nccl" or "gloo"), rendezvous
+    (`init_method`, default "env://": MASTER_ADDR and MASTER_PORT) and
+    timeout (None: torch's default). `backend=None` picks by device:
+    NCCL on a card, gloo on the CPU. Ranks may share a card only under
+    an explicit "gloo". A world of one process joins no group."""
 
-    backend: str | None = "jax"
+    backend: str | None = None
     init_method: str | None = None
-    timeout: timedelta = field(default_factory=lambda: timedelta(seconds=1800))
+    timeout: timedelta | None = field(
+        default_factory=lambda: timedelta(seconds=1800))
 
 
 @dataclass
@@ -203,3 +230,64 @@ class QuantizationConfig(KwargsHandler):
         if self.load_in_8bit:
             return 8
         return 16
+
+
+@dataclass
+class MeshConfig:
+    """A mesh request: {axis: size} over the world's processes (each owns
+    one device), at most one size -1 ("fill with the remaining
+    processes"). The port runs data parallelism only: an axis other than
+    `data` with a size above 1 raises at `Accelerator` (sharded
+    parallelism is queue 1 item 6b)."""
+
+    axes: dict[str, int] = field(default_factory=dict)
+
+    def __post_init__(self) -> None:
+        unknown = [a for a in self.axes if a not in MESH_AXES]
+        if unknown:
+            raise ValueError(f"unknown mesh axes {unknown}; valid: {MESH_AXES}")
+        wild = [a for a, s in self.axes.items() if s == -1]
+        if len(wild) > 1:
+            raise ValueError(f"at most one axis may be -1, got {wild}")
+        bad = [(a, s) for a, s in self.axes.items() if s < -1]
+        if bad:
+            raise ValueError(f"invalid axis sizes {bad}; use positive ints "
+                             "or -1 (fill)")
+
+    @classmethod
+    def data_parallel(cls) -> "MeshConfig":
+        return cls(axes={AXIS_DATA: -1})
+
+    @classmethod
+    def from_env(cls) -> "MeshConfig | None":
+        """The launcher's `--mesh_shape` (`ACCELERATE_TORCH_MESH_SHAPE`),
+        or None."""
+        spec = os.environ.get(ENV_MESH_SHAPE)
+        if not spec:
+            return None
+        return cls(axes=parse_mesh_shape(spec))
+
+    def resolved_axes(self, num_devices: int) -> dict[str, int]:
+        """Concrete {axis: size} in `MESH_AXES` order, -1 filled in;
+        raises unless the sizes cover `num_devices` exactly."""
+        axes = {a: s for a, s in self.axes.items() if s != 0}
+        if not axes:
+            axes = {AXIS_DATA: -1}
+        known, wildcard = 1, None
+        for a, s in axes.items():
+            if s == -1:
+                wildcard = a
+            else:
+                known *= s
+        if wildcard is not None:
+            if num_devices % known != 0:
+                raise ValueError(f"{num_devices} devices not divisible by "
+                                 f"fixed axes product {known}")
+            axes[wildcard] = num_devices // known
+        sizes = 1
+        for s in axes.values():
+            sizes *= s
+        if sizes != num_devices:
+            raise ValueError(f"mesh {axes} covers {sizes} devices but "
+                             f"{num_devices} are present")
+        return {a: axes[a] for a in MESH_AXES if a in axes}

@@ -3,9 +3,9 @@
 `set_seed` seeds Python's `random`, numpy's global generator and torch
 as the reference does, so both packages' `set_seed(s)` give the same
 Python, numpy and torch draws. `synchronize_rng_state(s)` align a host
-stream across processes: with one process there is nothing to align and
-they return, as the reference's do; across processes they raise until
-the parallelism slice (queue 1 item 6).
+stream across processes by broadcasting process 0's state to the
+others; with one process there is nothing to align and they return, as
+the reference's do.
 
 The reference's keys are JAX's threefry keys, which torch cannot
 reproduce. The port's keys are pairs of 32-bit words on the counter hash
@@ -25,7 +25,7 @@ import numpy as np
 import torch
 
 from ..models.decode import _mix32_int, stream_key
-from ..state import PartialState, _one_process
+from ..state import PartialState
 from .dataclasses import RNGType
 
 
@@ -67,11 +67,27 @@ def fold_in_process(key, process_index: int | None = None
 
 
 def synchronize_rng_state(rng_type: RNGType | str, generator=None) -> None:
-    """Align one host stream with process 0's: with one process, and for
-    explicit keys ("jax"), there is nothing to align."""
-    if RNGType(rng_type) == RNGType.JAX:
+    """Set one host stream (Python's `random`, numpy's global generator,
+    torch's CPU generator, or `generator`) to process 0's state on every
+    process: a collective. With one process, and for explicit keys
+    ("jax"), there is nothing to align."""
+    rng_type = RNGType(rng_type)
+    if rng_type == RNGType.JAX or PartialState.num_processes == 1:
         return
-    _one_process(f"synchronize_rng_state({RNGType(rng_type)})")
+    from .operations import broadcast_object_list
+
+    if rng_type == RNGType.PYTHON:
+        (st,) = broadcast_object_list([_py_random.getstate()])
+        _py_random.setstate(st)
+    elif rng_type == RNGType.NUMPY:
+        (st,) = broadcast_object_list([np.random.get_state()])
+        np.random.set_state(st)
+    elif rng_type == RNGType.TORCH:
+        (st,) = broadcast_object_list([torch.get_rng_state()])
+        torch.set_rng_state(st)
+    elif generator is not None:
+        (st,) = broadcast_object_list([generator.get_state()])
+        generator.set_state(st)
 
 
 def synchronize_rng_states(rng_types: Iterable[RNGType | str],

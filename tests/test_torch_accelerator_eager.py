@@ -452,11 +452,17 @@ def test_trigger_round_trip_like_jax():
 
 
 def test_mesh_and_context_attention_raise_and_name_item_6():
+    """The mesh is the reference's data-parallel mesh over the processes
+    (its axis names; one process: `{"data": 1}`, where the suite's 8 JAX
+    devices give the reference `{"data": 8}`); context attention still
+    raises, naming item 6b."""
     acc = Accelerator(cpu=True)
-    with pytest.raises(NotImplementedError, match="queue 1 item 6"):
-        acc.mesh
+    jacc = at.Accelerator()
+    assert acc.mesh.axis_names == tuple(jacc.mesh.axis_names) == ("data",)
+    assert acc.mesh.shape == {"data": 1} and acc.state.dp_size == 1
+    assert dict(jacc.mesh.shape) == {"data": jax.device_count()}
     q = torch.zeros(1, 4, 2, 8)
-    with pytest.raises(NotImplementedError, match="queue 1 item 6"):
+    with pytest.raises(NotImplementedError, match="queue 1 item 6b"):
         acc.context_attention(q, q, q)
 
 

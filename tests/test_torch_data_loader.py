@@ -348,11 +348,46 @@ def test_dispatcher_slices_ragged_rows_by_row(monkeypatch):
     _same(outs[0], outs[1])
 
 
-def test_dispatcher_across_processes_raises(monkeypatch):
-    loader = td.DataLoaderDispatcher(make_batches(8, 4))
-    monkeypatch.setattr(PartialState, "num_processes", 2)
-    with pytest.raises(NotImplementedError, match="queue 1 item 6"):
-        list(loader)
+@pytest.fixture(scope="module")
+def data_world():
+    """The dispatcher and the sharded loader in one real two-process
+    gloo world on the CPU (`test_utils.worlds.data_forms`)."""
+    from accelerate_tpu_torch.test_utils import run_world
+    from accelerate_tpu_torch.test_utils.worlds import data_forms
+
+    return run_world(data_forms, 2)
+
+
+def _world_batches():
+    return [{"x": np.arange(8 * i, 8 * i + 8, dtype=np.float32)
+             .reshape(4, 2)} for i in range(3)]
+
+
+def test_dispatcher_across_processes_raises(data_world):
+    """Across two processes rank 0 reads and broadcasts: without
+    `split_batches` each step's global batch is one source batch a
+    process (the last one alone, split in two), with it each source
+    batch is split in row halves; the sharded loader gives each rank the
+    reference's explicit shard. (The name is kept from when this
+    raised.)"""
+    src = _world_batches()
+    rows = np.concatenate([b["x"] for b in src])
+    for rank, res in enumerate(data_world):
+        assert res["mesh"] == {"data": 2}
+        got = res["dispatcher"]
+        np.testing.assert_array_equal(got[0], src[rank]["x"])
+        np.testing.assert_array_equal(got[1], rows[8 + 2 * rank:
+                                                   10 + 2 * rank])
+        assert len(got) == 2
+        for i, b in enumerate(res["dispatcher_split"]):
+            np.testing.assert_array_equal(b, src[i]["x"][2 * rank:
+                                                         2 * rank + 2])
+        want = [b["x"] for b in jd.prepare_data_loader(
+            _world_batches(), num_processes=2, process_index=rank,
+            put_on_device=False)]
+        assert len(res["shard"]) == len(want)
+        for a, b in zip(res["shard"], want):
+            np.testing.assert_array_equal(np.asarray(a), np.asarray(b))
 
 
 def test_skip_first_batches_like_jax():
@@ -658,10 +693,20 @@ def test_loader_break_mid_epoch_leaves_no_thread_and_no_registration(
 
 
 def test_mesh_raises_naming_the_parallelism_slice():
+    """A loader takes the port's mesh (`ProcessMesh`), whose batch axes
+    give its data-parallel size; anything else is a TypeError naming it.
+    (The name is kept from when a mesh raised.)"""
+    from accelerate_tpu_torch.state import AcceleratorState
+
+    mesh = AcceleratorState(cpu=True).mesh
     for cls in (td.DataLoaderShard, td.DataLoaderDispatcher):
-        with pytest.raises(NotImplementedError, match="queue 1 item 6"):
+        assert cls(make_batches(8, 4), mesh=mesh).mesh is mesh
+        with pytest.raises(TypeError, match="ProcessMesh"):
             cls(make_batches(8, 4), mesh="a mesh")
-    with pytest.raises(NotImplementedError, match="queue 1 item 6"):
+    loader = td.prepare_data_loader(make_batches(8, 4), mesh=mesh,
+                                    device="cpu")
+    assert loader.dp_size == 1 and len(list(loader)) == 2
+    with pytest.raises(TypeError, match="ProcessMesh"):
         td.prepare_data_loader(make_batches(8, 4), mesh="a mesh")
 
 
@@ -751,9 +796,14 @@ def test_rng_keys_fold_in_deterministically():
 
 
 def test_synchronize_rng_states_one_process_and_across(monkeypatch):
+    """One process: nothing to align. Two processes (a real gloo world):
+    each stream diverged by rank draws rank 0's next values on both
+    after the synchronisation ("jax" keys need none)."""
+    from accelerate_tpu_torch.test_utils import run_world
+    from accelerate_tpu_torch.test_utils.worlds import random_forms
+
     trandom.synchronize_rng_states(["torch", "numpy", "python", "generator",
                                     "jax"])
-    monkeypatch.setattr(PartialState, "num_processes", 2)
-    trandom.synchronize_rng_state("jax")
-    with pytest.raises(NotImplementedError, match="queue 1 item 6"):
-        trandom.synchronize_rng_state("torch")
+    res = run_world(random_forms, 2)
+    assert res[0]["before"] != res[1]["before"]
+    assert res[0]["after"] == res[1]["after"]

@@ -19,6 +19,11 @@ import pytest
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 PORT = ROOT / "accelerate_tpu_torch"
+# the bundled launch-and-assert scripts, each imported by the check
+SCRIPTS = sorted((PORT / "test_utils" / "scripts").glob("test_*.py")) + \
+    [PORT / "test_utils" / "scripts" / "train_llama_dp.py"]
+EXTERNAL = sorted((PORT / "test_utils" / "scripts" / "external_deps")
+                  .glob("test_*.py"))
 
 _IMPORT_ALL = """
 import importlib, json, pkgutil, sys
@@ -58,7 +63,14 @@ def test_port_imports_no_jax_and_no_jax_package():
                  "scheduler", "utils.operations", "native", "tracking",
                  "logging", "utils.random", "utils.imports",
                  "telemetry.cost", "telemetry.watchdog",
-                 "telemetry.lockwatch", "commands.incident"):
+                 "telemetry.lockwatch", "commands.incident",
+                 "utils.environment", "utils.launch", "launchers",
+                 "local_sgd", "commands.launch",
+                 "commands.config.config_args", "test_utils",
+                 "test_utils.training", "test_utils.worlds",
+                 *(f"test_utils.scripts.{p.stem}" for p in SCRIPTS),
+                 *(f"test_utils.scripts.external_deps.{p.stem}"
+                   for p in EXTERNAL)):
         assert f"accelerate_tpu_torch.{name}" in out["modules"]
     assert out["leaked"] == []
 

@@ -4,9 +4,10 @@
 
 The reference hands back numpy arrays; the port keeps torch tensors on
 their device, so values are compared, not types (and the port's tensors
-are checked to stay tensors). The forms across processes raise in the
-port, naming queue 1 item 6. Tolerance: exact (the operations copy,
-slice, pad or scale by a power of two)."""
+are checked to stay tensors). The forms across processes run in a real
+two-process gloo world on the CPU and are held against the reference's
+definitions. Tolerance: exact (the operations copy, slice, pad, sum two
+small integers or scale by a power of two)."""
 
 from collections import namedtuple
 
@@ -160,17 +161,93 @@ def test_debug_verification_passes_with_one_process():
     assert ops.verify_operation(x, "gather") is None
 
 
-@pytest.mark.parametrize("call", [
-    lambda: ops.gather(torch.ones(2)),
-    lambda: ops.gather_object(1),
-    lambda: ops.broadcast(torch.ones(2)),
-    lambda: ops.broadcast_object_list([1]),
-    lambda: ops.reduce(torch.ones(2), "sum"),
-    lambda: ops.pad_across_processes(torch.ones(2)),
-    lambda: ops.verify_operation(torch.ones(2), "gather")],
+@pytest.fixture(scope="module")
+def two_ranks():
+    """Every collective in one real two-process gloo world on the CPU
+    (`test_utils.worlds.collective_forms`), each rank's results."""
+    from accelerate_tpu_torch.test_utils import run_world
+    from accelerate_tpu_torch.test_utils.worlds import collective_forms
+
+    return run_world(collective_forms, 2)
+
+
+def _arr(x):
+    return x.numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
+
+
+def _check_gather(res):
+    for r in res:
+        got = r["gather"]
+        assert isinstance(got["t"], torch.Tensor) and \
+            isinstance(got["n"], np.ndarray)
+        # the reference's process_allgather(tiled=True): rank blocks in
+        # order along dim 0 (a 0-d leaf one row a rank)
+        np.testing.assert_array_equal(_arr(got["t"]), [0, 0, 1, 1])
+        np.testing.assert_array_equal(got["n"], [[0, 0], [1, 1]])
+        np.testing.assert_array_equal(_arr(got["s"]), [0.0, 1.0])
+
+
+def _check_gather_object(res):
+    assert [r["gather_object"] for r in res] == [[{"rank": 0},
+                                                  {"rank": 1}]] * 2
+
+
+def _check_broadcast(res):
+    for r in res:
+        np.testing.assert_array_equal(_arr(r["broadcast"]), [1.0] * 3)
+
+
+def _check_broadcast_object_list(res):
+    assert [r["broadcast_object_list"] for r in res] == [[0, "s0"]] * 2
+
+
+def _check_reduce(res):
+    # rank r holds r + 1: sum 3, mean 1.5, both times scale 2
+    for r in res:
+        np.testing.assert_array_equal(_arr(r["reduce"]["sum"]), [6.0, 6.0])
+        np.testing.assert_array_equal(_arr(r["reduce"]["mean"]), [3.0, 3.0])
+
+
+def _check_pad_across_processes(res):
+    rows, first = res[0]["pad_across_processes"]
+    np.testing.assert_array_equal(_arr(rows), [[1, 1], [-1, -1]])
+    np.testing.assert_array_equal(_arr(first), [-1, 1])
+    rows, first = res[1]["pad_across_processes"]
+    np.testing.assert_array_equal(_arr(rows), np.ones((2, 2)))
+    np.testing.assert_array_equal(_arr(first), [1, 1])
+
+
+def _check_verify_operation(res):
+    for r in res:
+        msg = r["verify_operation"]
+        assert "Mismatched operand structure for `gather`" in msg, msg
+        assert "rank 0: {'x': ((1,)" in msg and "rank 1: {'x': ((2,)" in msg
+
+
+def _check_all_reduce_mean_(res):
+    for r in res:
+        a, b = r["all_reduce_mean_"]
+        np.testing.assert_array_equal(_arr(a), np.full((3, 5), 0.5))
+        np.testing.assert_array_equal(_arr(b), np.arange(7.0) * 1.5)
+    assert all(torch.equal(x, y) for x, y in zip(
+        res[0]["all_reduce_mean_"], res[1]["all_reduce_mean_"]))
+
+
+@pytest.mark.parametrize("check", [
+    _check_gather, _check_gather_object, _check_broadcast,
+    _check_broadcast_object_list, _check_reduce, _check_pad_across_processes,
+    _check_verify_operation],
     ids=["gather", "gather_object", "broadcast", "broadcast_object_list",
          "reduce", "pad_across_processes", "verify_operation"])
-def test_forms_across_processes_raise_and_name_item_6(call, monkeypatch):
-    monkeypatch.setattr(PartialState, "num_processes", 2)
-    with pytest.raises(NotImplementedError, match="queue 1 item 6"):
-        call()
+def test_forms_across_processes_raise_and_name_item_6(check, two_ranks):
+    """Each collective across two processes gives the reference's values
+    (its definitions: rank blocks in order, rank 1's broadcast, the sum
+    and mean times scale, padding to the largest, a table of mismatched
+    operands). The name is kept from when these forms raised."""
+    check(two_ranks)
+
+
+def test_all_reduce_mean_in_buckets_gives_every_rank_the_mean(two_ranks):
+    """Buckets smaller than a leaf split it; every rank ends with the
+    same bits."""
+    _check_all_reduce_mean_(two_ranks)

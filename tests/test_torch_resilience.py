@@ -560,8 +560,10 @@ def test_jax_faulted_toy_run_equals_its_unfaulted_run(tmp_path):
 
 def test_aggregate_is_one_process_and_refuses_a_larger_world(monkeypatch):
     """The port's aggregate is this process's registry as a one-host
-    world, reduced as the JAX package reduces the same snapshot; a
-    torch.distributed world of more than one process raises."""
+    world, reduced as the JAX package reduces the same snapshot; across
+    processes it all-gathers every process's snapshot (the gather patched
+    to two hosts here) and reduces them as the JAX package reduces the
+    same two. (The name is kept from when a larger world raised.)"""
     from accelerate_tpu.telemetry.aggregate import aggregate_snapshot as jagg
     from accelerate_tpu_torch.telemetry.aggregate import aggregate_snapshot
 
@@ -573,9 +575,16 @@ def test_aggregate_is_one_process_and_refuses_a_larger_world(monkeypatch):
     got = aggregate_snapshot(reg)
     assert got["num_hosts"] == 1
     assert got == jagg(snapshots=[reg.snapshot(include_sketch=True)])
-    monkeypatch.setattr(torch.distributed, "is_initialized", lambda: True)
-    monkeypatch.setattr(torch.distributed, "get_world_size", lambda: 2)
-    with pytest.raises(NotImplementedError, match="parallelism slice"):
-        aggregate_snapshot(reg)
-    assert aggregate_snapshot(snapshots=[reg.snapshot(include_sketch=True)]
-                              )["num_hosts"] == 1
+    other = MetricsRegistry()
+    for v in (0.08, 0.09):
+        other.histogram("step_time_seconds").record(v)
+    other.counter("steps_total").inc(2)
+    snaps = [reg.snapshot(include_sketch=True),
+             other.snapshot(include_sketch=True)]
+    from accelerate_tpu_torch.utils import operations as tops
+
+    monkeypatch.setattr(tops, "gather_object", lambda local: snaps)
+    got = aggregate_snapshot(reg)
+    assert got["num_hosts"] == 2 and got == jagg(snapshots=snaps)
+    assert got["counters"]["steps_total"]["sum"] == 5
+    assert aggregate_snapshot(snapshots=snaps[:1])["num_hosts"] == 1

@@ -378,10 +378,14 @@ def test_logger_records_like_jax(caplog):
     logging.getLogger().setLevel(logging.WARNING)
 
 
-def test_logger_in_order_across_processes_raises(monkeypatch):
-    log = tlogging.get_logger("port_logger_ranks")
-    log.logger.setLevel(logging.INFO)
-    monkeypatch.setattr(PartialState, "num_processes", 2)
-    with pytest.raises(NotImplementedError, match="queue 1 item 6"):
-        log.info("x", in_order=True)
-    log.logger.setLevel(logging.NOTSET)
+def test_logger_in_order_across_processes_raises():
+    """In a real two-process gloo world `in_order=True` logs rank by
+    rank, each record prefixed with its rank, and a main-process record
+    once. (The name is kept from when this raised.)"""
+    from accelerate_tpu_torch.test_utils import run_world
+    from accelerate_tpu_torch.test_utils.worlds import logging_forms
+
+    lines = run_world(logging_forms, 2)[0]["log"]
+    assert lines == ["[rank 0] ordered 0 from 0", "[rank 1] ordered 0 from 1",
+                     "[rank 0] ordered 1 from 0", "[rank 1] ordered 1 from 1",
+                     "main only from 0"]

@@ -36,7 +36,7 @@ from accelerate_tpu_torch.models.convert import params_from_numpy, \
     params_to_numpy
 from accelerate_tpu_torch.state import PartialState
 from accelerate_tpu_torch.utils.dataclasses import InitProcessGroupKwargs, \
-    JitConfig
+    JitConfig, MeshConfig
 
 STEPS = 5
 LR = 3e-3
@@ -178,22 +178,26 @@ def test_accelerator_needs_a_gpu_unless_cpu_is_asked(monkeypatch):
 
 
 @pytest.mark.parametrize("kwargs", [
-    {"mesh_config": "a mesh"}, {"fsdp_plugin": "a plugin"},
+    # a mesh with an axis other than `data` is sharded parallelism (6b)
+    {"mesh_config": MeshConfig(axes={"model": 2})},
+    {"fsdp_plugin": "a plugin"},
     {"metrics_port": 0}, {"strict": "error"},
-    # log_with is ported; a device-cost sampler beside it is not
+    # log_with is ported; a device-cost sampler beside it is too
     {"log_with": "jsonl", "cost_sample_every": 16},
     {"stall_timeout_s": 10.0}, {"split_batches": True},
-    # fp8 is ported; a process-group timeout beside it is not
+    # fp8 is ported; a process group's options beside it are too
     {"mixed_precision": "fp8",
      "kwargs_handlers": [InitProcessGroupKwargs()]}],
     ids=lambda kw: next(iter(kw)))
 def test_unported_arguments_raise_and_name_their_slice(kwargs):
-    """The parallelism and analysis arguments still raise, naming their
-    slice; the telemetry ones (`metrics_port`, `cost_sample_every`,
-    `stall_timeout_s`) construct, and `end_training` stops their
-    threads."""
-    telemetry = {"metrics_port", "cost_sample_every", "stall_timeout_s"}
-    if not telemetry & set(kwargs):
+    """The sharded-parallelism and analysis arguments still raise,
+    naming their slice; the telemetry ones (`metrics_port`,
+    `cost_sample_every`, `stall_timeout_s`), `split_batches` and the
+    process group's options (a world of one joins no group) construct,
+    and `end_training` stops their threads."""
+    ported = {"metrics_port", "cost_sample_every", "stall_timeout_s",
+              "split_batches", "kwargs_handlers"}
+    if not ported & set(kwargs):
         with pytest.raises(NotImplementedError, match="slice"):
             Accelerator(cpu=True, **kwargs)
         return
@@ -205,6 +209,11 @@ def test_unported_arguments_raise_and_name_their_slice(kwargs):
             assert acc.cost_table.sample_every == 16
         if "stall_timeout_s" in kwargs:
             assert acc.stall_watchdog.timeout_s == 10.0
+        if "split_batches" in kwargs:
+            assert acc.dataloader_config.split_batches
+        if "kwargs_handlers" in kwargs:
+            assert acc.num_processes == 1
+            assert not torch.distributed.is_initialized()
     finally:
         acc.end_training()
     assert acc.metrics_server is None and acc.stall_watchdog is None
