@@ -254,7 +254,7 @@ class EngineConfig:
 
 # field -> (is it set?, the part of the port that will bring it)
 _UNPORTED = {
-    "mesh": (lambda v: v is not None, "sharded (pod) serving"),
+    "mesh": (lambda v: v is not None, "queue 1 item 6b"),
     "strict": (lambda v: v is not None, "the static-analysis audits"),
     "contracts": (lambda v: v is not None, "the static-analysis audits"),
 }

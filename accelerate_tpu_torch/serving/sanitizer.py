@@ -1,6 +1,7 @@
-"""Serving-state sanitizer (a copy of the engine half of
-`accelerate_tpu/serving/sanitizer.py`; the pod router's joins come with
-the pod slice).
+"""Serving-state sanitizer (a copy of
+`accelerate_tpu/serving/sanitizer.py`: the engine's joins, the pod
+router's `check_router` and the multi-process router's
+`check_distributed_router`).
 
 Static analysis proves per-function acquire/release discipline; what it
 CANNOT see is whether the cross-structure books still agree at runtime —
@@ -30,7 +31,11 @@ validates exactly those joins after every engine step:
   match the host-tracked draft progress for prefilling lanes);
 - **scheduler books**: queued requests are QUEUED, running slots hold
   RUNNING requests, per-tenant queues/deficits/tier rings stay aligned
-  with the tenant table.
+  with the tenant table;
+- **router books** (`check_router`, `check_distributed_router`): flight
+  phases agree with the pending and replay queues, no flight outlives
+  its request or rides a lost worker, the shipment buffer stays inside
+  its bound, and admit-hook page snapshots die with their flights.
 
 All host-side: no program changes, no extra captures (the tests pin
 the capture counts flat with the sanitizer on). Enabled by
@@ -49,7 +54,8 @@ import numpy as np
 
 from .scheduler import RequestStatus, SlotState
 
-__all__ = ["SanitizerViolation", "resolve_sanitize", "check_engine"]
+__all__ = ["SanitizerViolation", "resolve_sanitize", "check_engine",
+           "check_router", "check_distributed_router"]
 
 
 class SanitizerViolation(RuntimeError):
@@ -347,3 +353,135 @@ def check_engine(engine) -> None:
         _fail("scheduler-books",
               "tier rings do not cover each tenant exactly once",
               rings=ring_members, tenants=sorted(keys))
+
+
+def check_router(router) -> None:
+    """PodRouter-level joins: flight phases vs the pending deque vs the
+    admit-hook page snapshots vs the front queue. (Worker engines check
+    themselves inside their own step().)"""
+    flights = router._flights
+    phases = {"prefill", "pending", "decode"}
+    pending_ids = {id(f) for f in router._pending}
+    for f in flights.values():
+        if f.phase not in phases:
+            _fail("router-books", "unknown flight phase",
+                  phase=f.phase, request_id=f.user.request_id)
+        if f.user.done:
+            _fail("router-books",
+                  "a terminal request still has a live flight",
+                  request_id=f.user.request_id,
+                  status=f.user.status.value)
+        if (f.phase == "pending") != (id(f) in pending_ids):
+            _fail("router-books",
+                  "flight phase and pending-buffer membership disagree",
+                  request_id=f.user.request_id, phase=f.phase)
+    # the backpressure bound stops NEW assignments, it is not a hard cap:
+    # every already-assigned in-flight prefill may still finish and park
+    # its shipment, so the true invariant adds the prefill capacity
+    prefill_capacity = sum(len(w.scheduler.slots)
+                           for w in router.prefill_workers)
+    if len(router._pending) > router._max_pending + prefill_capacity:
+        _fail("router-books",
+              "pending shipments exceed the backpressure bound plus the "
+              "in-flight prefill capacity", pending=len(router._pending),
+              bound=router._max_pending, prefill_capacity=prefill_capacity)
+    live_internals = {id(f.internal) for f in flights.values()
+                      if f.phase == "prefill" and f.internal is not None}
+    stale = [k for k in router._admit_pages if k not in live_internals]
+    if stale:
+        _fail("router-books",
+              "admit-hook page snapshots outlive their prefill flights "
+              "(the snapshot map would grow forever)",
+              stale_entries=len(stale))
+    from .scheduler import RequestStatus
+
+    for r in router.scheduler.queue:
+        if r.status is not RequestStatus.QUEUED:
+            _fail("router-books",
+                  "a front-queued request is not QUEUED",
+                  request_id=r.request_id, status=r.status.value)
+
+
+def check_distributed_router(router) -> None:
+    """DistributedPodRouter cross-process joins: flight phases vs the
+    pending/replay deques vs worker assignment vs worker liveness.
+    Workers sanitize their own engines inside their own step(); these
+    checks are the invariants only the router can see — in particular
+    that NO flight rides a dead worker (the no-zombie rule: a lost
+    worker's flights must all have been replayed) and that the worker
+    table itself is coherent."""
+    flights = router._flights
+    phases = {"replay", "prefill", "pending", "decode"}
+    pending_ids = set(router._pending)
+    replay_ids = set(router._replay)
+    for fid, f in flights.items():
+        if f.flight_id != fid:
+            _fail("droute-books", "flight table key != flight_id",
+                  key=fid, flight_id=f.flight_id)
+        if f.phase not in phases:
+            _fail("droute-books", "unknown flight phase",
+                  phase=f.phase, request_id=f.user.request_id)
+        if f.user.done:
+            _fail("droute-books",
+                  "a terminal request still has a live flight",
+                  request_id=f.user.request_id,
+                  status=f.user.status.value)
+        if f.attempt < 1:
+            _fail("droute-books", "flight attempt below 1",
+                  request_id=f.user.request_id, attempt=f.attempt)
+        if (f.phase == "pending") != (fid in pending_ids):
+            _fail("droute-books",
+                  "flight phase and pending-buffer membership disagree",
+                  request_id=f.user.request_id, phase=f.phase)
+        if (f.phase == "replay") != (fid in replay_ids):
+            _fail("droute-books",
+                  "flight phase and replay-queue membership disagree",
+                  request_id=f.user.request_id, phase=f.phase)
+        if f.phase == "pending" and f.shipment is None:
+            _fail("droute-books", "a pending flight holds no shipment",
+                  request_id=f.user.request_id)
+        if f.phase in ("prefill", "decode"):
+            handle = router.workers.get(f.worker)
+            if handle is None:
+                _fail("droute-books",
+                      "a flight is assigned to an unknown worker",
+                      request_id=f.user.request_id, worker=f.worker)
+            elif handle.lost:
+                # THE no-zombie rule: losing a worker must replay every
+                # flight it held, atomically with the loss
+                _fail("droute-books",
+                      "a flight still rides a LOST worker",
+                      request_id=f.user.request_id, worker=f.worker,
+                      phase=f.phase)
+        else:
+            if f.worker != -1:
+                _fail("droute-books",
+                      "a router-held flight names a worker",
+                      request_id=f.user.request_id, phase=f.phase,
+                      worker=f.worker)
+    if len(router._by_user) != len(flights):
+        _fail("droute-books",
+              "user-index and flight table sizes diverged",
+              by_user=len(router._by_user), flights=len(flights))
+    for handle in router.workers.values():
+        if handle.alive and handle.lost:
+            _fail("droute-books",
+                  "a worker is both alive and lost (zombie bookkeeping)",
+                  worker=handle.worker_id)
+    # the pending bound mirrors check_router's: assignment stops at
+    # _max_pending but already-assigned prefills may still land, so the
+    # hard cap adds the alive prefill-capable capacity
+    prefill_capacity = sum(
+        h.slots for h in router.workers.values() if h.alive)
+    if len(router._pending) > router._max_pending + prefill_capacity:
+        _fail("droute-books",
+              "pending shipments exceed the backpressure bound plus the "
+              "alive worker capacity", pending=len(router._pending),
+              bound=router._max_pending, capacity=prefill_capacity)
+    from .scheduler import RequestStatus
+
+    for r in router.scheduler.queue:
+        if r.status is not RequestStatus.QUEUED:
+            _fail("droute-books",
+                  "a front-queued request is not QUEUED",
+                  request_id=r.request_id, status=r.status.value)

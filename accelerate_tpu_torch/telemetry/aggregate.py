@@ -14,7 +14,8 @@ With no `snapshots` given, every process's registry snapshot is
 all-gathered (`utils.operations.gather_object`: a collective, call it on
 every process) and every process gets the aggregate; a world of one
 aggregates its own registry (`snapshots=[local]`). `StragglerMonitor.poll`
-reads it.
+reads it. `merged_registry` folds snapshots that arrived some other way
+(a pod's worker heartbeats) into live series for one exposition.
 """
 
 from __future__ import annotations
@@ -23,7 +24,7 @@ import math
 
 from .registry import MetricsRegistry, StreamingHistogram, get_registry
 
-__all__ = ["aggregate_snapshot"]
+__all__ = ["aggregate_snapshot", "merged_registry"]
 
 
 def _section(snapshot, name: str) -> dict:
@@ -140,3 +141,64 @@ def aggregate_snapshot(registry: MetricsRegistry | None = None,
             entry["slowest_host_mean"] = max(per_host_means)
         out["histograms"][key] = entry
     return out
+
+
+def _parse_series_key(key: str) -> tuple[str, dict[str, str]]:
+    """Inverse of registry._series_key for this codebase's label
+    vocabulary (role/program/tenant names — no embedded commas or
+    quotes): `name{k="v",k2="v2"}` -> (name, {k: v, k2: v2})."""
+    if "{" not in key:
+        return key, {}
+    name, _, rest = key.partition("{")
+    labels: dict[str, str] = {}
+    for part in rest.rstrip("}").split(","):
+        k, _, v = part.partition("=")
+        labels[k] = v.strip('"')
+    return name, labels
+
+
+def merged_registry(snapshots: list[dict],
+                    registry: MetricsRegistry | None = None,
+                    **extra_labels) -> "MetricsRegistry":
+    """Transport-backed merge: per-worker registry snapshots (as carried
+    by pod heartbeats — plain JSON dicts, no process group) folded
+    into a fresh `MetricsRegistry` the router can hand straight to the
+    Prometheus renderer.
+
+    The reduction semantics are `aggregate_snapshot`'s, re-materialized
+    as live series: counters become the cross-worker SUM under their
+    original name, gauges expand to `name__min/__mean/__max`, histogram
+    sketches MERGE into one distribution per series (true global
+    p50/p99) with the straggler signal exposed as
+    `name__slowest_host_mean`. `extra_labels` (e.g. ``origin="workers"``)
+    tag every merged series so a router can expose its own series and
+    the worker aggregate in one scrape without collisions."""
+    agg = aggregate_snapshot(snapshots=snapshots)
+    reg = registry if registry is not None else MetricsRegistry()
+    for key, red in agg["counters"].items():
+        name, labels = _parse_series_key(key)
+        total = red["sum"]
+        if total == total and total >= 0:  # NaN-empty or clock-skew junk
+            reg.counter(name, **{**labels, **extra_labels}).inc(total)
+    for key, red in agg["gauges"].items():
+        name, labels = _parse_series_key(key)
+        for stat in ("min", "mean", "max"):
+            if red[stat] == red[stat]:
+                reg.gauge(f"{name}__{stat}",
+                          **{**labels, **extra_labels}).set(red[stat])
+    for key, entry in agg["histograms"].items():
+        name, labels = _parse_series_key(key)
+        hist = reg.histogram(name, **{**labels, **extra_labels})
+        for snap in snapshots:
+            e = _section(snap, "histograms").get(key)
+            sketch = e.get("sketch") if isinstance(e, dict) else None
+            if sketch is not None:
+                try:
+                    hist.merge(StreamingHistogram.from_dict(sketch))
+                except (TypeError, KeyError, ValueError):
+                    pass   # foreign sketch encoding: skip this host
+        if "slowest_host_mean" in entry:
+            reg.gauge(f"{name}__slowest_host_mean",
+                      **{**labels, **extra_labels}).set(
+                          entry["slowest_host_mean"])
+    return reg

@@ -56,6 +56,21 @@ script exits non-zero:
 5c. host_tier: a pool too small for the traffic swaps a 512-token
    prefix out to host memory and back in, bf16 and int8 pools, streams
    equal to an ample pool's;
+5c1. pod: `PodRouter` with a prefill and a decode worker sharing phase
+   engine's params (llama3-8B, bf16, graphs, `paged_attention=True`):
+   its 12 requests, streams equal phase engine's (greedy and sampled),
+   K2's launches = the decode worker's steps x 32 through replays, the
+   shipment extract/install captured once, 12 shipments whose host
+   bytes are their `page_bytes`; TTFT, the decode step and one
+   shipment's extract, copy to the host and install times;
+5c2. pod_distributed: the same over `build_local_distributed_pod`
+   (every message through the wire codec, shipments as bf16 words),
+   streams equal phase engine's; then a decode worker killed mid-run
+   (f32, 4 layers): every flight recovers with a single engine's tokens;
+5c3. pod_cli: `python -m accelerate_tpu_torch.commands.pod pod-router`
+   spawning a `pod-worker` per role on the card (tiny llama spec): 4
+   completions over HTTP equal to the single engine's, the workers'
+   merged K2 decode steps on /metrics, SIGTERM: every process exits 0;
 5d. gptj_engine: GPT-J-6B at full width and depth (random bf16 weights
    from a seed) served like phase engine's 12 requests through K2 at
    head dim 256 with no GQA, graphs against eager, K2's launches through
@@ -1024,7 +1039,8 @@ def phase_engine(kernel_rows):
                       float(np.median(decode_s)) * 1e3,
                       "prefill_chunk_ms_median":
                       float(np.median(prefill_s)) * 1e3,
-                      "greedy": {i: reqs[i].tokens for i in greedy}}
+                      "greedy": {i: reqs[i].tokens for i in greedy},
+                      "streams": [r.tokens for r in reqs]}
     return cfg, params, eng, prompts, temps, engine_numbers
 
 
@@ -2050,6 +2066,459 @@ def _transfer_times(eng) -> dict:
             "swap_out_gb_per_s": nbytes / float(np.median(out_s)) / 1e9,
             "swap_in_32_pages_ms": float(np.median(in_s)) * 1e3,
             "swap_in_gb_per_s": 32 * nbytes / float(np.median(in_s)) / 1e9}
+
+
+# ---------------------------------------------------------------------------
+# phase 5c1: the disaggregated pod (prefill worker -> KV pages -> decode
+# worker) at llama3-8B width and depth
+# ---------------------------------------------------------------------------
+
+POD_PROGRAMS = {"admit": 1, "prefill": 1, "decode": 1, "extract": 1,
+                "install": 1}
+
+
+def _time_engine_steps(engine):
+    """Wrap `engine.step` so each call is timed between synchronises;
+    returns the list the times land in."""
+    import torch
+
+    times, step = [], engine.step
+
+    def timed():
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = step()
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t)
+        return out
+
+    engine.step = timed
+    return times
+
+
+def _count_shipments(transport):
+    """Wrap a prefill worker's transport: record each shipment's
+    `page_bytes` and the bytes its copy to the host actually moved."""
+    page_bytes, host_bytes = [], []
+    to_host, extract = transport.to_host, transport.extract_shipment
+
+    def counted_to_host(block, n):
+        out = to_host(block, n)
+        host_bytes.append(sum(a.nbytes for a in out.values()))
+        return out
+
+    def counted_extract(*args, **kwargs):
+        ship = extract(*args, **kwargs)
+        page_bytes.append(ship.page_bytes)
+        return ship
+
+    transport.to_host = counted_to_host
+    transport.extract_shipment = counted_extract
+    return page_bytes, host_bytes
+
+
+def _pinned_d2h_gb_per_s(nbytes, reps=5) -> float:
+    """The card-to-host rate of one pinned copy of `nbytes`, CUDA events
+    around `reps` copies."""
+    import torch
+
+    src = torch.empty(nbytes, dtype=torch.uint8, device="cuda")
+    dst = torch.empty(nbytes, dtype=torch.uint8, pin_memory=True)
+    ms = cuda_time_ms(lambda: dst.copy_(src, non_blocking=True), iters=reps,
+                      warmup=1)
+    return nbytes / ms / 1e6
+
+
+def _shipment_times(pod, prompt, key, reps=3) -> dict:
+    """One shipment of `prompt` timed part by part on the pod's workers
+    (programs already captured): the extract program, the slice and copy
+    of the prompt pages to pinned host memory, and the install (copy to
+    the card, the install program, admit). Host clock between
+    synchronises; medians of `reps`."""
+    import numpy as np
+    import torch
+
+    from accelerate_tpu_torch.serving.pod import place_shipment
+
+    pre, dec = pod.prefill_workers[0], pod.decode_workers[0]
+    tp, td = pod._transports_p[0], pod._transports_d[0]
+    hook, pages = pre.on_admit, {}
+    pre.on_admit = lambda slot, req: pages.__setitem__(
+        id(req), list(slot.alloc.pages))
+    out = {"extract": [], "d2h": [], "install": []}
+    try:
+        for _ in range(reps):
+            r = pre.submit(prompt, max_new_tokens=2, key=key)
+            while not r.tokens:
+                pre.step()
+            n = -(-r.prompt_len // pre.cache.page_size)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            block = tp.extract_block(pages[id(r)])
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            host = tp.to_host(block, n)
+            t2 = time.perf_counter()
+            ship = tp.extract_shipment(pages.pop(id(r)), r)
+            pre.finish(r)
+            torch.cuda.synchronize()
+            t3 = time.perf_counter()
+            placed = place_shipment(dec, td, ship, dec._clock())
+            torch.cuda.synchronize()
+            t4 = time.perf_counter()
+            if placed is None:
+                raise AssertionError("the timed shipment found no slot")
+            dec.cancel(placed[0])
+            out["extract"].append(t1 - t0)
+            out["d2h"].append(t2 - t1)
+            out["install"].append(t4 - t3)
+    finally:
+        pre.on_admit = hook
+    nbytes = sum(a.nbytes for a in host.values())
+    d2h = float(np.median(out["d2h"]))
+    return {"timed_shipment_pages": n, "timed_shipment_bytes": nbytes,
+            "extract_ms": float(np.median(out["extract"])) * 1e3,
+            "d2h_ms": d2h * 1e3, "d2h_gb_per_s": nbytes / d2h / 1e9,
+            "pinned_d2h_gb_per_s": _pinned_d2h_gb_per_s(nbytes),
+            "install_ms": float(np.median(out["install"])) * 1e3}
+
+
+def phase_pod(cfg, params, prompts, temps, engine_numbers, kernel_rows):
+    """`PodRouter(PodConfig(prefill_workers=1, decode_workers=1))` over
+    phase engine's params (one copy, shared by both workers), its
+    `ENGINE_CONFIG`, bf16 pool, `paged_attention=True`, graphs on, and its
+    12 requests and keys. Gated: every request finishes, all 12 streams
+    (greedy and sampled) equal phase engine's, K2's launches equal the
+    decode worker's decode steps x 32 (through replays; the prefill
+    worker decodes nothing), each program captured once (the shipment
+    extract on the prefill worker, the install on the decode worker), 12
+    shipments whose host bytes are the sum of their `page_bytes`.
+    Reported: TTFT, the decode worker's step time, one shipment's extract,
+    copy to the host and install times beside a plain pinned copy's
+    rate."""
+    import numpy as np
+    import torch
+
+    from accelerate_tpu_torch.models import llama
+    from accelerate_tpu_torch.ops.paged_attention import \
+        paged_decode_attention
+    from accelerate_tpu_torch.serving import EngineConfig
+    from accelerate_tpu_torch.serving.pod import PodConfig, PodRouter
+
+    ec = EngineConfig(cache_dtype=torch.bfloat16, paged_attention=True,
+                      **ENGINE_CONFIG)
+    pod = PodRouter(llama, cfg, params, ec,
+                    PodConfig(prefill_workers=1, decode_workers=1))
+    pre, dec = pod.prefill_workers[0], pod.decode_workers[0]
+    page_bytes, host_bytes = _count_shipments(pod._transports_p[0])
+    decode_s = _time_engine_steps(dec)
+    torch.cuda.reset_peak_memory_stats()
+    # the main path's run: every count at 0 just before, read just after
+    paged_decode_attention.launches = 0
+    t0 = time.perf_counter()
+    reqs = [pod.submit(p, max_new_tokens=32, temperature=t, key=1000 + i)
+            for i, (p, t) in enumerate(zip(prompts, temps))]
+    pod.run_until_idle()
+    run_s = time.perf_counter() - t0
+    launches = paged_decode_attention.launches
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    summary = pod.metrics_summary()
+    steps = dec.metrics.decode_steps
+    stats = pod.compile_stats()
+    roles = {"prefill": pod._transports_p[0].compile_stats(),
+             "decode": pod._transports_d[0].compile_stats()}
+    want = engine_numbers["streams"]
+    same = [r.tokens == w for r, w in zip(reqs, want)]
+    shipped = (len(page_bytes), sum(page_bytes), sum(host_bytes))
+    del dec.step
+    times = _shipment_times(pod, max(prompts, key=len), 2000)
+    emit("pod", config="llama3_8b", layers=cfg.num_hidden_layers,
+         workers={"prefill": 1, "decode": 1}, requests=len(reqs),
+         finished=len(reqs) - len(_finished(reqs, cfg.vocab_size)),
+         streams_equal_engine=sum(same),
+         greedy_equal=all(same[i] for i, t in enumerate(temps) if t == 0),
+         decode_steps=steps, prefill_worker_decode_steps=(
+             pre.metrics.decode_steps),
+         paged_decode_launches=launches, compile_stats=stats,
+         role_transport_stats=roles,
+         shipments=summary.get("pod_shipments"),
+         pages_shipped=summary.get("pod_pages_shipped"),
+         backpressure_stalls=summary.get("pod_backpressure_stalls"),
+         shipment_page_bytes=shipped[1], shipment_host_bytes=shipped[2],
+         ttft_p50_ms=summary.get("ttft_p50_ms"),
+         ttft_p99_ms=summary.get("ttft_p99_ms"),
+         decode_step_ms_median=float(np.median(decode_s)) * 1e3,
+         engine_decode_step_ms_median=engine_numbers[
+             "decode_step_ms_median"],
+         run_s=run_s, max_memory_allocated_gb=peak_gb, **times)
+    kernel_rows.append(_paged_row("pod", launches))
+    bad = _finished(reqs, cfg.vocab_size)
+    if bad:
+        raise AssertionError(f"pod requests {bad} did not finish")
+    if not all(same):
+        raise AssertionError("pod streams differ from phase engine's at "
+                             f"{[i for i, s in enumerate(same) if not s]}")
+    if launches != steps * cfg.num_hidden_layers or launches == 0 \
+            or pre.metrics.decode_steps:
+        raise AssertionError(f"paged_decode launched {launches} times for "
+                             f"{steps} decode steps x 32 layers")
+    if stats != POD_PROGRAMS or roles != {
+            "prefill": {"extract": 1, "install": 0},
+            "decode": {"extract": 0, "install": 1}}:
+        raise AssertionError(f"pod programs not captured once: {stats} "
+                             f"{roles}")
+    if summary.get("pod_shipments") != 12 or shipped[0] != 12 \
+            or shipped[2] != shipped[1]:
+        raise AssertionError(f"{summary.get('pod_shipments')} shipments, "
+                             f"host bytes {shipped[2]} against page_bytes "
+                             f"{shipped[1]}")
+    pod.close()
+
+
+# the kill-and-recover run compares the pod with the single engine at
+# f32: a replay recomputes delivered tokens' K/V in a prefill chunk,
+# which rounds differently from the decode step that first wrote them,
+# and in bf16 at depth that difference flips tokens; in f32 it does not
+POD_KILL_LAYERS = 4
+
+
+def _pod_dist_run(cfg, params, ec, prompts, temps, dec, kill):
+    """The in-process distributed pod (workers behind `LocalChannel`s,
+    every message through the wire codec) over `prompts`; with `kill`,
+    the decode worker holding the most live streams loses its link once
+    it has delivered tokens. Returns (requests, router, shipment wire
+    dtypes, killed worker)."""
+    from accelerate_tpu_torch.models import llama
+    from accelerate_tpu_torch.serving.pod.distributed import (
+        DistributedPodConfig,
+        FlakyTransport,
+        build_local_distributed_pod,
+    )
+
+    links, dtypes = {}, set()
+
+    def wrap(wid, role, ch):
+        links[wid] = FlakyTransport(ch)
+        send = ch.send
+
+        def watched(msg):
+            if msg.kind == "shipment":
+                dtypes.update(b.dtype.metadata["dtype"]
+                              if b.dtype.metadata else b.dtype.name
+                              for b in msg.buffers[1:3])
+            send(msg)
+
+        ch.send = watched
+        return links[wid]
+
+    router, _ = build_local_distributed_pod(
+        llama, cfg, params, engine_config=ec,
+        pod_config=DistributedPodConfig(
+            prefill_workers=1, decode_workers=dec, rebalance=False,
+            heartbeat_interval_s=0.05, heartbeat_timeout_s=600.0,
+            flight_timeout_s=600.0),
+        channel_wrap=wrap)
+    reqs = [router.submit(p, max_new_tokens=32, temperature=t, key=1000 + i)
+            for i, (p, t) in enumerate(zip(prompts, temps))]
+    victim = None
+    deadline = time.monotonic() + 600
+    while not all(r.done for r in reqs):
+        router.step()
+        if kill and victim is None:
+            live = {}
+            for f in router._flights.values():
+                if f.phase == "decode" and len(f.user.tokens) > 2:
+                    live[f.worker] = live.get(f.worker, 0) + 1
+            if live and sum(live.values()) >= 2:
+                victim = max(live, key=live.get)
+                links[victim].kill()
+        if time.monotonic() > deadline:
+            raise AssertionError(f"distributed pod wedged: "
+                                 f"{router.debug_pod()}")
+    return reqs, router, dtypes, victim
+
+
+def phase_pod_distributed(cfg, params, prompts, temps, engine_numbers):
+    """`build_local_distributed_pod` at llama3-8B width: a prefill and a
+    decode worker behind in-process channels, every message (the KV
+    shipments as bf16 words) through the wire codec. Gated at full
+    depth on phase engine's 12 requests: streams equal phase engine's,
+    K2 launched on the decode worker, programs captured once. Then the
+    decode worker is killed mid-run (1 prefill + 2 decode workers, f32 at
+    `POD_KILL_LAYERS` layers, the first 8 requests): every flight
+    recovers with the tokens of a single engine of that config, at
+    least one replayed."""
+    import dataclasses
+
+    import torch
+
+    from accelerate_tpu_torch.models import llama
+    from accelerate_tpu_torch.ops.paged_attention import \
+        paged_decode_attention
+    from accelerate_tpu_torch.serving import Engine, EngineConfig
+
+    ec = EngineConfig(cache_dtype=torch.bfloat16, paged_attention=True,
+                      **ENGINE_CONFIG)
+    paged_decode_attention.launches = 0
+    t0 = time.perf_counter()
+    reqs, router, dtypes, _ = _pod_dist_run(cfg, params, ec, prompts, temps,
+                                            dec=1, kill=False)
+    run_s = time.perf_counter() - t0
+    launches = paged_decode_attention.launches
+    same = [r.tokens == w for r, w in zip(reqs, engine_numbers["streams"])]
+    summary = router.metrics_summary()
+    for _ in range(40):   # the heartbeats that report the last programs
+        router.step()
+        time.sleep(0.01)
+    stats = router.compile_stats()
+    router.close()
+    del router
+    _drop()
+
+    kcfg = dataclasses.replace(cfg, num_hidden_layers=POD_KILL_LAYERS)
+    kparams = llama.init_params(kcfg, 0, dtype=torch.float32)
+    kec = EngineConfig(cache_dtype=torch.float32, paged_attention=True,
+                       **ENGINE_CONFIG)
+    single = Engine(llama, kcfg, kparams, kec)
+    kp, kt = prompts[:8], temps[:8]
+    ref = [single.submit(p, max_new_tokens=32, temperature=t, key=1000 + i)
+           for i, (p, t) in enumerate(zip(kp, kt))]
+    single.run_until_idle()
+    del single
+    kreqs, krouter, _, victim = _pod_dist_run(kcfg, kparams, kec, kp, kt,
+                                              dec=2, kill=True)
+    ksummary = krouter.metrics_summary()
+    reasons = sorted({e["recovery_reason"] for e in krouter.recovery_log})
+    krouter.close()
+    recovered = [a.tokens == b.tokens for a, b in zip(kreqs, ref)]
+    emit("pod_distributed", config="llama3_8b",
+         layers=cfg.num_hidden_layers, requests=len(reqs),
+         finished=len(reqs) - len(_finished(reqs, cfg.vocab_size)),
+         streams_equal_engine=sum(same), paged_decode_launches=launches,
+         compile_stats=stats, shipments=summary.get("pod_shipments"),
+         shipment_wire_dtypes=sorted(dtypes),
+         ttft_p50_ms=summary.get("ttft_p50_ms"),
+         ttft_p99_ms=summary.get("ttft_p99_ms"), run_s=run_s,
+         kill_layers=POD_KILL_LAYERS, kill_dtype="float32",
+         kill_requests=len(kreqs), killed_worker=victim,
+         kill_finished=len(kreqs) - len(_finished(kreqs, kcfg.vocab_size)),
+         kill_streams_equal_single=sum(recovered),
+         workers_lost=ksummary.get("pod_workers_lost"),
+         requests_replayed=ksummary.get("pod_requests_replayed"),
+         recovery_reasons=reasons,
+         recovery_latency_p50_ms=ksummary.get("pod_recovery_latency_p50_ms"))
+    if _finished(reqs, cfg.vocab_size) or not all(same):
+        raise AssertionError("distributed pod streams differ from phase "
+                             "engine's")
+    if launches == 0 or stats != POD_PROGRAMS or dtypes != {"bfloat16"}:
+        raise AssertionError(f"distributed pod: {launches} K2 launches, "
+                             f"programs {stats}, wire dtypes {dtypes}")
+    if victim is None or _finished(kreqs, kcfg.vocab_size) \
+            or not all(recovered) \
+            or not ksummary.get("pod_requests_replayed") \
+            or ksummary.get("pod_workers_lost") != 1.0:
+        raise AssertionError("the killed decode worker's flights did not "
+                             "all recover exactly: see pod_distributed")
+
+
+def phase_pod_cli():
+    """`python -m accelerate_tpu_torch.commands.pod pod-router` with
+    `--family llama` (the reference's tiny spec): its --dry-run JSON,
+    then for real on port 0, spawning a `pod-worker` process per role on
+    the card; 4 greedy completions over HTTP, each equal to the same
+    spec's single engine on the card; the merged /metrics shows the
+    workers' `serving_decode_path_total{path="kernel"}` > 0 (K2 served
+    their decode steps); then SIGTERM: the router drains its workers,
+    each exits 0, and so does the router."""
+    import http.client
+    import queue
+    import re
+    import signal
+    import threading
+
+    import numpy as np
+
+    from accelerate_tpu_torch.serving.pod.distributed.worker import \
+        build_worker_engine
+
+    cmd = [sys.executable, "-m", "accelerate_tpu_torch.commands.pod",
+           "pod-router", "--family", "llama", "--tokenizer", "numeric"]
+    dry = subprocess.run(cmd + ["--dry-run"], capture_output=True,
+                         text=True, timeout=300, check=True)
+    conf = json.loads(dry.stdout.strip().splitlines()[-1])
+    prompts = [[1 + i, 2, 3, 4, 5, 6 + i] for i in range(4)]
+    spec = conf["engine"]
+    _fam, _cfg, _params, ref = build_worker_engine(spec)
+    want = []
+    for p in prompts:
+        r = ref.submit(np.asarray(p, np.int32), max_new_tokens=8)
+        ref.run_until_idle()
+        want.append(r.tokens)
+    del ref, _params
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(cmd + ["--port", "0"], stdout=subprocess.DEVNULL,
+                            stderr=subprocess.PIPE, text=True)
+    lines: queue.Queue = queue.Queue()
+    reader = threading.Thread(
+        target=lambda: [lines.put(ln) for ln in proc.stderr], daemon=True)
+    reader.start()
+    log, port = [], None
+    try:
+        while port is None:
+            line = lines.get(timeout=300)
+            log.append(line.strip())
+            m = re.search(r"serving \S+ on 127\.0\.0\.1:(\d+)", line)
+            port = int(m.group(1)) if m else None
+        ready_s = time.perf_counter() - t0
+        got, request_s = [], []
+        for p in prompts:
+            t = time.perf_counter()
+            conn = http.client.HTTPConnection("127.0.0.1", port, timeout=300)
+            conn.request("POST", "/v1/completions", json.dumps(
+                {"prompt": p, "max_tokens": 8, "temperature": 0}),
+                {"Content-Type": "application/json"})
+            resp = conn.getresponse()
+            body = json.loads(resp.read())
+            conn.close()
+            request_s.append(time.perf_counter() - t)
+            got.append(body["choices"][0]["token_ids"]
+                       if resp.status == 200 else None)
+        seen, deadline = [], time.monotonic() + 60
+        while time.monotonic() < deadline and not (
+                len(seen) > 2 and seen[-1] > 0 and seen[-1] == seen[-3]):
+            # the workers' counters reach the router in their heartbeats
+            # (every 0.25 s): scrape until two heartbeats agree
+            conn = http.client.HTTPConnection("127.0.0.1", port, timeout=60)
+            conn.request("GET", "/metrics")
+            metrics = conn.getresponse().read().decode()
+            conn.close()
+            m = re.search(r'serving_decode_path_total\{origin="workers",'
+                          r'path="kernel"\} (\S+)', metrics)
+            seen.append(float(m.group(1)) if m else 0.0)
+            time.sleep(0.25)
+        kernel_steps = seen[-1] if seen else 0.0
+        proc.send_signal(signal.SIGTERM)
+        rc = proc.wait(timeout=300)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait(timeout=60)
+    reader.join(timeout=60)
+    while not lines.empty():
+        log.append(lines.get().strip())
+    m = [re.search(r"worker exit codes \[([^\]]*)\]", ln) for ln in log]
+    worker_rcs = next(([int(x) for x in g.group(1).split(",")]
+                       for g in m if g), None)
+    emit("pod_cli", dry_run=conf, ready_s=ready_s, tokens=got,
+         tokens_equal_engine=got == want, request_s=request_s,
+         kernel_decode_steps=kernel_steps, exit_code=rc,
+         worker_exit_codes=worker_rcs, log=log[-4:])
+    if not (conf.get("dry_run") and conf.get("workers") == ["prefill",
+                                                            "decode"]
+            and got == want and kernel_steps > 0 and rc == 0
+            and worker_rcs == [0, 0]
+            and any("drained and stopped" in ln for ln in log)):
+        raise AssertionError("pod_cli failed: see the pod_cli line")
 
 
 # ---------------------------------------------------------------------------
@@ -4618,8 +5087,13 @@ def main() -> int:
     phase_speculative(cfg, params, prompts, temps, numbers)
     _drop()
     phase_host_tier(cfg, params)
+    _drop()
+    phase_pod(cfg, params, prompts, temps, numbers, kernels)
+    _drop()
+    phase_pod_distributed(cfg, params, prompts, temps, numbers)
     del params
     _drop()
+    phase_pod_cli()
     phase_gptj_engine(kernels)
     _drop()
     bf16 = phase_train(kernels)

@@ -6,9 +6,11 @@ bf16 head's gradient, a training step on the card against the same
 step on the CPU (fused, and the eager loop), the fp8 path: the `_scaled_mm` products against
 their plain version, an fp8 training step and an fp8 checkpoint, and
 the model zoo: a GPT-J engine at head dim 256 (K2 at D=256, G=1) and a
-Mixtral step through the flash kernels, each against the CPU; and the
+Mixtral step through the flash kernels, each against the CPU; the
 data pipeline: the loader's side-stream copies against the host's
-batches, and a tracker's log of card scalars.
+batches, and a tracker's log of card scalars; and the pod's KV page
+shipments (extract, copy to the host, install) against the CPU
+programs.
 
 Without a card every test here skips with a reason. The file imports
 neither jax nor the JAX package, so it also runs where those are not
@@ -406,6 +408,74 @@ def test_host_tier_on_graphs_swaps_back_the_cold_tokens(cuda, kv_dtype):
     assert eng.compile_stats() == {"admit": 1, "prefill": 1, "decode": 1,
                                    "extract": 1, "install": 1}
     eng.close()
+
+
+@pytest.mark.parametrize("kv_dtype", [None, "int8"])
+def test_pod_shipments_on_the_card_match_the_cpu_programs(cuda, kv_dtype):
+    """The pod's shipment path on the card: the captured extract, the
+    device-side slice of the prompt pages and their copy to pinned host
+    memory, then the captured install into a second card engine, against
+    the same programs on the CPU over the same pool bytes: the host pages
+    (bf16 as raw words; int8 codes and scales) and the installed pools,
+    token registers and lengths are identical, and the host bytes are
+    `page_bytes`. Each program captured once."""
+    from accelerate_tpu_torch.serving.pod import PageTransport, \
+        place_shipment
+
+    cfg = _graph_cfg()
+    params = llama.init_params(cfg, 0)
+    cpu_params = params_from_numpy(params_to_numpy(params), device="cpu")
+    kw = dict(num_slots=2, max_len=96, prefill_chunk=8, page_size=8,
+              cache_dtype=torch.bfloat16, kv_dtype=kv_dtype)
+
+    def engine(p, device):
+        return Engine(llama, cfg, p, EngineConfig(**kw), device=device)
+
+    card, host = engine(params, None), engine(cpu_params, "cpu")
+    pages = {}
+    card.on_admit = lambda slot, req: pages.__setitem__(
+        req.request_id, list(slot.alloc.pages))
+    rng = np.random.default_rng(4)
+    reqs = [card.submit(rng.integers(0, 256, n).astype(np.int32),
+                        max_new_tokens=2, key=7 + i)
+            for i, n in enumerate((21, 37))]
+    while not all(r.tokens for r in reqs):
+        card.step()
+    names = ("k", "v", "k_scale", "v_scale") if kv_dtype else ("k", "v")
+    for name in names:
+        getattr(host.cache, name).copy_(getattr(card.cache, name).cpu())
+    dec_card, dec_host = engine(params, None), engine(cpu_params, "cpu")
+    t_card, t_host = PageTransport(card), PageTransport(host)
+    i_card, i_host = PageTransport(dec_card), PageTransport(dec_host)
+    fields = ("k_pages", "v_pages", "k_scales", "v_scales")
+    landed = []
+    for r in reqs:
+        ship = t_card.extract_shipment(pages[r.request_id], r)
+        want = t_host.extract_shipment(pages[r.request_id], r)
+        for f in fields:
+            a, b = getattr(ship, f), getattr(want, f)
+            assert (a is None) == (b is None), f
+            if a is not None:
+                assert a.dtype == b.dtype and a.shape == b.shape, f
+                assert a.tobytes() == b.tobytes(), f
+        assert ship.page_bytes == sum(getattr(ship, f).nbytes
+                                      for f in fields
+                                      if getattr(ship, f) is not None)
+        placed = place_shipment(dec_card, i_card, ship, 0.0)
+        assert placed is not None
+        landed.append(placed[0])
+        assert place_shipment(dec_host, i_host, want, 0.0) is not None
+    for name in names + ("lengths",):
+        assert torch.equal(getattr(dec_card.cache, name).cpu(),
+                           getattr(dec_host.cache, name)), name
+    assert torch.equal(dec_card._tokens.cpu(), dec_host._tokens)
+    assert torch.equal(dec_card._slot_keys.cpu(), dec_host._slot_keys)
+    assert t_card.compile_stats() == {"extract": 1, "install": 0}
+    assert i_card.compile_stats() == {"extract": 0, "install": 1}
+    assert dec_card._graphs.capture_seconds().keys() >= {"ship_install"}
+    dec_card.run_until_idle()
+    assert [(r.status.value, len(r.tokens)) for r in landed] == \
+        [("finished", 2)] * 2
 
 
 def test_a_capture_that_fails_raises(cuda):

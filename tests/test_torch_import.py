@@ -65,7 +65,12 @@ def test_port_imports_no_jax_and_no_jax_package():
                  "telemetry.cost", "telemetry.watchdog",
                  "telemetry.lockwatch", "commands.incident",
                  "utils.environment", "utils.launch", "launchers",
-                 "local_sgd", "commands.launch",
+                 "local_sgd", "commands.launch", "commands.pod",
+                 "serving.pod", "serving.pod.transfer", "serving.pod.router",
+                 "serving.pod.distributed", "serving.pod.distributed.wire",
+                 "serving.pod.distributed.transport",
+                 "serving.pod.distributed.worker",
+                 "serving.pod.distributed.droute",
                  "commands.config.config_args", "test_utils",
                  "test_utils.training", "test_utils.worlds",
                  *(f"test_utils.scripts.{p.stem}" for p in SCRIPTS),
