@@ -16,13 +16,13 @@ import torch
 import torch.nn.functional as F
 
 from ..ops.fp8 import stacked_fp8_metas
+from . import tensor_parallel as tpm
 from .common import (
     causal_lm_loss_of,
     dense_maybe_fp8,
     dot_product_attention,
     layer_norm,
     learned_positions,
-    logits_f32,
     make_generator,
     normal_init,
     run_layers,
@@ -34,6 +34,11 @@ from .decode import (
     decode_attention,
     make_kv_caches,
 )
+
+
+# a tensor-parallel forward over params placed on a mesh's model axis
+# (`models/tensor_parallel.py`)
+TENSOR_PARALLEL = True
 
 
 @dataclasses.dataclass(frozen=True)
@@ -94,8 +99,56 @@ def init_params(config: GPT2Config, generator: torch.Generator | int = 0,
     }
 
 
+def _layer_body_tp(config: GPT2Config, x, layer, mask, positions, kv_cache,
+                   tp):
+    """`_layer_body` over this rank's shards (`models/tensor_parallel.py`).
+    The fused `c_attn` kernel [h, 3h] is column-sharded on its out dim,
+    whose slices do not fall on the q/k/v boundaries (at 2 ranks rank 0
+    holds all of q and half of k), so its output is gathered, split into
+    q, k and v, and, when the heads divide the axis, cut to this rank's
+    heads (the cache then holds those only)."""
+    b, s, h = x.shape
+    nh, hd = config.num_attention_heads, config.head_dim
+    eps = config.layer_norm_epsilon
+    attn, mlp = layer["attn"], layer["mlp"]
+    heads_split = nh % tp.n == 0
+
+    y = layer_norm(x, layer["ln_1"]["scale"], layer["ln_1"]["bias"], eps)
+    qkv, local = tpm.project(tp, "layers/attn/c_attn/kernel", y,
+                             attn["c_attn"]["kernel"], attn["c_attn"]["bias"],
+                             "layers/attn/c_attn/bias")
+    qkv = tp.to_full(qkv, local)
+    q, k, v = (tp.local(t) if heads_split else t
+               for t in qkv.chunk(3, dim=-1))
+    q, k, v = (t.reshape(b, s, -1, hd) for t in (q, k, v))
+    new_cache = None
+    if kv_cache is not None:
+        out, new_cache = decode_attention(q, k, v, kv_cache, positions,
+                                          mask=mask)
+    else:
+        out = dot_product_attention(q, k, v, mask=mask, causal=True)
+    a_out, _ = tpm.project(tp, "layers/attn/c_proj/kernel",
+                           out.reshape(b, s, -1), attn["c_proj"]["kernel"],
+                           attn["c_proj"]["bias"], "layers/attn/c_proj/bias",
+                           x_local=heads_split)
+    x = x + a_out
+
+    y = layer_norm(x, layer["ln_2"]["scale"], layer["ln_2"]["bias"], eps)
+    y, local = tpm.project(tp, "layers/mlp/c_fc/kernel", y,
+                           mlp["c_fc"]["kernel"], mlp["c_fc"]["bias"],
+                           "layers/mlp/c_fc/bias")
+    y = F.gelu(y.float(), approximate="tanh").to(x.dtype)
+    m_out, _ = tpm.project(tp, "layers/mlp/c_proj/kernel", y,
+                           mlp["c_proj"]["kernel"], mlp["c_proj"]["bias"],
+                           "layers/mlp/c_proj/bias", x_local=local)
+    return x + m_out, new_cache, None
+
+
 def _layer_body(config: GPT2Config, x, layer, mask, positions=None,
-                kv_cache=None, fp8=None):
+                kv_cache=None, fp8=None, tp=None):
+    if tp is not None:
+        return _layer_body_tp(config, x, layer, mask, positions, kv_cache,
+                              tp)
     b, s, h = x.shape
     nh, hd = config.num_attention_heads, config.head_dim
     eps = config.layer_norm_epsilon
@@ -133,15 +186,19 @@ def _layer_body(config: GPT2Config, x, layer, mask, positions=None,
 
 
 def _embed(params: dict, input_ids, positions):
-    return (params["wte"]["embedding"][input_ids.long()]
+    tp = tpm.tensor_parallel_of(params)
+    return (tpm.embed(tp, "wte/embedding", params["wte"]["embedding"],
+                      input_ids)
             + learned_positions(params["wpe"]["embedding"], positions))
 
 
 def _project_decode(config: GPT2Config, res: dict, x):
-    """The final ln_f and the tied-wte head: f32 logits."""
+    """The final ln_f and the tied-wte head: f32 logits (gathered from a
+    vocab-sharded wte)."""
     x = layer_norm(x, res["ln_f"]["scale"], res["ln_f"]["bias"],
                    config.layer_norm_epsilon)
-    return logits_f32(x, res["wte"]["embedding"].to(x.dtype).t())
+    return tpm.head_logits(tpm.tensor_parallel_of(res), "wte/embedding", x,
+                           res["wte"]["embedding"].to(x.dtype).t(), -2)
 
 
 def forward(config: GPT2Config, params: dict, input_ids: torch.Tensor,
@@ -160,16 +217,22 @@ def forward(config: GPT2Config, params: dict, input_ids: torch.Tensor,
         positions = torch.arange(input_ids.shape[1],
                                  device=input_ids.device).expand(
                                      input_ids.shape)
+    tp = tpm.tensor_parallel_of(params)
+    if tp is not None and fp8_state is not None:
+        raise NotImplementedError(
+            "fp8 over tensor-parallel params arrives with queue 1 item 6b "
+            "(training half)")
     x = _embed(params, input_ids, positions)
     layers, n = params["layers"], config.num_hidden_layers
     if kv_caches is not None:
         x, new_caches = cached_layers(
             n, layers, x, kv_caches, lambda x, layer, cache: _layer_body(
-                config, x, layer, attention_mask, positions, cache)[:2])
+                config, x, layer, attention_mask, positions, cache,
+                tp=tp)[:2])
         return _project_decode(config, params, x), new_caches
     x, new_fp8 = run_layers(
         lambda x, layer, f: _layer_body(config, x, layer, attention_mask,
-                                        fp8=f)[::2],
+                                        positions, fp8=f, tp=tp)[::2],
         x, layers, n, None if fp8_state is None else fp8_state["layers"])
     logits = _project_decode(config, params, x)
     return logits if fp8_state is None else (logits, new_fp8)

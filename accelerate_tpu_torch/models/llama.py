@@ -46,8 +46,14 @@ from .common import (  # noqa: F401  (_HeadF32, _split_bf16: tests)
     token_nll,
 )
 from ..device import resolve_device
+from . import tensor_parallel as tpm
 from .decode import build_generate, build_streamed_generate, \
     cached_layers, decode_attention, make_kv_caches, rope_table_len
+
+
+# a tensor-parallel forward over params placed on a mesh's model axis
+# (`models/tensor_parallel.py`)
+TENSOR_PARALLEL = True
 
 
 @dataclasses.dataclass(frozen=True)
@@ -178,7 +184,10 @@ def init_params(config: LlamaConfig, generator: torch.Generator | int = 0,
 
 
 def _attention(config: LlamaConfig, layer: dict, x, cos, sin, positions,
-               mask, kv_cache=None, fp8=None):
+               mask, kv_cache=None, fp8=None, tp=None):
+    if tp is not None:
+        return _attention_tp(config, layer, x, cos, sin, positions, mask,
+                             kv_cache, tp)
     b, s, _ = x.shape
     nh, nkv, hd = (config.num_attention_heads, config.num_key_value_heads,
                    config.head_dim)
@@ -224,8 +233,67 @@ def _attention(config: LlamaConfig, layer: dict, x, cos, sin, positions,
     return o, new_cache, new_fp8
 
 
-def _mlp(layer: dict, x, fp8=None):
+def _attention_tp(config: LlamaConfig, layer: dict, x, cos, sin,
+                  positions, mask, kv_cache, tp):
+    """`_attention` over this rank's shards (`models/tensor_parallel.py`):
+    head-parallel when the KV heads divide the model axis (the cache then
+    holds this rank's heads), else over every head."""
+    b, s, _ = x.shape
+    nh, nkv, hd = (config.num_attention_heads, config.num_key_value_heads,
+                   config.head_dim)
+    attn = layer["attn"]
+    heads_split = nkv % tp.n == 0
+    proj = []
+    for name in ("q_proj", "k_proj", "v_proj"):
+        path = f"layers/attn/{name}"
+        y, local = tpm.project(tp, f"{path}/kernel", x,
+                               attn[name]["kernel"])
+        if "bias" in attn[name]:
+            y = tpm.add_bias(tp, f"{path}/bias", y, local,
+                             attn[name]["bias"].to(y.dtype))
+        proj.append(tp.to_local(y, local) if heads_split
+                    else tp.to_full(y, local))
+    q, k, v = proj
+    q = apply_rope(q.reshape(b, s, -1, hd), cos, sin, positions)
+    k = apply_rope(k.reshape(b, s, -1, hd), cos, sin, positions)
+    v = v.reshape(b, s, -1, hd)
+    new_cache = None
+    if kv_cache is not None:
+        out, new_cache = decode_attention(
+            q, k, v, kv_cache, positions, mask=mask,
+            window=config.sliding_window, n_rep=nh // nkv)
+    else:
+        backend = select_attention_backend(
+            config.attention_backend, on_cuda=x.is_cuda, decoding=False,
+            seq_len=s)
+        k, v = repeat_kv(k, nh // nkv), repeat_kv(v, nh // nkv)
+        if backend == "flash" and (mask is None or mask.ndim == 2):
+            out = flash_attention(q, k, v, causal=True, mask=mask,
+                                  window=config.sliding_window)
+        else:
+            out = dot_product_attention(q, k, v, mask=mask, causal=True,
+                                        window=config.sliding_window)
+    ob = attn["o_proj"].get("bias")
+    o, _ = tpm.project(tp, "layers/attn/o_proj/kernel",
+                       out.reshape(b, s, -1), attn["o_proj"]["kernel"],
+                       None if ob is None else ob.to(x.dtype),
+                       "layers/attn/o_proj/bias", x_local=heads_split)
+    return o, new_cache, None
+
+
+def _mlp(layer: dict, x, fp8=None, tp=None):
     mlp = layer["mlp"]
+    if tp is not None:
+        gate, gl = tpm.project(tp, "layers/mlp/gate_proj/kernel", x,
+                               mlp["gate_proj"]["kernel"])
+        up, ul = tpm.project(tp, "layers/mlp/up_proj/kernel", x,
+                             mlp["up_proj"]["kernel"])
+        if gl != ul:        # one of the two left replicated: take a slice
+            gate, up, gl = tp.to_local(gate, gl), tp.to_local(up, ul), True
+        down, _ = tpm.project(tp, "layers/mlp/down_proj/kernel",
+                              F.silu(gate) * up, mlp["down_proj"]["kernel"],
+                              x_local=gl)
+        return down, None
     fm = fp8["mlp"] if fp8 is not None else {}
     gate, mg = dense_maybe_fp8(x, mlp["gate_proj"]["kernel"],
                                fm.get("gate_proj"))
@@ -238,18 +306,19 @@ def _mlp(layer: dict, x, fp8=None):
 
 
 def _layer_body(config: LlamaConfig, x, layer, cos, sin, positions, mask,
-                kv_cache=None, fp8=None):
+                kv_cache=None, fp8=None, tp=None):
     """One layer: (x, new_cache, new_fp8); the new metas are None without
-    `fp8`, this layer's meta tree."""
+    `fp8`, this layer's meta tree. `tp`: the params' tensor-parallel view
+    (`models/tensor_parallel.py`), None on one device."""
     attn_out, new_cache, fp8_attn = _attention(
         config, layer,
         rms_norm(x, layer["input_layernorm"]["scale"], config.rms_norm_eps),
-        cos, sin, positions, mask, kv_cache, fp8,
+        cos, sin, positions, mask, kv_cache, fp8, tp,
     )
     x = x + attn_out
     mlp_out, fp8_mlp = _mlp(
         layer, rms_norm(x, layer["post_attention_layernorm"]["scale"],
-                        config.rms_norm_eps), fp8)
+                        config.rms_norm_eps), fp8, tp)
     new_fp8 = ({"attn": fp8_attn, "mlp": fp8_mlp} if fp8 is not None
                else None)
     return x + mlp_out, new_cache, new_fp8
@@ -284,7 +353,13 @@ def forward(
         raise NotImplementedError(
             "sequence_parallel arrives with the port's sharded-parallelism "
             "slice (ROADMAP.md, queue 1 item 6b)")
-    x = params["embed_tokens"]["embedding"][input_ids.long()]
+    tp = tpm.tensor_parallel_of(params)
+    if tp is not None and fp8_state is not None:
+        raise NotImplementedError(
+            "fp8 over tensor-parallel params arrives with queue 1 item 6b "
+            "(training half)")
+    x = tpm.embed(tp, "embed_tokens/embedding",
+                  params["embed_tokens"]["embedding"], input_ids)
     if positions is None:
         positions = torch.arange(input_ids.shape[1],
                                  device=x.device).expand(input_ids.shape)
@@ -299,7 +374,7 @@ def forward(
             config.num_hidden_layers, layers, x, kv_caches,
             lambda x, layer, cache: _layer_body(
                 config, x, layer, cos, sin, positions, attention_mask,
-                cache)[:2])
+                cache, tp=tp)[:2])
         x = rms_norm(x, params["norm"]["scale"], config.rms_norm_eps)
         return _project_out(config, params, x), new_caches
 
@@ -309,7 +384,7 @@ def forward(
     body = rematted(
         lambda x, layer, f: _layer_body(config, x, layer, cos, sin,
                                         positions, attention_mask,
-                                        fp8=f)[::2],
+                                        fp8=f, tp=tp)[::2],
         config.remat, config.remat_policy)
     x, new_fp8_state = run_layers(
         body, x, layers, config.num_hidden_layers,
@@ -321,12 +396,13 @@ def forward(
 
 def _project_out(config: LlamaConfig, params: dict, x):
     """f32 logits from the head's product in x's dtype
-    (`common.logits_f32`)."""
+    (`common.logits_f32`); a vocab-sharded head gathers its columns."""
+    tp = tpm.tensor_parallel_of(params)
     if config.tie_word_embeddings:
         w = params["embed_tokens"]["embedding"].to(x.dtype).t()
-    else:
-        w = params["lm_head"]["kernel"].to(x.dtype)
-    return logits_f32(x, w)
+        return tpm.head_logits(tp, "embed_tokens/embedding", x, w, -2)
+    w = params["lm_head"]["kernel"].to(x.dtype)
+    return tpm.head_logits(tp, "lm_head/kernel", x, w)
 
 
 def causal_lm_loss(config: LlamaConfig, params: dict, batch: dict,

@@ -33,6 +33,16 @@ admission just sets `length`. Prefill chunks are padded to a fixed size,
 so a slot's view covers `max_len + pad_slack` rows (`pad_slack` = the
 chunk size); `lengths` only ever advances by real token counts.
 
+On a tensor-parallel engine (`EngineConfig.mesh`) each rank holds its
+shard of the pool (`serving/pod/mesh.py` `cache_state_shardings`): its
+KV heads, or a stripe of whole pages (`PoolShard`). A head shard needs
+nothing here: every function runs on the local heads. A page shard maps
+global page indices to its stripe: reads gather the pages it owns, zero
+the others and sum over the axis (every rank then holds the whole view);
+writes land in owned pages only, the rest in a private dump page past
+the stripe that nothing reads. Page counts and the trash page stay
+global, so the host side sees one pool.
+
 The host side (`PagePool`, `PrefixIndex`, `PageAllocation`,
 `PagedAllocator`) is a copy of the reference's.
 """
@@ -162,6 +172,64 @@ def reset_slot(cache: SlotKVCache, slot) -> SlotKVCache:
 
 
 @dataclasses.dataclass(frozen=True)
+class PoolShard:
+    """This rank's shard of a paged pool on a mesh axis of `n` ranks, at
+    `index`: `dim` "heads" (local KV heads) or "pages" (global pages
+    [index * stripe, (index + 1) * stripe) at local 0..stripe-1, then
+    the local dump page). `pages` is the global page count, the trash
+    page included. `group` returns the axis's process group."""
+
+    dim: str
+    n: int
+    index: int
+    pages: int
+    group: Callable
+
+    @property
+    def stripe(self) -> int:
+        return self.pages // self.n
+
+
+def _local_pages(shard: PoolShard, idx: torch.Tensor):
+    """(local page index, owned mask) of global pages `idx` on a page
+    shard: pages of other ranks go to the dump page."""
+    loc = idx.long() - shard.index * shard.stripe
+    owned = (loc >= 0) & (loc < shard.stripe)
+    return torch.where(owned, loc, shard.stripe), owned
+
+
+def pool_pages(cache: "PagedKVCache", name: str,
+               idx: torch.Tensor) -> torch.Tensor:
+    """Buffer `name` ("k", "v", "k_scale", "v_scale") of pool pages `idx`
+    (any index shape) along dim 1, as stored (codes stay codes): on a
+    page shard, the owned pages summed over the axis with the others'."""
+    buf = getattr(cache, name)
+    shard = cache.shard
+    if shard is None or shard.dim != "pages":
+        return buf[:, idx.long()]
+    loc, owned = _local_pages(shard, idx)
+    pages = buf[:, loc]
+    mask = owned.reshape((1,) + owned.shape + (1,) * (pages.dim()
+                                                      - owned.dim() - 1))
+    pages = torch.where(mask, pages, torch.zeros_like(pages))
+    from ..utils.operations import axis_all_reduce
+
+    return axis_all_reduce(pages, shard.group())
+
+
+def pool_write(cache: "PagedKVCache", name: str, idx: torch.Tensor,
+               value: torch.Tensor) -> None:
+    """Write `value` (dim 1 indexed like `idx`) into buffer `name` at pool
+    pages `idx`; a page shard keeps the pages it owns."""
+    buf = getattr(cache, name)
+    shard = cache.shard
+    if shard is None or shard.dim != "pages":
+        buf.index_copy_(1, idx.long(), value)
+        return
+    buf.index_copy_(1, _local_pages(shard, idx)[0], value)
+
+
+@dataclasses.dataclass(frozen=True)
 class PagedKVCache:
     """Paged KV pool with fixed-shape per-slot page tables.
 
@@ -187,6 +255,8 @@ class PagedKVCache:
     k_scale: torch.Tensor | None = None
     v_scale: torch.Tensor | None = None
     compute_dtype: Any = torch.bfloat16
+    # this rank's shard on a tensor-parallel engine (None: the whole pool)
+    shard: PoolShard | None = None
 
     @classmethod
     def create(
@@ -249,14 +319,20 @@ class PagedKVCache:
         return self.k.shape[0]
 
     @property
+    def _global_pages(self) -> int:
+        if self.shard is not None and self.shard.dim == "pages":
+            return self.shard.pages
+        return self.k.shape[1]
+
+    @property
     def num_pages(self) -> int:
         """Allocatable pages (the +1 trash page is excluded)."""
-        return self.k.shape[1] - 1
+        return self._global_pages - 1
 
     @property
     def trash_page(self) -> int:
         """Reserved page index backing padded page-table entries."""
-        return self.k.shape[1] - 1
+        return self._global_pages - 1
 
     @property
     def num_slots(self) -> int:
@@ -284,16 +360,16 @@ class PagedKVCache:
         return total
 
 
-def _dense_pages(codes: torch.Tensor, scales: torch.Tensor | None,
-                 idx: torch.Tensor, dtype) -> torch.Tensor:
-    """Gather pool pages at `idx` (any index shape) and materialize them
-    densely: a plain gather for a float pool, gather + per-row
-    dequantization for an int8 pool."""
-    idx = idx.long()
-    pages = codes[:, idx]
-    if scales is None:
+def _dense_pages(cache: PagedKVCache, name: str,
+                 idx: torch.Tensor) -> torch.Tensor:
+    """Gather pool pages at `idx` (any index shape) of buffer `name`
+    ("k" or "v") and materialize them densely: a plain gather for a float
+    pool, gather + per-row dequantization for an int8 pool."""
+    pages = pool_pages(cache, name, idx)
+    if not cache.quantized:
         return pages
-    return kv_dequantize_rows(pages, scales[:, idx], dtype)
+    return kv_dequantize_rows(pages, pool_pages(cache, name + "_scale", idx),
+                              cache.compute_dtype)
 
 
 def paged_slot_view(cache: PagedKVCache, table_row: torch.Tensor, slot):
@@ -304,10 +380,8 @@ def paged_slot_view(cache: PagedKVCache, table_row: torch.Tensor, slot):
     are copies: writing them leaves the pool alone."""
     L, _, ps, H, D = cache.k.shape
     P = cache.pages_per_slot
-    ks = _dense_pages(cache.k, cache.k_scale, table_row,
-                      cache.compute_dtype).reshape(L, 1, P * ps, H, D)
-    vs = _dense_pages(cache.v, cache.v_scale, table_row,
-                      cache.compute_dtype).reshape(L, 1, P * ps, H, D)
+    ks = _dense_pages(cache, "k", table_row).reshape(L, 1, P * ps, H, D)
+    vs = _dense_pages(cache, "v", table_row).reshape(L, 1, P * ps, H, D)
     idx = _slot_index(slot, cache.k.device)
     return ks, vs, cache.lengths.index_select(0, idx)
 
@@ -340,8 +414,11 @@ def _scatter_rows(cache: PagedKVCache, pages: torch.Tensor,
                   rows_v: torch.Tensor) -> None:
     """Scatter row payloads [L, n, H, D] at (page, offset) pairs,
     quantizing codes + per-row scales on an int8 pool. The shared tail
-    of every pool write path."""
+    of every pool write path. A page shard writes the pages it owns; the
+    rest land in its dump page."""
     pages, offs = pages.long(), offs.long()
+    if cache.shard is not None and cache.shard.dim == "pages":
+        pages = _local_pages(cache.shard, pages)[0]
     if not cache.quantized:
         cache.k[:, pages, offs] = rows_k.to(cache.k.dtype)
         cache.v[:, pages, offs] = rows_v.to(cache.v.dtype)
@@ -362,10 +439,8 @@ def paged_batch_view(cache: PagedKVCache, table: torch.Tensor):
     L, _, ps, H, D = cache.k.shape
     S = cache.num_slots
     P = cache.pages_per_slot
-    ks = _dense_pages(cache.k, cache.k_scale, table,
-                      cache.compute_dtype).reshape(L, S, P * ps, H, D)
-    vs = _dense_pages(cache.v, cache.v_scale, table,
-                      cache.compute_dtype).reshape(L, S, P * ps, H, D)
+    ks = _dense_pages(cache, "k", table).reshape(L, S, P * ps, H, D)
+    vs = _dense_pages(cache, "v", table).reshape(L, S, P * ps, H, D)
     return ks, vs
 
 

@@ -71,6 +71,12 @@ it, and a serving `StepTimer` meters each program's host dispatch.
 arms a stall watchdog that `step()` ticks (with `incident_dir`, a stall
 writes a bundle holding the engine's dumps and its cost table).
 
+Tensor-parallel serving (`EngineConfig(mesh=...)`, serving/pod/mesh.py):
+every rank of a process mesh runs this engine on its shard of the params
+and of the pool, SPMD; the forward does its own collectives, the clock
+is rank 0's on every rank, and over a gloo group the programs run
+uncaptured (see `Engine`).
+
 Request tracing is the reference's: with `telemetry.trace` enabled every
 request gets a trace id at submit (or joins the caller's, as the HTTP
 front door passes it), and a sampled request records a root span
@@ -249,12 +255,19 @@ class EngineConfig:
     contracts: Any = None
     # the serving-state sanitizer after every step (None = off)
     sanitize: Any = None
+    # tensor-parallel serving (serving/pod layer 1): a process mesh
+    # (`state.ProcessMesh`, `serving.pod.tensor_mesh`) with a "model"
+    # axis. Every rank then runs the engine on its shard of the params
+    # (placed by the caller: `serving.pod.shard_params`, or the
+    # `serving.pod.sharded_engine` factory that does all of this) and of
+    # the KV pool (sharded over KV heads when they divide the axis, else
+    # over pages, else replicated); per-slot state replicates. A mesh of
+    # one is single-device serving.
     mesh: Any = None
 
 
 # field -> (is it set?, the part of the port that will bring it)
 _UNPORTED = {
-    "mesh": (lambda v: v is not None, "queue 1 item 6b"),
     "strict": (lambda v: v is not None, "the static-analysis audits"),
     "contracts": (lambda v: v is not None, "the static-analysis audits"),
 }
@@ -269,11 +282,20 @@ def _check_ported(ec: EngineConfig) -> None:
 
 
 def _resolve_paged_attention(setting, device: torch.device,
-                             speculative) -> bool:
+                             speculative, mesh=None) -> bool:
     """EngineConfig.paged_attention -> use-the-kernel bool."""
     if setting == "auto":
-        return device.type == "cuda" and speculative is None
+        return (device.type == "cuda" and speculative is None
+                and mesh is None)
     use = bool(setting)
+    if use and mesh is not None:
+        raise ValueError(
+            "paged_attention=True is not supported on a meshed engine: a "
+            "pallas kernel is opaque to GSPMD, which would gather the "
+            "head-sharded pool around it instead of partitioning the "
+            "kernel. Meshed engines keep the dense-gather decode path "
+            "('auto' resolves to False there); single-device pod decode "
+            "workers (tensor_parallel=1) can use the kernel.")
     if use and speculative is not None:
         raise ValueError(
             "paged_attention=True is not supported with speculative "
@@ -282,6 +304,45 @@ def _resolve_paged_attention(setting, device: torch.device,
             "draft_k-token forward. Leave paged_attention='auto' (the "
             "speculative verify uses the dense-gather path).")
     return use
+
+
+def _check_mesh(family, params, ec: EngineConfig) -> None:
+    """What a meshed engine takes, checked before anything is built."""
+    from ..models.tensor_parallel import (
+        require_tensor_parallel,
+        tensor_parallel_of,
+    )
+
+    if ec.speculative is not None:
+        raise ValueError(
+            "speculative decoding is not supported on a meshed "
+            "engine yet: the draft would need its own placement "
+            "and the verify program its own pod contract — run "
+            "speculation on single-device engines (or pod decode "
+            "workers at tensor_parallel=1, speculative unset)")
+    if ec.host_tier_bytes > 0:
+        raise NotImplementedError(
+            "the host KV tier on a meshed engine arrives with queue 1 item "
+            "6b: its drain thread decides admissions by per-rank timing, "
+            "and the ranks must decide alike")
+    require_tensor_parallel(family)
+    tp = tensor_parallel_of(params)
+    if tp is None or dict(tp.mesh.shape) != dict(ec.mesh.shape):
+        raise ValueError(
+            "EngineConfig.mesh needs params placed on that mesh: pass them "
+            "through serving.pod.shard_params(params, mesh), or build the "
+            "engine with serving.pod.sharded_engine")
+
+
+def _host_collectives(mesh) -> bool:
+    """Whether a mesh's collectives pass through the host (gloo)."""
+    if mesh is None or not torch.distributed.is_initialized():
+        return False
+    from ..utils.constants import AXIS_MODEL
+
+    group = mesh.group(AXIS_MODEL)
+    return group is not None and \
+        torch.distributed.get_backend(group) == "gloo"
 
 
 def _cache_spec(config) -> tuple[int, int, int]:
@@ -313,7 +374,19 @@ class Engine:
     positions=..., kv_caches=...) -> (logits, new_caches)`) or that
     forward callable. The engine runs on `device` (CUDA unless "cpu"),
     where `params` must already live. `_graphs=False` keeps a CUDA
-    engine's programs eager (for comparing the two)."""
+    engine's programs eager (for comparing the two).
+
+    With `EngineConfig(mesh=...)` the engine is one rank of a
+    tensor-parallel engine (serving/pod/mesh.py): every rank of the mesh
+    builds it with its shard of the params and makes the same calls in
+    the same order. Its clock is then rank 0's (`pod.mesh.LockstepClock`,
+    one broadcast a reading), so the scheduler's decisions, which read
+    the clock, are the same on every rank and every rank reaches every
+    collective. Over a gloo group (ranks sharing a card, or CPU ranks)
+    the programs run uncaptured: a collective that passes through the
+    host cannot be captured in a CUDA graph. `graphs_captured` says which,
+    and `compile_stats()` then counts each program's first build (1 each,
+    as captures do)."""
 
     def __init__(self, family, config, params,
                  engine_config: EngineConfig | None = None, device=None,
@@ -322,12 +395,21 @@ class Engine:
         self.params = params
         self.engine_config = ec = engine_config or EngineConfig()
         _check_ported(ec)
+        if ec.mesh is not None and getattr(ec.mesh, "size", 1) <= 1:
+            # a 1-device "mesh" IS single-device serving: no collectives,
+            # no shards to hold
+            self.engine_config = ec = dataclasses.replace(ec, mesh=None)
         self.device = dev = resolve_device(device)
         p_dev = _first_tensor(params).device
         if p_dev.type != dev.type:
             raise ValueError(f"params live on {p_dev}, the engine runs on "
                              f"{dev}")
         self._forward = family if callable(family) else family.forward
+        if ec.mesh is not None:
+            from .pod.mesh import lockstep_clock
+
+            _check_mesh(family, params, ec)
+            clock = lockstep_clock(clock, ec.mesh)
         self._clock = clock
         self._spec = ec.speculative is not None
         if self._spec:
@@ -352,7 +434,7 @@ class Engine:
             self._draft_config = dcfg
             self._draft_params = dparams
         self._use_paged_kernel = _resolve_paged_attention(
-            ec.paged_attention, dev, ec.speculative)
+            ec.paged_attention, dev, ec.speculative, ec.mesh)
         self._sanitize = resolve_sanitize(ec.sanitize)
 
         num_layers, num_kv, head_dim = _cache_spec(config)
@@ -361,12 +443,25 @@ class Engine:
         # write up to draft_k candidate rows past the last budgeted token
         self._pad_slack = max(ec.prefill_chunk,
                               ec.draft_k if self._spec else 0)
-        self.cache = PagedKVCache.create(
-            num_layers, ec.num_slots, ec.max_len, num_kv, head_dim,
-            dtype=ec.cache_dtype, page_size=ec.page_size,
-            pad_slack=self._pad_slack, num_pages=ec.num_pages,
-            kv_dtype=ec.kv_dtype, device=dev,
-        )
+
+        def make_pool():
+            return PagedKVCache.create(
+                num_layers, ec.num_slots, ec.max_len, num_kv, head_dim,
+                dtype=ec.cache_dtype, page_size=ec.page_size,
+                pad_slack=self._pad_slack, num_pages=ec.num_pages,
+                kv_dtype=ec.kv_dtype, device=dev,
+            )
+
+        # on a mesh: this rank's shard of the pool, and the layout
+        # (`pod.mesh.cache_state_shardings`) as `cache_shardings`
+        self.cache_shardings = None
+        if ec.mesh is not None:
+            from .pod.mesh import place_pool
+
+            self.cache, self.cache_shardings = place_pool(make_pool,
+                                                          ec.mesh, dev)
+        else:
+            self.cache = make_pool()
         if self._spec:
             # the draft's own state is a DENSE slot cache: cached target
             # pages hold another model's K/V, so prefix hits run
@@ -380,11 +475,15 @@ class Engine:
         self.timer = StepTimer(warmup_steps=1, registry=self.registry,
                                name="serving_step")
         # per-program rooflines: analytic FLOPs/bytes registered at a
-        # program's first call, sampled fence-pair device time; one card
+        # program's first call, sampled fence-pair device time; a meshed
+        # engine's utilization divides its global (whole-model) FLOPs by
+        # the whole mesh's peak
         self.cost = CostTable(registry=self.registry,
                               sample_every=resolve_sample_every(
                                   ec.cost_sample_every),
-                              peaks=device_peaks(dev), num_chips=1)
+                              peaks=device_peaks(dev),
+                              num_chips=(ec.mesh.size
+                                         if ec.mesh is not None else 1))
         # parameter counts, taken at the first registration
         self._n_params: int | None = None
         self._n_draft_params: int | None = None
@@ -406,8 +505,9 @@ class Engine:
         self._dedup_held: set[int] = set()
         if ec.prefix_cache:
             self.allocator.hold_admission = self._hold_admission
-        self._graphs = GraphRunner(dev, graphs=_graphs,
-                                   counters=_KERNEL_COUNTERS)
+        self._graphs = GraphRunner(
+            dev, graphs=_graphs and not _host_collectives(ec.mesh),
+            counters=_KERNEL_COUNTERS)
         # hierarchical KV: the host tier and its extract/install pair
         self._host_tier = None
         self._swap_transport = None
@@ -694,7 +794,9 @@ class Engine:
             n = self._n_draft_params
         else:
             if self._n_params is None:
-                self._n_params = count_params(self.params)
+                # a meshed engine's params are shards: count the model's
+                self._n_params = getattr(self.params, "global_numel",
+                                         None) or count_params(self.params)
             n = self._n_params
         num_layers, num_kv, head_dim = _cache_spec(cfg)
         hidden = getattr(cfg, "hidden_size", 0) or (
@@ -731,12 +833,20 @@ class Engine:
             flops, nbytes = 0.0, float(ec.num_slots * 16)
         return float(flops), float(nbytes)
 
+    @property
+    def graphs_captured(self) -> bool:
+        """Whether the programs run as captured CUDA graphs (False on the
+        CPU, with `_graphs=False`, and on a mesh whose collectives pass
+        through the host)."""
+        return self._graphs.graphs
+
     def compile_stats(self) -> dict[str, int]:
         """Captures per engine program (first eager builds on a CPU
-        engine): the recompile guard, each 1 however the request mix
-        changes. Speculative engines report their five programs, classic
-        engines admit/prefill/decode; with a host tier, the
-        extract/install pair too."""
+        engine, or where `graphs_captured` is False): the recompile
+        guard, each 1 however the request mix changes. Speculative
+        engines report their five programs, classic engines
+        admit/prefill/decode; with a host tier, the extract/install pair
+        too."""
         stats = self._graphs.captures()
         names = ["admit", "prefill"]
         names += (["draft_prefill", "draft", "verify"] if self._spec

@@ -2,10 +2,13 @@
 prefill/decode workers.
 
 - **Layer 1 (SPMD, `pod.mesh`)**: one engine tensor-parallel over a
-  device mesh. Not ported: `tensor_mesh`, `shard_params`,
-  `cache_state_shardings` and `sharded_engine` raise
-  NotImplementedError naming queue 1 item 6b, as do
-  `PodConfig(tensor_parallel > 1)` and `EngineConfig(mesh=...)`.
+  process mesh (one process per device, every rank running the engine
+  on its shards): params sharded by the repo's path-pattern rules, the
+  paged KV pool sharded over heads (or pages), the ranks kept in
+  lockstep by one clock. `sharded_engine(...)` is the factory;
+  `EngineConfig(mesh=...)` is the knob it turns, and
+  `PodConfig(tensor_parallel=N)` puts layer 1 under layer 2. Families
+  with a tensor-parallel forward: llama and gpt2.
 
 - **Layer 2 (MPMD, `pod.router` / `pod.transfer`)**: prefill and decode
   split into dedicated worker engines shipping KV pages: `PodRouter`
@@ -20,6 +23,12 @@ prefill/decode workers.
   form. Loaded on first touch.
 """
 
+from .mesh import (
+    cache_state_shardings,
+    shard_params,
+    sharded_engine,
+    tensor_mesh,
+)
 from .router import PodConfig, PodEngine, PodRouter
 from .transfer import KVPageShipment, PageTransport, place_shipment
 
@@ -37,26 +46,9 @@ __all__ = [
 ]
 
 
-def _layer1(name: str):
-    def unported(*args, **kwargs):
-        raise NotImplementedError(
-            f"serving.pod.{name} is layer 1 of the pod (tensor-parallel "
-            "serving over a device mesh), which the PyTorch port brings "
-            "with queue 1 item 6b (sharded placement)")
-
-    unported.__name__ = unported.__qualname__ = name
-    return unported
-
-
-tensor_mesh = _layer1("tensor_mesh")
-shard_params = _layer1("shard_params")
-cache_state_shardings = _layer1("cache_state_shardings")
-sharded_engine = _layer1("sharded_engine")
-
-
 def __getattr__(name):
-    # layer 3 is import-heavy (sockets, threads) and optional for layer 2
-    # users: load it lazily on first touch
+    # layer 3 is import-heavy (sockets, threads) and optional for layer
+    # 1/2 users: load it lazily on first touch
     if name in ("DistributedPodConfig", "DistributedPodRouter",
                 "WorkerHandle", "build_local_distributed_pod"):
         from . import distributed

@@ -42,9 +42,12 @@ In-process workers stand in for per-host processes; the shipment
 dataclass is the wire format the multi-process pod serializes
 (serving/pod/distributed).
 
-Layer 1, tensor-parallel workers over a device mesh
-(`PodConfig.tensor_parallel > 1`, `EngineConfig.mesh`), is not ported:
-both raise NotImplementedError naming queue 1 item 6b.
+Layer 1 under layer 2 (`PodConfig.tensor_parallel > 1`, or
+`EngineConfig.mesh`): one mesh and one placed copy of the params, shared
+by every worker, so each worker is a tensor-parallel engine
+(serving/pod/mesh.py). Every rank of the mesh then runs the whole router
+SPMD, each over its shards; the router's clock is the mesh's lockstep
+clock, so its decisions, and its workers', are the same on every rank.
 """
 
 from __future__ import annotations
@@ -77,6 +80,7 @@ from ..scheduler import (
     SHED_WORKER_DROP,
     SlotState,
 )
+from .mesh import lockstep_clock, shard_params, tensor_mesh
 from .transfer import PageTransport, place_shipment
 
 __all__ = ["PodConfig", "PodRouter", "PodEngine"]
@@ -89,8 +93,8 @@ class PodConfig:
     `prefill_workers`/`decode_workers` are worker counts per role;
     `prefill_slots` sizes the prefill workers' slot tables (None = the
     engine config's num_slots — decode workers always use it).
-    `tensor_parallel` > 1 would mesh-shard every worker (layer 1 under
-    layer 2); the port has no mesh serving yet and refuses it.
+    `tensor_parallel` > 1 mesh-shards every worker over the first N
+    processes (layer 1 under layer 2).
     `max_pending_shipments` bounds the prefill->decode buffer: when full
     the router stops assigning new prompts to prefill workers — the
     backpressure valve (None = one full decode worker's worth of
@@ -165,18 +169,18 @@ class PodRouter:
         self.config = config
         self.engine_config = ec = engine_config or EngineConfig()
         self.pod_config = pc = pod_config or PodConfig()
-        self._clock = clock
-
-        # layer 1 under layer 2 (tensor-parallel workers over a mesh)
-        # needs the sharding planner's placement
-        if pc.tensor_parallel > 1 or ec.mesh is not None:
-            what = ("PodConfig.tensor_parallel > 1" if pc.tensor_parallel > 1
-                    else "EngineConfig.mesh")
-            raise NotImplementedError(
-                f"{what} needs tensor-parallel (mesh) serving, which the "
-                "PyTorch port brings with queue 1 item 6b (sharded "
-                "placement); serve with tensor_parallel=1 and mesh=None")
         _check_ported(ec)
+
+        # layer 1 under layer 2: one shared mesh + ONE placed params copy
+        # (in-process workers alias the same tensors)
+        mesh = None
+        if pc.tensor_parallel > 1 or ec.mesh is not None:
+            mesh = ec.mesh if ec.mesh is not None \
+                else tensor_mesh(pc.tensor_parallel, device=device)
+            if mesh.size > 1:
+                params = shard_params(params, mesh)
+                clock = lockstep_clock(clock, mesh)
+        self._clock = clock
         # in-process workers share one copy of the params (on the
         # engine's device); workers own no observability side-cars: the pod facade is the
         # one exporter/watchdog surface (close() below stops the threads
@@ -186,7 +190,7 @@ class PodRouter:
         # path drives the classic admit program directly) — pod +
         # speculation is a future arc, not a silent half-configuration
         worker_ec = dataclasses.replace(
-            ec, tenants=None, metrics_port=None,
+            ec, mesh=mesh, tenants=None, metrics_port=None,
             watchdog_timeout_s=None, incident_dir=None, speculative=None)
         prefill_ec = dataclasses.replace(
             worker_ec, num_slots=pc.prefill_slots or ec.num_slots)

@@ -40,6 +40,12 @@ as their raw 16-bit words in arrays of dtype `BF16_WORDS` (uint16 with
 the wire's "bfloat16" tag in its metadata); `to_tensor` views them back
 as `torch.bfloat16`. int8 pools ship their codes and scales verbatim,
 never dequantized and requantized.
+
+On a tensor-parallel pod (`PodConfig.tensor_parallel > 1`) every rank
+runs its workers over its shard of each pool, so a shipment carries
+this rank's local pages (its KV heads, and `page_bytes` counts those),
+and extract and install run on every rank. A page-sharded pool ships
+whole pages, summed over the axis at extract (`cache.pool_pages`).
 """
 
 from __future__ import annotations
@@ -51,6 +57,7 @@ import numpy as np
 import torch
 
 from ...models.decode import derive_key, stream_key
+from ..cache import pool_pages, pool_write
 
 __all__ = ["KVPageShipment", "PageTransport", "place_shipment",
            "BF16_WORDS", "to_host_array", "to_tensor"]
@@ -163,14 +170,13 @@ class PageTransport:
 
     def _extract(self):
         rows = self._rows.long()
-        return tuple(getattr(self._cache, name).index_select(1, rows)
+        return tuple(pool_pages(self._cache, name, rows)
                      for name in self._names)
 
     def _install(self):
         rows = self._rows.long()
         for name in self._names:
-            getattr(self._cache, name).index_copy_(1, rows,
-                                                   self._block[name])
+            pool_write(self._cache, name, rows, self._block[name])
         self._engine._tokens.index_copy_(0, self._slot, self._first)
 
     def _row(self, pages) -> np.ndarray:

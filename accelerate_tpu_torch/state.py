@@ -354,28 +354,103 @@ def _refuse_sharded(axes: dict[str, int]) -> None:
 
 class ProcessMesh:
     """The port's device mesh: each process owns one device, so the mesh
-    is over processes. `shape` is the reference's `dict(mesh.shape)`
-    ({axis: size}, in `MESH_AXES` order) and `axis_names` its names;
-    `groups[axis]` is the `torch.distributed` group of that axis (the
-    world for `data`; None in a world of one)."""
+    is over processes, ranks 0..size-1 laid out row-major over the axes
+    (the last axis fastest), as the reference lays devices out over its
+    mesh. `shape` is the reference's `dict(mesh.shape)` ({axis: size})
+    and `axis_names` its names; `groups[axis]` is the `torch.distributed`
+    group of this rank's line along that axis: the world where the line
+    is the whole world, a subgroup (`new_group`, made on first access
+    by every rank, for every line of the axis) where it is part of it,
+    None for an axis of size 1 or in a world of one. `device` is where
+    `sharding.shard_pytree` puts this rank's shards (None: where each
+    leaf already is).
 
-    def __init__(self, axes: dict[str, int]):
-        _refuse_sharded(axes)
+    The Accelerator and the launcher still take the `data` axis only
+    (`_refuse_sharded`); the serving mesh (`serving.pod.tensor_mesh`)
+    is one `model` axis."""
+
+    def __init__(self, axes: dict[str, int], device=None):
         self.shape = dict(axes)
         self.axis_names = tuple(axes)
+        self.size = int(np.prod(list(self.shape.values()), dtype=np.int64))
+        self.device = None if device is None else torch.device(device)
+
+    @property
+    def rank(self) -> int:
+        """This process's rank in the mesh (0 in a world of one)."""
+        r = PartialState.process_index if _dist_live() else 0
+        if r >= self.size:
+            raise ValueError(f"rank {r} is outside {self!r}")
+        return r
+
+    def coords(self, rank: int) -> dict[str, int]:
+        """{axis: index} of `rank` on the mesh."""
+        idx = np.unravel_index(rank, tuple(self.shape.values()))
+        return {a: int(i) for a, i in zip(self.axis_names, idx)}
+
+    def axis_ranks(self, axis: str, rank: int | None = None) -> list[int]:
+        """The ranks on `rank`'s line along `axis`, in axis order."""
+        c = self.coords(self.rank if rank is None else rank)
+        out = []
+        for i in range(self.shape[axis]):
+            c[axis] = i
+            out.append(int(np.ravel_multi_index(
+                [c[a] for a in self.axis_names],
+                tuple(self.shape.values()))))
+        return out
+
+    def axis_index(self, axis: str) -> int:
+        """This rank's index along `axis`."""
+        return self.coords(self.rank)[axis]
 
     @property
     def groups(self) -> dict:
-        # looked up at each access: a mesh that held the group would keep
-        # it, and gloo's threads, alive past `destroy_process_group`, and a
-        # process that exits with those threads running can abort
+        # looked up at each access: a mesh that held a group would keep
+        # it, and gloo's threads, alive past `destroy_process_group`, and
+        # a process that exits with those threads running can abort
+        return {a: self.group(a) for a in self.axis_names}
+
+    def group(self, axis: str):
         live = PartialState.num_processes > 1 and _dist_live()
-        return {a: (torch.distributed.group.WORLD
-                    if live and a == AXIS_DATA else None)
-                for a in self.axis_names}
+        if not live or self.shape[axis] == 1:
+            return None
+        world = torch.distributed.get_world_size()
+        line = self.axis_ranks(axis)
+        if line == list(range(world)):
+            return torch.distributed.group.WORLD
+        return _subgroup(self, axis, tuple(line))
 
     def __repr__(self) -> str:
         return f"ProcessMesh({self.shape})"
+
+
+# (mesh shape, axis, ranks) -> weak reference to the subgroup: the world
+# owns its groups, and `destroy_process_group` ends them and these
+_SUBGROUPS: dict = {}
+
+
+def _subgroup(mesh: ProcessMesh, axis: str, line: tuple):
+    import weakref
+
+    key = (tuple(mesh.shape.items()), axis, line)
+    ref = _SUBGROUPS.get(key)
+    group = ref() if ref is not None else None
+    if group is not None:
+        return group
+    # every rank makes every line's group, in one order, as new_group
+    # requires; this rank keeps its own
+    world = torch.distributed.get_world_size()
+    seen, mine = set(), None
+    for r in range(min(world, mesh.size)):
+        ranks = tuple(mesh.axis_ranks(axis, r))
+        if ranks in seen:
+            continue
+        seen.add(ranks)
+        g = torch.distributed.new_group(list(ranks))
+        if ranks == line:
+            mine = g
+    _SUBGROUPS[key] = weakref.ref(mine)
+    return mine
 
 
 class AcceleratorState:

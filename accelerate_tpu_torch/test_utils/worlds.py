@@ -296,3 +296,136 @@ def fail_on_rank_1() -> None:
 
     if PartialState().process_index == 1:
         raise ValueError("rank one fails")
+
+
+def _serving_trace(engine, vocab: int, trace: dict) -> list:
+    """The reference's seeded staggered trace (`tests/test_pod.py`
+    `_run_trace`), with optional per-request deadlines and TTFT SLOs:
+    one request, three steps, the rest, then run until idle."""
+    rng = np.random.default_rng(trace.get("seed", 7))
+    lens = trace.get("lens", (5, 11, 3, 17))
+    prompts = [rng.integers(0, vocab, (n,)).astype(np.int32) for n in lens]
+    budgets = trace.get("budgets", (6, 6, 4, 4))
+    temps = trace.get("temps", (0.0, 0.7, 0.0, 1.1))
+    extra = dict(deadline_s=trace.get("deadline_s"),
+                 slo_ttft_s=trace.get("slo_ttft_s"))
+    reqs = [engine.submit(prompts[0], max_new_tokens=budgets[0],
+                          temperature=temps[0], **extra)]
+    for _ in range(3):
+        engine.step()
+    for p, b, t in zip(prompts[1:], budgets[1:], temps[1:]):
+        reqs.append(engine.submit(p, max_new_tokens=b, temperature=t,
+                                  **extra))
+    engine.run_until_idle()
+    return reqs
+
+
+class StepClock:
+    """A fake clock that advances `step` seconds at every read."""
+
+    def __init__(self, step: float):
+        self.step, self.t = step, 0.0
+
+    def __call__(self) -> float:
+        self.t += self.step
+        return self.t
+
+
+def serve_job(job: dict, rank: int = 0):
+    """Build and drive one engine of a job description (see
+    `tensor_parallel_serving`); returns (engine, requests)."""
+    import importlib
+
+    from ..models.convert import params_from_numpy
+    from ..serving import Engine, EngineConfig
+    from ..serving.pod import PodConfig, PodEngine, sharded_engine
+
+    family = importlib.import_module(
+        f"accelerate_tpu_torch.models.{job['family']}")
+    cfg_cls = {"gpt2": "GPT2Config", "llama": "LlamaConfig"}[job["family"]]
+    cfg = getattr(family, cfg_cls).tiny(**job.get("config", {}))
+    params = params_from_numpy(job["params"], device="cpu")
+    ec = EngineConfig(**dict(job.get("engine", {}),
+                             cache_dtype=torch.float32))
+    steps = job.get("clock_steps")
+    kw = {} if steps is None else {"clock": StepClock(steps[rank])}
+    kind, tp = job["kind"], job.get("tp", 1)
+    if kind == "single":
+        eng = Engine(family, cfg, params, ec, device="cpu", **kw)
+    elif kind == "sharded":
+        eng = sharded_engine(family, cfg, params, ec, tensor_parallel=tp,
+                             device="cpu", **kw)
+    else:
+        eng = PodEngine(family, cfg, params, ec, PodConfig(
+            prefill_workers=1, decode_workers=1, tensor_parallel=tp),
+            device="cpu", **kw)
+    return eng, _serving_trace(eng, cfg.vocab_size, job.get("trace", {}))
+
+
+def tensor_parallel_serving(out_dir: str, jobs: list) -> None:
+    """Serve each job on this rank and record what it gave. A job is a
+    dict: `family` ("gpt2" or "llama", the tiny config with `config`
+    overrides), `params` (a numpy tree, `models.convert`'s layout),
+    `engine` (`EngineConfig` fields; f32 pools), `kind` ("sharded",
+    "pod" or "single"), `tp` (the model axis), `trace` (see
+    `_serving_trace`), `clock_steps` (a fake clock's step per rank, for
+    the lockstep check) and `name`."""
+    from ..serving.sanitizer import check_engine, check_router
+    from ..state import PartialState
+
+    torch.set_num_threads(1)
+    st = PartialState(cpu=True)
+    out = {}
+    for job in jobs:
+        eng, reqs = serve_job(job, st.process_index)
+        res = {"tokens": [list(r.tokens) for r in reqs],
+               "status": [r.status.value for r in reqs],
+               "shed": [r.shed_code for r in reqs],
+               "compile_stats": eng.compile_stats()}
+        engines = getattr(eng, "decode_workers", [eng])
+        inner = engines[0]
+        res["mesh"] = inner.engine_config.mesh is not None
+        res["graphs_captured"] = inner.graphs_captured
+        if inner.cache_shardings is not None:
+            res["pool_spec"] = tuple(inner.cache_shardings[0].k.spec)
+            res["scale_spec"] = (
+                None if inner.cache_shardings[0].k_scale is None
+                else tuple(inner.cache_shardings[0].k_scale.spec))
+        res["pool_shape"] = tuple(inner.cache.k.shape)
+        res["scale_shape"] = (None if inner.cache.k_scale is None
+                              else tuple(inner.cache.k_scale.shape))
+        for e in engines:
+            check_engine(e)
+        if hasattr(eng, "decode_workers"):
+            check_router(eng)
+        if hasattr(eng, "metrics_summary"):
+            summ = eng.metrics_summary()
+            res["shipments"] = summ.get("pod_shipments")
+        out[job["name"]] = res
+    _dump(out_dir, out)
+
+
+def shard_forms(out_dir: str, cases: dict) -> None:
+    """This rank's `sharding.shard_pytree` shard of each case's numpy tree
+    ({name: (mesh axes, tree)}), as numpy, with the plan's specs."""
+    from ..sharding import plan_sharding, shard_pytree
+    from ..state import PartialState, ProcessMesh
+
+    PartialState(cpu=True)
+    out = {}
+    for name, (axes, tree) in cases.items():
+        mesh = ProcessMesh(axes, device="cpu")
+        plan = plan_sharding(tree, mesh)
+        shards = shard_pytree(tree, plan)
+        out[name] = {
+            "shards": _numpy_tree(shards),
+            "groups": {a: g is not None for a, g in mesh.groups.items()},
+            "axis_index": {a: mesh.axis_index(a) for a in mesh.axis_names},
+        }
+    _dump(out_dir, out)
+
+
+def _numpy_tree(tree):
+    if isinstance(tree, dict):
+        return {k: _numpy_tree(v) for k, v in tree.items()}
+    return tree.numpy() if isinstance(tree, torch.Tensor) else tree

@@ -16,6 +16,13 @@ gloo a CUDA leaf goes through the host and comes back on its device;
 NCCL works on the card, so a host leaf goes to this process's device
 and comes back to the host. numpy leaves come back as numpy.
 
+`axis_all_reduce`, `axis_all_gather` and `axis_broadcast_float` run on a
+mesh axis's group (`state.ProcessMesh.group`): the collectives of the
+tensor-parallel forward (`models/tensor_parallel.py`) and of the meshed
+engine's lockstep clock. They take the same transport: host copies
+under gloo, the device under NCCL (no card run has reached the NCCL
+branch: one H100 holds one NCCL rank).
+
 `all_reduce_mean_` averages a list of tensors in place in flat buckets
 (one `all_reduce` a bucket of up to `_BUCKET_ELEMENTS` elements of one
 dtype, a leaf split across buckets where it is larger): the train
@@ -148,12 +155,12 @@ def _world() -> int:
     return PartialState.num_processes
 
 
-def _on_host() -> bool:
+def _on_host(group=None) -> bool:
     """Whether the group's backend moves host tensors (gloo)."""
-    return torch.distributed.get_backend() == "gloo"
+    return torch.distributed.get_backend(group) == "gloo"
 
 
-def _to_transport(x) -> tuple[torch.Tensor, Callable]:
+def _to_transport(x, group=None) -> tuple[torch.Tensor, Callable]:
     """`x` as a tensor where the backend moves it, and the function that
     brings a result back to where `x` was (and to numpy, for numpy)."""
     if isinstance(x, np.ndarray):
@@ -161,7 +168,7 @@ def _to_transport(x) -> tuple[torch.Tensor, Callable]:
             (lambda r: r.cpu().numpy())
     else:
         t, back = x, (lambda r, dev=x.device: r.to(dev))
-    if _on_host():
+    if _on_host(group):
         t = t.detach().cpu()
     else:
         t = t.detach().to(PartialState().device)
@@ -359,6 +366,51 @@ def all_reduce_max_(tensors: list[torch.Tensor]) -> None:
     for x in tensors:
         x.copy_(out[off:off + x.numel()].view_as(x))
         off += x.numel()
+
+
+# ---------------------------------------------------------------------------
+# collectives on a mesh axis (tensor parallelism)
+# ---------------------------------------------------------------------------
+
+
+@torch.no_grad()
+def axis_all_reduce(tensor: torch.Tensor, group) -> torch.Tensor:
+    """The sum of `tensor` over the ranks of `group` (a mesh axis's, see
+    `state.ProcessMesh.group`), as a new tensor on `tensor`'s device;
+    `tensor` itself is left as it was. Under gloo the sum runs on a host
+    copy (`_to_transport`), under NCCL on the device. A None group is a
+    line of one: the sum is the tensor."""
+    if group is None:
+        return tensor
+    t, back = _to_transport(tensor, group)
+    t = t.clone() if t.data_ptr() == tensor.data_ptr() else t
+    torch.distributed.all_reduce(t, group=group)
+    return back(t)
+
+
+@torch.no_grad()
+def axis_all_gather(tensor: torch.Tensor, dim: int, group) -> torch.Tensor:
+    """Every rank's `tensor` of `group` concatenated along `dim` in the
+    axis's order, on `tensor`'s device (the same shape on every rank)."""
+    if group is None:
+        return tensor
+    t, back = _to_transport(tensor, group)
+    parts = [torch.empty_like(t)
+             for _ in range(torch.distributed.get_world_size(group))]
+    torch.distributed.all_gather(parts, t, group=group)
+    return back(torch.cat(parts, dim=dim))
+
+
+def axis_broadcast_float(value: float, group) -> float:
+    """`value` as the group's first rank holds it, on every rank."""
+    if group is None:
+        return value
+    src = torch.distributed.get_global_rank(group, 0) \
+        if group is not torch.distributed.group.WORLD else 0
+    device = "cpu" if _on_host(group) else PartialState().device
+    t = torch.tensor([value], dtype=torch.float64, device=device)
+    torch.distributed.broadcast(t, src=src, group=group)
+    return float(t.item())
 
 
 def pad_input_tensors(tensor, batch_size: int, num_processes: int,

@@ -71,6 +71,19 @@ script exits non-zero:
    spawning a `pod-worker` per role on the card (tiny llama spec): 4
    completions over HTTP equal to the single engine's, the workers'
    merged K2 decode steps on /metrics, SIGTERM: every process exits 0;
+5c4. pod_tp: tensor-parallel serving through the launcher
+   (`serve_llama_tp.py`, two processes on the one card over gloo, each
+   building its weights from the seed): (a) f32, llama3-8B width, 4
+   layers: phase engine's 12 requests through `sharded_engine` and
+   through `PodRouter(PodConfig(tensor_parallel=2))` give, on both
+   ranks, the streams of a one-process f32 engine; (b) bf16, llama3-8B
+   at full depth: both ranks' streams identical, each rank's parameter
+   bytes 0.49-0.52 of the whole (only the norms replicate), its KV pool
+   half of one process's (8 KV heads over 2), no paged-decode launch (a
+   meshed engine decodes on the dense path), each prompt's logits within
+   0.1 relative L2 of one process's; the decode step, the prefill chunk
+   and the collectives a step makes, reported as two ranks sharing one
+   card through the host, not as tensor-parallel speed;
 5d. gptj_engine: GPT-J-6B at full width and depth (random bf16 weights
    from a seed) served like phase engine's 12 requests through K2 at
    head dim 256 with no GQA, graphs against eager, K2's launches through
@@ -5053,6 +5066,102 @@ def phase_dp_train(kernel_rows):
     return {"world2": two, "world1": one}
 
 
+TP_LAYERS_A = 4       # part (a): f32 at full width, the exactness gate
+TP_PARAM_SHARE = (0.49, 0.52)   # a rank's parameter bytes / the whole
+TP_LOGITS_REL_L2 = 0.1          # bf16 at depth: two correct paths drift
+                                # 0.03-0.05 (ROADMAP.md parity hazards)
+TP_TIMEOUT_S = 600
+
+
+def phase_pod_tp():
+    """Tensor-parallel serving on the one card: `serve_llama_tp.py`
+    launched as two processes (gloo, both on card 0), each building
+    llama3-8B weights from seed 0 and serving phase engine's 12 requests
+    on its shards. Gates: the launcher exits 0; (a) in f32 at
+    TP_LAYERS_A layers both ranks' `sharded_engine` and
+    `PodRouter(tensor_parallel=2)` streams equal process 0's one-process
+    engine's, greedy and sampled; (b) in bf16 at 32 layers both ranks'
+    streams identical, each rank's parameter bytes within
+    TP_PARAM_SHARE of the whole, its KV pool half of one process's, no
+    paged-decode launch, each prompt's logits within TP_LOGITS_REL_L2 of
+    one process's. The step times and collectives are reported, not
+    gated: two ranks share one card through the host."""
+    import os
+
+    script = os.path.join("accelerate_tpu_torch", "test_utils", "scripts",
+                          "serve_llama_tp.py")
+    cmd = [sys.executable, "-m", "accelerate_tpu_torch.commands.launch",
+           "--num_processes", "2", script, "--config", "llama3_8b",
+           "--layers-a", str(TP_LAYERS_A)]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True,
+                          timeout=TP_TIMEOUT_S)
+    wall = time.perf_counter() - t0
+    rows = [json.loads(line.split(" ", 1)[1])
+            for line in proc.stdout.splitlines()
+            if line.startswith("TP_RESULT {")]
+    a = sorted((r for r in rows if r["part"] == "a"),
+               key=lambda r: r["rank"])
+    b = sorted((r for r in rows if r["part"] == "b"),
+               key=lambda r: r["rank"])
+    if proc.returncode != 0 or len(a) != 2 or len(b) != 2:
+        raise AssertionError(
+            f"launch exited {proc.returncode} with {len(rows)} result(s):"
+            f"\n{proc.stdout[-4000:]}\n{proc.stderr[-8000:]}")
+    single = a[0]["single"]
+    same_a = {f"rank{r['rank']}_{kind}": r[kind] == single
+              for r in a for kind in ("sharded", "pod")}
+    shares = [r["param_bytes"] / r["param_bytes_whole"] for r in b]
+    pool_half = [2 * r["pool_bytes"] == r["pool_bytes_one_process"]
+                 for r in b]
+    rel = b[0]["logits_rel_l2"]
+    emit("pod_tp", config="llama3_8b", launcher_wall_s=wall,
+         backend="gloo", ranks_share_one_card=True,
+         part_a={"layers": a[0]["layers"], "dtype": "float32",
+                 "streams_equal_one_process": same_a,
+                 "requests": len(single),
+                 **{k: a[0][k] for k in (
+                     "compile_stats", "graphs_captured",
+                     "decode_step_ms_median", "prefill_chunk_ms_median",
+                     "pod_shipments", "pod_page_bytes_per_page")}},
+         part_b={"layers": b[0]["layers"], "dtype": "bfloat16",
+                 "streams_identical": b[0]["streams"] == b[1]["streams"],
+                 "param_share": shares, "pool_half": pool_half,
+                 "logits_rel_l2": rel,
+                 **{k: [r[k] for r in b] for k in (
+                     "param_bytes", "param_bytes_whole", "pool_bytes",
+                     "pool_bytes_one_process", "paged_kernel_launches",
+                     "decode_step_ms_median", "prefill_chunk_ms_median",
+                     "decode_steps", "prefill_steps",
+                     "collectives_per_decode_step",
+                     "collective_host_ms_per_decode_step_median",
+                     "max_memory_allocated_gb")},
+                 "pool_spec": b[0]["pool_spec"],
+                 "compile_stats": b[0]["compile_stats"],
+                 "graphs_captured": b[0]["graphs_captured"]},
+         note="two ranks share one card through the host (gloo): these "
+              "times are not tensor-parallel speed")
+    failed = []
+    if not all(same_a.values()):
+        failed.append(f"(a) streams differ from one process's: {same_a}")
+    if b[0]["streams"] != b[1]["streams"]:
+        failed.append("(b) the ranks' streams differ")
+    if not all(TP_PARAM_SHARE[0] <= x <= TP_PARAM_SHARE[1]
+               for x in shares):
+        failed.append(f"(b) parameter share {shares}")
+    if not all(pool_half):
+        failed.append("(b) a rank's pool is not half of one process's: "
+                      f"{[r['pool_bytes'] for r in b]}")
+    if any(r["paged_kernel_launches"] != 0 for r in b):
+        failed.append("(b) the meshed engine launched the paged kernel")
+    if len(rel) != 12 or not all(math.isfinite(x) and x <= TP_LOGITS_REL_L2
+                                 for x in rel):
+        failed.append(f"(b) logits relative L2 {rel}")
+    if failed:
+        raise AssertionError("; ".join(failed))
+    return {"a": a, "b": b}
+
+
 def _drop():
     """Free the device memory of a finished phase."""
     import gc
@@ -5094,6 +5203,7 @@ def main() -> int:
     del params
     _drop()
     phase_pod_cli()
+    phase_pod_tp()
     phase_gptj_engine(kernels)
     _drop()
     bf16 = phase_train(kernels)

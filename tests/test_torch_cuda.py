@@ -10,7 +10,8 @@ Mixtral step through the flash kernels, each against the CPU; the
 data pipeline: the loader's side-stream copies against the host's
 batches, and a tracker's log of card scalars; and the pod's KV page
 shipments (extract, copy to the host, install) against the CPU
-programs.
+programs; and tensor-parallel serving by two ranks sharing the card
+against one process.
 
 Without a card every test here skips with a reason. The file imports
 neither jax nor the JAX package, so it also runs where those are not
@@ -1371,3 +1372,35 @@ def test_tracker_log_moves_card_scalars_in_one_transfer_per_dtype(cuda):
     assert out == {"loss": 0.5, "norm": 2.25, "bf": 1.5, "step": 7,
                    "host": 3.0}
     assert sorted(calls) == [1, 1, 2]
+
+
+def test_tensor_parallel_serving_two_ranks_share_the_card(cuda):
+    """Phase pod_tp's part (a) at the tiny width: `serve_llama_tp.py`
+    launched as two processes sharing the card over gloo; both ranks'
+    `sharded_engine` and `PodRouter(tensor_parallel=2)` streams equal
+    process 0's one-process f32 engine's, greedy and sampled, and the
+    meshed programs run uncaptured (their collectives pass through the
+    host)."""
+    import json
+    import os
+    import subprocess
+    import sys
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    script = os.path.join(root, "accelerate_tpu_torch", "test_utils",
+                          "scripts", "serve_llama_tp.py")
+    proc = subprocess.run(
+        [sys.executable, "-m", "accelerate_tpu_torch.commands.launch",
+         "--num_processes", "2", script, "--config", "tiny", "--parts",
+         "a", "--layers-a", "2"],
+        capture_output=True, text=True, timeout=600, cwd=root)
+    rows = sorted((json.loads(line.split(" ", 1)[1])
+                   for line in proc.stdout.splitlines()
+                   if line.startswith("TP_RESULT {")),
+                  key=lambda r: r["rank"])
+    assert proc.returncode == 0 and len(rows) == 2, proc.stderr[-4000:]
+    single = rows[0]["single"]
+    for r in rows:
+        assert r["sharded"] == single and r["pod"] == single
+        assert r["graphs_captured"] is False
+        assert r["compile_stats"] == {"admit": 1, "prefill": 1, "decode": 1}

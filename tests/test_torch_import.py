@@ -70,7 +70,9 @@ def test_port_imports_no_jax_and_no_jax_package():
                  "serving.pod.distributed", "serving.pod.distributed.wire",
                  "serving.pod.distributed.transport",
                  "serving.pod.distributed.worker",
-                 "serving.pod.distributed.droute",
+                 "serving.pod.distributed.droute", "serving.pod.mesh",
+                 "sharding", "sharding.planner", "sharding.rules",
+                 "models.tensor_parallel",
                  "commands.config.config_args", "test_utils",
                  "test_utils.training", "test_utils.worlds",
                  *(f"test_utils.scripts.{p.stem}" for p in SCRIPTS),

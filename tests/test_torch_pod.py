@@ -11,8 +11,9 @@ the JAX package: budget-one and EOS finishing at prefill, the worker-drop
 shed code, backpressure stalling the router, cancel/finish in every
 phase, rejects and sheds, int8 shipments, logprobs riding shipments, the
 HTTP front door over a pod; its debug views, span names and metric
-series equal the JAX router's; layer 1 (mesh serving) refuses naming
-queue 1 item 6b; `check_router` catches corrupted books."""
+series equal the JAX router's; what layer 1 (mesh serving) still refuses
+names queue 1 item 6b or the reference's error; `check_router` catches
+corrupted books."""
 
 import asyncio
 import dataclasses
@@ -45,6 +46,7 @@ from accelerate_tpu_torch.serving.pod import (
     tensor_mesh,
 )
 from accelerate_tpu_torch.serving.pod.transfer import BF16_WORDS
+from accelerate_tpu_torch.state import ProcessMesh
 from accelerate_tpu_torch.serving.sanitizer import (
     SanitizerViolation,
     check_router,
@@ -595,18 +597,48 @@ def test_http_front_door_over_pod_engine(gpt2_setup):
 
 
 def test_mesh_serving_refuses_naming_item_6b(gpt2_setup):
+    """Layer 1 serves llama and gpt2 (tests/test_torch_pod_mesh.py); what
+    still refuses on a mesh: the paged kernel (the reference's
+    ValueError), speculation, the host tier, params not placed on the
+    mesh, and families without a tensor-parallel forward (naming queue 1
+    item 6b)."""
+    from accelerate_tpu_torch.models import gptj
+
     cfg, params = gpt2_setup
+    mesh = ProcessMesh({"model": 2}, device="cpu")
+    placed = shard_params(params, mesh)
+    with pytest.raises(ValueError, match="not supported on a meshed engine"):
+        Engine(tg, cfg, placed, _ec(mesh=mesh, paged_attention=True),
+               device="cpu")
+    with pytest.raises(ValueError, match="speculative decoding is not "
+                       "supported on a meshed"):
+        Engine(tg, cfg, placed, _ec(mesh=mesh, speculative=(tg, cfg,
+                                                            params)),
+               device="cpu")
     with pytest.raises(NotImplementedError, match="queue 1 item 6b"):
+        Engine(tg, cfg, placed, _ec(mesh=mesh, host_tier_bytes=1 << 20),
+               device="cpu")
+    with pytest.raises(ValueError, match="shard_params"):
+        Engine(tg, cfg, params, _ec(mesh=mesh), device="cpu")
+    jcfg = gptj.GPTJConfig.tiny()
+    jparams = gptj.init_params(jcfg, 0, device="cpu")
+    with pytest.raises(NotImplementedError, match="queue 1 item 6b"):
+        Engine(gptj, jcfg, shard_params(jparams, mesh), _ec(mesh=mesh),
+               device="cpu")
+    with pytest.raises(NotImplementedError, match="queue 1 item 6b"):
+        sharded_engine(gptj, jcfg, jparams, _ec(), mesh=mesh, device="cpu")
+    # a mesh wider than the world, and the pod's check of its axis
+    with pytest.raises(ValueError, match="out of range"):
+        tensor_mesh(2, device="cpu")
+    with pytest.raises(ValueError, match="out of range"):
         PodRouter(tg, cfg, params, _ec(), PodConfig(tensor_parallel=2),
                   device="cpu")
-    with pytest.raises(NotImplementedError, match="queue 1 item 6b"):
-        PodRouter(tg, cfg, params, _ec(mesh=object()), device="cpu")
-    with pytest.raises(NotImplementedError, match="queue 1 item 6b"):
-        Engine(tg, cfg, params, _ec(mesh=object()), device="cpu")
-    for fn in (tensor_mesh, shard_params, cache_state_shardings,
-               sharded_engine):
-        with pytest.raises(NotImplementedError, match="queue 1 item 6b"):
-            fn(2)
+    # the placement of a one-rank world: the plan replicates, the
+    # layout of the pool is the reference's
+    assert placed.tp is not None and placed.mesh is mesh
+    sh, rep = cache_state_shardings(
+        Engine(tg, cfg, params, _ec(), device="cpu").cache, mesh)
+    assert tuple(sh.k.spec) == (None, None, None, "model")
 
 
 def test_check_router_catches_corrupted_books(gpt2_setup):

@@ -207,12 +207,21 @@ def test_metrics_summary_keys_like_jax(weights):
     ("incident_dir", "incidents"),
 ])
 def test_unported_config_fields_raise(weights, field, value):
-    """`mesh`, `strict` and `contracts` still raise, naming themselves.
-    The telemetry fields construct: the exporter binds an ephemeral
-    port, the watchdog runs, the cost table takes the cadence, the
-    incident directory is kept; `close()` stops the threads."""
+    """`strict` and `contracts` still raise, naming themselves. `mesh`
+    is taken: an object with no `size` is a mesh of one, which is
+    single-device serving (normalised to None, as the reference does;
+    tensor-parallel meshes are tests/test_torch_pod_mesh.py's). The
+    telemetry fields construct: the exporter binds an ephemeral port,
+    the watchdog runs, the cost table takes the cadence, the incident
+    directory is kept; `close()` stops the threads."""
     _, cfg_t, _, pt = weights
-    if field in ("mesh", "strict", "contracts"):
+    if field == "mesh":
+        eng = Engine(tl, cfg_t, pt, EngineConfig(**BASE, mesh=value),
+                     device="cpu")
+        assert eng.engine_config.mesh is None
+        assert eng.cache_shardings is None
+        return
+    if field in ("strict", "contracts"):
         with pytest.raises(NotImplementedError, match=field):
             Engine(tl, cfg_t, pt, EngineConfig(**BASE, **{field: value}),
                    device="cpu")

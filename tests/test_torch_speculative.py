@@ -256,8 +256,11 @@ def test_speculative_config_validation(models):
         _port(models, speculative=(tl, bad, w["draft"][1]))
     with pytest.raises(ValueError, match="paged_attention"):
         _port(models, paged_attention=True)
-    with pytest.raises(NotImplementedError, match="mesh"):
-        _port(models, mesh=object())
+    # speculation on a tensor-parallel mesh: the reference's refusal
+    from accelerate_tpu_torch.state import ProcessMesh
+
+    with pytest.raises(ValueError, match="meshed engine"):
+        _port(models, mesh=ProcessMesh({"model": 2}, device="cpu"))
     # "auto" resolves to the dense verify path instead of erroring
     assert not _port(models, paged_attention="auto")._use_paged_kernel
 
