@@ -55,9 +55,12 @@ then makes the same update, so the replicas stay bit-identical. Under
 fp8 every amax is the global batch's too (`ops.fp8`), so every process
 holds the same delayed-scaling metas. The
 average runs in flat buckets (`utils.operations.all_reduce_mean_`), one
-`all_reduce` a bucket. `Accelerator.mesh` is the data-parallel mesh
-over the processes (`state.ProcessMesh`): `mesh_config`, else the
-launcher's `--mesh_shape`, else every process on `data`.
+`all_reduce` a bucket. `Accelerator.mesh` is the mesh over the
+processes (`state.ProcessMesh`): `mesh_config`, else the launcher's
+`--mesh_shape`, else every process on `data`. A `stage` axis above 1
+builds, for `inference.prepare_pipeline` and `parallel.pipeline_*`; on
+it the training calls (`prepare` of a loader, an optimizer or a
+`TrainState`, `train_step`, `compute_gradients`, `backward`) raise.
 
 `kwargs_handlers` takes the reference's records: `AutocastKwargs`
 (`enabled=False` pins the compute to f32), `FP8RecipeKwargs` (its
@@ -120,7 +123,7 @@ from .ops import fp8
 from .optimizer import AcceleratedOptimizer
 from .optimizers import GradientTransformation, tree_leaves, tree_map
 from .scheduler import AcceleratedScheduler
-from .state import AcceleratorState, GradientState
+from .state import AcceleratorState, GradientState, refuse_stage_training
 from .telemetry.cost import CostTable, device_peaks, fence, \
     resolve_sample_every
 from .telemetry.export import start_metrics_server
@@ -527,6 +530,7 @@ class Accelerator:
         return model
 
     def prepare_train_state(self, ts: TrainState) -> TrainState:
+        refuse_stage_training(self.mesh, "prepare() of a TrainState")
         dev = self.device
         loss_scale = ts.loss_scale
         if loss_scale is None and \
@@ -550,6 +554,7 @@ class Accelerator:
         taken for the reference's signature: the optimizer places
         nothing itself."""
         _refuse_torch_object(tx)
+        refuse_stage_training(self.mesh, "prepare() of an optimizer")
         opt = AcceleratedOptimizer(tx, params=params)
         self._optimizers.append(opt)
         return opt
@@ -575,6 +580,7 @@ class Accelerator:
         `device_placement` (here, else the Accelerator's) is False.
         `slice_fn_for_dispatch` is taken for the reference's signature,
         which reads it nowhere either."""
+        refuse_stage_training(self.mesh, "prepare() of a data loader")
         put_on_device = (device_placement if device_placement is not None
                          else self.device_placement)
         prepared = prepare_data_loader(
@@ -613,6 +619,7 @@ class Accelerator:
         grads of `loss_fn(params cast to the compute dtype, *batch)` at
         the f32 params, by the fused step's gradient function. The batch
         goes to the device and is not cast, as in the reference."""
+        refuse_stage_training(self.mesh, "compute_gradients")
         if self.state.mixed_precision == PrecisionType.FP8:
             raise NotImplementedError(
                 "mixed_precision='fp8' requires the fused "
@@ -635,6 +642,7 @@ class Accelerator:
         """Add `grads / gradient_accumulation_steps` into every prepared
         optimizer's buffer. It takes the gradients `compute_gradients`
         returned; a loss raises, as in the reference."""
+        refuse_stage_training(self.mesh, "backward")
         if grads is None:
             grads = loss_or_grads
         if grads is None or not tree_leaves(grads):
@@ -714,6 +722,7 @@ class Accelerator:
         new_fp8_state)`; fp8 never degrades to full precision silently."""
         if contract is not None or replication_threshold != 1 << 26:
             raise _unported("train_step(contract=...)", "analysis slice")
+        refuse_stage_training(self.mesh, "train_step")
         if self.state.mixed_precision == PrecisionType.FP8:
             try:
                 params = inspect.signature(loss_fn).parameters

@@ -22,9 +22,12 @@
 Device-map indices mean CUDA devices unless the entry point gets
 `device="cpu"`; then the "device" tier is host memory too, and nothing is
 pinned. Without a GPU and without `device="cpu"` the entry points raise.
-The reference's one-device `"sharded"` dispatch places every leaf on
-device 0; on several cards it needs the sharding planner, which arrives
-with the sharded-parallelism slice (ROADMAP.md, queue 1 item 6b).
+The reference's `"sharded"` dispatch lays the params over a `model`
+mesh of the local devices. The port has one process a device: in a
+world of several processes it plans with `transformer_rules()` over a
+`model` axis of every process and keeps this rank's shards (the
+families' tensor-parallel forward reads them); in a world of one, every
+leaf goes on device 0, and one process that sees several cards raises.
 """
 
 from __future__ import annotations
@@ -256,14 +259,47 @@ def _place_flat(flat: Mapping[str, Any], plan: Mapping[str, Any],
 
 
 def _single_device_map(mode) -> dict:
-    """The reference's "sharded" dispatch on one visible device: every
-    leaf on device 0. Several cards need the sharding planner."""
+    """The reference's "sharded" dispatch in a world of one process: every
+    leaf on device 0. One process over several cards is not the port's
+    layout."""
     if torch.cuda.device_count() > 1:
         raise NotImplementedError(
-            f"device_map={mode!r} over {torch.cuda.device_count()} devices "
-            "needs the sharding planner, which arrives with the port's "
-            "sharded-parallelism slice (ROADMAP.md, queue 1 item 6b)")
+            f"device_map={mode!r} in one process that sees "
+            f"{torch.cuda.device_count()} devices: the port puts one "
+            "process on a device. Launch one a card (python -m "
+            "accelerate_tpu_torch.commands.launch --num_processes N) and "
+            "each keeps its shard")
     return {"": 0}
+
+
+def _sharded_dispatch(params: Any, mesh_axis: str, device) -> Any:
+    """This rank's shards of `params` on a `mesh_axis` mesh over every
+    process, planned with `transformer_rules()`, as `ShardedParams`. Only
+    the `model` axis has a forward that reads its shards (the families'
+    tensor-parallel one); another axis raises."""
+    from .models.tensor_parallel import ShardedParams
+    from .sharding.planner import plan_sharding, shard_pytree
+    from .sharding.rules import transformer_rules
+    from .state import PartialState, ProcessMesh
+    from .utils.constants import AXIS_MODEL
+
+    if mesh_axis != AXIS_MODEL:
+        raise NotImplementedError(
+            f"dispatch over a {mesh_axis!r} axis: the port's forward reads "
+            f"shards of the {AXIS_MODEL!r} axis only; other axes arrive "
+            "with the port's sharded-parallelism slice (ROADMAP.md, queue "
+            "1 item 6b)")
+
+    mesh = ProcessMesh({mesh_axis: PartialState.num_processes},
+                       device=resolve_device(device))
+    plan = plan_sharding(params, mesh, rules=transformer_rules())
+    return ShardedParams(shard_pytree(params, plan), mesh, plan)
+
+
+def _world() -> int:
+    from .state import PartialState
+
+    return PartialState.num_processes
 
 
 def dispatch_model(params: Any,
@@ -272,14 +308,18 @@ def dispatch_model(params: Any,
                    mesh_axis: str = "model", device=None) -> Any:
     """Lay a params tree out across tiers.
 
-    - `device_map="sharded"` or None: every leaf on device 0 (the
-      reference's one-device mesh); several visible cards raise until
-      the sharding planner lands;
+    - `device_map="sharded"` or None: in a world of several processes,
+      this rank's shards on a `mesh_axis` mesh over the world, planned
+      with `transformer_rules()` (`ShardedParams`, which the families'
+      tensor-parallel forward reads); in a world of one, every leaf on
+      device 0 (one process that sees several cards raises);
     - `"auto"`: `infer_auto_device_map(params)`;
     - an explicit {module: device | "cpu" | "disk"} map, per-row
       `layers.{i}` entries included: leaves placed per tier, split
       stacked leaves as `RowGroups` for `streamed_forward`."""
     if device_map == "sharded" or device_map is None:
+        if _world() > 1:
+            return _sharded_dispatch(params, mesh_axis, device)
         device_map = _single_device_map(device_map)
     elif device_map == "auto":
         device_map = infer_auto_device_map(params, device=device)
@@ -321,12 +361,19 @@ def load_checkpoint_and_dispatch(
     `params_abstract` comes from `init_empty_weights`. A safetensors
     checkpoint is read by byte range into each tier's memory: the host
     holds the "cpu" tier and a bounded staging buffer, never the whole
-    checkpoint."""
+    checkpoint. `device_map="sharded"` in a world of several processes
+    reads the whole checkpoint to the host, as the reference does, and
+    keeps this rank's shards (`dispatch_model`)."""
     if device_map in ("auto", "balanced"):
         device_map = infer_auto_device_map(
             params_abstract, max_memory=max_memory,
             no_split_modules=no_split_modules, dtype=dtype, device=device)
     elif device_map == "sharded" or device_map is None:
+        if _world() > 1:
+            # the whole checkpoint on the host, then this rank's shards
+            loaded, _ = load_checkpoint_in_model(
+                params_abstract, checkpoint, dtype=dtype, device=device)
+            return dispatch_model(loaded, "sharded", device=device)
         device_map = _single_device_map(device_map)
     loaded, _ = load_checkpoint_in_model(
         params_abstract, checkpoint, device_map=device_map,

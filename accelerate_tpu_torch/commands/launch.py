@@ -22,8 +22,8 @@ Explicit flags win over `--config_file`.
 
 Refused, with the slice that brings them: `--zero_stage`,
 `--fsdp_sharding_strategy`, `--context_parallel_*` and a `--mesh_shape`
-with an axis other than `data` above 1 (sharded parallelism, queue 1
-item 6b); `--tpu_name`, `--tpu_zone`, `--tpu_project` (pods, item 8d).
+with an axis other than `data` and `stage` above 1 (sharded
+parallelism, queue 1 item 6b); `--tpu_name`, `--tpu_zone`, `--tpu_project` (pods, item 8d).
 `--num_virtual_devices` has no meaning here: each process owns one
 device.
 """
@@ -147,13 +147,15 @@ def check_supported(args: argparse.Namespace) -> None:
         sharded.append("--context_parallel_mode")
     if args.mesh_shape:
         axes = parse_mesh_shape(args.mesh_shape)
-        if any(a != "data" and s not in (0, 1) for a, s in axes.items()):
+        if any(a not in ("data", "stage") and s not in (0, 1)
+               for a, s in axes.items()):
             sharded.append(f"--mesh_shape {args.mesh_shape}")
     if sharded:
         raise LaunchRefused(
             f"{', '.join(sharded)}: sharded parallelism is not ported; it "
             "arrives with the port's sharded-parallelism slice (ROADMAP.md, "
-            "queue 1 item 6b). The port runs data parallelism.")
+            "queue 1 item 6b). The port runs data parallelism and "
+            "pipeline stages.")
 
 
 def _child_env(extra: dict[str, str]) -> dict[str, str]:

@@ -56,9 +56,9 @@ def _run_worker(rank: int, env: dict, init: dict | None, function: Callable,
 
 
 def _run_world(ctx, envs: list[dict], init: dict | None, function: Callable,
-               args: tuple) -> None:
-    """Start one process a rank, wait for the world, and raise with every
-    failed rank's traceback if any failed."""
+               args: tuple, timeout_s: float | None = None) -> None:
+    """Start one process a rank, wait for the world (at most `timeout_s`),
+    and raise with every failed rank's traceback if any failed."""
     error_queue = ctx.SimpleQueue()
     procs = []
     try:
@@ -71,7 +71,7 @@ def _run_world(ctx, envs: list[dict], init: dict | None, function: Callable,
         failed, terminated = monitor_world(
             procs, is_alive=lambda p: p.is_alive(),
             exitcode=lambda p: p.exitcode,
-            terminate=lambda p: p.terminate())
+            terminate=lambda p: p.terminate(), timeout_s=timeout_s)
         for p in procs:
             p.join()
     finally:
@@ -90,18 +90,23 @@ def _run_world(ctx, envs: list[dict], init: dict | None, function: Callable,
     # ranks the clean-up terminated are casualties, not causes
     own = {rank for rank, p in enumerate(procs)
            if p.exitcode not in (0, None) and rank not in terminated}
+    if not (failed_ranks | own) and terminated:
+        raise RuntimeError(f"the world of {len(procs)} processes did not "
+                           f"finish within {timeout_s} s")
     raise RuntimeError(f"{len(failed_ranks | own)}/{len(procs)} launched "
                        "processes failed:\n" + "\n".join(msgs))
 
 
 def debug_launcher(function: Callable, args: tuple = (),
                    num_processes: int = 2,
-                   start_method: str = "spawn") -> None:
+                   start_method: str = "spawn",
+                   timeout_s: float | None = None) -> None:
     """Run `function(*args)` in an N-process gloo world on the CPU.
 
     With the default "spawn" start method `function` must be importable
     (defined at a module's top level); "fork" takes closures, and needs
-    a caller that has not initialised CUDA."""
+    a caller that has not initialised CUDA. With `timeout_s`, a world
+    still running after it is killed and raises."""
     import multiprocessing
 
     ctx = multiprocessing.get_context(start_method)
@@ -116,7 +121,7 @@ def debug_launcher(function: Callable, args: tuple = (),
                            "127.0.0.1", 0)
             env[ENV_CPU] = "1"
             envs.append(env)
-        _run_world(ctx, envs, init, function, args)
+        _run_world(ctx, envs, init, function, args, timeout_s)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 

@@ -115,15 +115,18 @@ class ShardedParams(dict):
     """A family's params placed on a mesh: this rank's shard of every
     leaf, as the plain param dict the forward reads, with the placement
     (`mesh`, `plan`: a `NamedSharding` per leaf) and the forward's view
-    of it (`tp`; None when the mesh's model axis is 1)."""
+    of it (`tp`; None when the mesh's model axis is 1, or with
+    `tensor_parallel=False`: a placement its user gathers whole at the
+    call, `inference.prepare_sharded_inference`'s "gather" route)."""
 
-    def __init__(self, tree=(), mesh=None, plan=None):
+    def __init__(self, tree=(), mesh=None, plan=None,
+                 tensor_parallel: bool = True):
         super().__init__(tree)
         self.mesh = mesh
         self.plan = plan
         self.tp = (TensorParallel(mesh, plan)
-                   if mesh is not None and mesh.shape.get(AXIS_MODEL, 1) > 1
-                   else None)
+                   if tensor_parallel and mesh is not None
+                   and mesh.shape.get(AXIS_MODEL, 1) > 1 else None)
 
 
 def tensor_parallel_of(params) -> TensorParallel | None:

@@ -41,6 +41,7 @@ import torch
 from .device import resolve_device
 from .utils.constants import (
     AXIS_DATA,
+    AXIS_STAGE,
     ENV_CPU,
     ENV_DEBUG_MODE,
     ENV_LOCAL_RANK,
@@ -343,13 +344,28 @@ def _pad_slice(seq, pad_to: int):
 
 
 def _refuse_sharded(axes: dict[str, int]) -> None:
-    """Raise for a mesh axis other than `data` above size 1."""
+    """Raise for a mesh axis other than `data` and `stage` above size 1."""
     for axis, size in axes.items():
-        if axis != AXIS_DATA and size > 1:
+        if axis not in (AXIS_DATA, AXIS_STAGE) and size > 1:
             raise NotImplementedError(
                 f"a mesh axis {axis!r} of size {size} (sharded "
                 f"parallelism) arrives with {_ITEM_6B}; the port runs "
-                "data parallelism over the `data` axis")
+                "data parallelism over the `data` axis and pipeline "
+                "stages over the `stage` axis")
+
+
+def refuse_stage_training(mesh: "ProcessMesh", what: str) -> None:
+    """Raise for `what`, a training call, on a mesh whose `stage` axis is
+    above 1: the loaders shard batches over the whole world and the
+    gradient averages run over the whole world, both wrong when ranks
+    hold different stages. Pipeline training runs through
+    `parallel.pipeline_value_and_grad`."""
+    if mesh.shape.get(AXIS_STAGE, 1) > 1:
+        raise NotImplementedError(
+            f"{what} on a mesh with a `stage` axis of "
+            f"{mesh.shape[AXIS_STAGE]} arrives with the training half of "
+            f"{_ITEM_6B}, part 1; train the stages with "
+            "parallel.pipeline_value_and_grad")
 
 
 class ProcessMesh:
@@ -365,9 +381,9 @@ class ProcessMesh:
     `sharding.shard_pytree` puts this rank's shards (None: where each
     leaf already is).
 
-    The Accelerator and the launcher still take the `data` axis only
+    The Accelerator and the launcher take the `data` and `stage` axes
     (`_refuse_sharded`); the serving mesh (`serving.pod.tensor_mesh`)
-    is one `model` axis."""
+    is one `model` axis; `MeshConfig.build()` makes any mesh."""
 
     def __init__(self, axes: dict[str, int], device=None):
         self.shape = dict(axes)

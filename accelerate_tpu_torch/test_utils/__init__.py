@@ -116,11 +116,13 @@ def bundled_script_path(name: str) -> str:
 
 
 def run_world(function, num_processes: int = 2, args: tuple = (),
-              out_dir: str | None = None) -> list:
+              out_dir: str | None = None,
+              timeout_s: float | None = None) -> list:
     """`function(out_dir, *args)` in a `debug_launcher` world of
-    `num_processes` CPU processes; each rank's pickled results (see
-    `test_utils.worlds`), in rank order. `out_dir` defaults to a
-    temporary directory, removed afterwards."""
+    `num_processes` CPU processes (killed, raising, after `timeout_s`);
+    each rank's pickled results (see `test_utils.worlds`), in rank
+    order. `out_dir` defaults to a temporary directory, removed
+    afterwards."""
     import pickle
     import tempfile
 
@@ -128,8 +130,9 @@ def run_world(function, num_processes: int = 2, args: tuple = (),
 
     if out_dir is None:
         with tempfile.TemporaryDirectory() as tmp:
-            return run_world(function, num_processes, args, tmp)
-    debug_launcher(function, (out_dir, *args), num_processes)
+            return run_world(function, num_processes, args, tmp, timeout_s)
+    debug_launcher(function, (out_dir, *args), num_processes,
+                   timeout_s=timeout_s)
     results = []
     for rank in range(num_processes):
         with open(os.path.join(out_dir, f"rank{rank}.pkl"), "rb") as f:

@@ -429,3 +429,397 @@ def _numpy_tree(tree):
     if isinstance(tree, dict):
         return {k: _numpy_tree(v) for k, v in tree.items()}
     return tree.numpy() if isinstance(tree, torch.Tensor) else tree
+
+
+# -- pipelines and sharded inference ------------------------------------------
+
+# stage and layer bodies of the pipeline cases, by name (a spawned world
+# imports them; the reference tests' `tests/test_parallel.py` and
+# `tests/test_inference.py` bodies)
+_STAGE_FNS = {
+    # one layer a stage, `w`/`b` stacked [1, ...] in the stage's slice
+    "tanh_wb": lambda p, x: torch.tanh(x @ p["w"][0] + p["b"][0]),
+    "tanh_w": lambda p, x: torch.tanh(x @ p["w"][0]),
+    # a residual MLP over the stage's (or chunk's) layers
+    "residual_mlp": lambda p, x: _residual_mlp(p, x),
+}
+_LAYER_FNS = {
+    "tanh_affine": lambda layer, x: torch.tanh(x @ layer["w"] + layer["b"]),
+    "residual_tanh": lambda layer, x: x + torch.tanh(
+        x @ layer["kernel"] + layer["bias"]),
+}
+_EDGE_FNS = {"double": lambda h: h * 2.0, "plus_one": lambda h: h + 1.0}
+
+
+def _residual_mlp(params, x):
+    for i in range(params["w"].shape[0]):
+        x = x + torch.tanh(x @ params["w"][i]) * 0.5
+    return x
+
+
+def _mse(y, t):
+    return torch.mean((y - t) ** 2)
+
+
+def _tensors(tree):
+    if isinstance(tree, dict):
+        return {k: _tensors(v) for k, v in tree.items()}
+    return torch.from_numpy(np.array(tree))
+
+
+def _numpy(tree):
+    if isinstance(tree, dict):
+        return {k: _numpy(v) for k, v in tree.items()}
+    if isinstance(tree, torch.Tensor):
+        return tree.detach().cpu().numpy()
+    return tree
+
+
+def _stats(st) -> dict:
+    return {"max_saved_inputs": st.max_saved_inputs, "ticks": st.ticks,
+            "handoffs": st.handoffs, "handoff_bytes": st.handoff_bytes}
+
+
+def _llama(case):
+    from ..models import llama
+
+    return llama, llama.LlamaConfig(**case["config"])
+
+
+def _llama_layer_fn(cfg):
+    """One llama layer on x [b, S, h] (positions 0..S-1, no mask)."""
+    from ..models import llama
+    from ..models.common import rope_frequencies
+
+    def layer_fn(layer, x):
+        cos, sin = rope_frequencies(cfg.head_dim, x.shape[1], cfg.rope_theta,
+                                    device=x.device)
+        positions = torch.arange(x.shape[1], device=x.device).expand(
+            x.shape[:2])
+        return llama._layer_body(cfg, x, layer, cos, sin, positions,
+                                 None)[0]
+
+    return layer_fn
+
+
+def _case_apply(case, mesh):
+    """`pipeline_apply` forward on the whole stacked tree; with `grad`,
+    the gradients of sum(y**2) through the rank's block and `x`."""
+    from ..parallel import pipeline_apply, stage_block
+
+    fn = _STAGE_FNS[case["stage_fn"]]
+    V = case.get("virtual_stages", 1)
+    params, x = _tensors(case["params"]), _tensors(case["x"])
+    out = {}
+    for M in case["micro"]:
+        out[f"y_{M}"] = pipeline_apply(fn, params, x, M, mesh=mesh,
+                                       virtual_stages=V).numpy()
+    if case.get("grad"):
+        block = stage_block(params, mesh)
+        leaves = {k: v.requires_grad_() for k, v in block.items()}
+        xg = x.clone().requires_grad_()
+        with torch.enable_grad():
+            y = pipeline_apply(fn, leaves, xg, case["micro"][0], mesh=mesh)
+            loss = (y ** 2).sum()
+        grads = torch.autograd.grad(loss, list(leaves.values()) + [xg])
+        out["grads"] = {k: g.numpy() for k, g in zip(leaves, grads)}
+        out["x_grad"] = grads[-1].numpy()
+    return out
+
+
+def _case_value_and_grad(case, mesh):
+    """`pipeline_value_and_grad` per micro count and schedule, with the
+    run's stats."""
+    from ..parallel import ScheduleStats, pipeline_value_and_grad
+
+    if case["stage_fn"] == "llama":
+        from ..inference import make_stage_fn
+
+        fn = make_stage_fn(_llama_layer_fn(_llama(case)[1]))
+    else:
+        fn = _STAGE_FNS[case["stage_fn"]]
+    params = _tensors(case["params"])
+    x, t = _tensors(case["x"]), _tensors(case["targets"])
+    out = {}
+    for M in case["micro"]:
+        for schedule in case["schedules"]:
+            st = ScheduleStats()
+            loss, grads = pipeline_value_and_grad(
+                fn, _mse, params, x, t, M, mesh=mesh, schedule=schedule,
+                virtual_stages=case.get("virtual_stages", 1), stats=st)
+            out[f"{schedule}_{M}"] = {"loss": float(loss),
+                                     "grads": _numpy(grads),
+                                     "stats": _stats(st)}
+    return out
+
+
+def _case_errors(case, mesh):
+    """The validation errors, as (type name, message)."""
+    from ..inference import prepare_pipeline
+    from ..parallel import pipeline_apply, pipeline_value_and_grad
+    from ..state import ProcessMesh
+
+    flat = ProcessMesh({"data": mesh.size})
+    w = {"w": torch.zeros((4, 4, 4))}
+    x = torch.zeros((4, 4))
+    calls = {
+        "apply_no_stage": lambda: pipeline_apply(
+            lambda p, h: h, {"w": torch.zeros((2, 1))}, torch.zeros((4, 1)),
+            2, mesh=flat),
+        "schedule": lambda: pipeline_value_and_grad(
+            _STAGE_FNS["tanh_wb"], _mse, {}, x, x, 2, mesh=mesh,
+            schedule="2f2b"),
+        "interleaved_one_chunk": lambda: pipeline_value_and_grad(
+            _STAGE_FNS["residual_mlp"], _mse, w, x, x, 2, mesh=mesh,
+            schedule="interleaved", virtual_stages=1),
+        "gpipe_chunks": lambda: pipeline_value_and_grad(
+            _STAGE_FNS["residual_mlp"], _mse, w, x, x, 2, mesh=mesh,
+            schedule="gpipe", virtual_stages=2),
+        "vg_no_stage": lambda: pipeline_value_and_grad(
+            _STAGE_FNS["residual_mlp"], _mse, w, x, x, 2, mesh=flat),
+        "batch": lambda: pipeline_apply(
+            _STAGE_FNS["residual_mlp"], w, torch.zeros((3, 4)), 2,
+            mesh=mesh),
+        "stage_dim": lambda: pipeline_apply(
+            _STAGE_FNS["residual_mlp"], {"w": torch.zeros((3, 4, 4))}, x, 2,
+            mesh=mesh),
+        "prepare_no_stage": lambda: prepare_pipeline(
+            _LAYER_FNS["tanh_affine"], {"w": torch.zeros((8, 4, 4)),
+                                        "b": torch.zeros((8, 4))},
+            mesh=flat, device="cpu"),
+    }
+    out = {}
+    for name, call in calls.items():
+        try:
+            call()
+            out[name] = None
+        except (ValueError, NotImplementedError) as e:
+            out[name] = (type(e).__name__, str(e))
+    return out
+
+
+def _case_prepare(case, mesh):
+    """`prepare_pipeline` over a layer body and optional edges, for each
+    chunk count (None: the default)."""
+    from ..inference import prepare_pipeline
+
+    out = {}
+    if case["layer_fn"] == "llama":
+        llama, cfg = _llama(case)
+        from ..models.common import rms_norm
+
+        params = _tensors(case["params"])
+        layer_fn = _llama_layer_fn(cfg)
+
+        def pre(ids):
+            return params["embed_tokens"]["embedding"][ids.long()]
+
+        def post(h):
+            h = rms_norm(h, params["norm"]["scale"], cfg.rms_norm_eps)
+            return llama._project_out(cfg, params, h)
+
+        layers, edges = params["layers"], (pre, post)
+    else:
+        layer_fn = _LAYER_FNS[case["layer_fn"]]
+        layers = _tensors(case["params"])
+        edges = tuple(_EDGE_FNS.get(case.get(k)) for k in ("pre", "post"))
+    for chunks in case["chunks"]:
+        model = prepare_pipeline(layer_fn, layers, num_chunks=chunks,
+                                 mesh=mesh, pre_fn=edges[0],
+                                 post_fn=edges[1], device="cpu")
+        out[f"y_{chunks}"] = model(case["x"]).numpy()
+        out[f"num_chunks_{chunks}"] = model.num_chunks
+        out[f"stats_{chunks}"] = _stats(model.stats)
+    out["num_stages"] = model.num_stages
+    out["block_shapes"] = {
+        k: tuple(v.shape) for k, v in _flat(model.stage_params).items()}
+    return out
+
+
+def _flat(tree, prefix=""):
+    if isinstance(tree, dict):
+        return {k: v for key, sub in tree.items()
+                for k, v in _flat(sub, f"{prefix}{key}/").items()}
+    return {prefix[:-1]: tree}
+
+
+def _leaf_bytes(tree) -> int:
+    return sum(v.numel() * v.element_size() for v in _flat(tree).values())
+
+
+def _mlp_scan_forward(params, x):
+    """The reference test's forward: tanh(x @ up) @ down over the
+    stacked layers."""
+    for i in range(params["layers"]["mlp"]["up_proj"]["kernel"].shape[0]):
+        mlp = params["layers"]["mlp"]
+        x = torch.tanh(x @ mlp["up_proj"]["kernel"][i])
+        x = x @ mlp["down_proj"]["kernel"][i]
+    return x
+
+
+def _case_sharded(case, mesh):
+    """`prepare_sharded_inference`: the route, this rank's shard bytes
+    and the output."""
+    import functools
+
+    from ..inference import prepare_sharded_inference
+
+    params = _tensors(case["params"])
+    if case["forward"] == "llama":
+        llama, cfg = _llama(case)
+        forward = functools.partial(llama.forward, cfg)
+    else:
+        forward = _mlp_scan_forward
+    fn, sharded = prepare_sharded_inference(forward, params, mesh=mesh,
+                                            device="cpu")
+    return {"route": fn.route, "y": fn(sharded, _tensors(case["x"])).numpy(),
+            "bytes": _leaf_bytes(sharded), "whole_bytes": _leaf_bytes(params)}
+
+
+def _case_dispatch(case, mesh):
+    """`dispatch_model(params, "sharded")` and
+    `load_checkpoint_and_dispatch(device_map="sharded")` across the world,
+    then the family's forward on the shards."""
+    from ..big_modeling import dispatch_model, init_empty_weights, \
+        load_checkpoint_and_dispatch
+
+    llama, cfg = _llama(case)
+    params = _tensors(case["params"])
+    ids = _tensors(case["x"])
+    out = {}
+    for mode in ("sharded", None):
+        placed = dispatch_model(params, mode, device="cpu")
+        out[f"y_{mode}"] = llama.forward(cfg, placed, ids).numpy()
+        out[f"bytes_{mode}"] = _leaf_bytes(placed)
+        out[f"mesh_{mode}"] = dict(placed.mesh.shape)
+    out["whole_bytes"] = _leaf_bytes(params)
+    try:
+        dispatch_model(params, "sharded", mesh_axis="fsdp", device="cpu")
+        out["fsdp_axis"] = None
+    except NotImplementedError as e:
+        out["fsdp_axis"] = str(e)
+    abstract = init_empty_weights(llama.init_params, cfg, 0)
+    loaded = load_checkpoint_and_dispatch(
+        abstract, case["checkpoint"], device_map="sharded", device="cpu")
+    out["y_checkpoint"] = llama.forward(cfg, loaded, ids).numpy()
+    out["bytes_checkpoint"] = _leaf_bytes(loaded)
+    return out
+
+
+def _case_accelerator(case, mesh):
+    """An Accelerator on a `data` x `stage` mesh: its mesh, a pipeline on
+    it, a 1F1B step on its stage lines, and each training call's error;
+    then a `model` axis's refusal."""
+    from .. import optimizers
+    from ..accelerator import Accelerator
+    from ..inference import prepare_pipeline
+    from ..parallel import pipeline_value_and_grad
+    from ..state import PartialState
+    from ..training import TrainState
+    from ..utils.dataclasses import MeshConfig
+
+    PartialState._reset_state()
+    acc = Accelerator(cpu=True, mesh_config=MeshConfig(axes=case["axes"]))
+    out = {"mesh": dict(acc.mesh.shape),
+           "stage_index": acc.mesh.axis_index("stage"),
+           "stage_line": acc.mesh.axis_ranks("stage")}
+    layers = _tensors(case["params"])
+    model = prepare_pipeline(_LAYER_FNS["tanh_affine"], layers,
+                             mesh=acc.mesh, device="cpu")
+    out["y"] = model(case["x"]).numpy()
+    staged = {k: v.reshape((2, -1) + tuple(v.shape[1:]))
+              for k, v in layers.items()}
+    loss, grads = pipeline_value_and_grad(
+        _tanh_affine_stage, _mse, staged,
+        _tensors(case["x"]), _tensors(case["x"]) * 0.5, 4, mesh=acc.mesh)
+    out["loss"], out["grads"] = float(loss), _numpy(grads)
+    w = {"w": torch.zeros((2, 2))}
+    calls = {
+        "train_state": lambda: acc.prepare(TrainState.create(
+            apply_fn=None, params=w, tx=optimizers.adamw(1e-3))),
+        "optimizer": lambda: acc.prepare_optimizer(optimizers.adamw(1e-3),
+                                                   params=w),
+        "data_loader": lambda: acc.prepare([{"x": np.zeros((4, 2))}]),
+        "train_step": lambda: acc.train_step(lambda p, b: p["w"].sum()),
+        "compute_gradients": lambda: acc.compute_gradients(
+            lambda p, b: p["w"].sum(), w, {"x": torch.zeros(2)}),
+        "backward": lambda: acc.backward(w),
+    }
+    out["refused"] = {}
+    for name, call in calls.items():
+        try:
+            call()
+            out["refused"][name] = None
+        except NotImplementedError as e:
+            out["refused"][name] = str(e)
+    out["params_prepared"] = acc.prepare(w)["w"].shape == (2, 2)
+    for axes in case["refused_axes"]:
+        PartialState._reset_state()
+        try:
+            Accelerator(cpu=True, mesh_config=MeshConfig(axes=axes))
+            out.setdefault("model_axis", []).append(None)
+        except NotImplementedError as e:
+            out.setdefault("model_axis", []).append(str(e))
+    PartialState._reset_state()
+    PartialState(cpu=True)
+    return out
+
+
+def _tanh_affine_stage(p, x):
+    for i in range(p["w"].shape[0]):
+        x = _LAYER_FNS["tanh_affine"]({"w": p["w"][i], "b": p["b"][i]}, x)
+    return x
+
+
+def _case_p2p(case, mesh):
+    """`axis_ppermute` around the stage line (f32 and bf16, both ways),
+    one edge alone, and `axis_broadcast` from the last rank, on
+    rank-stamped tensors."""
+    from ..utils import operations as ops
+
+    group, n = mesh.group("stage"), mesh.shape["stage"]
+    r = mesh.axis_index("stage")
+    mine = torch.full((3,), float(r))
+    half = torch.full((2, 2), r + 0.5, dtype=torch.bfloat16)
+    edge = ops.axis_ppermute(mine if r == 0 else None, group,
+                             recv_like=mine if r == 1 else None)
+    return {
+        "next": ops.axis_ppermute(mine, group, 1, recv_like=mine).numpy(),
+        "prev": ops.axis_ppermute(mine, group, -1, recv_like=mine).numpy(),
+        "bf16": ops.axis_ppermute(half, group, 1, recv_like=half)
+        .float().numpy(),
+        "bf16_dtype": str(ops.axis_ppermute(half, group, 1,
+                                            recv_like=half).dtype),
+        "edge": None if edge is None else edge.numpy(),
+        "broadcast": ops.axis_broadcast(half, group, n - 1).float().numpy(),
+        "mine_after": mine.numpy(),
+    }
+
+
+_PIPELINE_CASES = {
+    "p2p": _case_p2p,
+    "apply": _case_apply,
+    "value_and_grad": _case_value_and_grad,
+    "errors": _case_errors,
+    "prepare": _case_prepare,
+    "sharded": _case_sharded,
+    "dispatch": _case_dispatch,
+    "accelerator": _case_accelerator,
+}
+
+
+def pipeline_forms(out_dir: str, cases: list) -> None:
+    """Run each pipeline or sharded-inference case on this rank and
+    record what it gave. A case is a dict: `name`, `kind` (a key of
+    `_PIPELINE_CASES`), `mesh` ({axis: size} over the world), numpy
+    inputs (`params`, `x`, `targets`, ...) and the kind's options."""
+    from ..state import PartialState, ProcessMesh
+
+    torch.set_num_threads(1)
+    PartialState(cpu=True)
+    out = {}
+    for case in cases:
+        mesh = ProcessMesh(case.get("mesh", {"stage": PartialState
+                                             .num_processes}), device="cpu")
+        out[case["name"]] = _PIPELINE_CASES[case["kind"]](case, mesh)
+    _dump(out_dir, out)

@@ -236,9 +236,10 @@ class QuantizationConfig(KwargsHandler):
 class MeshConfig:
     """A mesh request: {axis: size} over the world's processes (each owns
     one device), at most one size -1 ("fill with the remaining
-    processes"). The port runs data parallelism only: an axis other than
-    `data` with a size above 1 raises at `Accelerator` (sharded
-    parallelism is queue 1 item 6b)."""
+    processes"). `build()` lays the world's processes out on it
+    (`state.ProcessMesh`). The Accelerator takes the `data` and `stage`
+    axes: any other axis above 1 raises there (sharded parallelism is
+    queue 1 item 6b)."""
 
     axes: dict[str, int] = field(default_factory=dict)
 
@@ -291,3 +292,15 @@ class MeshConfig:
             raise ValueError(f"mesh {axes} covers {sizes} devices but "
                              f"{num_devices} are present")
         return {a: axes[a] for a in MESH_AXES if a in axes}
+
+    def build(self, num_processes: int | None = None, device=None):
+        """A `state.ProcessMesh` over the world's processes (the
+        reference's `build()` over devices: each process owns one),
+        `num_processes` defaulting to the live world's. `device` is where
+        `sharding.shard_pytree` puts this rank's shards (None: where each
+        leaf already is)."""
+        from ..state import PartialState, ProcessMesh
+
+        n = PartialState.num_processes if num_processes is None \
+            else int(num_processes)
+        return ProcessMesh(self.resolved_axes(n), device=device)

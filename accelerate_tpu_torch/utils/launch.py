@@ -91,16 +91,25 @@ def merged_child_env(extra: dict[str, str]) -> dict[str, str]:
 
 def monitor_world(procs, *, is_alive: Callable, exitcode: Callable,
                   terminate: Callable, grace_s: float = 1.0,
-                  poll_s: float = 0.05):
+                  poll_s: float = 0.05, timeout_s: float | None = None):
     """Watch a world of processes; at the first failure give the others
     `grace_s` to finish, then terminate the survivors (a rank that died
-    leaves its peers blocked in a collective). Takes accessors, so
-    `multiprocessing.Process` and `subprocess.Popen` both fit. Returns
-    (failed, the ranks it terminated): those are casualties of the
-    clean-up, not causes of the failure."""
+    leaves its peers blocked in a collective). With `timeout_s`, a world
+    still running after it is a failure too, and every rank is
+    terminated. Takes accessors, so `multiprocessing.Process` and
+    `subprocess.Popen` both fit. Returns (failed, the ranks it
+    terminated): those are casualties of the clean-up, not causes of the
+    failure (after a timeout, every rank it terminated)."""
     failed = False
     terminated: set[int] = set()
+    deadline = None if timeout_s is None else time.monotonic() + timeout_s
     while any(is_alive(p) for p in procs):
+        if deadline is not None and time.monotonic() > deadline:
+            for rank, p in enumerate(procs):
+                if is_alive(p):
+                    terminated.add(rank)
+                    terminate(p)
+            return True, terminated
         if any(exitcode(p) not in (0, None) for p in procs):
             failed = True
             time.sleep(grace_s)

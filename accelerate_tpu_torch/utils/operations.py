@@ -19,8 +19,12 @@ and comes back to the host. numpy leaves come back as numpy.
 `axis_all_reduce`, `axis_all_gather` and `axis_broadcast_float` run on a
 mesh axis's group (`state.ProcessMesh.group`): the collectives of the
 tensor-parallel forward (`models/tensor_parallel.py`) and of the meshed
-engine's lockstep clock. They take the same transport: host copies
-under gloo, the device under NCCL (no card run has reached the NCCL
+engine's lockstep clock. `axis_ppermute` (point to point along the
+axis's line, `lax.ppermute`'s counterpart) and `axis_broadcast` are the
+pipeline schedules' (`parallel/pipeline.py`). They take the same
+transport: host copies under gloo (point to point and the broadcast
+move each tensor as its bytes, so every dtype goes), the device under
+NCCL (no card run has reached the NCCL
 branch: one H100 holds one NCCL rank).
 
 `all_reduce_mean_` averages a list of tensors in place in flat buckets
@@ -411,6 +415,71 @@ def axis_broadcast_float(value: float, group) -> float:
     t = torch.tensor([value], dtype=torch.float64, device=device)
     torch.distributed.broadcast(t, src=src, group=group)
     return float(t.item())
+
+
+def _axis_global_rank(group, index: int) -> int:
+    """The global rank of the `index`-th rank of `group`."""
+    if group is torch.distributed.group.WORLD:
+        return index
+    return torch.distributed.get_global_rank(group, index)
+
+
+def _bytes(t: torch.Tensor, on_host: bool) -> torch.Tensor:
+    """A contiguous tensor viewed as its bytes, for the host transport
+    (gloo broadcasts no bf16); as it is on the device."""
+    return t.reshape(-1).view(torch.uint8) if on_host else t
+
+
+@torch.no_grad()
+def axis_ppermute(tensor: torch.Tensor | None, group, shift: int = 1, *,
+                  recv_like: torch.Tensor | None = None):
+    """`lax.ppermute` along a mesh axis's line (`group`) by `shift`:
+    send `tensor` to the rank `shift` places on (cyclically) and receive
+    from the rank `shift` places back, into a new tensor of
+    `recv_like`'s shape and dtype on its device; returns it (None when
+    `recv_like` is None). `tensor=None` sends nothing, so a schedule
+    leaves an idle edge out, on both of its ends. The send and the
+    receive are posted together (`isend`/`irecv`) and both waited on: a
+    ring of blocking sends could deadlock. A failed send or receive
+    raises."""
+    if group is None:
+        raise ValueError("axis_ppermute needs an axis of more than one rank")
+    n = torch.distributed.get_world_size(group)
+    me = torch.distributed.get_rank(group)
+    on_host = _on_host(group)
+    work, out = [], None
+    if tensor is not None:
+        t, _ = _to_transport(tensor, group)
+        work.append(torch.distributed.isend(
+            _bytes(t, on_host), _axis_global_rank(group, (me + shift) % n),
+            group=group))
+    if recv_like is not None:
+        dev = "cpu" if on_host else PartialState().device
+        out = torch.empty(recv_like.shape, dtype=recv_like.dtype,
+                          device=dev)
+        work.append(torch.distributed.irecv(
+            _bytes(out, on_host), _axis_global_rank(group, (me - shift) % n),
+            group=group))
+    for w in work:
+        w.wait()
+    return None if out is None else out.to(recv_like.device)
+
+
+@torch.no_grad()
+def axis_broadcast(tensor: torch.Tensor, group, src: int) -> torch.Tensor:
+    """`tensor` as the `src`-th rank of `group` holds it, as a new tensor
+    on `tensor`'s device on every rank (the others pass a tensor of the
+    same shape and dtype, whose values are not read); `tensor` itself is
+    left as it was. The pipelines' "psum of one-hot" from the last
+    stage. A None group is a line of one."""
+    if group is None:
+        return tensor
+    t, back = _to_transport(tensor, group)
+    t = t.clone() if t.data_ptr() == tensor.data_ptr() else t
+    torch.distributed.broadcast(_bytes(t, _on_host(group)),
+                                src=_axis_global_rank(group, src),
+                                group=group)
+    return back(t)
 
 
 def pad_input_tensors(tensor, batch_size: int, num_processes: int,

@@ -84,6 +84,27 @@ script exits non-zero:
    0.1 relative L2 of one process's; the decode step, the prefill chunk
    and the collectives a step makes, reported as two ranks sharing one
    card through the host, not as tensor-parallel speed;
+5c5. pipeline: pipeline-parallel and sharded inference through the
+   launcher (`infer_llama_pp.py`, two processes on the one card over
+   gloo, each building its weights from the seed): (a) f32, llama3-8B
+   width, 4 layers, einsum attention, 4 prompts of 2048 tokens through
+   `prepare_pipeline` (embedding `pre_fn`, norm and head `post_fn`) on a
+   `stage` axis of 2 with 2 and 4 chunks, `prepare_sharded_inference`
+   on a `model` axis of 2 and `dispatch_model(..., "sharded")`: every
+   result's logits within PP_A_REL_L2 of process 0's one-process forward
+   and the same on both ranks, each rank's parameter bytes 0.49-0.52 of
+   the whole under `dispatch_model`; (b) bf16, llama3-8B at full depth,
+   16 layers a stage, 2 prompts, 2 chunks: both ranks' logits
+   identical, each prompt's within 0.1 relative L2 of one process's, 32
+   K1a launches a rank, a rank's layer bytes half of the whole, the
+   handoffs, their bytes and times and each rank's peak memory; (c)
+   `pipeline_value_and_grad(schedule="1f1b")` at llama3-8B width, bf16,
+   2 stages of 2 layers, 4 micro-batches of [1, 2048] hidden states, an
+   MSE loss: loss and each stage's gradients against one process's
+   autograd, K1a/K1b/K1c 16/8/8 a rank, the saved inputs within the
+   1F1B bound; then K1a/b/c at the path's shape against their plain
+   versions, timed; all times as two ranks sharing one card through the
+   host, not as pipeline speed;
 5d. gptj_engine: GPT-J-6B at full width and depth (random bf16 weights
    from a seed) served like phase engine's 12 requests through K2 at
    head dim 256 with no GQA, graphs against eager, K2's launches through
@@ -5162,6 +5183,144 @@ def phase_pod_tp():
     return {"a": a, "b": b}
 
 
+PP_A_REL_L2 = 1e-4      # (a) f32: products in another order only
+PP_B_REL_L2 = 0.1       # (b) bf16 at depth (ROADMAP.md parity hazards)
+PP_C_LOSS_RTOL = 1e-4   # (c) the same per-micro losses summed in f32
+PP_C_GRAD_REL_L2 = 2e-2  # (c) bf16 gradients of 4 micro-batches summed
+                         # in another order (3.5e-3 on the CPU)
+PP_PARAM_SHARE = (0.49, 0.52)
+PP_TIMEOUT_S = 420
+
+
+def _pp_rows(rows, part):
+    return sorted((r for r in rows if r["part"] == part),
+                  key=lambda r: r["rank"])
+
+
+def phase_pipeline(kernel_rows):
+    """Pipeline-parallel and sharded inference on the one card:
+    `infer_llama_pp.py` launched as two processes (gloo, both on card
+    0), each building llama3-8B weights from seed 0. Gates: the launcher
+    exits 0; (a) f32 at 4 layers: the pipeline at 2 and 4 chunks, the
+    tensor-parallel route of `prepare_sharded_inference` and
+    `dispatch_model("sharded")` each give logits within PP_A_REL_L2 of
+    process 0's one-process forward, prompt by prompt, and the same
+    digest on both ranks; a rank's parameter bytes within PP_PARAM_SHARE
+    of the whole; (b) bf16 at 32 layers: both ranks' logits identical,
+    each prompt's within PP_B_REL_L2 of one process's, 32 K1a launches
+    a rank, a rank's layer bytes exactly half of the whole; (c) 1F1B:
+    the loss within PP_C_LOSS_RTOL and every gradient leaf within
+    PP_C_GRAD_REL_L2 of one process's autograd, K1a/K1b/K1c 16/8/8 a
+    rank, the saved inputs within 2(S-1-s)+1. The times are reported,
+    not gated: two ranks share one card through the host."""
+    import os
+
+    script = os.path.join("accelerate_tpu_torch", "test_utils", "scripts",
+                          "infer_llama_pp.py")
+    cmd = [sys.executable, "-m", "accelerate_tpu_torch.commands.launch",
+           "--num_processes", "2", script, "--config", "llama3_8b"]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True,
+                          timeout=PP_TIMEOUT_S)
+    wall = time.perf_counter() - t0
+    rows = [json.loads(line.split(" ", 1)[1])
+            for line in proc.stdout.splitlines()
+            if line.startswith("PP_RESULT {")]
+    a, b, c = (_pp_rows(rows, p) for p in "abc")
+    if proc.returncode != 0 or not len(a) == len(b) == len(c) == 2:
+        raise AssertionError(
+            f"launch exited {proc.returncode} with {len(rows)} result(s):"
+            f"\n{proc.stdout[-4000:]}\n{proc.stderr[-8000:]}")
+    failed = []
+    a_rel = {name: res["rel_l2"] for name, res in a[0]["results"].items()}
+    a_same = {name: a[0]["results"][name]["digest"] ==
+              a[1]["results"][name]["digest"] for name in a_rel}
+    for name, rel in a_rel.items():
+        if len(rel) != 4 or not all(math.isfinite(x) and x <= PP_A_REL_L2
+                                    for x in rel):
+            failed.append(f"(a) {name}: logits relative L2 {rel}")
+        if not a_same[name]:
+            failed.append(f"(a) {name}: the ranks' logits differ")
+    route = a[0]["results"]["sharded_inference"]["route"]
+    if route != "tensor_parallel":
+        failed.append(f"(a) prepare_sharded_inference took route {route}")
+    a_share = [r["param_bytes"] / r["param_bytes_whole"] for r in a]
+    if not all(PP_PARAM_SHARE[0] <= x <= PP_PARAM_SHARE[1]
+               for x in a_share):
+        failed.append(f"(a) dispatch_model parameter share {a_share}")
+    b_rel = b[0]["logits_rel_l2"]
+    if b[0]["digest"] != b[1]["digest"]:
+        failed.append("(b) the ranks' logits differ")
+    if not all(r["finite"] for r in b):
+        failed.append("(b) non-finite logits")
+    if len(b_rel) != 2 or not all(math.isfinite(x) and x <= PP_B_REL_L2
+                                  for x in b_rel):
+        failed.append(f"(b) logits relative L2 {b_rel}")
+    b_want = b[0]["layers"] // 2 * b[0]["num_chunks"]
+    for r in b:
+        if r["launches"]["flash_fwd"] != b_want:
+            failed.append(f"(b) rank {r['rank']}: K1a launches "
+                          f"{r['launches']['flash_fwd']}, expected {b_want}")
+        if 2 * r["layer_bytes"] != r["layer_bytes_whole"]:
+            failed.append(f"(b) rank {r['rank']}: layer bytes "
+                          f"{r['layer_bytes']} of {r['layer_bytes_whole']}")
+    c_want = {"flash_fwd": 2 * 4 * c[0]["layers"] // 2,
+              "flash_bwd_dq": 4 * c[0]["layers"] // 2,
+              "flash_bwd_dkv": 4 * c[0]["layers"] // 2}
+    for r in c:
+        if abs(r["loss"] - r["ref_loss"]) > PP_C_LOSS_RTOL * abs(
+                r["ref_loss"]) or not math.isfinite(r["loss"]):
+            failed.append(f"(c) rank {r['rank']}: loss {r['loss']} against "
+                          f"{r['ref_loss']}")
+        worst = max(r["grad_rel_l2"].values())
+        if not r["grads_finite"] or not worst <= PP_C_GRAD_REL_L2:
+            failed.append(f"(c) rank {r['rank']}: gradient relative L2 "
+                          f"{r['grad_rel_l2']}")
+        if r["launches"] != c_want:
+            failed.append(f"(c) rank {r['rank']}: flash launches "
+                          f"{r['launches']}, expected {c_want}")
+        if r["max_saved_inputs"] > r["saved_bound"]:
+            failed.append(f"(c) rank {r['rank']}: {r['max_saved_inputs']} "
+                          f"saved inputs, bound {r['saved_bound']}")
+    emit("pipeline", config="llama3_8b", launcher_wall_s=wall,
+         backend="gloo", ranks_share_one_card=True,
+         part_a={"layers": a[0]["layers"], "dtype": "float32",
+                 "prompts": a[0]["prompts"], "logits_rel_l2": a_rel,
+                 "ranks_equal": a_same, "route": route,
+                 "param_share": a_share,
+                 "handoffs": {n: [r["results"][n]["handoffs"] for r in a]
+                              for n in ("pipeline_2", "pipeline_4")}},
+         part_b={"layers": b[0]["layers"], "dtype": "bfloat16",
+                 "prompts": b[0]["prompts"],
+                 "ranks_equal": b[0]["digest"] == b[1]["digest"],
+                 "logits_rel_l2": b_rel,
+                 **{k: [r[k] for r in b] for k in (
+                     "launches", "layer_bytes", "layer_bytes_whole",
+                     "handoffs", "handoff_bytes", "exchange_ms",
+                     "broadcast_bytes", "ticks", "call_ms",
+                     "max_memory_allocated_gb")}},
+         part_c={"layers": c[0]["layers"], "dtype": "bfloat16",
+                 "micro_batches": c[0]["micro_batches"],
+                 "micro_shape": c[0]["micro_shape"],
+                 "launches_expected": c_want,
+                 **{k: [r[k] for r in c] for k in (
+                     "launches", "loss", "ref_loss", "grad_rel_l2",
+                     "max_saved_inputs", "saved_bound", "handoffs",
+                     "handoff_bytes", "exchange_ms", "ticks", "call_ms",
+                     "max_memory_allocated_gb")}},
+         tolerances={"a_rel_l2": PP_A_REL_L2, "b_rel_l2": PP_B_REL_L2,
+                     "c_loss_rtol": PP_C_LOSS_RTOL,
+                     "c_grad_rel_l2": PP_C_GRAD_REL_L2},
+         note="two ranks share one card through the host (gloo): these "
+              "times are not pipeline speed")
+    if failed:
+        raise AssertionError("; ".join(failed))
+    launches = {n: sum(r["launches"][n] for r in b + c) for n in c_want}
+    kernel_rows.extend(_flash_rows_at("pipeline", launches,
+                                      1, 2048, 32, 128))
+    return {"a": a, "b": b, "c": c}
+
+
 def _drop():
     """Free the device memory of a finished phase."""
     import gc
@@ -5204,6 +5363,8 @@ def main() -> int:
     _drop()
     phase_pod_cli()
     phase_pod_tp()
+    phase_pipeline(kernels)
+    _drop()
     phase_gptj_engine(kernels)
     _drop()
     bf16 = phase_train(kernels)

@@ -361,7 +361,8 @@ def test_sharded_dispatch_is_device_zero_and_raises_on_several(monkeypatch):
         assert all(torch.equal(a, b) for a, b in zip(
             flatten_dict(out).values(), flatten_dict(tparams).values()))
     monkeypatch.setattr(torch.cuda, "device_count", lambda: 2)
-    with pytest.raises(NotImplementedError, match="item 6"):
+    with pytest.raises(NotImplementedError,
+                       match="one process on a device"):
         tbm.dispatch_model(tparams, "sharded", device="cpu")
 
 
@@ -377,11 +378,14 @@ def test_entry_points_raise_without_a_gpu(monkeypatch, tmp_path):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         tmod.get_max_memory()
     from accelerate_tpu_torch import inference
+    from accelerate_tpu_torch.state import ProcessMesh
 
-    with pytest.raises(NotImplementedError, match="item 6"):
-        inference.prepare_pipeline(None)
-    with pytest.raises(NotImplementedError, match="item 6"):
-        inference.prepare_sharded_inference(None)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        inference.prepare_pipeline(lambda layer, x: x, tparams["layers"],
+                                   mesh=ProcessMesh({"stage": 2}))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        inference.prepare_sharded_inference(lambda p, x: x, tparams,
+                                            mesh=ProcessMesh({"model": 1}))
 
 
 # --- checkpoints ------------------------------------------------------------

@@ -11,7 +11,8 @@ data pipeline: the loader's side-stream copies against the host's
 batches, and a tracker's log of card scalars; and the pod's KV page
 shipments (extract, copy to the host, install) against the CPU
 programs; and tensor-parallel serving by two ranks sharing the card
-against one process.
+against one process; and two pipeline stages of llama layers run in
+turn through the flash kernels against the plain attention.
 
 Without a card every test here skips with a reason. The file imports
 neither jax nor the JAX package, so it also runs where those are not
@@ -1404,3 +1405,111 @@ def test_tensor_parallel_serving_two_ranks_share_the_card(cuda):
         assert r["sharded"] == single and r["pod"] == single
         assert r["graphs_captured"] is False
         assert r["compile_stats"] == {"admit": 1, "prefill": 1, "decode": 1}
+
+
+def _pipeline_stage_grads(stage_fn, blocks, x, dy):
+    """Two stages run in turn as the 1F1B schedule runs them: the
+    forwards without a tape, then each stage's forward recomputed from
+    its input and pulled back, the last first. Returns (output, each
+    stage's leaf gradients)."""
+    with torch.no_grad():
+        inputs = [x]
+        for block in blocks[:-1]:
+            inputs.append(stage_fn(block, inputs[-1]))
+        y = stage_fn(blocks[-1], inputs[-1])
+    grads = [None] * len(blocks)
+    for s in reversed(range(len(blocks))):
+        leaves = {k: v.detach().requires_grad_() for k, v in
+                  _flat_leaves(blocks[s]).items()}
+        xin = inputs[s].detach().requires_grad_(s > 0)
+        with torch.enable_grad():
+            out = stage_fn(_unflat_leaves(leaves), xin)
+            got = torch.autograd.grad(
+                out, list(leaves.values()) + ([xin] if s > 0 else []), dy)
+        grads[s] = dict(zip(leaves, got[:len(leaves)]))
+        if s > 0:
+            dy = got[-1]
+    return y, grads
+
+
+def _flat_leaves(tree, prefix=""):
+    if isinstance(tree, dict):
+        return {k: v for key, sub in tree.items()
+                for k, v in _flat_leaves(sub, f"{prefix}{key}/").items()}
+    return {prefix[:-1]: tree}
+
+
+def _unflat_leaves(flat):
+    out = {}
+    for path, v in flat.items():
+        node = out
+        *parents, leaf = path.split("/")
+        for p in parents:
+            node = node.setdefault(p, {})
+        node[leaf] = v
+    return out
+
+
+def test_pipeline_stages_through_flash_kernels(cuda):
+    """Phase pipeline's stage body at its attention shape [1, 2048, 32,
+    128] in bf16: two one-layer llama stages (llama3-8B's attention, a
+    narrow MLP) run in turn, forward then the recomputing backward, with
+    `attention_backend="flash"` launch K1a 4 times and K1b and K1c twice
+    each, and give the output and every gradient of the same stages with
+    the plain attention on the card (relative L2 2e-2: two bf16
+    attention paths)."""
+    import dataclasses
+
+    from accelerate_tpu_torch.inference import make_stage_fn
+    from accelerate_tpu_torch.models.common import rope_frequencies
+    from accelerate_tpu_torch.parallel import stack_layers_into_stages
+
+    base = llama.LlamaConfig.llama3_8b(num_hidden_layers=2,
+                                       intermediate_size=1024,
+                                       vocab_size=256)
+    layers = llama.init_params(base, 0, dtype=torch.bfloat16,
+                               device=cuda)["layers"]
+    staged = stack_layers_into_stages(layers, 2)
+    blocks = [{k: _sub(v, s) for k, v in staged.items()} for s in range(2)]
+    g = torch.Generator(device=cuda).manual_seed(0)
+    x = torch.randn((1, 2048, 4096), generator=g, device=cuda).to(
+        torch.bfloat16)
+    dy = torch.randn((1, 2048, 4096), generator=g, device=cuda).to(
+        torch.bfloat16)
+
+    def stage_fn_for(backend):
+        cfg = dataclasses.replace(base, attention_backend=backend)
+
+        def layer(p, h):
+            cos, sin = rope_frequencies(cfg.head_dim, h.shape[1],
+                                        cfg.rope_theta, device=h.device)
+            pos = torch.arange(h.shape[1], device=h.device)[None]
+            return llama._layer_body(cfg, h, p, cos, sin, pos, None)[0]
+
+        return make_stage_fn(layer)
+
+    before = (tf.flash_forward.launches, tf.flash_backward_dq.launches,
+              tf.flash_backward_dkv.launches)
+    y, grads = _pipeline_stage_grads(stage_fn_for("flash"), blocks, x, dy)
+    torch.cuda.synchronize()
+    after = (tf.flash_forward.launches, tf.flash_backward_dq.launches,
+             tf.flash_backward_dkv.launches)
+    assert tuple(a - b for a, b in zip(after, before)) == (4, 2, 2)
+    y_ref, grads_ref = _pipeline_stage_grads(stage_fn_for("einsum"), blocks,
+                                             x, dy)
+
+    def rel(a, b):
+        return float(torch.linalg.vector_norm((a - b).float())
+                     / torch.linalg.vector_norm(b.float()))
+
+    assert torch.isfinite(y).all() and rel(y, y_ref) <= 2e-2
+    for s in range(2):
+        for k, gr in grads[s].items():
+            assert torch.isfinite(gr).all()
+            assert rel(gr, grads_ref[s][k]) <= 2e-2, (s, k)
+
+
+def _sub(tree, s):
+    if isinstance(tree, dict):
+        return {k: _sub(v, s) for k, v in tree.items()}
+    return tree[s]

@@ -165,6 +165,20 @@ def test_refused_flags_exit_2_naming_their_slice(flags, says, capsys):
     assert says in capsys.readouterr().err
 
 
+def test_stage_mesh_shape_is_taken():
+    """A `--mesh_shape` over `data` and `stage` passes the launcher's
+    check (pipeline stages are ported); a `model` axis still does not."""
+    import argparse
+
+    parser = argparse.ArgumentParser()
+    tlaunch.add_launch_arguments(parser)
+    tlaunch.check_supported(parser.parse_args(
+        ["--mesh_shape", "data=1,stage=2", "script.py"]))
+    with pytest.raises(tlaunch.LaunchRefused, match="item 6b"):
+        tlaunch.check_supported(parser.parse_args(
+            ["--mesh_shape", "stage=2,model=2", "script.py"]))
+
+
 def test_launch_cpu_world_of_two_runs_every_rank():
     out = execute_subprocess(launch_command_for(
         bundled_script_path("test_cli.py"), 2, ["--cpu"]), timeout=240)

@@ -195,14 +195,16 @@ def test_backend_rule_refuses_before_joining(monkeypatch):
 
 def test_mesh_resolution_like_jax(monkeypatch):
     """Explicit `mesh_config`, then the launcher's variable, then every
-    process on `data`; an axis other than `data` above 1 raises naming
-    item 6b. Shapes as the reference resolves them over as many devices
-    (the port's devices are its processes)."""
+    process on `data`; an axis other than `data` and `stage` above 1
+    raises naming item 6b, a `stage` axis resolves like the reference's.
+    Shapes as the reference resolves them over as many devices (the
+    port's devices are its processes)."""
     from accelerate_tpu.utils.dataclasses import MeshConfig as JMesh
     from accelerate_tpu_torch.utils.constants import ENV_MESH_SHAPE
     from accelerate_tpu_torch.utils.dataclasses import MeshConfig
 
-    for axes in ({"data": -1}, {"data": 1, "fsdp": 1}, {"data": 2}, {}):
+    for axes in ({"data": -1}, {"data": 1, "fsdp": 1}, {"data": 2}, {},
+                 {"data": -1, "stage": 2}, {"stage": 2, "data": 2}):
         for n in (1, 2, 4):
             try:
                 want = JMesh(axes=dict(axes)).resolved_axes(n)
@@ -221,6 +223,13 @@ def test_mesh_resolution_like_jax(monkeypatch):
     assert tstate.AcceleratorState(
         cpu=True, mesh_config=MeshConfig(axes={"data": -1})).mesh.shape == \
         {"data": 1}
+    tstate.PartialState._reset_state()
+    assert tstate.AcceleratorState(cpu=True, mesh_config=MeshConfig(
+        axes={"data": -1, "stage": 1})).mesh.shape == {"data": 1, "stage": 1}
+    tstate.PartialState._reset_state()
+    with pytest.raises(ValueError, match="covers 2 devices but 1"):
+        tstate.AcceleratorState(cpu=True,
+                                mesh_config=MeshConfig(axes={"stage": 2}))
     for axes in ({"model": 2}, {"fsdp": 2}, {"data": 1, "seq": 4}):
         tstate.PartialState._reset_state()
         with pytest.raises(NotImplementedError, match="queue 1 item 6b"):

@@ -201,9 +201,9 @@ def test_t5_fp8_loss_matches_jax():
 
 def test_t5_streamed_generate_raises_and_names_its_item(monkeypatch):
     """The hybrid streamed decode runs over the one-device "sharded"
-    dispatch and decodes `generate`'s tokens; over several cards that
-    dispatch needs the sharding planner, and raises naming queue 1
-    item 6."""
+    dispatch and decodes `generate`'s tokens; over several cards in one
+    process that dispatch raises, naming the port's layout: one process
+    on a device."""
     from accelerate_tpu_torch import big_modeling as tbm
 
     cfg = tt.T5Config.tiny()
@@ -216,7 +216,8 @@ def test_t5_streamed_generate_raises_and_names_its_item(monkeypatch):
                              dtype=torch.float32, device="cpu"),
         tt.generate(cfg, params, ids, max_new_tokens=4))
     monkeypatch.setattr(torch.cuda, "device_count", lambda: 2)
-    with pytest.raises(NotImplementedError, match="queue 1 item 6"):
+    with pytest.raises(NotImplementedError,
+                       match="one process on a device"):
         tbm.dispatch_model(params, "sharded", device="cpu")
 
 

@@ -344,8 +344,8 @@ def test_entry_points_need_a_gpu_unless_asked_for_the_cpu(name, monkeypatch):
 def test_streamed_generate_raises_and_names_its_item(name, monkeypatch):
     """The streamed decode runs over the one-device "sharded" dispatch
     (every leaf on device 0) and decodes `generate`'s tokens; over
-    several cards that dispatch needs the sharding planner, and raises
-    naming queue 1 item 6."""
+    several cards in one process that dispatch raises, naming the
+    port's layout: one process on a device."""
     from accelerate_tpu_torch import big_modeling as tbm
 
     _, tm = _mods(name)
@@ -359,5 +359,6 @@ def test_streamed_generate_raises_and_names_its_item(name, monkeypatch):
                              dtype=torch.float32, device="cpu"),
         tm.generate(cfg, params, ids, max_new_tokens=4))
     monkeypatch.setattr(torch.cuda, "device_count", lambda: 2)
-    with pytest.raises(NotImplementedError, match="queue 1 item 6"):
+    with pytest.raises(NotImplementedError,
+                       match="one process on a device"):
         tbm.dispatch_model(params, "sharded", device="cpu")
