@@ -75,6 +75,7 @@ _LAZY = {
     "ProjectConfiguration": ".utils.dataclasses",
     "GradientAccumulationPlugin": ".utils.dataclasses",
     "JitConfig": ".utils.dataclasses",
+    "ContextParallelPlugin": ".utils.dataclasses",
     "profile": ".profiler",
     "StepTimer": ".profiler",
     "device_memory_stats": ".profiler",

@@ -57,10 +57,15 @@ holds the same delayed-scaling metas. The
 average runs in flat buckets (`utils.operations.all_reduce_mean_`), one
 `all_reduce` a bucket. `Accelerator.mesh` is the mesh over the
 processes (`state.ProcessMesh`): `mesh_config`, else the launcher's
-`--mesh_shape`, else every process on `data`. A `stage` axis above 1
-builds, for `inference.prepare_pipeline` and `parallel.pipeline_*`; on
-it the training calls (`prepare` of a loader, an optimizer or a
-`TrainState`, `train_step`, `compute_gradients`, `backward`) raise.
+`--mesh_shape`, else the plugins' axes (`context_parallel_plugin`,
+or the launcher's `--context_parallel_{mode,degree}`: a `seq` axis, the
+rest on `data`), else every process on `data`. A `stage`, `seq` or
+`expert` axis above 1 builds, for `inference.prepare_pipeline` and
+`parallel.pipeline_*`, for `context_attention` and the ring and
+Ulysses attention backends, and for the expert-parallel MoE; on it the
+training calls (`prepare` of a loader, an optimizer or a `TrainState`,
+`train_step`, `compute_gradients`, `backward`) raise, naming the
+training half of queue 1 item 6b, part 1.
 
 `kwargs_handlers` takes the reference's records: `AutocastKwargs`
 (`enabled=False` pins the compute to f32), `FP8RecipeKwargs` (its
@@ -110,6 +115,7 @@ import dataclasses
 import inspect
 import os
 import shutil
+import warnings
 from typing import Any, Callable
 
 import numpy as np
@@ -123,7 +129,7 @@ from .ops import fp8
 from .optimizer import AcceleratedOptimizer
 from .optimizers import GradientTransformation, tree_leaves, tree_map
 from .scheduler import AcceleratedScheduler
-from .state import AcceleratorState, GradientState, refuse_stage_training
+from .state import AcceleratorState, GradientState, refuse_sharded_training
 from .telemetry.cost import CostTable, device_peaks, fence, \
     resolve_sample_every
 from .telemetry.export import start_metrics_server
@@ -132,9 +138,11 @@ from .telemetry.watchdog import StallWatchdog, resolve_stall_timeout
 from .training import DynamicLossScale, TrainState, cast_floating, \
     clone_tree, global_norm
 from .utils import operations as ops
-from .utils.constants import CHECKPOINT_DIR_PREFIX, ENV_GRAD_ACCUM_STEPS
+from .utils.constants import AXIS_DATA, CHECKPOINT_DIR_PREFIX, \
+    ENV_CP_DEGREE, ENV_CP_MODE, ENV_GRAD_ACCUM_STEPS
 from .utils.dataclasses import (
     AutocastKwargs,
+    ContextParallelPlugin,
     DataLoaderConfiguration,
     FP8RecipeKwargs,
     GradientAccumulationPlugin,
@@ -156,7 +164,6 @@ _UNPORTED = {
     "deepspeed_plugin": (None, _ITEM_6B),
     "fsdp_plugin": (None, _ITEM_6B),
     "megatron_lm_plugin": (None, _ITEM_6B),
-    "context_parallel_plugin": (None, _ITEM_6B),
     "sharding_rules": (None, _ITEM_6B),
     "strict": (None, "analysis slice"),
 }
@@ -179,6 +186,29 @@ def _all_reduce_metric(value):
         return x
 
     return ops._map(mean, value)
+
+
+def _plugin_mesh(*plugins) -> MeshConfig | None:
+    """The mesh the plugins ask for, by the reference's rule: each
+    plugin's axes in turn; of several fill-the-rest (-1) axes the first
+    is kept, with a warning; with only fixed sizes, `data` fills the
+    rest. None without a plugin."""
+    axes: dict[str, int] = {}
+    for plugin in plugins:
+        if plugin is not None:
+            axes.update(plugin.to_mesh_axes())
+    wilds = [a for a, s in axes.items() if s == -1]
+    if len(wilds) > 1:
+        for a in wilds[1:]:
+            axes.pop(a)
+        warnings.warn(
+            f"multiple plugins asked for a fill-the-rest mesh axis "
+            f"({wilds}); keeping {wilds[0]!r} and dropping {wilds[1:]} — "
+            "pass an explicit degree (e.g. ContextParallelPlugin("
+            "seq_degree=2)) to combine them.", stacklevel=3)
+    if axes and not wilds:
+        axes.setdefault(AXIS_DATA, -1)
+    return MeshConfig(axes=axes) if axes else None
 
 
 def _is_params(obj: Any) -> bool:
@@ -268,6 +298,7 @@ class Accelerator:
                  cost_sample_every: int | None = None,
                  split_batches: bool = False,
                  mesh_config: MeshConfig | None = None,
+                 context_parallel_plugin: ContextParallelPlugin | None = None,
                  **unported: Any):
         for name, value in unported.items():
             if name not in _UNPORTED:
@@ -305,11 +336,23 @@ class Accelerator:
                 ("backend", self.init_handler.backend),
                 ("init_method", self.init_handler.init_method),
                 ("timeout", self.init_handler.timeout)) if v is not None}
-        # mesh: explicit, then the launcher's --mesh_shape, then every
-        # process on `data` (AcceleratorState)
-        self.state = AcceleratorState(mixed_precision=mixed_precision,
-                                      cpu=cpu, mesh_config=mesh_config,
-                                      **group_kwargs)
+        # the launcher's --context_parallel_{mode,degree}, where the
+        # reference reads its ENV_CP_MODE/ENV_CP_DEGREE
+        env_cp_mode = os.environ.get(ENV_CP_MODE)
+        if context_parallel_plugin is None and env_cp_mode and \
+                env_cp_mode != "none":
+            context_parallel_plugin = ContextParallelPlugin(
+                mode=env_cp_mode,
+                seq_degree=int(os.environ.get(ENV_CP_DEGREE, "2")))
+        self.context_parallel_plugin = context_parallel_plugin
+        # mesh: explicit, then the launcher's --mesh_shape, then the
+        # plugins' axes, then every process on `data` (AcceleratorState)
+        self.state = AcceleratorState(
+            mixed_precision=mixed_precision, cpu=cpu,
+            mesh_config=mesh_config or MeshConfig.from_env()
+            or _plugin_mesh(context_parallel_plugin), **group_kwargs)
+        # visible to parallel.context_attention without an Accelerator
+        self.state.context_parallel_plugin = context_parallel_plugin
         # read by ops.fp8.resolve_history_len (the models' init_fp8_state)
         self.state.fp8_recipe_handler = self.fp8_recipe_handler
         if gradient_accumulation_plugin is None:
@@ -530,7 +573,7 @@ class Accelerator:
         return model
 
     def prepare_train_state(self, ts: TrainState) -> TrainState:
-        refuse_stage_training(self.mesh, "prepare() of a TrainState")
+        refuse_sharded_training(self.mesh, "prepare() of a TrainState")
         dev = self.device
         loss_scale = ts.loss_scale
         if loss_scale is None and \
@@ -554,7 +597,7 @@ class Accelerator:
         taken for the reference's signature: the optimizer places
         nothing itself."""
         _refuse_torch_object(tx)
-        refuse_stage_training(self.mesh, "prepare() of an optimizer")
+        refuse_sharded_training(self.mesh, "prepare() of an optimizer")
         opt = AcceleratedOptimizer(tx, params=params)
         self._optimizers.append(opt)
         return opt
@@ -580,7 +623,7 @@ class Accelerator:
         `device_placement` (here, else the Accelerator's) is False.
         `slice_fn_for_dispatch` is taken for the reference's signature,
         which reads it nowhere either."""
-        refuse_stage_training(self.mesh, "prepare() of a data loader")
+        refuse_sharded_training(self.mesh, "prepare() of a data loader")
         put_on_device = (device_placement if device_placement is not None
                          else self.device_placement)
         prepared = prepare_data_loader(
@@ -619,7 +662,7 @@ class Accelerator:
         grads of `loss_fn(params cast to the compute dtype, *batch)` at
         the f32 params, by the fused step's gradient function. The batch
         goes to the device and is not cast, as in the reference."""
-        refuse_stage_training(self.mesh, "compute_gradients")
+        refuse_sharded_training(self.mesh, "compute_gradients")
         if self.state.mixed_precision == PrecisionType.FP8:
             raise NotImplementedError(
                 "mixed_precision='fp8' requires the fused "
@@ -642,7 +685,7 @@ class Accelerator:
         """Add `grads / gradient_accumulation_steps` into every prepared
         optimizer's buffer. It takes the gradients `compute_gradients`
         returned; a loss raises, as in the reference."""
-        refuse_stage_training(self.mesh, "backward")
+        refuse_sharded_training(self.mesh, "backward")
         if grads is None:
             grads = loss_or_grads
         if grads is None or not tree_leaves(grads):
@@ -722,7 +765,7 @@ class Accelerator:
         new_fp8_state)`; fp8 never degrades to full precision silently."""
         if contract is not None or replication_threshold != 1 << 26:
             raise _unported("train_step(contract=...)", "analysis slice")
-        refuse_stage_training(self.mesh, "train_step")
+        refuse_sharded_training(self.mesh, "train_step")
         if self.state.mixed_precision == PrecisionType.FP8:
             try:
                 params = inspect.signature(loss_fn).parameters
@@ -814,11 +857,17 @@ class Accelerator:
 
     def context_attention(self, q, k, v, causal: bool = True,
                           window: int | None = None):
-        """The reference's sequence-parallel attention (ring or Ulysses
-        over the mesh) arrives with sharded parallelism."""
-        raise NotImplementedError(
-            f"context_attention (ring/Ulysses over a mesh) arrives with the "
-            f"port's {_ITEM_6B}")
+        """Sequence-parallel attention over this mesh's `seq` axis in the
+        `ContextParallelPlugin`'s mode (ring without a plugin);
+        `window` is Mistral's sliding band in either mode. Every rank of
+        the line passes the whole [B, S, H, D] tensors and gets the
+        whole output (`parallel.context_attention`)."""
+        from .parallel import context_attention as _ca
+
+        mode = (self.context_parallel_plugin.mode
+                if self.context_parallel_plugin is not None else None)
+        return _ca(q, k, v, causal=causal, mode=mode, mesh=self.mesh,
+                   window=window)
 
     # --------------------------------------------------------- profiling
     def profile(self, logdir: str):

@@ -20,10 +20,15 @@ launcher exits with that rank's code. `--max_restarts N` relaunches a
 failed world up to N times (two failures inside 10 s each stop early).
 Explicit flags win over `--config_file`.
 
+`--context_parallel_mode ring|ulysses` (with `--context_parallel_degree
+N`, the `seq` axis's size) reaches the children as
+`ACCELERATE_TORCH_CONTEXT_PARALLEL_{MODE,DEGREE}`, which the
+Accelerator reads; a degree without a mode is refused.
+
 Refused, with the slice that brings them: `--zero_stage`,
-`--fsdp_sharding_strategy`, `--context_parallel_*` and a `--mesh_shape`
-with an axis other than `data` and `stage` above 1 (sharded
-parallelism, queue 1 item 6b); `--tpu_name`, `--tpu_zone`, `--tpu_project` (pods, item 8d).
+`--fsdp_sharding_strategy` and a `--mesh_shape` with an `fsdp` or
+`model` axis above 1 (sharded training, queue 1 item 6b);
+`--tpu_name`, `--tpu_zone`, `--tpu_project` (pods, item 8d).
 `--num_virtual_devices` has no meaning here: each process owns one
 device.
 """
@@ -140,22 +145,24 @@ def check_supported(args: argparse.Namespace) -> None:
             "--num_virtual_devices has no meaning in the port: each process "
             "owns one device (use --num_processes N, with --cpu for a CPU "
             "world)")
-    sharded = [f"--{n}" for n in ("zero_stage", "fsdp_sharding_strategy",
-                                  "context_parallel_degree")
+    if getattr(args, "context_parallel_degree", None) is not None and \
+            getattr(args, "context_parallel_mode", None) in (None, "none"):
+        raise LaunchRefused(
+            "--context_parallel_degree needs --context_parallel_mode ring "
+            "or ulysses (the degree is the `seq` axis of that mode)")
+    sharded = [f"--{n}" for n in ("zero_stage", "fsdp_sharding_strategy")
                if getattr(args, n, None) is not None]
-    if getattr(args, "context_parallel_mode", None) not in (None, "none"):
-        sharded.append("--context_parallel_mode")
     if args.mesh_shape:
         axes = parse_mesh_shape(args.mesh_shape)
-        if any(a not in ("data", "stage") and s not in (0, 1)
-               for a, s in axes.items()):
+        if any(a not in ("data", "stage", "seq", "expert")
+               and s not in (0, 1) for a, s in axes.items()):
             sharded.append(f"--mesh_shape {args.mesh_shape}")
     if sharded:
         raise LaunchRefused(
-            f"{', '.join(sharded)}: sharded parallelism is not ported; it "
+            f"{', '.join(sharded)}: sharded training is not ported; it "
             "arrives with the port's sharded-parallelism slice (ROADMAP.md, "
-            "queue 1 item 6b). The port runs data parallelism and "
-            "pipeline stages.")
+            "queue 1 item 6b). The port runs data parallelism, pipeline "
+            "stages, and ring, Ulysses and expert parallelism.")
 
 
 def _child_env(extra: dict[str, str]) -> dict[str, str]:

@@ -27,11 +27,16 @@ NEG_INF = -1e30
 
 
 def sp_constrain(x, axis=None):
-    """Megatron sequence parallelism's activation constraint. It needs a
-    sharded mesh: it arrives with the sharded-parallelism slice."""
-    raise NotImplementedError(
-        "sequence parallelism (sp_constrain) arrives with the port's "
-        "sharded-parallelism slice (ROADMAP.md, queue 1 item 6b)")
+    """Megatron sequence parallelism's activation constraint: `x`
+    unchanged, on any mesh. In the reference it is a GSPMD layout hint
+    that shards the [B, S, H] hidden states of the norm and residual
+    regions along the sequence over the `seq` (else `model`) axis, and
+    leaves every value as it is. The port has no layout hints: it keeps
+    the norm and residual activations whole on each rank of the line, so
+    the reference's split of their memory does not happen here; the
+    attention's own sequence split (`attention_backend` "ring" or
+    "ulysses") does."""
+    return x
 
 
 def dense(x: torch.Tensor, kernel: torch.Tensor,

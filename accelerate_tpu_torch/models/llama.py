@@ -11,9 +11,12 @@ training (`fp8_state`, `init_fp8_state`): every layer projection through
 `ops.fp8.fp8_dense` with per-layer metas, views of the stacked `[L]` and
 `[L, h]` tensors, and the new metas stacked back on the layer dim. And
 big-model inference: `forward_offloaded` and `streamed_generate` over
-params laid out by `big_modeling` across device, host and disk. The
-sequence-parallel backends ("ring", "ulysses", `sequence_parallel`) come
-with a later slice.
+params laid out by `big_modeling` across device, host and disk. And
+sequence parallelism: `attention_backend` "ring" and "ulysses" split the
+attention's sequence over the mesh's `seq` axis (`parallel/`).
+`sequence_parallel=True` is taken and changes nothing: the reference's
+`sp_constrain` points are layout hints that leave every value as it is,
+and the port has no layouts to hint (`models.common.sp_constrain`).
 """
 
 from __future__ import annotations
@@ -27,6 +30,8 @@ from torch.utils.checkpoint import checkpoint
 
 from ..ops.flash_attention import flash_attention
 from ..ops.fp8 import stacked_fp8_metas
+from ..parallel.ring_attention import ring_attention
+from ..parallel.ulysses import ulysses_attention
 from .common import (  # noqa: F401  (_HeadF32, _split_bf16: tests)
     _HeadF32,
     _split_bf16,
@@ -124,17 +129,14 @@ def select_attention_backend(backend: str, *, on_cuda: bool, decoding: bool,
     """Resolve the no-cache attention backend, by the reference's rule:
     "auto" is "flash" on the card when not decoding and from 1024 tokens
     up, else "einsum" (the threshold is the reference's, not retuned
-    here). "flash" on a CPU tensor runs the kernels' plain versions; the
-    sequence-parallel backends raise until their slice lands."""
+    here). "flash" on a CPU tensor runs the kernels' plain versions;
+    "ring" and "ulysses" split the sequence over the mesh's `seq` axis
+    (`parallel.ring_attention`, `parallel.ulysses_attention`)."""
     if backend == "auto":
         return ("flash" if on_cuda and not decoding and seq_len >= 1024
                 else "einsum")
-    if backend in ("einsum", "flash"):
+    if backend in ("einsum", "flash", "ring", "ulysses"):
         return backend
-    if backend in ("ring", "ulysses"):
-        raise NotImplementedError(
-            f"attention_backend={backend!r} arrives with the port's "
-            "sharded-parallelism slice (ROADMAP.md, queue 1 item 6b)")
     raise ValueError(f"unknown attention_backend {backend!r}")
 
 
@@ -186,6 +188,13 @@ def init_params(config: LlamaConfig, generator: torch.Generator | int = 0,
 def _attention(config: LlamaConfig, layer: dict, x, cos, sin, positions,
                mask, kv_cache=None, fp8=None, tp=None):
     if tp is not None:
+        if kv_cache is None and config.attention_backend in ("ring",
+                                                             "ulysses"):
+            raise NotImplementedError(
+                f"attention_backend={config.attention_backend!r} over "
+                "tensor-parallel shards (a `seq` axis beside `model`) is "
+                "not ported: it arrives with the training half of queue 1 "
+                "item 6b, part 1")
         return _attention_tp(config, layer, x, cos, sin, positions, mask,
                              kv_cache, tp)
     b, s, _ = x.shape
@@ -217,13 +226,26 @@ def _attention(config: LlamaConfig, layer: dict, x, cos, sin, positions,
         backend = select_attention_backend(
             config.attention_backend, on_cuda=x.is_cuda, decoding=False,
             seq_len=s)
-        k, v = repeat_kv(k, nh // nkv), repeat_kv(v, nh // nkv)
-        if backend == "flash" and (mask is None or mask.ndim == 2):
-            out = flash_attention(q, k, v, causal=True, mask=mask,
-                                  window=config.sliding_window)
+        # ring and Ulysses take [B, S] key-padding masks (the ring
+        # rotates the mask's chunks with K/V; Ulysses all-gathers them)
+        # and GQA K/V un-repeated
+        key_mask = mask if mask is None or mask.ndim == 2 else None
+        if backend == "ring" and (mask is None or key_mask is not None):
+            out = ring_attention(q, k, v, causal=True, mask=key_mask,
+                                 window=config.sliding_window)
+        elif backend == "ulysses" and (mask is None
+                                       or key_mask is not None):
+            out = ulysses_attention(q, k, v, causal=True, mask=key_mask,
+                                    window=config.sliding_window)
         else:
-            out = dot_product_attention(q, k, v, mask=mask, causal=True,
-                                        window=config.sliding_window)
+            k, v = repeat_kv(k, nh // nkv), repeat_kv(v, nh // nkv)
+            if backend == "flash" and (mask is None or mask.ndim == 2):
+                out = flash_attention(q, k, v, causal=True, mask=mask,
+                                      window=config.sliding_window)
+            else:
+                out = dot_product_attention(q, k, v, mask=mask,
+                                            causal=True,
+                                            window=config.sliding_window)
     o, mo = dense_maybe_fp8(out.reshape(b, s, nh * hd),
                             attn["o_proj"]["kernel"], fa.get("o_proj"))
     if "bias" in attn["o_proj"]:
@@ -349,10 +371,6 @@ def forward(
     if fp8_state is not None and kv_caches is not None:
         raise ValueError("fp8 is a training-path feature; decode "
                          "(kv_caches) runs bf16")
-    if config.sequence_parallel:
-        raise NotImplementedError(
-            "sequence_parallel arrives with the port's sharded-parallelism "
-            "slice (ROADMAP.md, queue 1 item 6b)")
     tp = tpm.tensor_parallel_of(params)
     if tp is not None and fp8_state is not None:
         raise NotImplementedError(

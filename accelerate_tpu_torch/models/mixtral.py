@@ -15,9 +15,13 @@ load-balancing loss. `moe_impl` picks the dispatch, as in the reference:
   the same path at every shape). Assignments over capacity drop and
   their tokens ride the residual.
 
-`moe_impl="a2a"` (token-sharded expert parallelism) and
-`sequence_parallel=True` need a sharded mesh and raise until the port's
-sharded-parallelism slice (queue 1 item 6b).
+- "a2a": token-sharded expert parallelism over the mesh's `expert` axis
+  (`parallel.expert_parallel_moe_a2a`, `moe_block_a2a`); off a mesh it
+  runs the sort dispatch over every expert, as the reference does.
+
+`sequence_parallel=True` is taken and changes nothing, as in llama
+(`models.common.sp_constrain`), and the ring and Ulysses attention
+backends come through `_as_llama()`.
 """
 
 from __future__ import annotations
@@ -28,9 +32,10 @@ import math
 import torch
 import torch.nn.functional as F
 
-from ..ops.fp8 import fp8_expert_dense, stacked_fp8_metas
-from ..parallel.moe import sort_combine, sort_dispatch, \
-    topk_lower_index_first
+from ..ops.fp8 import _amax, _Fp8Matmul, fp8_expert_dense, \
+    local_grad_scales, stacked_fp8_metas, update_meta
+from ..parallel.moe import expert_parallel_moe_a2a, sort_combine, \
+    sort_dispatch, topk_lower_index_first
 from .common import (
     cross_entropy_loss,
     logits_f32,
@@ -66,7 +71,7 @@ class MixtralConfig:
     remat: bool = False
     attention_backend: str = "auto"
     sequence_parallel: bool = False
-    moe_impl: str = "dense"        # dense | sparse | a2a (raises)
+    moe_impl: str = "dense"        # dense | sparse | a2a
     capacity_factor: float = 1.25  # sparse: C = ceil(k*S/E * factor)
 
     def __post_init__(self):
@@ -184,10 +189,7 @@ def moe_block(config: MixtralConfig, moe: dict, x: torch.Tensor,
     if config.moe_impl == "sparse":
         return moe_block_sparse(config, moe, x, fp8)
     if config.moe_impl == "a2a":
-        raise NotImplementedError(
-            "moe_impl='a2a' (token-sharded expert parallelism) arrives "
-            "with the port's sharded-parallelism slice (ROADMAP.md, queue 1 "
-            "item 6b); use 'dense' or 'sparse'")
+        return moe_block_a2a(config, moe, x, fp8)
     if config.moe_impl != "dense":
         raise ValueError(f"unknown moe_impl {config.moe_impl!r}; use "
                          "'dense', 'sparse', or 'a2a'")
@@ -218,6 +220,73 @@ def moe_block(config: MixtralConfig, moe: dict, x: torch.Tensor,
         new_fp8 = None
     out = torch.einsum("besh,bse->bsh", expert_out, combine)
     return out, aux, new_fp8
+
+
+def moe_block_a2a(config: MixtralConfig, moe: dict, x: torch.Tensor,
+                  fp8: dict | None = None) -> tuple:
+    """Token-sharded expert-parallel dispatch
+    (`parallel.expert_parallel_moe_a2a`): the tokens flatten to [B*S, H]
+    and split over the mesh's `expert` axis, routing runs on each rank's
+    tokens, and a pair of all-to-alls carries exactly the dispatched
+    capacity rows. Mixtral's renormalised top-k gates come in through
+    `topk`. The experts are the rank's block of the stacked [E, ...]
+    kernels, or the whole stack (each rank then takes its block). Off a
+    mesh it runs the sort dispatch over every expert.
+
+    With `fp8` the expert projections run the dense path's E4M3/E5M2
+    product: the delayed scales ride the dispatch's `expert_aux`, the
+    amaxes come back maxed over experts and ranks, and the metas update
+    here. Each expert's gradient takes its own E5M2 scale
+    (`ops.fp8.local_grad_scales`): its rows from every rank meet on its
+    owner. Returns (out, router aux loss, new metas or None)."""
+    b, s, h = x.shape
+    k = config.num_experts_per_tok
+    probs, topk_probs, topk_idx, aux = _route(config, moe, x)
+    xt = x.reshape(b * s, h)
+    # the logits only carry the expert count when `topk` gives the routing
+    logits_flat = probs.reshape(b * s, -1).to(x.dtype)
+    topk_arg = (topk_probs.reshape(b * s, k).float(),
+                topk_idx.reshape(b * s, k))
+    roles = ("gate_proj", "up_proj", "down_proj")
+    if fp8 is not None:
+        scales = {n: {"x": fp8[n]["x"].scale, "w": fp8[n]["w"].scale}
+                  for n in roles}
+
+        def expert_fn(p, xs, sc):
+            def mm(a, role):
+                return _Fp8Matmul.apply(a, p[role]["kernel"],
+                                        sc[role]["x"], sc[role]["w"])
+
+            g, u = mm(xs, "gate_proj"), mm(xs, "up_proj")
+            prod = (F.silu(g.float()) * u.float()).to(xs.dtype)
+            d = mm(prod, "down_proj")
+            with torch.no_grad():
+                amax = {n: {"x": _amax(prod if n == "down_proj" else xs),
+                            "w": _amax(p[n]["kernel"])} for n in roles}
+            return d.to(xs.dtype), amax
+
+        with local_grad_scales():
+            out, extras = expert_parallel_moe_a2a(
+                xt, logits_flat, moe["experts"], expert_fn,
+                capacity_factor=config.capacity_factor, top_k=k,
+                topk=topk_arg, expert_aux=scales)
+        am = extras["expert_aux"]
+        new_fp8 = {n: {"x": update_meta(fp8[n]["x"], am[n]["x"].float()),
+                       "w": update_meta(fp8[n]["w"], am[n]["w"].float())}
+                   for n in roles}
+        return out.reshape(b, s, h), aux, new_fp8
+
+    def expert_fn(p, xs):
+        gate = F.silu(_ein("ch,hf->cf", xs, p["gate_proj"]["kernel"],
+                           xs.dtype))
+        up = _ein("ch,hf->cf", xs, p["up_proj"]["kernel"], xs.dtype)
+        return _ein("cf,fh->ch", gate * up, p["down_proj"]["kernel"],
+                    xs.dtype)
+
+    out = expert_parallel_moe_a2a(
+        xt, logits_flat, moe["experts"], expert_fn,
+        capacity_factor=config.capacity_factor, top_k=k, topk=topk_arg)
+    return out.reshape(b, s, h), aux, None
 
 
 # the reference's crossover, set from v5e timings (one-hot einsum dispatch
@@ -306,10 +375,6 @@ def forward(config: MixtralConfig, params: dict, input_ids: torch.Tensor,
     with `fp8_state` (see `init_fp8_state`) the attention and expert
     projections run fp8 and the result is (logits, aux,
     new_fp8_state)."""
-    if config.sequence_parallel:
-        raise NotImplementedError(
-            "sequence_parallel arrives with the port's sharded-parallelism "
-            "slice (ROADMAP.md, queue 1 item 6b)")
     lcfg = config._as_llama()
     x = params["embed_tokens"]["embedding"][input_ids.long()]
     positions = torch.arange(input_ids.shape[1],

@@ -47,6 +47,9 @@ transposes are plain PyTorch ops.
 
 from __future__ import annotations
 
+import contextlib
+import contextvars
+
 from typing import Any, NamedTuple
 
 import torch
@@ -240,14 +243,37 @@ def fp8_dot(x: torch.Tensor, w: torch.Tensor, x_meta: Fp8Meta,
     return out, x_meta, w_meta
 
 
+# whether a backward's E5M2 gradient scale takes the max across
+# processes (the global batch's, under data parallelism) or this
+# process's own amax (`local_grad_scales`)
+_GRAD_AMAX_ACROSS_PROCESSES = contextvars.ContextVar(
+    "fp8_grad_amax_across_processes", default=True)
+
+
+@contextlib.contextmanager
+def local_grad_scales():
+    """Products made inside take their backward's E5M2 gradient scale
+    from this process's own gradient amax. The expert-parallel dispatch
+    runs its experts so: an expert's rows from every rank meet on its
+    owner, so its own amax is the one the reference's `shard_map`
+    computes, and the ranks' experts differ."""
+    token = _GRAD_AMAX_ACROSS_PROCESSES.set(False)
+    try:
+        yield
+    finally:
+        _GRAD_AMAX_ACROSS_PROCESSES.reset(token)
+
+
 class _Fp8Matmul(torch.autograd.Function):
     """x [..., D] @ w [D, O]: E4M3 forward with the given delayed scales,
     bf16 out; E5M2 backward with the gradient's scale from its own amax
-    (the max across processes). dX and dW take the primals' dtypes (f32
+    (the max across processes, unless made under
+    `local_grad_scales`). dX and dW take the primals' dtypes (f32
     primals get f32 gradients)."""
 
     @staticmethod
     def forward(ctx, x, w, x_scale, w_scale):
+        ctx.across = _GRAD_AMAX_ACROSS_PROCESSES.get()
         x8 = _cast8(x.reshape(-1, x.shape[-1]), x_scale,
                     torch.float8_e4m3fn, E4M3_MAX)
         w8 = _cast8(w, w_scale, torch.float8_e4m3fn, E4M3_MAX)
@@ -265,7 +291,8 @@ class _Fp8Matmul(torch.autograd.Function):
         x_shape, x_dtype, w_dtype = ctx.shapes
         g2 = g.reshape(-1, g.shape[-1])
         g_amax = _amax(g2)
-        all_reduce_max_([g_amax])
+        if ctx.across:
+            all_reduce_max_([g_amax])
         g_scale = _ratio(E5M2_MAX, g_amax)
         g8 = _cast8(g2, g_scale, torch.float8_e5m2, E5M2_MAX)
         dx = dw = None

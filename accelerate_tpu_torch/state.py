@@ -41,6 +41,8 @@ import torch
 from .device import resolve_device
 from .utils.constants import (
     AXIS_DATA,
+    AXIS_EXPERT,
+    AXIS_SEQ,
     AXIS_STAGE,
     ENV_CPU,
     ENV_DEBUG_MODE,
@@ -344,28 +346,45 @@ def _pad_slice(seq, pad_to: int):
 
 
 def _refuse_sharded(axes: dict[str, int]) -> None:
-    """Raise for a mesh axis other than `data` and `stage` above size 1."""
+    """Raise for an `fsdp` or `model` axis above size 1: their training
+    half (ZeRO/FSDP and Megatron placement through the Accelerator) is
+    not ported."""
     for axis, size in axes.items():
-        if axis not in (AXIS_DATA, AXIS_STAGE) and size > 1:
+        if axis not in _TAKEN_AXES and size > 1:
             raise NotImplementedError(
                 f"a mesh axis {axis!r} of size {size} (sharded "
-                f"parallelism) arrives with {_ITEM_6B}; the port runs "
-                "data parallelism over the `data` axis and pipeline "
-                "stages over the `stage` axis")
+                f"parallelism) arrives with {_ITEM_6B}; the port runs data "
+                "parallelism over the `data` axis, pipeline stages over "
+                "`stage`, ring and Ulysses attention over `seq` and expert "
+                "parallelism over `expert`")
 
 
-def refuse_stage_training(mesh: "ProcessMesh", what: str) -> None:
-    """Raise for `what`, a training call, on a mesh whose `stage` axis is
-    above 1: the loaders shard batches over the whole world and the
-    gradient averages run over the whole world, both wrong when ranks
-    hold different stages. Pipeline training runs through
-    `parallel.pipeline_value_and_grad`."""
-    if mesh.shape.get(AXIS_STAGE, 1) > 1:
-        raise NotImplementedError(
-            f"{what} on a mesh with a `stage` axis of "
-            f"{mesh.shape[AXIS_STAGE]} arrives with the training half of "
-            f"{_ITEM_6B}, part 1; train the stages with "
-            "parallel.pipeline_value_and_grad")
+# the axes the Accelerator takes, and the training route of the three
+# whose ranks hold different parts of the work
+_TAKEN_AXES = (AXIS_DATA, AXIS_STAGE, AXIS_SEQ, AXIS_EXPERT)
+_SHARDED_ROUTES = {
+    AXIS_STAGE: "train the stages with parallel.pipeline_value_and_grad",
+    AXIS_SEQ: "differentiate through parallel.context_attention (or a "
+              "model with attention_backend 'ring' or 'ulysses') with "
+              "torch.autograd",
+    AXIS_EXPERT: "differentiate through parallel.expert_parallel_moe_a2a "
+                 "(or Mixtral with moe_impl='a2a') with torch.autograd",
+}
+
+
+def refuse_sharded_training(mesh: "ProcessMesh", what: str) -> None:
+    """Raise for `what`, a training call, on a mesh whose `stage`, `seq`
+    or `expert` axis is above 1. The loaders shard batches over the
+    whole world, where the reference's shard only over `data`/`fsdp`
+    (ranks on one `stage`, `seq` or `expert` line see the same rows),
+    and the gradient average runs over the whole world, which would mix
+    the stages or the experts that different ranks own."""
+    for axis, route in _SHARDED_ROUTES.items():
+        size = mesh.shape.get(axis, 1)
+        if size > 1:
+            raise NotImplementedError(
+                f"{what} on a mesh with a `{axis}` axis of {size} arrives "
+                f"with the training half of {_ITEM_6B}, part 1; {route}")
 
 
 class ProcessMesh:
@@ -381,9 +400,10 @@ class ProcessMesh:
     `sharding.shard_pytree` puts this rank's shards (None: where each
     leaf already is).
 
-    The Accelerator and the launcher take the `data` and `stage` axes
-    (`_refuse_sharded`); the serving mesh (`serving.pod.tensor_mesh`)
-    is one `model` axis; `MeshConfig.build()` makes any mesh."""
+    The Accelerator and the launcher take the `data`, `stage`, `seq`
+    and `expert` axes (`_refuse_sharded`); the serving mesh
+    (`serving.pod.tensor_mesh`) is one `model` axis; `MeshConfig.build()`
+    makes any mesh."""
 
     def __init__(self, axes: dict[str, int], device=None):
         self.shape = dict(axes)
@@ -438,6 +458,26 @@ class ProcessMesh:
 
     def __repr__(self) -> str:
         return f"ProcessMesh({self.shape})"
+
+
+def mesh_or_state(mesh: "ProcessMesh | None") -> "ProcessMesh | None":
+    """`mesh`, else the process state's mesh, else None (no state yet:
+    the schedules of `parallel/` then run as off a mesh)."""
+    if mesh is None and PartialState._shared_state:
+        mesh = PartialState().mesh
+    return mesh
+
+
+def line_group(mesh: ProcessMesh, axis: str, what: str):
+    """The group of this rank's line along `axis` (above size 1), or a
+    ValueError naming `what` when no world of that size is live."""
+    group = mesh.group(axis)
+    if group is None:
+        raise ValueError(
+            f"{what}: the mesh's {axis!r} axis has {mesh.shape[axis]} "
+            "ranks, but no process group of that size is live (run one "
+            "process a rank: the launcher or launchers.debug_launcher)")
+    return group
 
 
 # (mesh shape, axis, ranks) -> weak reference to the subgroup: the world

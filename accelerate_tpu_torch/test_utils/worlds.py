@@ -823,3 +823,423 @@ def pipeline_forms(out_dir: str, cases: list) -> None:
                                              .num_processes}), device="cpu")
         out[case["name"]] = _PIPELINE_CASES[case["kind"]](case, mesh)
     _dump(out_dir, out)
+
+
+# -- sequence and expert parallelism ------------------------------------------
+
+
+class _Counting:
+    """Counts the calls of module functions, patched for the rest of the
+    world's run (each rank's own counts)."""
+
+    def __init__(self):
+        self.counts: dict[str, int] = {}
+
+    def patch(self, module, name: str, tag: str) -> None:
+        fn = getattr(module, name)
+
+        def counted(*a, **kw):
+            self.counts[tag] = self.counts.get(tag, 0) + 1
+            return fn(*a, **kw)
+
+        setattr(module, name, counted)
+
+    def take(self) -> dict:
+        out, self.counts = self.counts, {}
+        return out
+
+
+def _cp_attention_fn(case, mesh):
+    from ..parallel import context_attention, ring_attention, \
+        ulysses_attention
+
+    kw = {"mesh": mesh}
+    if case.get("window") is not None:
+        kw["window"] = case["window"]
+    if case["fn"] == "ring":
+        return lambda q, k, v, m: ring_attention(
+            q, k, v, causal=case["causal"], mask=m, **kw)
+    if case["fn"] == "ulysses":
+        return lambda q, k, v, m: ulysses_attention(
+            q, k, v, causal=case["causal"], mask=m, **kw)
+    return lambda q, k, v, m: context_attention(
+        q, k, v, causal=case["causal"], mode=case.get("mode"), **kw)
+
+
+def _case_cp_attention(case, mesh, counter):
+    """Ring, Ulysses or `context_attention` on the whole q/k/v (every rank
+    the same); with `grad`, the gradients of sum((out * w)**2), w the key
+    mask on the query rows (or 1)."""
+    fn = _cp_attention_fn(case, mesh)
+    q, k, v = (_tensors(case[n]) for n in ("q", "k", "v"))
+    mask = None if case.get("mask") is None else _tensors(case["mask"])
+    out = {}
+    if not case.get("grad"):
+        with torch.no_grad():
+            out["out"] = fn(q, k, v, mask).numpy()
+        out["calls"] = counter.take()
+        return out
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    w = torch.ones(q.shape[:2]) if mask is None else mask.float()
+    with torch.enable_grad():
+        y = fn(*leaves, mask)
+        loss = ((y * w[:, :, None, None]) ** 2).sum()
+    grads = torch.autograd.grad(loss, leaves)
+    out["out"] = y.detach().numpy()
+    out["grads"] = [g.numpy() for g in grads]
+    out["calls"] = counter.take()
+    return out
+
+
+def _case_cp_errors(case, mesh, counter):
+    from ..parallel import ring_attention, ulysses_attention
+
+    q = torch.zeros((1, 8, 4, 4))
+    calls = {
+        "ring_window_noncausal": lambda: ring_attention(
+            q, q, q, causal=False, window=4, mesh=mesh),
+        "ulysses_window_noncausal": lambda: ulysses_attention(
+            q, q, q, causal=False, window=4, mesh=mesh),
+        "ring_mask_shape": lambda: ring_attention(
+            q, q, q, mask=torch.ones((1, 4)), mesh=mesh),
+        "ulysses_mask_shape": lambda: ulysses_attention(
+            q, q, q, mask=torch.ones((1, 4)), mesh=mesh),
+    }
+    out = {}
+    for name, call in calls.items():
+        try:
+            call()
+            out[name] = None
+        except (ValueError, NotImplementedError) as e:
+            out[name] = (type(e).__name__, str(e))
+    counter.take()
+    return out
+
+
+def _case_cp_llama(case, mesh, counter):
+    """llama's logits with each attention backend on the whole batch (the
+    process state's mesh is `mesh`); with `loss_backend`, the causal-LM
+    loss and its gradients through that backend."""
+    import dataclasses
+
+    from ..models import llama
+    from ..state import PartialState
+
+    cfg = llama.LlamaConfig(**case["config"])
+    params = _tensors(case["params"])
+    ids = torch.from_numpy(np.asarray(case["ids"])).long()
+    mask = None if case.get("mask") is None else \
+        torch.from_numpy(np.asarray(case["mask"]))
+    PartialState().set_mesh(mesh)
+    out = {}
+    try:
+        for backend in case["backends"]:
+            c = dataclasses.replace(
+                cfg, attention_backend=backend,
+                sequence_parallel=case.get("sequence_parallel", False))
+            with torch.no_grad():
+                out[f"logits_{backend}"] = llama.forward(
+                    c, params, ids, attention_mask=mask).numpy()
+            out[f"calls_{backend}"] = counter.take()
+        if case.get("loss_backend"):
+            c = dataclasses.replace(cfg,
+                                    attention_backend=case["loss_backend"])
+            leaves = {k: v.clone().requires_grad_()
+                      for k, v in _flat(params).items()}
+            tree = _unflat(leaves)
+            batch = {"input_ids": ids}
+            if mask is not None:
+                batch["attention_mask"] = mask
+            with torch.enable_grad():
+                loss = llama.causal_lm_loss(c, tree, batch)
+            grads = torch.autograd.grad(loss, list(leaves.values()))
+            out["loss"] = float(loss.detach())
+            out["grads"] = {k: g.numpy() for k, g in zip(leaves, grads)}
+            out["calls_loss"] = counter.take()
+    finally:
+        PartialState().set_mesh(None)
+    return out
+
+
+def _unflat(flat: dict):
+    tree: dict = {}
+    for path, leaf in flat.items():
+        node = tree
+        keys = path.split("/")
+        for key in keys[:-1]:
+            node = node.setdefault(key, {})
+        node[keys[-1]] = leaf
+    return tree
+
+
+def _training_refusals(acc) -> dict:
+    from .. import optimizers
+    from ..training import TrainState
+
+    w = {"w": torch.zeros((2, 2))}
+    calls = {
+        "train_state": lambda: acc.prepare(TrainState.create(
+            apply_fn=None, params=w, tx=optimizers.adamw(1e-3))),
+        "optimizer": lambda: acc.prepare_optimizer(optimizers.adamw(1e-3),
+                                                   params=w),
+        "data_loader": lambda: acc.prepare([{"x": np.zeros((4, 2))}]),
+        "train_step": lambda: acc.train_step(lambda p, b: p["w"].sum()),
+        "compute_gradients": lambda: acc.compute_gradients(
+            lambda p, b: p["w"].sum(), w, {"x": torch.zeros(2)}),
+        "backward": lambda: acc.backward(w),
+    }
+    out = {}
+    for name, call in calls.items():
+        try:
+            call()
+            out[name] = None
+        except NotImplementedError as e:
+            out[name] = str(e)
+    return out
+
+
+def _case_cp_accelerator(case, mesh, counter):
+    """The context-parallel plugin (given, then from the launcher's
+    variables), the mesh it resolves, `Accelerator.context_attention` by
+    mode, and the training calls' refusals on `seq` and `expert`
+    meshes."""
+    from ..accelerator import Accelerator
+    from ..state import PartialState
+    from ..utils.constants import ENV_CP_DEGREE, ENV_CP_MODE
+    from ..utils.dataclasses import ContextParallelPlugin, MeshConfig
+
+    q, k, v = (_tensors(case[n]) for n in ("q", "k", "v"))
+    out = {}
+    PartialState._reset_state()
+    acc = Accelerator(cpu=True, context_parallel_plugin=ContextParallelPlugin(
+        seq_degree=2, mode="ulysses"))
+    out["plugin_mesh"] = dict(acc.mesh.shape)
+    with torch.no_grad():
+        out["plugin_out"] = acc.context_attention(q, k, v).numpy()
+    out["plugin_calls"] = counter.take()
+    out["refused_seq"] = _training_refusals(acc)
+    out["params_prepared"] = tuple(acc.prepare(
+        {"w": torch.zeros((2, 2))})["w"].shape)
+    PartialState._reset_state()
+    os.environ[ENV_CP_MODE] = "ring"
+    os.environ[ENV_CP_DEGREE] = str(PartialState.num_processes)
+    try:
+        acc = Accelerator(cpu=True)
+        out["env_plugin"] = (acc.context_parallel_plugin.mode,
+                             acc.context_parallel_plugin.seq_degree)
+        out["env_mesh"] = dict(acc.mesh.shape)
+        with torch.no_grad():
+            out["env_out"] = acc.context_attention(q, k, v).numpy()
+        out["env_calls"] = counter.take()
+    finally:
+        del os.environ[ENV_CP_MODE], os.environ[ENV_CP_DEGREE]
+    PartialState._reset_state()
+    acc = Accelerator(cpu=True, mesh_config=MeshConfig(
+        axes={"data": -1, "expert": 2}))
+    out["expert_mesh"] = dict(acc.mesh.shape)
+    out["refused_expert"] = _training_refusals(acc)
+    PartialState._reset_state()
+    PartialState(cpu=True)
+    return out
+
+
+_CP_CASES = {
+    "attention": _case_cp_attention,
+    "errors": _case_cp_errors,
+    "llama": _case_cp_llama,
+    "accelerator": _case_cp_accelerator,
+}
+
+
+def context_parallel_forms(out_dir: str, cases: list) -> None:
+    """Run each sequence-parallel case on this rank and record what it
+    gave, with the calls of the flash entry points (K1a `fwd`, K1b+K1c
+    `bwd`) this rank made in it. A case is a dict: `name`, `kind` (a key
+    of `_CP_CASES`), `mesh` ({axis: size} over the world) and numpy
+    inputs."""
+    import importlib
+
+    from ..state import PartialState, ProcessMesh
+
+    # the modules (the package's `ring_attention` is the function)
+    ring_mod = importlib.import_module(
+        "accelerate_tpu_torch.parallel.ring_attention")
+    ulysses_mod = importlib.import_module(
+        "accelerate_tpu_torch.parallel.ulysses")
+
+    torch.set_num_threads(1)
+    PartialState(cpu=True)
+    counter = _Counting()
+    for mod, tag in ((ring_mod, "ring"), (ulysses_mod, "ulysses")):
+        counter.patch(mod, "flash_forward", f"{tag}_fwd")
+        counter.patch(mod, "flash_backward", f"{tag}_bwd")
+    out = {}
+    for case in cases:
+        mesh = ProcessMesh(case["mesh"], device="cpu")
+        out[case["name"]] = _CP_CASES[case["kind"]](case, mesh, counter)
+    _dump(out_dir, out)
+
+
+_EXPERT_FNS = {
+    "tanh": lambda p, xs: torch.tanh(xs @ p["w"]),
+    "identity": lambda p, xs: xs @ p["w"],
+}
+
+
+def _case_ep_moe(case, mesh):
+    """`expert_parallel_moe_a2a` or `expert_parallel_moe` on the whole
+    tokens (every rank the same), for each top-k; with `grad`, the
+    gradients of sum(y**2) through the params and x. `shard` passes this
+    rank's block of the experts (`sharding.plan_sharding`'s placement)
+    instead of the whole stack."""
+    from ..parallel import expert_parallel_moe, expert_parallel_moe_a2a
+    from ..sharding import ShardingRules, plan_sharding, shard_pytree
+
+    impl = {"a2a": expert_parallel_moe_a2a,
+            "replicated": expert_parallel_moe}[case["impl"]]
+    fn = _EXPERT_FNS[case.get("expert_fn", "tanh")]
+    x, logits = _tensors(case["x"]), _tensors(case["logits"])
+    params = _tensors(case["params"])
+    if case.get("shard"):
+        rules = ShardingRules.from_pairs([("w$", ("expert", None, None))],
+                                         min_weight_size=0)
+        params = shard_pytree(params, plan_sharding(params, mesh, rules))
+    kw = dict(mesh=mesh, capacity_factor=case["capacity_factor"],
+              return_stats=case.get("stats", False))
+    out = {"param_shapes": {k: tuple(v.shape) for k, v in params.items()}}
+    for k in case["top_k"]:
+        with torch.no_grad():
+            res = impl(x, logits, params, fn, top_k=k, **kw)
+        y, extras = res if isinstance(res, tuple) else (res, {})
+        out[f"y_{k}"] = y.numpy()
+        if "moe_dropped_fraction" in extras:
+            out[f"dropped_{k}"] = float(extras["moe_dropped_fraction"])
+    if case.get("grad"):
+        leaves = {n: t.clone().requires_grad_() for n, t in params.items()}
+        xg = x.clone().requires_grad_()
+        with torch.enable_grad():
+            y = impl(xg, logits, leaves, fn, top_k=case["top_k"][0], **kw)
+            y = y[0] if isinstance(y, tuple) else y
+            loss = (y ** 2).sum()
+        grads = torch.autograd.grad(loss, list(leaves.values()) + [xg])
+        out["grads"] = {n: g.numpy() for n, g in zip(leaves, grads)}
+        out["x_grad"] = grads[-1].numpy()
+    return out
+
+
+def _case_ep_fallback(case, mesh):
+    """The divisibility fallback: its warning, `strict`, and a clean call
+    that warns nothing."""
+    import warnings
+
+    from ..parallel import MoEFallbackWarning, expert_parallel_moe, \
+        expert_parallel_moe_a2a
+
+    fn = _EXPERT_FNS["tanh"]
+    x, p6, l6 = (_tensors(case[n]) for n in ("x", "p6", "l6"))
+    p8, l8 = _tensors(case["p8"]), _tensors(case["l8"])
+    out = {}
+
+    def record(name, call):
+        with warnings.catch_warnings(record=True) as seen:
+            warnings.simplefilter("always")
+            try:
+                res = call()
+                out[name] = {"shape": tuple(res.shape)}
+            except ValueError as e:
+                out[name] = {"error": str(e)}
+        out[name]["warned"] = [str(w.message) for w in seen
+                               if issubclass(w.category, MoEFallbackWarning)]
+
+    record("a2a_6", lambda: expert_parallel_moe_a2a(
+        x, l6, p6, fn, mesh=mesh, top_k=2))
+    record("a2a_6_strict", lambda: expert_parallel_moe_a2a(
+        x, l6, p6, fn, mesh=mesh, top_k=2, strict=True))
+    record("a2a_tokens_strict", lambda: expert_parallel_moe_a2a(
+        x[:case["odd_tokens"]], l8[:case["odd_tokens"]], p8, fn, mesh=mesh,
+        top_k=2, strict=True))
+    record("a2a_clean", lambda: expert_parallel_moe_a2a(
+        x, l8, p8, fn, mesh=mesh, top_k=2, strict=True))
+    record("replicated_6", lambda: expert_parallel_moe(
+        x, l6, p6, fn, mesh=mesh, top_k=2))
+    try:
+        expert_parallel_moe_a2a(x, l8, p8, fn, mesh=mesh, top_k=2,
+                                expert_aux={"a": torch.zeros(())})
+        out["aux_without_topk"] = None
+    except ValueError as e:
+        out["aux_without_topk"] = str(e)
+    return out
+
+
+def _case_ep_mixtral(case, mesh):
+    """Mixtral's logits and aux loss with `moe_impl="a2a"` on the process
+    state's mesh (the whole expert stack, or each rank's block), with
+    fp8 (`fp8`: the logits and the new moe metas' scales), and the
+    causal-LM loss's gradients on `loss_ids`."""
+    import dataclasses
+
+    from ..models import mixtral
+    from ..sharding import plan_sharding, shard_pytree
+    from ..state import PartialState
+
+    cfg = mixtral.MixtralConfig(**case["config"])
+    params = _tensors(case["params"])
+    ids = torch.from_numpy(np.asarray(case["ids"])).long()
+    PartialState().set_mesh(mesh)
+    out = {}
+    try:
+        with torch.no_grad():
+            logits, aux = mixtral.forward(cfg, params, ids)
+            out["logits"], out["aux"] = logits.numpy(), float(aux)
+            sharded = shard_pytree(params, plan_sharding(params, mesh))
+            out["expert_shape"] = tuple(
+                sharded["layers"]["moe"]["experts"]["gate_proj"]["kernel"]
+                .shape)
+            out["logits_sharded"] = mixtral.forward(cfg, sharded,
+                                                    ids)[0].numpy()
+            out["logits_sp"] = mixtral.forward(
+                dataclasses.replace(cfg, sequence_parallel=True), params,
+                ids)[0].numpy()
+            if case.get("fp8"):
+                f_logits, _, new = mixtral.forward(
+                    cfg, params, ids,
+                    fp8_state=mixtral.init_fp8_state(cfg, device="cpu"))
+                out["fp8_logits"] = f_logits.numpy()
+                out["fp8_scales"] = {
+                    n: (new["layers"]["moe"][n]["x"].scale.numpy(),
+                        new["layers"]["moe"][n]["w"].scale.numpy())
+                    for n in ("gate_proj", "up_proj", "down_proj")}
+        leaves = {k: v.clone().requires_grad_()
+                  for k, v in _flat(params).items()}
+        loss_ids = torch.from_numpy(np.asarray(case["loss_ids"])).long()
+        with torch.enable_grad():
+            loss = mixtral.causal_lm_loss(cfg, _unflat(leaves),
+                                          {"input_ids": loss_ids})
+        grads = torch.autograd.grad(loss, list(leaves.values()))
+        out["loss"] = float(loss.detach())
+        out["grads"] = {k: g.numpy() for k, g in zip(leaves, grads)}
+    finally:
+        PartialState().set_mesh(None)
+    return out
+
+
+_EP_CASES = {
+    "moe": _case_ep_moe,
+    "fallback": _case_ep_fallback,
+    "mixtral": _case_ep_mixtral,
+}
+
+
+def expert_parallel_forms(out_dir: str, cases: list) -> None:
+    """Run each expert-parallel case on this rank and record what it
+    gave. A case is a dict: `name`, `kind` (a key of `_EP_CASES`),
+    `mesh` ({axis: size} over the world) and numpy inputs."""
+    from ..state import PartialState, ProcessMesh
+
+    torch.set_num_threads(1)
+    PartialState(cpu=True)
+    out = {}
+    for case in cases:
+        mesh = ProcessMesh(case["mesh"], device="cpu")
+        out[case["name"]] = _EP_CASES[case["kind"]](case, mesh)
+    _dump(out_dir, out)

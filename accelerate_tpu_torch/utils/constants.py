@@ -66,3 +66,7 @@ ENV_GRAD_ACCUM_STEPS = ENV_PREFIX + "GRADIENT_ACCUMULATION_STEPS"
 ENV_MESH_SHAPE = ENV_PREFIX + "MESH_SHAPE"
 ENV_DEBUG_MODE = ENV_PREFIX + "DEBUG"
 ENV_CPU = ENV_PREFIX + "USE_CPU"
+# the launcher's --context_parallel_{mode,degree} (the reference's
+# ENV_CP_MODE/ENV_CP_DEGREE), read by the Accelerator
+ENV_CP_MODE = ENV_PREFIX + "CONTEXT_PARALLEL_MODE"      # none|ring|ulysses
+ENV_CP_DEGREE = ENV_PREFIX + "CONTEXT_PARALLEL_DEGREE"  # seq-axis size

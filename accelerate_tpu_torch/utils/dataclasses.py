@@ -8,12 +8,13 @@ from __future__ import annotations
 import dataclasses
 import enum
 import os
+import warnings
 from dataclasses import dataclass, field
 from datetime import timedelta
 from typing import Any
 
-from .constants import AXIS_DATA, ENV_MESH_SHAPE, ENV_MIXED_PRECISION, \
-    MESH_AXES
+from .constants import AXIS_DATA, AXIS_SEQ, ENV_MESH_SHAPE, \
+    ENV_MIXED_PRECISION, MESH_AXES
 from .environment import parse_mesh_shape
 
 
@@ -233,13 +234,42 @@ class QuantizationConfig(KwargsHandler):
 
 
 @dataclass
+class ContextParallelPlugin(KwargsHandler):
+    """Sequence (context) parallelism over the mesh's `seq` axis, the
+    reference's record: `seq_degree` is the axis's size (-1: fill with
+    the processes the other axes leave), `mode` the schedule that
+    `parallel.context_attention` runs ("ring" rotates K/V chunks,
+    "ulysses" scatters heads by all-to-all). `chunk_size` is kept for
+    the reference's signature; nothing reads it there or here, so a
+    value set warns: the ring's chunk is always S over the axis."""
+
+    seq_degree: int = -1
+    mode: str = "ring"
+    chunk_size: int | None = None
+
+    def __post_init__(self) -> None:
+        if self.mode not in ("ring", "ulysses"):
+            raise ValueError(
+                f"ContextParallelPlugin.mode must be 'ring' or 'ulysses', "
+                f"got {self.mode!r}")
+        if self.chunk_size is not None:
+            warnings.warn(
+                f"ContextParallelPlugin.chunk_size={self.chunk_size} is "
+                "ignored: the ring's chunk is the sequence over the `seq` "
+                "axis", UserWarning, stacklevel=3)
+
+    def to_mesh_axes(self) -> dict[str, int]:
+        return {AXIS_SEQ: self.seq_degree}
+
+
+@dataclass
 class MeshConfig:
     """A mesh request: {axis: size} over the world's processes (each owns
     one device), at most one size -1 ("fill with the remaining
     processes"). `build()` lays the world's processes out on it
-    (`state.ProcessMesh`). The Accelerator takes the `data` and `stage`
-    axes: any other axis above 1 raises there (sharded parallelism is
-    queue 1 item 6b)."""
+    (`state.ProcessMesh`). The Accelerator takes the `data`, `stage`,
+    `seq` and `expert` axes: `fsdp` or `model` above 1 raises there
+    (their training half is queue 1 item 6b, part 1)."""
 
     axes: dict[str, int] = field(default_factory=dict)
 

@@ -17,6 +17,8 @@ import time
 from typing import Any, Callable
 
 from .constants import (
+    ENV_CP_DEGREE,
+    ENV_CP_MODE,
     ENV_CPU,
     ENV_DEBUG_MODE,
     ENV_GRAD_ACCUM_STEPS,
@@ -49,6 +51,12 @@ def prepare_launch_env(args: Any) -> dict[str, str]:
     grad_accum = _flag(args, "gradient_accumulation_steps")
     if grad_accum is not None:
         env[ENV_GRAD_ACCUM_STEPS] = str(grad_accum)
+    cp_mode = _flag(args, "context_parallel_mode")
+    if cp_mode and cp_mode != "none":
+        env[ENV_CP_MODE] = str(cp_mode)
+        cp_degree = _flag(args, "context_parallel_degree")
+        if cp_degree is not None:
+            env[ENV_CP_DEGREE] = str(cp_degree)
     if _flag(args, "debug", False):
         env[ENV_DEBUG_MODE] = "1"
     if _flag(args, "cpu", False):

@@ -19,7 +19,11 @@ and comes back to the host. numpy leaves come back as numpy.
 `axis_all_reduce`, `axis_all_gather` and `axis_broadcast_float` run on a
 mesh axis's group (`state.ProcessMesh.group`): the collectives of the
 tensor-parallel forward (`models/tensor_parallel.py`) and of the meshed
-engine's lockstep clock. `axis_ppermute` (point to point along the
+engine's lockstep clock. `axis_all_to_all` (the tiled `lax.all_to_all`),
+`axis_scatter` and `axis_gather` are differentiable: the all-to-all of
+Ulysses and of the expert-parallel MoE dispatch, and the entry and exit
+of a schedule that takes and returns tensors every rank of the line
+holds whole (`parallel/`). `axis_ppermute` (point to point along the
 axis's line, `lax.ppermute`'s counterpart) and `axis_broadcast` are the
 pipeline schedules' (`parallel/pipeline.py`). They take the same
 transport: host copies under gloo (point to point and the broadcast
@@ -378,17 +382,21 @@ def all_reduce_max_(tensors: list[torch.Tensor]) -> None:
 
 
 @torch.no_grad()
-def axis_all_reduce(tensor: torch.Tensor, group) -> torch.Tensor:
-    """The sum of `tensor` over the ranks of `group` (a mesh axis's, see
+def axis_all_reduce(tensor: torch.Tensor, group,
+                    op: str = "sum") -> torch.Tensor:
+    """The sum (or, with `op="max"`, the elementwise max) of `tensor`
+    over the ranks of `group` (a mesh axis's, see
     `state.ProcessMesh.group`), as a new tensor on `tensor`'s device;
-    `tensor` itself is left as it was. Under gloo the sum runs on a host
-    copy (`_to_transport`), under NCCL on the device. A None group is a
-    line of one: the sum is the tensor."""
+    `tensor` itself is left as it was. Under gloo the reduction runs on a
+    host copy (`_to_transport`), under NCCL on the device. A None group
+    is a line of one: the result is the tensor."""
     if group is None:
         return tensor
+    reduce_op = {"sum": torch.distributed.ReduceOp.SUM,
+                 "max": torch.distributed.ReduceOp.MAX}[op]
     t, back = _to_transport(tensor, group)
     t = t.clone() if t.data_ptr() == tensor.data_ptr() else t
-    torch.distributed.all_reduce(t, group=group)
+    torch.distributed.all_reduce(t, op=reduce_op, group=group)
     return back(t)
 
 
@@ -480,6 +488,112 @@ def axis_broadcast(tensor: torch.Tensor, group, src: int) -> torch.Tensor:
                                 src=_axis_global_rank(group, src),
                                 group=group)
     return back(t)
+
+
+@torch.no_grad()
+def _all_to_all(tensor: torch.Tensor, split_dim: int, concat_dim: int,
+                group) -> torch.Tensor:
+    n = torch.distributed.get_world_size(group)
+    if tensor.shape[split_dim] % n:
+        raise ValueError(f"axis_all_to_all: dim {split_dim} of "
+                         f"{tuple(tensor.shape)} does not split over {n} "
+                         "ranks")
+    on_host = _on_host(group)
+    # block j (for rank j) first, each block contiguous
+    blocks = torch.stack(tensor.chunk(n, dim=split_dim))
+    t, _ = _to_transport(blocks, group)
+    out = torch.empty_like(t)
+    # equal blocks along the leading dim; under gloo as their bytes
+    torch.distributed.all_to_all_single(_bytes(out, on_host),
+                                        _bytes(t, on_host), group=group)
+    out = out.to(tensor.device)
+    return torch.cat(out.unbind(0), dim=concat_dim)
+
+
+class _AxisAllToAll(torch.autograd.Function):
+    """Tiled all-to-all along a line; its transpose swaps the dims."""
+
+    @staticmethod
+    def forward(ctx, tensor, split_dim, concat_dim, group):
+        ctx.dims, ctx.group = (split_dim, concat_dim), group
+        return _all_to_all(tensor, split_dim, concat_dim, group)
+
+    @staticmethod
+    def backward(ctx, grad):
+        split_dim, concat_dim = ctx.dims
+        return (_all_to_all(grad.contiguous(), concat_dim, split_dim,
+                            ctx.group), None, None, None)
+
+
+def axis_all_to_all(tensor: torch.Tensor, split_dim: int, concat_dim: int,
+                    group) -> torch.Tensor:
+    """The tiled `lax.all_to_all` along a mesh axis's line: `tensor` is
+    cut into as many equal blocks along `split_dim` as the line has
+    ranks, block j goes to the line's j-th rank, and the blocks received
+    are concatenated along `concat_dim` in the line's order, on
+    `tensor`'s device. One `all_to_all_single` (under gloo on host
+    copies, as bytes; under NCCL on the device). Differentiable: the
+    gradient runs the all-to-all back with the two dims swapped. A None
+    group is a line of one: the tensor itself."""
+    if group is None:
+        return tensor
+    return _AxisAllToAll.apply(tensor.contiguous(), split_dim, concat_dim,
+                               group)
+
+
+def _own_block(tensor: torch.Tensor, dim: int, group) -> torch.Tensor:
+    n = torch.distributed.get_world_size(group)
+    if tensor.shape[dim] % n:
+        raise ValueError(f"dim {dim} of {tuple(tensor.shape)} does not "
+                         f"split over {n} ranks")
+    return tensor.chunk(n, dim=dim)[
+        torch.distributed.get_rank(group)].contiguous()
+
+
+class _AxisScatter(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, tensor, dim, group):
+        ctx.dim, ctx.group = dim, group
+        return _own_block(tensor, dim, group)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return (axis_all_gather(grad.contiguous(), ctx.dim, ctx.group),
+                None, None)
+
+
+class _AxisGather(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, tensor, dim, group):
+        ctx.dim, ctx.group = dim, group
+        return axis_all_gather(tensor.contiguous(), dim, group)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return _own_block(grad, ctx.dim, ctx.group), None, None
+
+
+def axis_scatter(tensor: torch.Tensor, dim: int, group) -> torch.Tensor:
+    """This rank's block of a tensor that every rank of the line holds
+    whole (the blocks cut along `dim`, one a rank in the line's order):
+    the entry of a `shard_map` in-spec that shards `dim` over the axis.
+    Its gradient is every rank's block gradient all-gathered, so a
+    replicated input gets its full gradient on every rank, as under the
+    reference's GSPMD. A None group is a line of one."""
+    if group is None:
+        return tensor
+    return _AxisScatter.apply(tensor, dim, group)
+
+
+def axis_gather(tensor: torch.Tensor, dim: int, group) -> torch.Tensor:
+    """`axis_all_gather` made differentiable for an output that every
+    rank of the line then holds whole (a `shard_map` out-spec that shards
+    `dim` over the axis): the gradient is this rank's block of the
+    output's gradient, which is the same on every rank. The transpose of
+    `axis_scatter`. A None group is a line of one."""
+    if group is None:
+        return tensor
+    return _AxisGather.apply(tensor, dim, group)
 
 
 def pad_input_tensors(tensor, batch_size: int, num_processes: int,

@@ -73,11 +73,11 @@ script exits non-zero:
    merged K2 decode steps on /metrics, SIGTERM: every process exits 0;
 5c4. pod_tp: tensor-parallel serving through the launcher
    (`serve_llama_tp.py`, two processes on the one card over gloo, each
-   building its weights from the seed): (a) f32, llama3-8B width, 4
+   building its weights from the seed): (a) f32, llama3-8B width, 2
    layers: phase engine's 12 requests through `sharded_engine` and
    through `PodRouter(PodConfig(tensor_parallel=2))` give, on both
    ranks, the streams of a one-process f32 engine; (b) bf16, llama3-8B
-   at full depth: both ranks' streams identical, each rank's parameter
+   width at 16 layers: both ranks' streams identical, each rank's parameter
    bytes 0.49-0.52 of the whole (only the norms replicate), its KV pool
    half of one process's (8 KV heads over 2), no paged-decode launch (a
    meshed engine decodes on the dense path), each prompt's logits within
@@ -93,9 +93,9 @@ script exits non-zero:
    on a `model` axis of 2 and `dispatch_model(..., "sharded")`: every
    result's logits within PP_A_REL_L2 of process 0's one-process forward
    and the same on both ranks, each rank's parameter bytes 0.49-0.52 of
-   the whole under `dispatch_model`; (b) bf16, llama3-8B at full depth,
-   16 layers a stage, 2 prompts, 2 chunks: both ranks' logits
-   identical, each prompt's within 0.1 relative L2 of one process's, 32
+   the whole under `dispatch_model`; (b) bf16, llama3-8B width at 16
+   layers, 8 a stage, 2 prompts, 2 chunks: both ranks' logits
+   identical, each prompt's within 0.1 relative L2 of one process's, 16
    K1a launches a rank, a rank's layer bytes half of the whole, the
    handoffs, their bytes and times and each rank's peak memory; (c)
    `pipeline_value_and_grad(schedule="1f1b")` at llama3-8B width, bf16,
@@ -105,6 +105,21 @@ script exits non-zero:
    1F1B bound; then K1a/b/c at the path's shape against their plain
    versions, timed; all times as two ranks sharing one card through the
    host, not as pipeline speed;
+5c6. context_parallel: sequence and expert parallelism through the
+   launcher (`context_parallel_llama.py`, two processes on the one card
+   over gloo, `Accelerator(context_parallel_plugin=...)`, each building
+   its weights from the seed): llama3-8B width, 2 layers, bf16, one row
+   of 4096 tokens, `causal_lm_loss` and its gradients through
+   `torch.autograd` with (a) the ring, (b) the ring with the last 512
+   keys padded, (c) Ulysses, each against one process's flash; K1a/K1b/
+   K1c launches of a call L(r+1) on rank r for the ring, L a rank for
+   Ulysses; the ring alone through the kernels against their plain
+   versions; (d) one Mixtral-width MoE block through the token-sharded
+   a2a dispatch on an `expert` axis of 2 against one process's sort
+   dispatch; then K1a/b/c at each of the phase's shapes (the ring's
+   off-diagonal chunk, non-causal, and diagonal chunk, causal; Ulysses'
+   [1, 4096, 16, 128], causal) against their plain versions, timed;
+   every time as two ranks sharing one card through the host;
 5d. gptj_engine: GPT-J-6B at full width and depth (random bf16 weights
    from a seed) served like phase engine's 12 requests through K2 at
    head dim 256 with no GQA, graphs against eager, K2's launches through
@@ -167,8 +182,8 @@ script exits non-zero:
    at 2 layers through K1a/b/c on its half of phase train's batch, the
    gradients averaged across them; then one process on the whole batch.
    Gates: bit-identical replicas, step 1's update (a strided sample)
-   and the losses of steps 1-3 against the one process's within stated
-   tolerances (steps 4-5 reported), 20/10/10 flash launches a rank;
+   and the losses of steps 1-3 (all it takes) against the one
+   process's within stated tolerances, 12/6/6 flash launches a rank;
    step times, the all-reduce's CUDA-event time and each rank's peak
    memory;
 10. big_model: llama3-8B at full width and depth (bf16, random weights
@@ -180,6 +195,10 @@ script exits non-zero:
    resident one, int8 and int4 quantized loading, an out-of-memory
    recovery, and every family's tiny streamed decode (see
    `phase_big_model`).
+
+Every line carries `wall_s`, the seconds since its phase began, and the
+line `phase_walls` before the kernel table holds each phase's wall
+seconds and the script's total.
 
 The line before the last is the kernel table; the last line is
 {"ok": true, "device": {...}}. With no CUDA device the script exits
@@ -198,8 +217,28 @@ HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory, data sheet
 F32_FLOPS = 67e12           # H100 SXM float32 outside the tensor cores
 
 
+# the phase running now (`_run`) and each finished phase's wall seconds
+_PHASE = {"name": None, "t0": None}
+_WALLS: dict = {}
+
+
 def emit(phase: str, **fields) -> None:
+    """One JSON line; `wall_s` is the seconds since the running phase
+    began, so a phase's last line carries its wall time."""
+    if _PHASE["t0"] is not None:
+        fields["wall_s"] = time.perf_counter() - _PHASE["t0"]
     print(json.dumps({"phase": phase, **fields}), flush=True)
+
+
+def _run(fn, *args):
+    """Run a phase function, recording its wall seconds in `_WALLS`."""
+    _PHASE["name"], _PHASE["t0"] = fn.__name__[len("phase_"):], \
+        time.perf_counter()
+    try:
+        return fn(*args)
+    finally:
+        _WALLS[_PHASE["name"]] = time.perf_counter() - _PHASE["t0"]
+        _PHASE["t0"] = None
 
 
 def cuda_time_ms(fn, iters: int, warmup: int = 3) -> float:
@@ -768,7 +807,7 @@ def _flash_shape_times(B, S, H, D, dtype):
          bound_by={n: b[1] for n, b in bounds.items()})
 
 
-def _flash_times(q, k, v, do, o, lse, err):
+def _flash_times(q, k, v, do, o, lse, err, causal=True):
     """Per-launch times of the three kernels at the slice's shape, their
     plain versions, and scaled_dot_product_attention as the yardstick
     (forward; backward alone), which the port never calls. The kernels
@@ -784,32 +823,34 @@ def _flash_times(q, k, v, do, o, lse, err):
     from accelerate_tpu_torch.ops import flash_attention as fa
 
     B, S, H, D = q.shape
-    _, delta = fa.flash_backward_dq(q, k, v, o, lse, do, True)
+    _, delta = fa.flash_backward_dq(q, k, v, o, lse, do, causal)
     calls = {"flash_fwd": (lambda: fa.flash_forward(
-                 q, k, v, True, save_residuals=True), "flash_fwd_kernel"),
+                 q, k, v, causal, save_residuals=True), "flash_fwd_kernel"),
              "flash_bwd_dq": (lambda: fa.flash_backward_dq(
-                 q, k, v, o, lse, do, True), "flash_dq_kernel"),
+                 q, k, v, o, lse, do, causal), "flash_dq_kernel"),
              "flash_bwd_dkv": (lambda: fa.flash_backward_dkv(
-                 q, k, v, do, lse, delta, True), "flash_dkv_kernel")}
+                 q, k, v, do, lse, delta, causal), "flash_dkv_kernel")}
     ms = {n: cuda_time_ms(fn, iters=20) for n, (fn, _) in calls.items()}
     device_ms = {n: _device_ms(fn, kernel, calls=10)
                  for n, (fn, kernel) in calls.items()}
     qf, kf, vf, of, dof = (t.float() for t in (q, k, v, o, do))
     plain_fwd = cuda_time_ms(
-        lambda: fa.flash_forward_reference(qf, kf, vf, True), iters=3,
+        lambda: fa.flash_forward_reference(qf, kf, vf, causal), iters=3,
         warmup=1)
     plain_bwd = cuda_time_ms(
-        lambda: fa.flash_backward_reference(qf, kf, vf, of, lse, dof, True),
+        lambda: fa.flash_backward_reference(qf, kf, vf, of, lse, dof,
+                                            causal),
         iters=3, warmup=1)
     del qf, kf, vf, of, dof
     qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_()
                   for t in (q, k, v))
     dot = do.transpose(1, 2)
     sdpa_fwd = cuda_time_ms(
-        lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True),
+        lambda: F.scaled_dot_product_attention(qt, kt, vt,
+                                               is_causal=causal),
         iters=20)
     with torch.enable_grad():
-        out = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True)
+        out = F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal)
 
         def sdpa_backward():
             return torch.autograd.grad(out, (qt, kt, vt), dot,
@@ -818,9 +859,9 @@ def _flash_times(q, k, v, do, o, lse, err):
         sdpa_bwd_host = cuda_time_ms(sdpa_backward, iters=20)
         sdpa_bwd = _device_ms(sdpa_backward, "", calls=10)
     del out
-    bounds = _flash_bounds(B, S, H, D, True, None, q.element_size())
+    bounds = _flash_bounds(B, S, H, D, causal, None, q.element_size())
     bwd_pair_ms = ms["flash_bwd_dq"] + ms["flash_bwd_dkv"]
-    emit("flash_time", shape=[B, S, H, D], causal=True, dtype="bfloat16",
+    emit("flash_time", shape=[B, S, H, D], causal=causal, dtype="bfloat16",
          ms=ms, device_ms=device_ms, bwd_pair_ms=bwd_pair_ms,
          plain_fwd_ms=plain_fwd, plain_bwd_ms=plain_bwd,
          sdpa_fwd_ms=sdpa_fwd, sdpa_bwd_device_ms=sdpa_bwd,
@@ -838,7 +879,7 @@ def _flash_times(q, k, v, do, o, lse, err):
     # be read against K1b + K1c, not against one kernel
     bwd_pair = "dq, dk and dv together (K1b + K1c)"
     scopes = {"flash_fwd": ("o and lse", "scaled_dot_product_attention "
-                            "forward, is_causal"),
+                            "forward" + (", is_causal" if causal else "")),
               "flash_bwd_dq": (bwd_pair, "scaled_dot_product_attention "
                                "backward: " + bwd_pair),
               "flash_bwd_dkv": (bwd_pair, "scaled_dot_product_attention "
@@ -4417,27 +4458,28 @@ def phase_mixtral_train(kernel_rows):
                                       1, 2048, 32, 128))
 
 
-def _flash_rows_at(path, launches, B, S, H, D):
-    """K1a/b/c at one path's causal bf16 shape: outputs and gradients
-    against the plain versions in f32 (the flash checks' tolerances),
-    then timed (`_flash_times`), as rows named for the path."""
+def _flash_rows_at(path, launches, B, S, H, D, causal=True):
+    """K1a/b/c at one path's bf16 shape: outputs and gradients against
+    the plain versions in f32 (the flash checks' tolerances), then timed
+    (`_flash_times`), as rows named for the path."""
     import torch
 
     q, k, v, do, _ = _flash_inputs(B, S, H, D, None, torch.bfloat16, 77)
-    o, lse, err, finite = _flash_errors(q, k, v, do, True)
+    o, lse, err, finite = _flash_errors(q, k, v, do, causal)
     tol = FLASH_TOL["bfloat16"]
     ok = finite and all(err[n] <= t for n, t in tol.items())
     emit("flash_check", case=path, dtype="bfloat16", B=B, S=S, H=H, D=D,
-         causal=True, key_mask=None, window=None, err=err, tol=tol,
+         causal=causal, key_mask=None, window=None, err=err, tol=tol,
          finite=finite, ok=ok)
     if not ok:
         raise AssertionError(f"flash kernels off their plain versions at "
                              f"{path}'s shape: {err}")
-    rows = _flash_times(q, k, v, do, o, lse, err)
+    rows = _flash_times(q, k, v, do, o, lse, err, causal)
     for row in rows:
         row["launches"] = launches[row["name"]]
         row["name"] = f"{row['name']}[{path}]"
         row["shape"] = [B, S, H, D]
+        row["causal"] = causal
     return rows
 
 
@@ -4962,15 +5004,17 @@ def _big_model_zoo(folder):
 
 
 DP_LAYERS = 2       # full width; two ranks' f32 state share the card
-DP_STEPS = 5
+# the three gated steps: steps 4-5 were reported, not gated (below),
+# at 6-10 s of gloo all-reduce each
+DP_STEPS = 3
 DP_LR = 3e-4              # the script's adamw
 DP_STEP1_RTOL = 1e-5      # step 1: the same weights, the global mean
 # steps 2-3, each relative to one process's loss at that step: AdamW on
 # gradients rounded apart (readings 1.0e-3 and 1.6e-3, three runs).
-# Steps 4-5 are reported and not gated: the run has memorised its one
-# batch and their losses are ~1e-3 and ~4e-4, where the same readings
-# put the gap at 2.2% and 0.12%, set by which weights rounding sent the
-# other way, so no limit there would tell a fault from rounding
+# Later steps are not run: the run memorises its one batch and steps 4-5
+# had losses of ~1e-3 and ~4e-4, where the same readings put the gap at
+# 2.2% and 0.12%, set by which weights rounding sent the other way, so
+# no limit there would tell a fault from rounding
 DP_EARLY_RTOL = 1e-2
 # step 1's update, rank 0 of two against one process, on a strided
 # sample of every leaf: AdamW's first update is about +-lr an element
@@ -5017,15 +5061,15 @@ def phase_dp_train(kernel_rows):
     """Data parallelism on the one card: `train_llama_dp.py` launched as
     two processes (gloo, both on card 0), each training llama3-8B width
     at 2 layers (bf16, clip 1.0, adamw(3e-4), remat "dots") on its
-    [1, 2049] half of phase train's [2, 2049] batch for 5 steps, the
+    [1, 2049] half of phase train's [2, 2049] batch for 3 steps, the
     gradients averaged in buckets through the host; then the same script
     as one process on the whole batch. Gates: the launcher exits 0 both
     times; both ranks' parameters equal rank 0's bit for bit; the same
     losses on both ranks; step 1's update of rank 0 against the one
     process's (DP_UPDATE_FLIP_MAX, DP_UPDATE_OFF_MAX); step 1's loss
     within DP_STEP1_RTOL of the one process's, steps 2-3 within
-    DP_EARLY_RTOL (steps 4-5 reported); K1a 20 and K1b/K1c 10 launches
-    on each rank; then K1a/b/c at the path's shape against their plain
+    DP_EARLY_RTOL; K1a 12 and K1b/K1c 6 launches on each rank; then
+    K1a/b/c at the path's shape against their plain
     versions, timed."""
     import os
     import tempfile
@@ -5087,7 +5131,11 @@ def phase_dp_train(kernel_rows):
     return {"world2": two, "world1": one}
 
 
-TP_LAYERS_A = 4       # part (a): f32 at full width, the exactness gate
+# part (a): f32 at full width, the exactness gate; part (b): bf16. Cut
+# from 4 and 32 layers to make room for phase context_parallel: no gate
+# of either part depends on the depth
+TP_LAYERS_A = 2
+TP_LAYERS_B = 16
 TP_PARAM_SHARE = (0.49, 0.52)   # a rank's parameter bytes / the whole
 TP_LOGITS_REL_L2 = 0.1          # bf16 at depth: two correct paths drift
                                 # 0.03-0.05 (ROADMAP.md parity hazards)
@@ -5101,8 +5149,8 @@ def phase_pod_tp():
     on its shards. Gates: the launcher exits 0; (a) in f32 at
     TP_LAYERS_A layers both ranks' `sharded_engine` and
     `PodRouter(tensor_parallel=2)` streams equal process 0's one-process
-    engine's, greedy and sampled; (b) in bf16 at 32 layers both ranks'
-    streams identical, each rank's parameter bytes within
+    engine's, greedy and sampled; (b) in bf16 at TP_LAYERS_B layers both
+    ranks' streams identical, each rank's parameter bytes within
     TP_PARAM_SHARE of the whole, its KV pool half of one process's, no
     paged-decode launch, each prompt's logits within TP_LOGITS_REL_L2 of
     one process's. The step times and collectives are reported, not
@@ -5113,7 +5161,7 @@ def phase_pod_tp():
                           "serve_llama_tp.py")
     cmd = [sys.executable, "-m", "accelerate_tpu_torch.commands.launch",
            "--num_processes", "2", script, "--config", "llama3_8b",
-           "--layers-a", str(TP_LAYERS_A)]
+           "--layers-a", str(TP_LAYERS_A), "--layers-b", str(TP_LAYERS_B)]
     t0 = time.perf_counter()
     proc = subprocess.run(cmd, capture_output=True, text=True,
                           timeout=TP_TIMEOUT_S)
@@ -5183,6 +5231,9 @@ def phase_pod_tp():
     return {"a": a, "b": b}
 
 
+# (b)'s depth, cut from 32 to make room for phase context_parallel: its
+# gates (logits, K1a launches a rank, half the layer bytes) follow it
+PP_LAYERS_B = 16
 PP_A_REL_L2 = 1e-4      # (a) f32: products in another order only
 PP_B_REL_L2 = 0.1       # (b) bf16 at depth (ROADMAP.md parity hazards)
 PP_C_LOSS_RTOL = 1e-4   # (c) the same per-micro losses summed in f32
@@ -5206,9 +5257,10 @@ def phase_pipeline(kernel_rows):
     `dispatch_model("sharded")` each give logits within PP_A_REL_L2 of
     process 0's one-process forward, prompt by prompt, and the same
     digest on both ranks; a rank's parameter bytes within PP_PARAM_SHARE
-    of the whole; (b) bf16 at 32 layers: both ranks' logits identical,
-    each prompt's within PP_B_REL_L2 of one process's, 32 K1a launches
-    a rank, a rank's layer bytes exactly half of the whole; (c) 1F1B:
+    of the whole; (b) bf16 at PP_LAYERS_B layers: both ranks' logits
+    identical, each prompt's within PP_B_REL_L2 of one process's, 16 K1a
+    launches a rank, a rank's layer bytes exactly half of the whole; (c)
+    1F1B:
     the loss within PP_C_LOSS_RTOL and every gradient leaf within
     PP_C_GRAD_REL_L2 of one process's autograd, K1a/K1b/K1c 16/8/8 a
     rank, the saved inputs within 2(S-1-s)+1. The times are reported,
@@ -5218,7 +5270,8 @@ def phase_pipeline(kernel_rows):
     script = os.path.join("accelerate_tpu_torch", "test_utils", "scripts",
                           "infer_llama_pp.py")
     cmd = [sys.executable, "-m", "accelerate_tpu_torch.commands.launch",
-           "--num_processes", "2", script, "--config", "llama3_8b"]
+           "--num_processes", "2", script, "--config", "llama3_8b",
+           "--layers-b", str(PP_LAYERS_B)]
     t0 = time.perf_counter()
     proc = subprocess.run(cmd, capture_output=True, text=True,
                           timeout=PP_TIMEOUT_S)
@@ -5321,6 +5374,175 @@ def phase_pipeline(kernel_rows):
     return {"a": a, "b": b, "c": c}
 
 
+CP_LAYERS = 2            # llama3-8B width; each rank holds the whole model
+CP_SEQ = 4096            # 2048 tokens a rank on the `seq` axis of 2
+CP_LOSS_RTOL = 1e-3      # the loss against one process's flash, bf16
+# bf16 gradients through the ring's fold (its output rounded per chunk
+# and the chunks' sums in another order) against one process's flash,
+# the worst leaf: 5.7e-3 at the tiny width on the CPU; 5.4e-3 to 1.13e-2
+# at this width on an H100 80GB HBM3 at 700 W. The planted fault that
+# looks right (each chunk's backward from its own output and LSE, not
+# the global ones) reads 1.51 at the tiny width on the CPU and 1.41 at
+# this width on the card (0.12 even on the MLP's kernels); the phase
+# fails unless it reads above this limit.
+CP_GRAD_REL_L2 = 2e-2
+CP_MOE_REL_L2 = 2e-2     # (d) a2a against the sort dispatch, bf16
+CP_TIMEOUT_S = 480
+
+
+def _cp_rows(rows, part):
+    return sorted((r for r in rows if r["part"] == part),
+                  key=lambda r: r["rank"])
+
+
+def phase_context_parallel(kernel_rows):
+    """Sequence and expert parallelism on the one card:
+    `context_parallel_llama.py` launched as two processes (gloo, both on
+    card 0) on a `seq` axis of 2, each building llama3-8B weights (bf16,
+    CP_LAYERS layers) from seed 0 and one row of CP_SEQ + 1 tokens.
+    Gates, parts (a) ring, (b) ring with the last 512 keys padded, (c)
+    Ulysses: the launcher exits 0; both ranks' loss and gradient digests
+    equal; the loss within CP_LOSS_RTOL and every gradient leaf within
+    CP_GRAD_REL_L2 of rank 0's one-process flash; K1a/K1b/K1c launches of
+    the call L(r+1) on rank r for the ring (causal: a rank skips later
+    chunks) and L on each rank for Ulysses; (a) the ring alone through
+    the kernels against their plain versions within the flash checks'
+    bf16 tolerances; the planted chunk-delta fault's gradients beyond
+    CP_GRAD_REL_L2 (the gate can see it); the ring alone with a left pad
+    past its first chunk (rank 0's queries see no key, rank 1's first
+    chunk is fully masked) within the same tolerances of one process's
+    flash. (d) one Mixtral-width MoE block through the a2a dispatch on
+    an `expert` axis of 2 at a capacity that drops nothing: dropped
+    fraction 0 in the compared call, output and gradients within
+    CP_MOE_REL_L2 of one process's sort dispatch, digests equal on both
+    ranks. Then K1a/b/c at each shape the phase launched them at (the
+    ring's off-diagonal chunk, non-causal; its diagonal chunk, causal;
+    Ulysses' whole sequence on half the heads, causal) against their
+    plain versions, timed, each row with the launches at its shape. The
+    times are reported, not gated: two ranks share one card through the
+    host."""
+    import os
+
+    script = os.path.join("accelerate_tpu_torch", "test_utils", "scripts",
+                          "context_parallel_llama.py")
+    cmd = [sys.executable, "-m", "accelerate_tpu_torch.commands.launch",
+           "--num_processes", "2", script, "--config", "llama3_8b",
+           "--layers", str(CP_LAYERS), "--seq", str(CP_SEQ)]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True,
+                          timeout=CP_TIMEOUT_S)
+    wall = time.perf_counter() - t0
+    rows = [json.loads(line.split(" ", 1)[1])
+            for line in proc.stdout.splitlines()
+            if line.startswith("CP_RESULT {")]
+    parts = {p: _cp_rows(rows, p) for p in "abcd"}
+    if proc.returncode != 0 or any(len(v) != 2 for v in parts.values()):
+        raise AssertionError(
+            f"launch exited {proc.returncode} with {len(rows)} result(s):"
+            f"\n{proc.stdout[-4000:]}\n{proc.stderr[-8000:]}")
+    failed = []
+    L = CP_LAYERS
+    tol = FLASH_TOL["bfloat16"]
+    for p in "abc":
+        r0, r1 = parts[p]
+        if r0["grad_digest"] != r1["grad_digest"] or r0["loss"] != r1["loss"]:
+            failed.append(f"({p}) the ranks' loss or gradients differ")
+        for r in (r0, r1):
+            per = L * (r["rank"] + 1) if p in "ab" else L
+            want = {"flash_fwd": per, "flash_bwd_dq": per,
+                    "flash_bwd_dkv": per}
+            if r["launches"] != want:
+                failed.append(f"({p}) rank {r['rank']}: flash launches "
+                              f"{r['launches']}, expected {want}")
+            if not r["grads_finite"] or not math.isfinite(r["loss"]):
+                failed.append(f"({p}) rank {r['rank']}: non-finite")
+        if abs(r0["loss"] - r0["ref_loss"]) > CP_LOSS_RTOL * abs(
+                r0["ref_loss"]):
+            failed.append(f"({p}) loss {r0['loss']} against one process's "
+                          f"{r0['ref_loss']}")
+        worst = max(r0["grad_rel_l2"].values())
+        if not worst <= CP_GRAD_REL_L2:
+            failed.append(f"({p}) gradient relative L2 "
+                          f"{r0['grad_rel_l2']}")
+    checks = [r["ring_check"] for r in parts["a"]]
+    for r, c in zip(parts["a"], checks):
+        ok = (c["finite"] and c["flash_fwd"] <= tol["o"]
+              and all(c["rel_l2"][n] <= tol[f"{n}_rel_l2"]
+                      for n in ("dq", "dk", "dv")))
+        if not ok:
+            failed.append(f"(a) rank {r['rank']}: the ring's kernels off "
+                          f"their plain versions: {c}")
+        lp = c["left_pad"]
+        if not (lp["finite"] and lp["o"] <= tol["o"]
+                and all(lp["rel_l2"][n] <= tol[f"{n}_rel_l2"]
+                        for n in ("dq", "dk", "dv"))):
+            failed.append(f"(a) rank {r['rank']}: the ring with a pad past "
+                          f"its first chunk off one process's flash: {lp}")
+    fault = max(parts["a"][0]["fault_grad_rel_l2"].values())
+    if not fault > CP_GRAD_REL_L2:
+        failed.append(f"(a) the planted chunk-delta fault reads {fault}, "
+                      f"within the gradient gate {CP_GRAD_REL_L2}")
+    d0, d1 = parts["d"]
+    if d0["out_digest"] != d1["out_digest"]:
+        failed.append("(d) the ranks' outputs differ")
+    for r in (d0, d1):
+        if (r["dropped_fraction"] != 0.0 or r["dispatch_calls"] != 1
+                or not r["finite"]):
+            failed.append(f"(d) rank {r['rank']}: dropped "
+                          f"{r['dropped_fraction']}, finite {r['finite']}")
+    worst_d = max([d0["out_rel_l2"], *d0["grad_rel_l2"].values()])
+    if not worst_d <= CP_MOE_REL_L2:
+        failed.append(f"(d) against the sort dispatch: out "
+                      f"{d0['out_rel_l2']}, grads {d0['grad_rel_l2']}")
+    keys = ("launches", "loss", "ref_loss", "call_ms", "grad_digest",
+            "max_memory_allocated_gb")
+    emit("context_parallel", config="llama3_8b", layers=L, seq=CP_SEQ,
+         launcher_wall_s=wall, backend="gloo", ranks_share_one_card=True,
+         **{f"part_{p}": {"backend": parts[p][0]["backend"],
+                          **{k: [r.get(k) for r in parts[p]] for k in keys},
+                          "grad_rel_l2": parts[p][0]["grad_rel_l2"],
+                          **({"pad": parts[p][0]["pad"]} if p == "b"
+                             else {})}
+            for p in "abc"},
+         ring_check=checks, fault_grad_rel_l2=parts["a"][0][
+             "fault_grad_rel_l2"],
+         part_d={k: [r.get(k) for r in parts["d"]] for k in (
+             "tokens", "experts", "experts_here", "top_k",
+             "capacity_factor", "dropped_fraction", "call_ms",
+             "max_memory_allocated_gb", "out_digest")}
+         | {"out_rel_l2": d0["out_rel_l2"],
+            "grad_rel_l2": d0["grad_rel_l2"],
+            "ref_call_ms": d0["ref_call_ms"]},
+         tolerances={"loss_rtol": CP_LOSS_RTOL,
+                     "grad_rel_l2": CP_GRAD_REL_L2,
+                     "moe_rel_l2": CP_MOE_REL_L2, "ring_check": tol},
+         note="two ranks share one card through the host (gloo): these "
+              "times are not sequence- or expert-parallel speed")
+    if failed:
+        raise AssertionError("; ".join(failed))
+    # the launches by shape: the ring runs its diagonal chunk (causal)
+    # once a layer on every rank and the rest off the diagonal (the gate
+    # above holds the totals); Ulysses runs the whole sequence
+    names = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
+    ring = [r for p in "ab" for r in parts[p]]
+    diagonal = {n: L * len(ring) for n in names}
+    off = {n: sum(r["launches"][n] for r in ring) - diagonal[n]
+           for n in names}
+    ulysses = {n: sum(r["launches"][n] for r in parts["c"]) for n in names}
+    S, H = CP_SEQ // 2, 32
+    rows = _flash_rows_at("context_parallel", off, 1, S, H, 128,
+                          causal=False)
+    for row in rows:
+        row["ring_max_abs_err"] = max(c[row["name"].split("[")[0]]
+                                      for c in checks)
+    rows += _flash_rows_at("context_parallel_diagonal", diagonal, 1, S, H,
+                           128)
+    rows += _flash_rows_at("context_parallel_ulysses", ulysses, 1, CP_SEQ,
+                           H // 2, 128)
+    kernel_rows.extend(rows)
+    return parts
+
+
 def _drop():
     """Free the device memory of a finished phase."""
     import gc
@@ -5338,56 +5560,62 @@ def main() -> int:
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
         return 2
     torch.set_grad_enabled(False)
-    info = phase_device()
-    phase_build()
-    kernels = phase_paged_kernel()
-    kernels += phase_flash_kernel()
-    phase_small_parity()
-    phase_zoo_small_parity()
-    cfg, params, eng, prompts, temps, numbers = phase_engine(kernels[:1])
-    phase_kernel_vs_dense(cfg, params, eng, numbers)
-    phase_server(cfg, eng)
+    t_start = time.perf_counter()
+    info = _run(phase_device)
+    _run(phase_build)
+    kernels = _run(phase_paged_kernel)
+    kernels += _run(phase_flash_kernel)
+    _run(phase_small_parity)
+    _run(phase_zoo_small_parity)
+    cfg, params, eng, prompts, temps, numbers = _run(phase_engine,
+                                                     kernels[:1])
+    _run(phase_kernel_vs_dense, cfg, params, eng, numbers)
+    _run(phase_server, cfg, eng)
     del eng
     _drop()
-    phase_telemetry(cfg, params, prompts, temps, numbers, kernels)
+    _run(phase_telemetry, cfg, params, prompts, temps, numbers, kernels)
     _drop()
-    phase_serve_cli()
-    phase_speculative(cfg, params, prompts, temps, numbers)
+    _run(phase_serve_cli)
+    _run(phase_speculative, cfg, params, prompts, temps, numbers)
     _drop()
-    phase_host_tier(cfg, params)
+    _run(phase_host_tier, cfg, params)
     _drop()
-    phase_pod(cfg, params, prompts, temps, numbers, kernels)
+    _run(phase_pod, cfg, params, prompts, temps, numbers, kernels)
     _drop()
-    phase_pod_distributed(cfg, params, prompts, temps, numbers)
+    _run(phase_pod_distributed, cfg, params, prompts, temps, numbers)
     del params
     _drop()
-    phase_pod_cli()
-    phase_pod_tp()
-    phase_pipeline(kernels)
+    _run(phase_pod_cli)
+    _run(phase_pod_tp)
+    _run(phase_pipeline, kernels)
     _drop()
-    phase_gptj_engine(kernels)
+    _run(phase_context_parallel, kernels)
     _drop()
-    bf16 = phase_train(kernels)
+    _run(phase_gptj_engine, kernels)
     _drop()
-    phase_eager_train(kernels, bf16)
+    bf16 = _run(phase_train, kernels)
     _drop()
-    phase_data_train(kernels, bf16)
+    _run(phase_eager_train, kernels, bf16)
     _drop()
-    phase_telemetry_train(kernels, bf16)
+    _run(phase_data_train, kernels, bf16)
     _drop()
-    phase_fp8_train(kernels, bf16)
+    _run(phase_telemetry_train, kernels, bf16)
     _drop()
-    phase_resilient()
+    _run(phase_fp8_train, kernels, bf16)
     _drop()
-    phase_train_flash_vs_einsum()
+    _run(phase_resilient)
     _drop()
-    phase_head_grad()
+    _run(phase_train_flash_vs_einsum)
     _drop()
-    phase_mixtral_train(kernels)
+    _run(phase_head_grad)
     _drop()
-    phase_dp_train(kernels)
+    _run(phase_mixtral_train, kernels)
     _drop()
-    phase_big_model(kernels)
+    _run(phase_dp_train, kernels)
+    _drop()
+    _run(phase_big_model, kernels)
+    emit("phase_walls", walls=_WALLS,
+         total_s=time.perf_counter() - t_start)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": info["name"], "count": info["count"]}}),

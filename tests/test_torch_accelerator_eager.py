@@ -454,16 +454,20 @@ def test_trigger_round_trip_like_jax():
 def test_mesh_and_context_attention_raise_and_name_item_6():
     """The mesh is the reference's data-parallel mesh over the processes
     (its axis names; one process: `{"data": 1}`, where the suite's 8 JAX
-    devices give the reference `{"data": 8}`); context attention still
-    raises, naming item 6b."""
+    devices give the reference `{"data": 8}`). Context attention is
+    ported (queue 1 item 6b, part 2): with no `seq` axis it is plain
+    causal attention, as the reference's is on its data mesh."""
     acc = Accelerator(cpu=True)
     jacc = at.Accelerator()
     assert acc.mesh.axis_names == tuple(jacc.mesh.axis_names) == ("data",)
     assert acc.mesh.shape == {"data": 1} and acc.state.dp_size == 1
     assert dict(jacc.mesh.shape) == {"data": jax.device_count()}
-    q = torch.zeros(1, 4, 2, 8)
-    with pytest.raises(NotImplementedError, match="queue 1 item 6b"):
-        acc.context_attention(q, q, q)
+    rng = np.random.default_rng(0)
+    q, k, v = (rng.standard_normal((1, 8, 2, 8)).astype(np.float32)
+               for _ in range(3))
+    got = acc.context_attention(*(torch.from_numpy(t) for t in (q, k, v)))
+    want = jacc.context_attention(*(jnp.asarray(t) for t in (q, k, v)))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-5)
 
 
 def test_device_placement_like_jax():

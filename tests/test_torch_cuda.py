@@ -12,7 +12,12 @@ batches, and a tracker's log of card scalars; and the pod's KV page
 shipments (extract, copy to the host, install) against the CPU
 programs; and tensor-parallel serving by two ranks sharing the card
 against one process; and two pipeline stages of llama layers run in
-turn through the flash kernels against the plain attention.
+turn through the flash kernels against the plain attention; and the
+ring's chunk pair (a causal and a non-causal K1a folded into the global
+output, K1b/K1c from the global LSE) and Ulysses' full-sequence
+attention at phase context_parallel's shapes against the plain
+versions, the ring and Ulysses backends in one process through the
+flash kernels, and that phase's two ranks at the tiny width.
 
 Without a card every test here skips with a reason. The file imports
 neither jax nor the JAX package, so it also runs where those are not
@@ -1513,3 +1518,161 @@ def _sub(tree, s):
     if isinstance(tree, dict):
         return {k: _sub(v, s) for k, v in tree.items()}
     return tree[s]
+
+
+def _rand_bf16(g, dev, *shape):
+    return torch.randn(shape, generator=g, device=dev).bfloat16()
+
+
+def test_context_parallel_ring_chunk_pair_with_global_lse(cuda):
+    """Phase context_parallel's ring at its chunk shape ([1, 2048, 32,
+    128] bf16, two chunks): rank 1's diagonal chunk (causal K1a) and
+    its off-diagonal chunk (non-causal K1a) folded by their log-sum-exp
+    into the global output, within bf16 rounding of the plain attention
+    over both chunks; then K1b and K1c on the off-diagonal pair from
+    that GLOBAL output and LSE against their plain versions in f32 on
+    the same inputs (within 2e-2 relative L2, the flash checks' bf16
+    tolerance)."""
+    from accelerate_tpu_torch.parallel.ring_attention import _fold
+
+    g = torch.Generator(device=cuda).manual_seed(20)
+    B, S, H, D = 1, 2048, 32, 128
+    q1, k0, v0, k1, v1, do = (_rand_bf16(g, cuda, B, S, H, D)
+                              for _ in range(6))
+    o_d, lse_d = tf.flash_forward(q1, k1, v1, True, save_residuals=True)
+    o_o, lse_o = tf.flash_forward(q1, k0, v0, False, save_residuals=True)
+    ro_o, rlse_o = tf.flash_forward_reference(q1.float(), k0.float(),
+                                              v0.float(), False)
+    torch.testing.assert_close(o_o.float(), ro_o, atol=2e-2, rtol=0)
+    torch.testing.assert_close(lse_o, rlse_o, atol=1e-3, rtol=0)
+    out, lse = _fold(o_d.float(), lse_d, o_o, lse_o)
+    # the plain attention of rank 1's queries over both chunks: every key
+    # of chunk 0, chunk 1's causally
+    keep = torch.ones((S, 2 * S), dtype=torch.bool, device=cuda)
+    keep[:, S:] = torch.ones((S, S), device=cuda).tril().bool()
+    scores = torch.einsum("bqhd,bkhd->bhqk", q1.float(),
+                          torch.cat([k0, k1], 1).float()) / D ** 0.5
+    scores = scores.masked_fill(~keep, -1e30)
+    want = torch.einsum("bhqk,bkhd->bqhd", scores.softmax(-1),
+                        torch.cat([v0, v1], 1).float())
+    assert _rel_l2(out, want) <= 1e-2
+    torch.testing.assert_close(lse, torch.logsumexp(scores, -1), atol=1e-3,
+                               rtol=0)
+    o = out.bfloat16()
+    dq, delta = tf.flash_backward_dq(q1, k0, v0, o, lse.contiguous(), do,
+                                     False)
+    dk, dv = tf.flash_backward_dkv(q1, k0, v0, do, lse.contiguous(), delta,
+                                   False)
+    rdq, rdk, rdv = tf.flash_backward_reference(
+        q1.float(), k0.float(), v0.float(), o.float(), lse, do.float(),
+        False)
+    for a, b in ((dq, rdq), (dk, rdk), (dv, rdv)):
+        assert bool(torch.isfinite(a.float()).all())
+        assert _rel_l2(a, b) <= 2e-2
+
+
+def test_context_parallel_ulysses_shape_through_the_kernels(cuda):
+    """Ulysses' full-sequence attention at phase context_parallel's
+    shape after the head scatter ([1, 4096, 16, 128] bf16, causal): K1a
+    and K1b/K1c against their plain versions in f32."""
+    g = torch.Generator(device=cuda).manual_seed(21)
+    q, k, v, do = (_rand_bf16(g, cuda, 1, 4096, 16, 128) for _ in range(4))
+    o, lse = tf.flash_forward(q, k, v, True, save_residuals=True)
+    ro, rlse = tf.flash_forward_reference(q.float(), k.float(), v.float(),
+                                          True)
+    torch.testing.assert_close(o.float(), ro, atol=2e-2, rtol=0)
+    torch.testing.assert_close(lse, rlse, atol=1e-3, rtol=0)
+    grads, ref = _flash_grads(q, k, v, do, True, None, None)
+    for a, b in zip(grads, ref):
+        assert _rel_l2(a, b) <= 2e-2
+
+
+@pytest.mark.parametrize("backend", ["ring", "ulysses"])
+def test_context_parallel_one_process_runs_the_kernels(cuda, backend):
+    """`attention_backend` ring or Ulysses in one process (no `seq`
+    axis) at S=4096, head dim 128, GQA: each layer's attention is one
+    K1a forward and one K1b + K1c backward, and the loss and gradients
+    equal the flash backend's on the same params and batch."""
+    import dataclasses
+
+    cfg = llama.LlamaConfig.tiny(hidden_size=256, num_attention_heads=2,
+                                 num_key_value_heads=1,
+                                 max_position_embeddings=4096,
+                                 attention_backend=backend)
+    params = llama.init_params(cfg, 0, dtype=torch.bfloat16, device=cuda)
+    g = torch.Generator(device=cuda).manual_seed(22)
+    batch = {"input_ids": torch.randint(0, cfg.vocab_size, (1, 4097),
+                                        generator=g, device=cuda)}
+    attn = params["layers"]["attn"]
+    out = {}
+    for name, c in ((backend, cfg), ("flash", dataclasses.replace(
+            cfg, attention_backend="flash"))):
+        for fn in (tf.flash_forward, tf.flash_backward_dq,
+                   tf.flash_backward_dkv):
+            fn.launches = 0
+        with torch.enable_grad():
+            # the gradients of the queries' and the keys' projections
+            ws = [attn[n]["kernel"].detach().requires_grad_()
+                  for n in ("q_proj", "k_proj")]
+            ps = {**params, "layers": {**params["layers"], "attn": {
+                **attn, "q_proj": {"kernel": ws[0]},
+                "k_proj": {"kernel": ws[1]}}}}
+            loss = llama.causal_lm_loss(c, ps, batch)
+            grads = torch.autograd.grad(loss, ws)
+        out[name] = (loss.detach(), grads, (tf.flash_forward.launches,
+                                   tf.flash_backward_dq.launches,
+                                   tf.flash_backward_dkv.launches))
+    L = cfg.num_hidden_layers
+    assert out[backend][2] == (L, L, L), out[backend][2]
+    assert out["flash"][2] == (L, L, L)
+    assert float(out[backend][0]) == float(out["flash"][0])
+    for a, b in zip(out[backend][1], out["flash"][1]):
+        assert torch.equal(a, b)
+
+
+def test_context_parallel_two_ranks_share_the_card(cuda):
+    """Phase context_parallel at the tiny width: `context_parallel_llama.py`
+    launched as two processes sharing the card over gloo; the ring, the
+    masked ring and Ulysses give both ranks the same loss and gradients,
+    within bf16 rounding of one process's flash, with the ring's
+    launches L(r+1) on rank r; the a2a MoE block drops nothing and
+    matches one process's sort dispatch; the ring's planted chunk-delta
+    fault reads beyond the gradient gate, and the ring with a pad past
+    its first chunk matches one process's flash."""
+    import json
+    import os
+    import subprocess
+    import sys
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    script = os.path.join(root, "accelerate_tpu_torch", "test_utils",
+                          "scripts", "context_parallel_llama.py")
+    proc = subprocess.run(
+        [sys.executable, "-m", "accelerate_tpu_torch.commands.launch",
+         "--num_processes", "2", script, "--config", "tiny"],
+        capture_output=True, text=True, timeout=600, cwd=root)
+    rows = [json.loads(line.split(" ", 1)[1])
+            for line in proc.stdout.splitlines()
+            if line.startswith("CP_RESULT {")]
+    assert proc.returncode == 0 and len(rows) == 8, proc.stderr[-4000:]
+    by = {(r["part"], r["rank"]): r for r in rows}
+    for p in "abc":
+        r0, r1 = by[(p, 0)], by[(p, 1)]
+        assert r0["grad_digest"] == r1["grad_digest"]
+        assert max(r0["grad_rel_l2"].values()) <= 2e-2
+        assert abs(r0["loss"] - r0["ref_loss"]) <= 1e-3 * abs(r0["ref_loss"])
+        for r in (r0, r1):
+            per = r["layers"] * ((r["rank"] + 1) if p in "ab" else 1)
+            assert r["launches"] == {"flash_fwd": per, "flash_bwd_dq": per,
+                                     "flash_bwd_dkv": per}
+    # the planted chunk-delta fault reads beyond the gradient gate; the
+    # ring with a pad past its first chunk matches one process's flash
+    assert max(by[("a", 0)]["fault_grad_rel_l2"].values()) > 2e-2
+    for r in (by[("a", 0)], by[("a", 1)]):
+        lp = r["ring_check"]["left_pad"]
+        assert lp["finite"] and lp["o"] <= 2e-2
+        assert max(lp["rel_l2"].values()) <= 2e-2
+    d0 = by[("d", 0)]
+    assert d0["dropped_fraction"] == 0.0 and d0["dispatch_calls"] == 1
+    assert d0["finite"]
+    assert max([d0["out_rel_l2"], *d0["grad_rel_l2"].values()]) <= 2e-2

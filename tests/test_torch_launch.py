@@ -155,14 +155,43 @@ def test_config_file_fills_unset_flags_like_jax(tmp_path):
     (["--num_virtual_devices", "8"], "no meaning in the port"),
     (["--zero_stage", "3"], "item 6b"),
     (["--fsdp_sharding_strategy", "FULL_SHARD"], "item 6b"),
-    (["--context_parallel_mode", "ring"], "item 6b"),
-    (["--context_parallel_degree", "2"], "item 6b"),
+    (["--context_parallel_degree", "2"], "needs --context_parallel_mode"),
     (["--mesh_shape", "data=1,model=2"], "item 6b")],
     ids=["tpu_name", "tpu_zone", "tpu_project", "num_virtual_devices",
-         "zero_stage", "fsdp", "cp_mode", "cp_degree", "mesh_model"])
+         "zero_stage", "fsdp", "cp_degree", "mesh_model"])
 def test_refused_flags_exit_2_naming_their_slice(flags, says, capsys):
     assert tlaunch.main([*flags, "never_run.py"]) == 2
     assert says in capsys.readouterr().err
+
+
+@pytest.mark.parametrize("flags, env", [
+    (["--context_parallel_mode", "ring"],
+     {"ACCELERATE_TORCH_CONTEXT_PARALLEL_MODE": "ring"}),
+    (["--context_parallel_mode", "ulysses", "--context_parallel_degree",
+      "2"], {"ACCELERATE_TORCH_CONTEXT_PARALLEL_MODE": "ulysses",
+             "ACCELERATE_TORCH_CONTEXT_PARALLEL_DEGREE": "2"}),
+    (["--context_parallel_mode", "none"], {}),
+    (["--mesh_shape", "data=1,seq=2"],
+     {"ACCELERATE_TORCH_MESH_SHAPE": "data=1,seq=2"}),
+    (["--mesh_shape", "expert=2,seq=2"],
+     {"ACCELERATE_TORCH_MESH_SHAPE": "expert=2,seq=2"})],
+    ids=["cp_mode", "cp_mode_degree", "cp_none", "mesh_seq", "mesh_expert"])
+def test_context_and_expert_parallel_flags_are_taken(flags, env):
+    """The launcher takes `--context_parallel_{mode,degree}` and a
+    `--mesh_shape` with `seq`/`expert` axes, and writes them to the
+    children's variables as the reference's `prepare_launch_env` writes
+    its own (a mode of "none" writes nothing)."""
+    import argparse
+
+    from accelerate_tpu_torch.utils.launch import prepare_launch_env
+
+    parser = argparse.ArgumentParser()
+    tlaunch.add_launch_arguments(parser)
+    args = parser.parse_args([*flags, "script.py"])
+    tlaunch.check_supported(args)
+    got = {k: v for k, v in prepare_launch_env(args).items()
+           if "CONTEXT_PARALLEL" in k or "MESH_SHAPE" in k}
+    assert got == env
 
 
 def test_stage_mesh_shape_is_taken():

@@ -194,10 +194,19 @@ def test_entry_points_need_a_gpu_unless_asked_for_the_cpu(monkeypatch):
 
 @pytest.mark.parametrize("backend", ["ring", "ulysses"])
 def test_unported_attention_backends_raise(backend):
+    """The sequence-parallel backends are ported (queue 1 item 6b, part
+    2; `tests/test_torch_context_parallel.py` runs them on `seq` lines).
+    In a process with no `seq` axis they are one process's causal
+    attention, as the reference's are off its mesh: `flash_attention`
+    (K1a-c on the card, their plain versions here), the einsum backend's
+    logits."""
     cfg = tl.LlamaConfig.tiny(attention_backend=backend)
     pt = tl.init_params(cfg, 0, device="cpu")
-    with pytest.raises(NotImplementedError, match="slice"):
-        tl.forward(cfg, pt, torch.zeros((1, 4), dtype=torch.int64))
+    ids = torch.tensor(_ids(np.random.default_rng(3), 2, 8))
+    got = tl.forward(cfg, pt, ids)
+    want = tl.forward(dataclasses.replace(cfg, attention_backend="einsum"),
+                      pt, ids)
+    torch.testing.assert_close(got, want, atol=1e-5, rtol=0)
 
 
 @pytest.mark.parametrize("variant", ["gqa", "sliding_window"])

@@ -236,17 +236,37 @@ def test_sparse_mixtral_trains():
 
 
 def test_unported_moe_surface_raises_and_names_its_item():
+    """Mixtral's a2a dispatch, `sequence_parallel` and the
+    expert-parallel entry points are ported (queue 1 item 6b, part 2;
+    `tests/test_torch_expert_parallel.py` runs them on `expert` lines).
+    In a process with no `expert` axis the a2a dispatch is the sort
+    dispatch over every expert, as the JAX package's is, and
+    `sequence_parallel` changes no value."""
     cfg = tm.MixtralConfig.tiny(moe_impl="a2a")
-    params = tm.init_params(cfg, 0, device="cpu")
-    ids = torch.zeros((1, 4), dtype=torch.long)
-    with pytest.raises(NotImplementedError, match="queue 1 item 6"):
-        tm.forward(cfg, params, ids)
-    with pytest.raises(NotImplementedError, match="queue 1 item 6"):
-        tm.forward(dataclasses.replace(cfg, moe_impl="dense",
-                                       sequence_parallel=True), params, ids)
+    jcfg = jm.MixtralConfig.tiny(moe_impl="a2a")
+    jp = jm.init_params(jcfg, jax.random.key(3))
+    params = params_from_numpy(jax.tree_util.tree_map(np.asarray, jp),
+                               device="cpu")
+    ids = np.random.default_rng(3).integers(0, cfg.vocab_size, (2, 8))
+    got, aux = tm.forward(cfg, params, torch.from_numpy(ids))
+    want, jaux = jm.forward(jcfg, jp, jnp.asarray(ids))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-4)
+    np.testing.assert_allclose(float(aux), float(jaux), rtol=1e-5)
+    sp, _ = tm.forward(dataclasses.replace(cfg, moe_impl="dense",
+                                           sequence_parallel=True),
+                       params, torch.from_numpy(ids))
+    dense, _ = tm.forward(dataclasses.replace(cfg, moe_impl="dense"),
+                          params, torch.from_numpy(ids))
+    torch.testing.assert_close(sp, dense, atol=0, rtol=0)
+    x = torch.from_numpy(np.random.default_rng(4).standard_normal(
+        (8, 4)).astype(np.float32))
+    logits = torch.zeros((8, 2))
+    w = {"w": torch.stack([torch.eye(4), 2 * torch.eye(4)])}
     for fn in (tmoe.expert_parallel_moe, tmoe.expert_parallel_moe_a2a):
-        with pytest.raises(NotImplementedError, match="queue 1 item 6"):
-            fn(None, None, None, None)
+        out = fn(x, logits, w, lambda p, xs: xs @ p["w"],
+                 capacity_factor=8.0)
+        # equal logits: top-1 keeps the lower expert (the identity)
+        torch.testing.assert_close(out, x * 0.5, atol=1e-6, rtol=0)
 
 
 def test_init_params_has_the_reference_tree():

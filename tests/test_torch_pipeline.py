@@ -139,7 +139,8 @@ def _cases(llama_layers):
         dict(name="accelerator", kind="accelerator",
              axes={"data": 2, "stage": 2}, params=ACC_LAYERS, x=ACC_X,
              refused_axes=[{"data": 2, "model": 2}, {"fsdp": 4},
-                           {"stage": 2, "seq": 2}, {"expert": 4}]),
+                           {"stage": 2, "model": 2},
+                           {"expert": 2, "fsdp": 2}]),
     ]
 
 

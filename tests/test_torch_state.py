@@ -195,8 +195,9 @@ def test_backend_rule_refuses_before_joining(monkeypatch):
 
 def test_mesh_resolution_like_jax(monkeypatch):
     """Explicit `mesh_config`, then the launcher's variable, then every
-    process on `data`; an axis other than `data` and `stage` above 1
-    raises naming item 6b, a `stage` axis resolves like the reference's.
+    process on `data`; an `fsdp` or `model` axis above 1 raises naming
+    item 6b, a `stage` axis resolves like the reference's, and `seq` and
+    `expert` axes are taken.
     Shapes as the reference resolves them over as many devices (the
     port's devices are its processes)."""
     from accelerate_tpu.utils.dataclasses import MeshConfig as JMesh
@@ -230,11 +231,21 @@ def test_mesh_resolution_like_jax(monkeypatch):
     with pytest.raises(ValueError, match="covers 2 devices but 1"):
         tstate.AcceleratorState(cpu=True,
                                 mesh_config=MeshConfig(axes={"stage": 2}))
-    for axes in ({"model": 2}, {"fsdp": 2}, {"data": 1, "seq": 4}):
+    for axes in ({"model": 2}, {"fsdp": 2}, {"data": 1, "fsdp": 4}):
         tstate.PartialState._reset_state()
         with pytest.raises(NotImplementedError, match="queue 1 item 6b"):
             tstate.AcceleratorState(cpu=True,
                                     mesh_config=MeshConfig(axes=axes))
+    # `seq` and `expert` axes are taken (queue 1 item 6b, part 2); over
+    # one process a size above 1 covers more devices than are present
+    tstate.PartialState._reset_state()
+    assert tstate.AcceleratorState(cpu=True, mesh_config=MeshConfig(
+        axes={"data": -1, "seq": 1, "expert": 1})).mesh.shape == \
+        {"data": 1, "expert": 1, "seq": 1}
+    tstate.PartialState._reset_state()
+    with pytest.raises(ValueError, match="covers 4 devices but 1"):
+        tstate.AcceleratorState(cpu=True, mesh_config=MeshConfig(
+            axes={"data": 1, "seq": 4}))
     with pytest.raises(ValueError, match="unknown mesh axes"):
         MeshConfig(axes={"tensor": 2})
 
