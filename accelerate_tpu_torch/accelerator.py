@@ -45,27 +45,45 @@ backward tape. The collectives (`gather`, `gather_for_metrics`,
 
 Data parallelism: launched as N processes (`python -m
 accelerate_tpu_torch.commands.launch --num_processes N script.py`, or
-torchrun), each process owns one device and a replica of the params,
-its loaders take its share of each global batch, and the gradients are
-averaged across processes inside `compute_gradients` and the fused step,
-before the clip, the fp16 finite check and the optimizer: as under the
-reference's GSPMD, both return the gradient of the global batch mean,
-and the step's loss (and numeric aux) is the global mean. Every process
-then makes the same update, so the replicas stay bit-identical. Under
-fp8 every amax is the global batch's too (`ops.fp8`), so every process
-holds the same delayed-scaling metas. The
-average runs in flat buckets (`utils.operations.all_reduce_mean_`), one
-`all_reduce` a bucket. `Accelerator.mesh` is the mesh over the
-processes (`state.ProcessMesh`): `mesh_config`, else the launcher's
-`--mesh_shape`, else the plugins' axes (`context_parallel_plugin`,
-or the launcher's `--context_parallel_{mode,degree}`: a `seq` axis, the
-rest on `data`), else every process on `data`. A `stage`, `seq` or
-`expert` axis above 1 builds, for `inference.prepare_pipeline` and
-`parallel.pipeline_*`, for `context_attention` and the ring and
-Ulysses attention backends, and for the expert-parallel MoE; on it the
-training calls (`prepare` of a loader, an optimizer or a `TrainState`,
-`train_step`, `compute_gradients`, `backward`) raise, naming the
-training half of queue 1 item 6b, part 1.
+torchrun), each process owns one device. `Accelerator.mesh` is the mesh
+over the processes (`state.ProcessMesh`): `mesh_config`, else the
+launcher's `--mesh_shape`, else the plugins' axes
+(`context_parallel_plugin`, or the launcher's
+`--context_parallel_{mode,degree}`: a `seq` axis, the rest on `data`),
+else every process on `data`. A rank's batch line
+(`state.ProcessMesh.data_line`) is the ranks that share its `stage`,
+`seq` and `expert` coordinates: its loaders take its line's share of
+each global batch (the ranks of one `stage`, `seq` or `expert` line see
+the same rows, as the reference shards a batch over `data`/`fsdp`
+only), and the gradients are averaged over the line inside
+`compute_gradients` and the fused step, before the clip, the fp16
+finite check and the optimizer: as under the reference's GSPMD, both
+return the gradient of the global batch mean, and the step's loss (and
+numeric aux) is the global mean on every rank. No average runs over
+`stage`, `seq` or `expert`: the ring, Ulysses and the expert dispatch
+hand every rank the whole line's gradient, a pipeline rank's block
+gradients are its own block's, and an expert block's are its own
+experts'. On a mesh of `data` alone the line is the world: every process
+makes the same update, so the replicas stay bit-identical. Under fp8
+every amax is the max over every process (`ops.fp8`), so every process
+holds the same delayed-scaling metas. The average runs in flat buckets
+(`utils.operations.all_reduce_mean_`), one `all_reduce` a bucket.
+
+`prepare` places params, their optimizer state and accumulation buffer
+by the planner's plan (`sharding.plan_sharding` with the transformer
+rules, as the reference plans them): on these meshes only Mixtral's
+experts are cut, each rank keeping its [L, E/P, ...] block on the
+`expert` axis. `sharding.shard_pytree` records each such placement on
+the mesh by the placed tree's paths and shapes (`sharding.placement_of`),
+so copies of the params and their gradients are known as blocks too:
+the global norm of the clip and the fp16 finite check counts each
+block's squares once across its line (`training.global_norm`), and a
+params tree already placed is prepared as it is. A pipeline's stage
+blocks are not planned (the reference has no `stage` rule): a pipeline
+user prepares an optimizer over `parallel.stage_block`, which places
+them through `shard_pytree` as well. An `fsdp` or `model` axis above
+1 raises, naming queue 1 item 6b; so does a checkpoint of a state that
+holds blocks.
 
 `kwargs_handlers` takes the reference's records: `AutocastKwargs`
 (`enabled=False` pins the compute to f32), `FP8RecipeKwargs` (its
@@ -129,14 +147,16 @@ from .ops import fp8
 from .optimizer import AcceleratedOptimizer
 from .optimizers import GradientTransformation, tree_leaves, tree_map
 from .scheduler import AcceleratedScheduler
-from .state import AcceleratorState, GradientState, refuse_sharded_training
+from .sharding import placement_of, plan_optimizer_sharding, \
+    plan_sharding, shard_pytree, transformer_rules
+from .state import AcceleratorState, GradientState, data_line
 from .telemetry.cost import CostTable, device_peaks, fence, \
     resolve_sample_every
 from .telemetry.export import start_metrics_server
 from .telemetry.registry import get_registry
 from .telemetry.watchdog import StallWatchdog, resolve_stall_timeout
 from .training import DynamicLossScale, TrainState, cast_floating, \
-    clone_tree, global_norm
+    clone_tree, global_norm, sum_of_squares
 from .utils import operations as ops
 from .utils.constants import AXIS_DATA, CHECKPOINT_DIR_PREFIX, \
     ENV_CP_DEGREE, ENV_CP_MODE, ENV_GRAD_ACCUM_STEPS
@@ -174,15 +194,18 @@ def _unported(what: str, slice_name: str) -> NotImplementedError:
         f"{what} is not ported yet: it arrives with the port's {slice_name}")
 
 
-def _all_reduce_metric(value):
-    """A step's loss or aux leaf averaged across processes: floating
-    tensors are, other leaves stay as they are (one process: as is)."""
-    if ops._world() == 1:
+def _all_reduce_metric(value, line):
+    """A step's loss or aux leaf averaged over the batch line `line`
+    (`state.DataLine`): floating tensors are, other leaves stay as they
+    are (a line of one: as is). Every rank of the mesh then holds the
+    global batch's value."""
+    if line.size == 1:
         return value
 
     def mean(x):
         if isinstance(x, torch.Tensor) and x.is_floating_point():
-            return ops.reduce(x.detach(), "mean")
+            x = x.detach().clone().contiguous()
+            ops.all_reduce_mean_([x], group=line.group)
         return x
 
     return ops._map(mean, value)
@@ -246,8 +269,8 @@ def _value_and_grad(loss_fn: Callable, params, batch, dtype, *,
     """The one gradient function of the fused step and
     `compute_gradients`: the f32 masters (detached leaves of `params`
     that require grad) cast to `dtype`, `loss_fn(cast, *batch,
-    **kwargs)`, and `autograd.grad` of its loss (`out[0]` with
-    `tuple_out`; times `scale` if given) at the masters. Each grad comes
+    **kwargs)`, and `autograd.grad` of its loss (`out[0]` with `tuple_out`; times
+    `scale` if given) at the masters. Each grad comes
     back contiguous, since autograd may hand back an expanded view (the
     grad of a sum) that the in-place passes after it cannot write, and a
     param with no grad gets zeros. Returns (out, grads as a tree like
@@ -267,9 +290,10 @@ def _value_and_grad(loss_fn: Callable, params, batch, dtype, *,
 
 def _clip_by_global_norm_(trees: list, max_norm: float) -> torch.Tensor:
     """Scale every leaf of `trees` in place by min(1, max_norm / (norm +
-    1e-6)), the norm taken over all of them as one group; returns the
-    pre-clip norm."""
-    norm = global_norm(trees)
+    1e-6)), the norm taken over all of them as one group (each tree's
+    `sum_of_squares`: a block's squares count once across its line);
+    returns the pre-clip norm."""
+    norm = torch.sqrt(sum(sum_of_squares(t) for t in trees))
     factor = torch.clamp(max_norm / (norm + 1e-6), max=1.0)
     for leaf in tree_leaves(trees):
         leaf.mul_(factor)
@@ -551,12 +575,33 @@ class Accelerator:
                 results[i] = self.prepare_data_loader(obj)
         return results[0] if len(results) == 1 else tuple(results)
 
+    def _place(self, tree: Any, plan: Any = None, device=None) -> Any:
+        """`tree` placed by `plan` (default: the planner's plan of `tree`
+        over the mesh, `plan_sharding` with the transformer rules, as the
+        reference plans params): each leaf this rank's block of it
+        (`shard_pytree`), on `device` (default: where each leaf is). A
+        tree that already holds blocks (`sharding.placement_of`: placed
+        before, or a copy of such a tree) stays as it is."""
+        if placement_of(tree, self.mesh) is not None:
+            return tree
+        if plan is None:
+            plan = plan_sharding(tree, self.mesh, transformer_rules())
+        placed = shard_pytree(tree, plan, device=device)
+        # where no leaf was cut or moved, the caller's own tree
+        if all(a is b for a, b in zip(tree_leaves(placed),
+                                      tree_leaves(tree))):
+            return tree
+        return placed
+
     def prepare_params(self, params: Any) -> Any:
-        """The params on the device; with the Accelerator's
+        """The params placed by the planner on the device (on this slice's
+        meshes, Mixtral's experts as this rank's block on the `expert`
+        axis, every other leaf whole); with the Accelerator's
         `device_placement=False`, the params as they were given."""
         if not self.device_placement:
             return params
-        return to_device(params, self.device, non_blocking=False)
+        return self._place(to_device(params, self.device,
+                                     non_blocking=False))
 
     def prepare_model(self, model: Any,
                       device_placement: bool | None = None) -> Any:
@@ -573,31 +618,46 @@ class Accelerator:
         return model
 
     def prepare_train_state(self, ts: TrainState) -> TrainState:
-        refuse_sharded_training(self.mesh, "prepare() of a TrainState")
+        """The state on the device, its params placed by the planner
+        (`prepare_params`) and its optimizer state and accumulation
+        buffer by the same plan (the moments of a block are blocks, the
+        step count stays whole); an fp16 loss scale where it has none."""
         dev = self.device
         loss_scale = ts.loss_scale
         if loss_scale is None and \
                 self.state.mixed_precision == PrecisionType.FP16:
             loss_scale = DynamicLossScale.create(device=dev)
-        def place(tree):
-            return to_device(tree, dev, non_blocking=False)
+        # a state whose params already hold blocks is placed already
+        plan = None if placement_of(ts.params, self.mesh) is not None \
+            else plan_sharding(ts.params, self.mesh, transformer_rules())
+
+        def place(tree, tree_plan=None):
+            tree = to_device(tree, dev, non_blocking=False)
+            return tree if tree_plan is None else self._place(tree, tree_plan)
 
         return dataclasses.replace(
-            ts, params=place(ts.params), opt_state=place(ts.opt_state),
-            grad_accum=place(ts.grad_accum),
+            ts, params=place(ts.params, plan),
+            opt_state=place(ts.opt_state, None if plan is None else
+                            plan_optimizer_sharding(ts.tx, ts.opt_state,
+                                                    plan, self.mesh)),
+            grad_accum=place(ts.grad_accum,
+                             None if ts.grad_accum is None else plan),
             loss_scale=None if loss_scale is None else loss_scale.to(dev),
             fp8_state=place(ts.fp8_state))
 
     def prepare_optimizer(self, tx: GradientTransformation, params: Any = None,
                           device_placement: bool | None = None
                           ) -> AcceleratedOptimizer:
-        """An `AcceleratedOptimizer` over `tx`, bound to `params` (its
-        state initialised from them, on their device), recorded for
-        `backward`, the clips and checkpoints. `device_placement` is
-        taken for the reference's signature: the optimizer places
-        nothing itself."""
+        """An `AcceleratedOptimizer` over `tx`, bound to `params` placed
+        by the planner where they are (an expert leaf cut to this rank's
+        block, as `prepare_params` cuts it; params already prepared stay
+        as they are), its state initialised from them; recorded for
+        `backward`, the clips and checkpoints. The optimizer updates
+        `opt.params`. `device_placement` is taken for the reference's
+        signature: the optimizer moves nothing to the device itself."""
         _refuse_torch_object(tx)
-        refuse_sharded_training(self.mesh, "prepare() of an optimizer")
+        if params is not None:
+            params = self._place(params)
         opt = AcceleratedOptimizer(tx, params=params)
         self._optimizers.append(opt)
         return opt
@@ -622,8 +682,8 @@ class Accelerator:
         `DataLoaderDispatcher`) whose batches land on the device, unless
         `device_placement` (here, else the Accelerator's) is False.
         `slice_fn_for_dispatch` is taken for the reference's signature,
-        which reads it nowhere either."""
-        refuse_sharded_training(self.mesh, "prepare() of a data loader")
+        which reads it nowhere either. The loader shards over this rank's
+        batch line (`state.data_line`)."""
         put_on_device = (device_placement if device_placement is not None
                          else self.device_placement)
         prepared = prepare_data_loader(
@@ -661,8 +721,9 @@ class Accelerator:
         """`(loss, grads)`, or `((loss, aux), grads)` with `has_aux`: the
         grads of `loss_fn(params cast to the compute dtype, *batch)` at
         the f32 params, by the fused step's gradient function. The batch
-        goes to the device and is not cast, as in the reference."""
-        refuse_sharded_training(self.mesh, "compute_gradients")
+        goes to the device and is not cast, as in the reference. The
+        grads, the loss and the aux are the global batch's: averaged over
+        this rank's batch line."""
         if self.state.mixed_precision == PrecisionType.FP8:
             raise NotImplementedError(
                 "mixed_precision='fp8' requires the fused "
@@ -670,22 +731,27 @@ class Accelerator:
                 "through TrainState); the eager compute_gradients/backward "
                 "chain does not support fp8.")
         batch = to_device(batch, self.device)
+        line = self._data_line()
         out, grads = _value_and_grad(loss_fn, params, batch,
                                      self.compute_dtype, tuple_out=has_aux)
         # the global batch's gradient and loss, as under the reference's
-        # GSPMD: averaged across processes here, not at the boundary
-        ops.all_reduce_mean_(tree_leaves(grads))
+        # GSPMD: averaged over the batch line here, not at the boundary
+        if line.size > 1:
+            ops.all_reduce_mean_(tree_leaves(grads), group=line.group)
         if has_aux:
-            return (_all_reduce_metric(out[0].detach()),
-                    _all_reduce_metric(out[1])), grads
-        return _all_reduce_metric(out.detach()), grads
+            return (_all_reduce_metric(out[0].detach(), line),
+                    _all_reduce_metric(out[1], line)), grads
+        return _all_reduce_metric(out.detach(), line), grads
+
+    def _data_line(self):
+        """This rank's batch line on the mesh (`state.DataLine`)."""
+        return data_line(self.mesh)
 
     def backward(self, loss_or_grads: Any = None, *, grads: Any = None,
                  **kwargs) -> None:
         """Add `grads / gradient_accumulation_steps` into every prepared
         optimizer's buffer. It takes the gradients `compute_gradients`
         returned; a loss raises, as in the reference."""
-        refuse_sharded_training(self.mesh, "backward")
         if grads is None:
             grads = loss_or_grads
         if grads is None or not tree_leaves(grads):
@@ -716,11 +782,10 @@ class Accelerator:
                 "only L2 global-norm clipping is supported")
         if not self.sync_gradients:
             return None
-        buffers = [o.gradients for o in self._optimizers
-                   if o.gradients is not None]
-        if not buffers:
+        opts = [o for o in self._optimizers if o.gradients is not None]
+        if not opts:
             return None
-        return _clip_by_global_norm_(buffers, max_norm)
+        return _clip_by_global_norm_([o.gradients for o in opts], max_norm)
 
     @torch.no_grad()
     def clip_grad_value_(self, parameters=None, clip_value: float = 1.0):
@@ -765,7 +830,6 @@ class Accelerator:
         new_fp8_state)`; fp8 never degrades to full precision silently."""
         if contract is not None or replication_threshold != 1 << 26:
             raise _unported("train_step(contract=...)", "analysis slice")
-        refuse_sharded_training(self.mesh, "train_step")
         if self.state.mixed_precision == PrecisionType.FP8:
             try:
                 params = inspect.signature(loss_fn).parameters
@@ -801,19 +865,31 @@ class Accelerator:
         return ops.gather(tensor)
 
     def gather_for_metrics(self, input_data, use_gather_object: bool = False):
-        """`gather` (objects through `gather_object`, flattened), then, in
-        the final batch of a loader whose tail was padded, the pad rows
-        dropped: with the loader's `tail_layout` (processes, padded, real)
-        each process's block keeps its `real` rows, else the first
-        `remainder` rows are kept."""
+        """`gather` over this rank's batch line (objects through
+        `gather_object`, flattened): the ranks of one `stage`, `seq` or
+        `expert` line hold the same rows, so each sample comes back once.
+        Then, in the final batch of a loader whose tail was padded, the
+        pad rows dropped: with the loader's `tail_layout` (processes,
+        padded, real) each process's block keeps its `real` rows, else
+        the first `remainder` rows are kept."""
         leaves = ops._leaves(input_data)
         recursively = bool(leaves) and all(ops.is_tensor(x) for x in leaves)
+        line = self._data_line()
+
+        def over_line(gather, alone):
+            # where the line is the world (a world of one included, where
+            # `ops.gather` is the identity) the world's own collective
+            if line.size == self.num_processes:
+                return gather(input_data)
+            return gather(input_data, line.group) if line.size > 1 \
+                else alone
+
         if use_gather_object or not recursively:
-            data = ops.gather_object(input_data)
+            data = over_line(ops.gather_object, [input_data])
             data = [x for sub in data
                     for x in (sub if isinstance(sub, list) else [sub])]
         else:
-            data = self.gather(input_data)
+            data = over_line(ops.gather, input_data)
         remainder = self.gradient_state.remainder
         if not (self.gradient_state.end_of_dataloader
                 and remainder is not None and remainder > 0):
@@ -1186,9 +1262,11 @@ class Accelerator:
 
     def get_state_dict(self, model, unwrap: bool = True):
         """The params (of a TrainState, or a params dict) as host
-        tensors, keys kept."""
+        tensors, keys kept. Params that hold this rank's blocks raise
+        (`checkpointing.refuse_blocks`)."""
         if isinstance(model, TrainState):
             model = model.params
+        checkpointing.refuse_blocks("get_state_dict", [model])
         return tree_map(lambda t: t.detach().to("cpu"), model)
 
 
@@ -1334,6 +1412,7 @@ class _TrainStep:
         # reference does (targets may overflow fp16)
         if dtype == torch.bfloat16:
             batch = cast_floating(batch, dtype)
+        line = acc._data_line()
         # the fp8 casts happen inside the model's fp8_dense calls
         out, grads = _value_and_grad(
             self.loss_fn, state.params, batch, dtype,
@@ -1354,8 +1433,11 @@ class _TrainStep:
             aux = out[1] if self.has_aux else None
         del out
         # the global batch's gradient, before the clip, the finite check
-        # and the update, so every process decides and updates alike
-        ops.all_reduce_mean_(tree_leaves(grads))
+        # and the update, so every process decides and updates alike: an
+        # average over the batch line alone (every leaf's gradient is
+        # already its whole `stage`, `seq` or `expert` line's)
+        if line.size > 1:
+            ops.all_reduce_mean_(tree_leaves(grads), group=line.group)
         if use_scale:
             inv = 1.0 / state.loss_scale.scale
             for g in tree_leaves(grads):
@@ -1387,9 +1469,9 @@ class _TrainStep:
         if use_scale:
             new_state = dataclasses.replace(
                 new_state, loss_scale=state.loss_scale.update(finite))
-        metrics = {"loss": _all_reduce_metric(loss.detach())}
+        metrics = {"loss": _all_reduce_metric(loss.detach(), line)}
         if self.has_aux:
-            metrics["aux"] = _all_reduce_metric(aux)
+            metrics["aux"] = _all_reduce_metric(aux, line)
         return new_state, metrics
 
     def _clipped(self, grads):

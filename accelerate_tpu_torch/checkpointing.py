@@ -388,6 +388,30 @@ def _save_payloads(payloads: dict[str, dict], async_save: bool) -> None:
     _writer.submit(staged)
 
 
+def refuse_blocks(what: str, trees: list) -> None:
+    """Raise for `what`, a checkpoint of trees that hold a rank's blocks
+    (`sharding.holds_blocks`: Mixtral's experts on an `expert` axis, a
+    copy of them, their moments):
+    each rank would write only its own block, and the main process's
+    files would hold its block as the whole model. Sharded checkpoints
+    arrive with the port's queue 1 item 6b, step 2."""
+    from .sharding.planner import holds_blocks
+
+    if any(tree is not None and holds_blocks(tree) for tree in trees):
+        raise NotImplementedError(
+            f"{what} of a state that holds this rank's blocks of its "
+            "params (experts placed on an `expert` axis) arrives with "
+            "sharded checkpoints, step 2 of the port's queue 1 item 6b "
+            "(ROADMAP.md); a state without blocks (a `seq` or `stage` "
+            "mesh) saves as before")
+
+
+def _held_trees(train_states, optimizers) -> list:
+    return [t for ts in train_states for t in (ts.params, ts.opt_state)] + \
+        [getattr(opt, name, None) for opt in optimizers
+         for name in ("params", "opt_state")]
+
+
 def save_accelerator_state(
     output_dir: str,
     train_states: list = (),
@@ -400,7 +424,9 @@ def save_accelerator_state(
 ) -> str:
     """Write a checkpoint into `output_dir` and commit it. With
     `async_save=True` the file writes overlap later steps; call
-    `wait_for_checkpoints()` (or `load`) before relying on the files."""
+    `wait_for_checkpoints()` (or `load`) before relying on the files.
+    A state that holds blocks raises (`refuse_blocks`)."""
+    refuse_blocks("save_state", _held_trees(train_states, optimizers))
     t0 = time.perf_counter()
     with span("checkpoint.save"):
         out = _save_accelerator_state(
@@ -615,7 +641,9 @@ def load_accelerator_state(
 ) -> dict:
     """Restore a checkpoint written by `save_accelerator_state`: each
     train state's and eager optimizer's tensors in place, the train
-    states' `step`, and the host objects."""
+    states' `step`, and the host objects. A state that holds blocks
+    raises (`refuse_blocks`)."""
+    refuse_blocks("load_state", _held_trees(train_states, optimizers))
     t0 = time.perf_counter()
     with span("checkpoint.restore"):
         out = _load_accelerator_state(
@@ -821,7 +849,9 @@ def save_model(
     """Write the params (a nested dict of tensors, on any device) as
     safetensors under `save_directory`, index-sharded above
     `max_shard_size`; `safe_serialization=False` pickles the flat dict of
-    host tensors to `model.pkl` instead."""
+    host tensors to `model.pkl` instead. Params that hold blocks raise
+    (`refuse_blocks`)."""
+    refuse_blocks("save_model", [params])
     save_directory = _abspath(save_directory)
     os.makedirs(save_directory, exist_ok=True)
     if not PartialState.is_main_process:

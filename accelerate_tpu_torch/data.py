@@ -21,9 +21,11 @@ The pipeline of a prepared loader, in two stages as in the reference:
 The host-side sharding keeps the reference's semantics whole:
 `SeedableRandomSampler`, `BatchSamplerShard`, `ShardedBatchIterable` and
 `IterableDatasetShard` take `num_processes` and `process_index`
-explicitly (default: the process state's), and `prepare_data_loader`
-re-shards a torch `DataLoader`, an unsized iterable or a sized batch
-stream across processes. A loader takes the port's mesh
+explicitly, and `prepare_data_loader` re-shards a torch `DataLoader`,
+an unsized iterable or a sized batch stream across the processes of the
+batch line (`state.data_line`: the ranks over the `data` and `fsdp`
+axes, so the ranks of one `stage`, `seq` or `expert` line see the same
+rows; the world on a mesh of `data` alone). A loader takes the port's mesh
 (`state.ProcessMesh`), and the dispatcher broadcasts each batch from
 process 0 to the others.
 
@@ -53,7 +55,7 @@ import torch
 
 from .logging import get_logger
 from .optimizers import tree_leaves
-from .state import GradientState, PartialState, ProcessMesh
+from .state import GradientState, PartialState, ProcessMesh, data_line
 from .telemetry.trace import span
 from .utils.constants import BATCH_AXES
 from .utils.dataclasses import DataLoaderConfiguration
@@ -853,13 +855,13 @@ class DataLoaderShard(DataLoaderStateMixin):
     @property
     def dp_size(self) -> int:
         """Data-parallel devices: the mesh's batch axes, else one device a
-        process."""
+        process of the batch line (`state.data_line`)."""
         if self.mesh is not None:
             size = 1
             for axis in self.batch_axes:
                 size *= self.mesh.shape.get(axis, 1)
             return size
-        return PartialState.num_processes
+        return data_line().size
 
     def _device(self) -> torch.device:
         return self.device if self.device is not None else \
@@ -884,7 +886,8 @@ class DataLoaderShard(DataLoaderStateMixin):
             batch = batch_to_numpy(
                 batch, keep_device_arrays=self.put_on_device)
             n = _batch_size(batch)
-            processes = PartialState.num_processes
+            # the processes that split the global batch: its batch line
+            processes = data_line(self.mesh).size
             per_host = max(self.dp_size // processes, 1)
             remainder = -1
             tail_layout = None
@@ -1006,7 +1009,8 @@ class DataLoaderDispatcher(DataLoaderStateMixin):
         from .utils.operations import broadcast_object_list, concatenate
 
         if self.state.is_main_process:
-            fetches = 1 if self.split_batches else self.state.num_processes
+            fetches = 1 if self.split_batches else \
+                data_line(self.mesh, self.state).size
             parts = []
             for _ in range(fetches):
                 batch = next(source, _SENTINEL)
@@ -1033,7 +1037,10 @@ class DataLoaderDispatcher(DataLoaderStateMixin):
             while not stop:
                 nxt, stop = self._fetch_and_broadcast(source)
                 n = _batch_size(current)
-                P = self.state.num_processes
+                # the batch line splits the global batch; the ranks of a
+                # `stage`, `seq` or `expert` line take the same slice
+                line = data_line(self.mesh, self.state)
+                P = line.size
                 remainder = -1
                 if n is not None and n % P != 0:
                     # pad to divisible (wraparound) rather than drop the
@@ -1048,7 +1055,7 @@ class DataLoaderDispatcher(DataLoaderStateMixin):
                 # (short metadata lists, per-class weights) replicate
                 per_host = n // P if n else None
                 if per_host is not None and P > 1:
-                    start = self.state.process_index * per_host
+                    start = line.index * per_host
                     sl = slice(start, start + per_host)
                     rows_now = n
 
@@ -1144,8 +1151,10 @@ def prepare_data_loader(
     prefetch_size: int | None = None,
     device_prefetch_depth: int | None = None,
 ):
-    """Shard any batch iterable across processes and hand its batches out
-    on `device` (default: the process's device).
+    """Shard any batch iterable across the processes of the batch line
+    (`state.data_line` of `mesh`, else of the process state's mesh: the
+    world on a mesh of `data` alone) and hand its batches out on
+    `device` (default: the process's device).
 
     Takes a torch `DataLoader` (rebuilt around a `BatchSamplerShard` over
     its dataset), an unsized iterable (`IterableDatasetShard`), a sized
@@ -1171,10 +1180,13 @@ def prepare_data_loader(
         device_prefetch_depth = (
             config.device_prefetch_depth if config is not None else 2
         )
+    # the batch line's shard: the ranks of one `stage`, `seq` or `expert`
+    # line see the same rows (the reference shards over `data`/`fsdp`)
+    line = data_line(mesh)
     if num_processes is None:
-        num_processes = PartialState.num_processes
+        num_processes = line.size
     if process_index is None:
-        process_index = PartialState.process_index
+        process_index = line.index
 
     if dispatch_batches:
         if explicit_prefetch:

@@ -19,6 +19,17 @@ load-balancing loss. `moe_impl` picks the dispatch, as in the reference:
   (`parallel.expert_parallel_moe_a2a`, `moe_block_a2a`); off a mesh it
   runs the sort dispatch over every expert, as the reference does.
 
+On an `expert` mesh a rank may hold its block of the experts ([L, E/P,
+...], as `Accelerator.prepare` places them): "a2a" runs each rank's
+block, and "dense" and "sparse" gather the layer's blocks over the
+`expert` line first (`_whole_experts`), so their values are exactly
+one process's. In a world of several processes the load-balancing
+loss takes the global batch's fractions in every forward, averaged over
+this rank's batch line (`state.data_line`), as the reference's GSPMD
+takes them over the global arrays: every rank of the line runs each
+forward, which is a collective there (so is the gather of block-held
+experts).
+
 `sequence_parallel=True` is taken and changes nothing, as in llama
 (`models.common.sp_constrain`), and the ring and Ulysses attention
 backends come through `_as_llama()`.
@@ -34,8 +45,12 @@ import torch.nn.functional as F
 
 from ..ops.fp8 import _amax, _Fp8Matmul, fp8_expert_dense, \
     local_grad_scales, stacked_fp8_metas, update_meta
+from ..optimizers import tree_leaves, tree_map
 from ..parallel.moe import expert_parallel_moe_a2a, sort_combine, \
     sort_dispatch, topk_lower_index_first
+from ..state import data_line, line_group, mesh_or_state
+from ..utils import operations as ops
+from ..utils.constants import AXIS_EXPERT
 from .common import (
     cross_entropy_loss,
     logits_f32,
@@ -165,7 +180,11 @@ def _ein(eq: str, a: torch.Tensor, b: torch.Tensor, dtype) -> torch.Tensor:
 
 
 def _route(config: MixtralConfig, moe: dict, x: torch.Tensor):
-    """(probs [B, S, E], top-k probs renormalised, top-k ids, aux loss)."""
+    """(probs [B, S, E], top-k probs renormalised, top-k ids, aux loss).
+    On a batch line of several ranks (`state.data_line`) the aux loss's
+    fractions are the global batch's, averaged over the line
+    (`ops.axis_mean`, one all-reduce), as the reference takes them over
+    the global arrays."""
     E, k = config.num_local_experts, config.num_experts_per_tok
     kernel = moe["router"]["kernel"]
     ct = torch.promote_types(x.dtype, kernel.dtype)
@@ -176,8 +195,32 @@ def _route(config: MixtralConfig, moe: dict, x: torch.Tensor):
     token_frac = torch.mean(F.one_hot(topk_idx, E).float().sum(dim=2),
                             dim=(0, 1)) / k
     prob_frac = torch.mean(probs, dim=(0, 1))
+    line = data_line()
+    if line.size > 1:
+        token_frac, prob_frac = ops.axis_mean(
+            torch.cat([token_frac, prob_frac]), line.group).split(E)
     aux = E * torch.sum(token_frac * prob_frac)
     return probs, topk_probs, topk_idx, aux
+
+
+def _whole_experts(config: MixtralConfig, experts: dict) -> dict:
+    """A layer's experts, whole: where this rank holds its block of them
+    on the mesh's `expert` axis ([E/P, ...] leaves), the line's blocks
+    gathered in axis order (`ops.axis_gather`, whose gradient keeps this
+    rank's block); whole [E, ...] experts as they are."""
+    E = config.num_local_experts
+    lead = tree_leaves(experts)[0].shape[0]
+    if lead == E:
+        return experts
+    mesh = mesh_or_state(None)
+    size = 1 if mesh is None else mesh.shape.get(AXIS_EXPERT, 1)
+    if lead * size != E:
+        raise ValueError(
+            f"the experts lead with {lead}: expected the {E} experts, or "
+            f"this rank's block of them on an `expert` axis (this mesh's "
+            f"is {size})")
+    group = line_group(mesh, AXIS_EXPERT, "Mixtral's block-held experts")
+    return tree_map(lambda p: ops.axis_gather(p, 0, group), experts)
 
 
 def moe_block(config: MixtralConfig, moe: dict, x: torch.Tensor,
@@ -198,7 +241,7 @@ def moe_block(config: MixtralConfig, moe: dict, x: torch.Tensor,
     _, topk_probs, topk_idx, aux = _route(config, moe, x)
     combine = torch.sum(F.one_hot(topk_idx, E).to(x.dtype)
                         * topk_probs[..., None].to(x.dtype), dim=2)
-    experts = moe["experts"]
+    experts = _whole_experts(config, moe["experts"])
     if fp8 is not None:
         x2 = x.reshape(b * s, h)
         g8, mg = fp8_expert_dense(x2, experts["gate_proj"]["kernel"],
@@ -304,6 +347,7 @@ def moe_block_sparse(config: MixtralConfig, moe: dict, x: torch.Tensor,
     E, k = config.num_local_experts, config.num_experts_per_tok
     cap = min(int(math.ceil(k * s / E * config.capacity_factor)), s * k)
     _, topk_probs, topk_idx, aux = _route(config, moe, x)
+    moe = dict(moe, experts=_whole_experts(config, moe["experts"]))
     if fp8 is None and s * k * E * cap <= _ONEHOT_DISPATCH_MAX_ELEMENTS:
         expert_out, combine = _dispatch_onehot(config, moe, x, topk_idx,
                                                topk_probs, cap)

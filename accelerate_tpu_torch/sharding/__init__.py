@@ -11,7 +11,9 @@ from .planner import (
     batch_sharding,
     batch_spec,
     describe_plan,
+    holds_blocks,
     plan_optimizer_sharding,
+    placement_of,
     plan_sharding,
     shard_pytree,
 )

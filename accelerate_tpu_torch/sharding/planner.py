@@ -5,7 +5,8 @@ The reference emits `jax.sharding.NamedSharding`s and lets GSPMD insert
 the collectives. The port keeps the plan (the same `PartitionSpec` per
 leaf, from the same rules) over its process mesh (`state.ProcessMesh`:
 one process per device), and places a tree by slicing each leaf down to
-this rank's shard (`shard_pytree`). The forward that reads such shards
+this rank's shard (`shard_pytree`), which records the placement on
+the mesh (`placement_of`). The forward that reads such shards
 does its own collectives (`models/tensor_parallel.py`).
 
 - ZeRO-3 / FSDP FULL_SHARD  -> params sharded on the `fsdp` axis
@@ -23,6 +24,7 @@ NamedTuple field names with "/", as the reference's do.
 from __future__ import annotations
 
 import dataclasses
+import weakref
 from typing import Any, Callable
 
 import numpy as np
@@ -40,6 +42,8 @@ __all__ = [
     "batch_spec",
     "batch_sharding",
     "shard_pytree",
+    "placement_of",
+    "holds_blocks",
     "describe_plan",
 ]
 
@@ -323,7 +327,11 @@ def shard_pytree(tree: Any, plan: Any, rank: int | None = None,
     the rank's coordinate on each axis its spec names (a copy, contiguous)
     and put on `device` (the plan's mesh's device by default). A None plan
     leaf, or a leaf without a shape, passes through untouched. `rank` is
-    this process's rank in the mesh (default: the live world's)."""
+    this process's rank in the mesh (default: the live world's). Where a
+    leaf is cut, the placement is recorded on the mesh
+    (`placement_of`)."""
+    cut: dict = {}
+
     def place(leaf, sharding):
         if sharding is None:
             return leaf
@@ -338,10 +346,54 @@ def shard_pytree(tree: Any, plan: Any, rank: int | None = None,
         if whole and leaf.device == dev:
             return leaf
         # a copy, never a view: a view would keep the whole leaf alive
-        return leaf[slices].to(dev, copy=True,
-                               memory_format=torch.contiguous_format)
+        block = leaf[slices].to(dev, copy=True,
+                                memory_format=torch.contiguous_format)
+        if not whole:
+            cut[id(block)] = sharding
+        return block
 
-    return _zip_map(place, tree, plan)
+    placed = _zip_map(place, tree, plan)
+    if cut:
+        leaves = leaves_with_path(placed)
+        mesh = next(iter(cut.values())).mesh
+        _PLACEMENTS.setdefault(mesh, {})[_tree_key(leaves)] = tuple(
+            cut[id(leaf)].spec if id(leaf) in cut else None
+            for _, leaf in leaves)
+    return placed
+
+
+# mesh -> {(path, shape) of every leaf: the spec of each leaf, None where
+# it is whole}: the placements `shard_pytree` cut on each mesh, kept by
+# the placed tree's paths and shapes, so that a copy of the tree, a
+# tree_map of it and its gradients (which mirror it) are known as well
+_PLACEMENTS: weakref.WeakKeyDictionary = weakref.WeakKeyDictionary()
+
+
+def _tree_key(leaves: list) -> tuple:
+    return tuple((path, tuple(leaf.shape)) for path, leaf in leaves)
+
+
+def placement_of(tree, mesh=None) -> tuple | None:
+    """Where `tree` holds this rank's blocks of larger leaves: the
+    `PartitionSpec` of each leaf (None for a whole one), in
+    `leaves_with_path` order, of the placement `shard_pytree` cut on
+    `mesh` (default: the process state's) of a tree with `tree`'s paths
+    and shapes. That is the placed tree itself, a copy or a tree_map of
+    it, or its gradients. None where no such placement cut a leaf (a
+    whole tree of the same paths and shapes as a placed one is taken
+    for it)."""
+    from ..state import mesh_or_state
+
+    mesh = mesh_or_state(mesh)
+    made = None if mesh is None else _PLACEMENTS.get(mesh)
+    if not made or tree is None:
+        return None
+    return made.get(_tree_key(leaves_with_path(tree)))
+
+
+def holds_blocks(tree, mesh=None) -> bool:
+    """Whether `tree` holds blocks of larger leaves (`placement_of`)."""
+    return placement_of(tree, mesh) is not None
 
 
 def describe_plan(plan: Any, max_rows: int = 120) -> str:

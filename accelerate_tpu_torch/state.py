@@ -30,6 +30,7 @@ and `_reset_state` clears them all (for tests).
 from __future__ import annotations
 
 import atexit
+import dataclasses
 import os
 from contextlib import contextmanager
 from datetime import timedelta
@@ -44,6 +45,7 @@ from .utils.constants import (
     AXIS_EXPERT,
     AXIS_SEQ,
     AXIS_STAGE,
+    BATCH_AXES,
     ENV_CPU,
     ENV_DEBUG_MODE,
     ENV_LOCAL_RANK,
@@ -359,32 +361,33 @@ def _refuse_sharded(axes: dict[str, int]) -> None:
                 "parallelism over `expert`")
 
 
-# the axes the Accelerator takes, and the training route of the three
-# whose ranks hold different parts of the work
+# the axes the Accelerator takes
 _TAKEN_AXES = (AXIS_DATA, AXIS_STAGE, AXIS_SEQ, AXIS_EXPERT)
-_SHARDED_ROUTES = {
-    AXIS_STAGE: "train the stages with parallel.pipeline_value_and_grad",
-    AXIS_SEQ: "differentiate through parallel.context_attention (or a "
-              "model with attention_backend 'ring' or 'ulysses') with "
-              "torch.autograd",
-    AXIS_EXPERT: "differentiate through parallel.expert_parallel_moe_a2a "
-                 "(or Mixtral with moe_impl='a2a') with torch.autograd",
-}
 
 
-def refuse_sharded_training(mesh: "ProcessMesh", what: str) -> None:
-    """Raise for `what`, a training call, on a mesh whose `stage`, `seq`
-    or `expert` axis is above 1. The loaders shard batches over the
-    whole world, where the reference's shard only over `data`/`fsdp`
-    (ranks on one `stage`, `seq` or `expert` line see the same rows),
-    and the gradient average runs over the whole world, which would mix
-    the stages or the experts that different ranks own."""
-    for axis, route in _SHARDED_ROUTES.items():
-        size = mesh.shape.get(axis, 1)
-        if size > 1:
-            raise NotImplementedError(
-                f"{what} on a mesh with a `{axis}` axis of {size} arrives "
-                f"with the training half of {_ITEM_6B}, part 1; {route}")
+@dataclasses.dataclass(frozen=True)
+class DataLine:
+    """This rank's batch line (`ProcessMesh.data_line`): the ranks that
+    split a global batch between them. `size` ranks and this rank's
+    `index` on the line, over `axes` of `mesh` (None: the world)."""
+
+    size: int
+    index: int
+    mesh: "ProcessMesh | None" = None
+    axes: tuple = ()
+
+    @property
+    def group(self):
+        """The line's group: None for a line of one, the world's where
+        the line is the world, else the mesh's subgroup, made on first
+        access by every rank (`ProcessMesh.group_over`). Read it where
+        every rank does (a step's collectives), never on a loader's
+        prefetch thread."""
+        if self.size == 1:
+            return None
+        if self.mesh is None:
+            return torch.distributed.group.WORLD
+        return self.mesh.group_over(self.axes)
 
 
 class ProcessMesh:
@@ -424,16 +427,23 @@ class ProcessMesh:
         idx = np.unravel_index(rank, tuple(self.shape.values()))
         return {a: int(i) for a, i in zip(self.axis_names, idx)}
 
+    def line_ranks(self, axes, rank: int | None = None) -> list[int]:
+        """The ranks that share `rank`'s coordinates on every axis but
+        `axes`, row-major over `axes` in the mesh's axis order: `rank`'s
+        line along those axes."""
+        c = self.coords(self.rank if rank is None else rank)
+        axes = [a for a in self.axis_names if a in axes]
+        dims = tuple(self.shape.values())
+        out = []
+        for idx in np.ndindex(*(self.shape[a] for a in axes)):
+            c.update(zip(axes, idx))
+            out.append(int(np.ravel_multi_index(
+                [c[a] for a in self.axis_names], dims)))
+        return out
+
     def axis_ranks(self, axis: str, rank: int | None = None) -> list[int]:
         """The ranks on `rank`'s line along `axis`, in axis order."""
-        c = self.coords(self.rank if rank is None else rank)
-        out = []
-        for i in range(self.shape[axis]):
-            c[axis] = i
-            out.append(int(np.ravel_multi_index(
-                [c[a] for a in self.axis_names],
-                tuple(self.shape.values()))))
-        return out
+        return self.line_ranks((axis,), rank)
 
     def axis_index(self, axis: str) -> int:
         """This rank's index along `axis`."""
@@ -447,14 +457,41 @@ class ProcessMesh:
         return {a: self.group(a) for a in self.axis_names}
 
     def group(self, axis: str):
+        return self.group_over((axis,))
+
+    def group_over(self, axes):
+        """The group of this rank's line along `axes` (`line_ranks`):
+        None where the line is one rank or no world is live, the world's
+        group where it is the whole world, else a subgroup (`new_group`,
+        made on first access by every rank, for every line along those
+        axes, and held weakly)."""
+        axes = tuple(a for a in self.axis_names if a in axes)
         live = PartialState.num_processes > 1 and _dist_live()
-        if not live or self.shape[axis] == 1:
+        if not live or int(np.prod([self.shape[a] for a in axes])) == 1:
             return None
         world = torch.distributed.get_world_size()
-        line = self.axis_ranks(axis)
+        line = self.line_ranks(axes)
         if line == list(range(world)):
             return torch.distributed.group.WORLD
-        return _subgroup(self, axis, tuple(line))
+        return _subgroup(self, axes, tuple(line))
+
+    def data_line(self) -> DataLine:
+        """This rank's batch line: the ranks that share its `stage`,
+        `seq`, `expert` (and `model`) coordinates, over the batch axes
+        (`data`, `fsdp`). They split each global batch between them, as
+        the reference shards a batch over those axes only, so the ranks
+        of one `stage`, `seq` or `expert` line see the same rows, and
+        the gradients average over this line alone. On a mesh of `data`
+        alone the line is the world. No group is made here (see
+        `DataLine.group`)."""
+        axes = tuple(a for a in self.axis_names if a in BATCH_AXES)
+        size = int(np.prod([self.shape[a] for a in axes]))
+        if size == 1:
+            return DataLine(1, 0)
+        coords = self.coords(self.rank)
+        index = int(np.ravel_multi_index(
+            [coords[a] for a in axes], [self.shape[a] for a in axes]))
+        return DataLine(size, index, self, axes)
 
     def __repr__(self) -> str:
         return f"ProcessMesh({self.shape})"
@@ -466,6 +503,22 @@ def mesh_or_state(mesh: "ProcessMesh | None") -> "ProcessMesh | None":
     if mesh is None and PartialState._shared_state:
         mesh = PartialState().mesh
     return mesh
+
+
+def data_line(mesh: "ProcessMesh | None" = None,
+              state: "PartialState | None" = None) -> DataLine:
+    """The batch line (`ProcessMesh.data_line`) of `mesh`, else of the
+    process state's mesh; the world of `state`'s processes (default: the
+    process state's), where no mesh lays out its processes (one process:
+    a line of one)."""
+    state = PartialState if state is None else state
+    world = state.num_processes
+    if world == 1:
+        return DataLine(1, 0)
+    mesh = mesh_or_state(mesh)
+    if mesh is None or mesh.size != world:
+        return DataLine(world, state.process_index)
+    return mesh.data_line()
 
 
 def line_group(mesh: ProcessMesh, axis: str, what: str):
@@ -480,15 +533,15 @@ def line_group(mesh: ProcessMesh, axis: str, what: str):
     return group
 
 
-# (mesh shape, axis, ranks) -> weak reference to the subgroup: the world
+# (mesh shape, axes, ranks) -> weak reference to the subgroup: the world
 # owns its groups, and `destroy_process_group` ends them and these
 _SUBGROUPS: dict = {}
 
 
-def _subgroup(mesh: ProcessMesh, axis: str, line: tuple):
+def _subgroup(mesh: ProcessMesh, axes: tuple, line: tuple):
     import weakref
 
-    key = (tuple(mesh.shape.items()), axis, line)
+    key = (tuple(mesh.shape.items()), axes, line)
     ref = _SUBGROUPS.get(key)
     group = ref() if ref is not None else None
     if group is not None:
@@ -498,7 +551,7 @@ def _subgroup(mesh: ProcessMesh, axis: str, line: tuple):
     world = torch.distributed.get_world_size()
     seen, mine = set(), None
     for r in range(min(world, mesh.size)):
-        ranks = tuple(mesh.axis_ranks(axis, r))
+        ranks = tuple(mesh.line_ranks(axes, r))
         if ranks in seen:
             continue
         seen.add(ranks)

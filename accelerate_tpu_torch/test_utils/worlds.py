@@ -708,14 +708,12 @@ def _case_dispatch(case, mesh):
 
 def _case_accelerator(case, mesh):
     """An Accelerator on a `data` x `stage` mesh: its mesh, a pipeline on
-    it, a 1F1B step on its stage lines, and each training call's error;
-    then a `model` axis's refusal."""
-    from .. import optimizers
+    it, a 1F1B step on its stage lines, and the training calls
+    (`_training_calls`); then a `model` axis's refusal."""
     from ..accelerator import Accelerator
     from ..inference import prepare_pipeline
     from ..parallel import pipeline_value_and_grad
     from ..state import PartialState
-    from ..training import TrainState
     from ..utils.dataclasses import MeshConfig
 
     PartialState._reset_state()
@@ -733,25 +731,8 @@ def _case_accelerator(case, mesh):
         _tanh_affine_stage, _mse, staged,
         _tensors(case["x"]), _tensors(case["x"]) * 0.5, 4, mesh=acc.mesh)
     out["loss"], out["grads"] = float(loss), _numpy(grads)
+    out["trained"] = _training_calls(acc)
     w = {"w": torch.zeros((2, 2))}
-    calls = {
-        "train_state": lambda: acc.prepare(TrainState.create(
-            apply_fn=None, params=w, tx=optimizers.adamw(1e-3))),
-        "optimizer": lambda: acc.prepare_optimizer(optimizers.adamw(1e-3),
-                                                   params=w),
-        "data_loader": lambda: acc.prepare([{"x": np.zeros((4, 2))}]),
-        "train_step": lambda: acc.train_step(lambda p, b: p["w"].sum()),
-        "compute_gradients": lambda: acc.compute_gradients(
-            lambda p, b: p["w"].sum(), w, {"x": torch.zeros(2)}),
-        "backward": lambda: acc.backward(w),
-    }
-    out["refused"] = {}
-    for name, call in calls.items():
-        try:
-            call()
-            out["refused"][name] = None
-        except NotImplementedError as e:
-            out["refused"][name] = str(e)
     out["params_prepared"] = acc.prepare(w)["w"].shape == (2, 2)
     for axes in case["refused_axes"]:
         PartialState._reset_state()
@@ -972,37 +953,72 @@ def _unflat(flat: dict):
     return tree
 
 
-def _training_refusals(acc) -> dict:
+def _line(acc) -> tuple:
+    """(size, index) of this rank's batch line."""
+    line = acc._data_line()
+    return line.size, line.index
+
+
+def _training_calls(acc) -> dict:
+    """Each training call of the Accelerator on its mesh, on a linear
+    least-squares model over a global batch of two batches of 4 rows:
+    `errors` (each call's error, None where it ran), the batch-line
+    index and the rows this rank's loader gave, the fused step's loss and
+    updated `w`, and the grads and loss of `compute_gradients` (through
+    `backward` into a prepared optimizer's buffer)."""
     from .. import optimizers
     from ..training import TrainState
 
-    w = {"w": torch.zeros((2, 2))}
+    x = (np.arange(16, dtype=np.float32).reshape(8, 2) - 7.5) / 8
+    y = np.stack([x[:, 0] * 2 - x[:, 1], x[:, 1] * 0.5 + 1], axis=1)
+    batches = [{"x": x[:4], "y": y[:4]}, {"x": x[4:], "y": y[4:]}]
+
+    def loss_fn(p, b):
+        return torch.mean((b["x"] @ p["w"] - b["y"]) ** 2)
+
+    def fresh():
+        return {"w": torch.zeros((2, 2))}
+
+    out = {"global_x": x, "global_y": y, "line": _line(acc),
+           "errors": {}}
+    got = {}
     calls = {
-        "train_state": lambda: acc.prepare(TrainState.create(
-            apply_fn=None, params=w, tx=optimizers.adamw(1e-3))),
-        "optimizer": lambda: acc.prepare_optimizer(optimizers.adamw(1e-3),
-                                                   params=w),
-        "data_loader": lambda: acc.prepare([{"x": np.zeros((4, 2))}]),
-        "train_step": lambda: acc.train_step(lambda p, b: p["w"].sum()),
-        "compute_gradients": lambda: acc.compute_gradients(
-            lambda p, b: p["w"].sum(), w, {"x": torch.zeros(2)}),
-        "backward": lambda: acc.backward(w),
+        "train_state": lambda: got.update(state=acc.prepare(
+            TrainState.create(apply_fn=None, params=fresh(),
+                              tx=optimizers.adamw(1e-3)))),
+        "optimizer": lambda: got.update(opt=acc.prepare_optimizer(
+            optimizers.adamw(1e-3), params=fresh())),
+        "data_loader": lambda: got.update(rows=list(acc.prepare(batches))),
+        "train_step": lambda: got.update(step=acc.train_step(loss_fn)(
+            got["state"], got["rows"][0])),
+        "compute_gradients": lambda: got.update(grads=acc.compute_gradients(
+            loss_fn, got["opt"].params, got["rows"][0])),
+        "backward": lambda: acc.backward(got["grads"][1]),
     }
-    out = {}
     for name, call in calls.items():
         try:
             call()
-            out[name] = None
-        except NotImplementedError as e:
-            out[name] = str(e)
+            out["errors"][name] = None
+        except Exception as e:  # recorded: the test names the call
+            out["errors"][name] = f"{type(e).__name__}: {e}"
+    if "rows" in got:
+        out["rows"] = [_numpy(b) for b in got["rows"]]
+    if "step" in got:
+        state, m = got["step"]
+        out["step_loss"] = float(m["loss"])
+        out["step_w"] = state.params["w"].numpy()
+    if "grads" in got:
+        loss, grads = got["grads"]
+        out["loss"], out["grads"] = float(loss), grads["w"].numpy()
+        out["buffer"] = got["opt"].gradients["w"].numpy()
     return out
 
 
 def _case_cp_accelerator(case, mesh, counter):
     """The context-parallel plugin (given, then from the launcher's
     variables), the mesh it resolves, `Accelerator.context_attention` by
-    mode, and the training calls' refusals on `seq` and `expert`
-    meshes."""
+    mode, and the training calls on `seq` and `expert` meshes
+    (`_training_calls`)."""
     from ..accelerator import Accelerator
     from ..state import PartialState
     from ..utils.constants import ENV_CP_DEGREE, ENV_CP_MODE
@@ -1017,7 +1033,7 @@ def _case_cp_accelerator(case, mesh, counter):
     with torch.no_grad():
         out["plugin_out"] = acc.context_attention(q, k, v).numpy()
     out["plugin_calls"] = counter.take()
-    out["refused_seq"] = _training_refusals(acc)
+    out["trained_seq"] = _training_calls(acc)
     out["params_prepared"] = tuple(acc.prepare(
         {"w": torch.zeros((2, 2))})["w"].shape)
     PartialState._reset_state()
@@ -1037,7 +1053,7 @@ def _case_cp_accelerator(case, mesh, counter):
     acc = Accelerator(cpu=True, mesh_config=MeshConfig(
         axes={"data": -1, "expert": 2}))
     out["expert_mesh"] = dict(acc.mesh.shape)
-    out["refused_expert"] = _training_refusals(acc)
+    out["trained_expert"] = _training_calls(acc)
     PartialState._reset_state()
     PartialState(cpu=True)
     return out
@@ -1242,4 +1258,352 @@ def expert_parallel_forms(out_dir: str, cases: list) -> None:
     for case in cases:
         mesh = ProcessMesh(case["mesh"], device="cpu")
         out[case["name"]] = _EP_CASES[case["kind"]](case, mesh)
+    _dump(out_dir, out)
+
+
+# -- training on `stage`, `seq` and `expert` meshes ----------------------------
+
+
+def _whole_numpy(tree):
+    """A params tree as host arrays, each block (`sharding.placement_of`)
+    gathered over its line into the whole leaf: a collective, called by
+    every rank of the mesh."""
+    from ..sharding.planner import leaves_with_path, placement_of
+    from ..state import mesh_or_state
+    from ..utils import operations as ops
+
+    mesh = mesh_or_state(None)
+    placement = placement_of(tree) or [None] * len(leaves_with_path(tree))
+    flat = {}
+    for (path, leaf), spec in zip(leaves_with_path(tree), placement):
+        leaf = leaf.detach()
+        for dim, entry in enumerate(spec or ()):
+            if entry is not None:
+                leaf = ops.axis_all_gather(leaf, dim, mesh.group(entry))
+        flat[path] = leaf.cpu().numpy()
+    return _unflat(flat)
+
+
+def _train_loop(acc, state, loader, loss_fn, steps):
+    """`steps` passes of the fused step over `loader`: the state, each
+    step's loss and the rows each step trained on."""
+    step = acc.train_step(loss_fn)
+    losses, rows = [], []
+    for _ in range(steps):
+        for batch in loader:
+            rows.append(_numpy(batch))
+            state, m = step(state, batch)
+            losses.append(float(m["loss"]))
+    return state, losses, rows
+
+
+def _refusal(call):
+    try:
+        call()
+    except NotImplementedError as e:
+        return str(e)
+    return None
+
+
+def _case_train_cp(case):
+    """The long-context example's loop: the plugin's mesh, a prepared
+    `TrainState` and loader, `train_step` of llama with the ring or
+    Ulysses backend."""
+    from .. import optimizers
+    from ..accelerator import Accelerator
+    from ..models import llama
+    from ..state import PartialState
+    from ..training import TrainState
+    from ..utils.dataclasses import ContextParallelPlugin, \
+        DataLoaderConfiguration
+
+    PartialState._reset_state()
+    acc = Accelerator(
+        cpu=True, gradient_clipping=1.0,
+        context_parallel_plugin=ContextParallelPlugin(
+            mode=case["mode"], seq_degree=case["seq_degree"]),
+        dataloader_config=DataLoaderConfiguration(split_batches=True))
+    cfg = llama.LlamaConfig.tiny(**case["config"],
+                                 attention_backend=case["mode"])
+    state = acc.prepare(TrainState.create(
+        apply_fn=None, params=_tensors(case["params"]),
+        tx=optimizers.adamw(case["lr"])))
+    loader = acc.prepare([{"input_ids": case["ids"]}])
+    state, losses, rows = _train_loop(
+        acc, state, loader, lambda p, b: llama.causal_lm_loss(cfg, p, b),
+        case["steps"])
+    return {"mesh": dict(acc.mesh.shape), "line": _line(acc),
+            "losses": losses, "rows": rows,
+            "params": _whole_numpy(state.params)}
+
+
+def _case_train_moe(case):
+    """Mixtral on a `data` x `expert` mesh: the prepared state's expert
+    blocks, the fused steps, the params gathered whole, one eager step's
+    pre-clip norm, the forward on blocks against the forward on the
+    whole experts, and the checkpoint refusals."""
+    from .. import optimizers
+    from ..accelerator import Accelerator
+    from ..models import mixtral
+    from ..state import PartialState
+    from ..training import TrainState
+    from ..utils.dataclasses import DataLoaderConfiguration, MeshConfig
+
+    PartialState._reset_state()
+    fp8 = case["mixed_precision"] == "fp8"
+    acc = Accelerator(
+        cpu=True, mixed_precision=case["mixed_precision"],
+        gradient_clipping=1.0, mesh_config=MeshConfig(axes=case["axes"]),
+        dataloader_config=DataLoaderConfiguration(split_batches=True))
+    cfg = mixtral.MixtralConfig.tiny(**case["config"],
+                                     moe_impl=case["impl"])
+    state = acc.prepare(TrainState.create(
+        apply_fn=None, params=_tensors(case["params"]),
+        tx=optimizers.adamw(case["lr"]),
+        fp8_state=mixtral.init_fp8_state(cfg, device="cpu") if fp8
+        else None))
+    experts = state.params["layers"]["moe"]["experts"]
+    out = {"mesh": dict(acc.mesh.shape),
+           "line": _line(acc),
+           "expert_shapes": {n: tuple(p["kernel"].shape)
+                             for n, p in experts.items()},
+           "moment_shapes": {
+               k: tuple(getattr(state.opt_state, k)["layers"]["moe"][
+                   "experts"]["gate_proj"]["kernel"].shape)
+               for k in ("mu", "nu")}}
+    if fp8:
+        def loss_fn(p, b, fp8_state=None):
+            return mixtral.causal_lm_loss(cfg, p, b, fp8_state=fp8_state)
+    else:
+        def loss_fn(p, b):
+            return mixtral.causal_lm_loss(cfg, p, b)
+    loader = acc.prepare([{"input_ids": case["ids"]}])
+    (batch,) = list(loader)
+    if not fp8:
+        # the forward on the blocks against the whole experts' (one
+        # process's values), before any step
+        whole = _tensors(case["params"])
+        with torch.no_grad():
+            out["loss_blocks"] = float(loss_fn(state.params, batch))
+            out["loss_whole"] = float(loss_fn(whole, batch))
+    out["save_state"] = _refusal(lambda: acc.save_state(
+        os.path.join(case["tmp"], f"ckpt{PartialState.process_index}"),
+        state=state))
+    out["get_state_dict"] = _refusal(lambda: acc.get_state_dict(state))
+    state, out["losses"], out["rows"] = _train_loop(
+        acc, state, loader, loss_fn, case["steps"])
+    out["params"] = _whole_numpy(state.params)
+    if not fp8:
+        # the eager path's pre-clip norm on fresh params
+        params = acc.prepare(_tensors(case["params"]))
+        opt = acc.prepare_optimizer(optimizers.adamw(case["lr"]),
+                                    params=params)
+        loss, grads = acc.compute_gradients(loss_fn, opt.params, batch)
+        acc.backward(grads)
+        out["eager_loss"] = float(loss)
+        out["pre_clip_norm"] = float(acc.clip_grad_norm_(max_norm=1.0))
+        out["optimizer_save"] = _refusal(lambda: acc.save_state(
+            os.path.join(case["tmp"], f"eager{PartialState.process_index}")))
+    return out
+
+
+def _case_train_moe_copies(case):
+    """Mixtral's experts as blocks on a `data` x `expert` mesh, trained
+    through copies: `train_step(donate=False)`, whose every step takes
+    the copy the last one returned, with each step's pre-clip norm (the
+    clip's own return); then the global batch's pre-clip norm at a copy
+    of the final params through `compute_gradients`, `backward` into an
+    optimizer prepared without params, and `clip_grad_norm_`; and the
+    checkpoint refusals of the copied state."""
+    import dataclasses
+    from unittest import mock
+
+    from .. import accelerator as acc_mod
+    from .. import optimizers
+    from ..accelerator import Accelerator
+    from ..models import mixtral
+    from ..state import PartialState
+    from ..training import TrainState, clone_tree
+    from ..utils.dataclasses import DataLoaderConfiguration, MeshConfig
+
+    PartialState._reset_state()
+    acc = Accelerator(
+        cpu=True, gradient_clipping=1.0,
+        mesh_config=MeshConfig(axes=case["axes"]),
+        dataloader_config=DataLoaderConfiguration(split_batches=True))
+    cfg = mixtral.MixtralConfig.tiny(moe_impl="dense")
+
+    def loss_fn(p, b):
+        return mixtral.causal_lm_loss(cfg, p, b)
+
+    state = acc.prepare(TrainState.create(
+        apply_fn=None, params=_tensors(case["params"]),
+        tx=optimizers.adamw(case["lr"])))
+    (batch,) = list(acc.prepare([{"input_ids": case["ids"]}]))
+    step = acc.train_step(loss_fn, donate=False)
+    norms, losses, copied = [], [], []
+    clip = acc_mod._clip_by_global_norm_
+
+    def recorded(*a, **kw):
+        norms.append(float(clip(*a, **kw)))
+        return norms[-1]
+
+    with mock.patch.object(acc_mod, "_clip_by_global_norm_", recorded):
+        for _ in range(case["steps"]):
+            new, m = step(state, batch)
+            copied.append(new.params["layers"]["moe"]["experts"][
+                "gate_proj"]["kernel"] is not state.params["layers"]["moe"][
+                "experts"]["gate_proj"]["kernel"])
+            state = new
+            losses.append(float(m["loss"]))
+    copy = dataclasses.replace(state, params=clone_tree(state.params),
+                               opt_state=clone_tree(state.opt_state))
+    opt = acc.prepare_optimizer(optimizers.adamw(case["lr"]))
+    _, grads = acc.compute_gradients(loss_fn, copy.params, batch)
+    acc.backward(grads)
+    return {"line": _line(acc), "losses": losses, "step_norms": norms,
+            "copied": copied, "params": _whole_numpy(state.params),
+            "no_params": opt.params is None,
+            "pre_clip_norm": float(acc.clip_grad_norm_(max_norm=1.0)),
+            "save_state": _refusal(lambda: acc.save_state(
+                os.path.join(case["tmp"],
+                             f"copy{PartialState.process_index}"),
+                state=copy)),
+            "get_state_dict": _refusal(lambda: acc.get_state_dict(copy))}
+
+
+def _case_train_moe_drop(case):
+    """The a2a dispatch at a capacity that drops tokens, on a `data` x
+    `expert` mesh: layer 0's MoE block (its experts this rank's block,
+    as `prepare` places them) on this batch line's rows of `x`, with the
+    dropped fraction of its dispatch (`return_stats`)."""
+    from unittest import mock
+
+    from ..accelerator import Accelerator
+    from ..models import mixtral
+    from ..optimizers import tree_map
+    from ..state import PartialState
+    from ..utils.dataclasses import MeshConfig
+
+    PartialState._reset_state()
+    acc = Accelerator(cpu=True, mesh_config=MeshConfig(axes=case["axes"]))
+    cfg = mixtral.MixtralConfig.tiny(**case["config"], moe_impl="a2a")
+    params = acc.prepare(_tensors(case["params"]))
+    moe = tree_map(lambda p: p[0], params["layers"]["moe"])
+    size, index = _line(acc)
+    x = torch.from_numpy(np.asarray(case["x"]))
+    rows = x.shape[0] // size
+    dropped = []
+    dispatch = mixtral.expert_parallel_moe_a2a
+
+    def with_stats(*a, **kw):
+        out, stats = dispatch(*a, return_stats=True, **kw)
+        dropped.append(float(stats["moe_dropped_fraction"]))
+        return out
+
+    with torch.no_grad(), mock.patch.object(
+            mixtral, "expert_parallel_moe_a2a", with_stats):
+        y, aux, _ = mixtral.moe_block(
+            cfg, moe, x[index * rows:(index + 1) * rows])
+    return {"line": (size, index), "out": y.numpy(), "aux": float(aux),
+            "dropped": dropped,
+            "expert_shape": tuple(moe["experts"]["gate_proj"][
+                "kernel"].shape)}
+
+
+def _case_train_stage(case):
+    """A `data` x `stage` mesh: `train_step` with `stage` as a replica
+    axis, a save of its state, then `pipeline_value_and_grad`'s block
+    gradients through `backward` and the clip into an optimizer prepared
+    over `parallel.stage_block`."""
+    from .. import optimizers
+    from ..accelerator import Accelerator
+    from ..parallel import pipeline_value_and_grad, stage_block
+    from ..state import PartialState
+    from ..training import TrainState
+    from ..utils.dataclasses import DataLoaderConfiguration, MeshConfig
+
+    PartialState._reset_state()
+    acc = Accelerator(
+        cpu=True, gradient_clipping=1.0,
+        mesh_config=MeshConfig(axes=case["axes"]),
+        dataloader_config=DataLoaderConfiguration(split_batches=True))
+
+    def mlp_loss(p, b):
+        return _mse(torch.tanh(b["x"] @ p["w"] + p["b"]), b["t"])
+
+    state = acc.prepare(TrainState.create(
+        apply_fn=None, params=_tensors(case["mlp"]),
+        tx=optimizers.adamw(case["lr"])))
+    loader = acc.prepare([{"x": case["x"], "t": case["t"]}])
+    state, losses, rows = _train_loop(acc, state, loader, mlp_loss,
+                                      case["steps"])
+    out = {"mesh": dict(acc.mesh.shape),
+           "line": _line(acc), "losses": losses,
+           "rows": rows, "params": _numpy(state.params)}
+    out["save_state"] = _refusal(lambda: acc.save_state(
+        os.path.join(case["tmp"], "stage_checkpoint"), state=state))
+    opt = acc.prepare_optimizer(
+        optimizers.adamw(case["lr"]),
+        params=stage_block(_tensors(case["staged"]), acc.mesh))
+    x, t = _tensors(case["x"]), _tensors(case["t"])
+    out["pipe_losses"], out["pipe_norms"] = [], []
+    for _ in range(case["steps"]):
+        loss, grads = pipeline_value_and_grad(
+            _STAGE_FNS["tanh_wb"], _mse, opt.params, x, t,
+            case["micro"], mesh=acc.mesh)
+        acc.backward(grads)
+        out["pipe_norms"].append(float(acc.clip_grad_norm_(max_norm=1.0)))
+        opt.step()
+        opt.zero_grad()
+        out["pipe_losses"].append(float(loss))
+    out["stage_index"] = acc.mesh.axis_index("stage")
+    out["pipe_params"] = _numpy(opt.params)
+    return out
+
+
+def _case_train_loader(case):
+    """A loader on a `data` x `seq` mesh: the rows each rank sees, and
+    `gather_for_metrics` over an uneven epoch."""
+    from ..accelerator import Accelerator
+    from ..state import PartialState
+    from ..utils.dataclasses import ContextParallelPlugin
+
+    PartialState._reset_state()
+    acc = Accelerator(cpu=True, context_parallel_plugin=ContextParallelPlugin(
+        seq_degree=case["seq_degree"]))
+    loader = acc.prepare([{"x": b} for b in case["batches"]])
+    seen, gathered = [], []
+    for batch in loader:
+        seen.append(batch["x"].numpy())
+        gathered.append(acc.gather_for_metrics(batch["x"]).numpy())
+    return {"mesh": dict(acc.mesh.shape),
+            "line": _line(acc),
+            "seen": seen, "gathered": gathered}
+
+
+_TRAIN_CASES = {
+    "cp": _case_train_cp,
+    "moe": _case_train_moe,
+    "moe_copies": _case_train_moe_copies,
+    "moe_drop": _case_train_moe_drop,
+    "stage": _case_train_stage,
+    "loader": _case_train_loader,
+}
+
+
+def sharded_training_forms(out_dir: str, cases: list) -> None:
+    """Run each training case on this rank and record what it gave. A
+    case is a dict: `name`, `kind` (a key of `_TRAIN_CASES`) and its
+    numpy inputs; the Accelerator of each builds its own mesh over the
+    world."""
+    from ..state import PartialState
+
+    torch.set_num_threads(1)
+    out = {}
+    for case in cases:
+        out[case["name"]] = _TRAIN_CASES[case["kind"]](
+            dict(case, tmp=out_dir))
+    PartialState._reset_state()
+    PartialState(cpu=True)
     _dump(out_dir, out)

@@ -342,10 +342,40 @@ def cast_floating(tree: Any, dtype) -> Any:
     return tree
 
 
+def sum_of_squares(tree: Any) -> torch.Tensor:
+    """Every leaf's squares summed, in f32. Where `tree` holds this
+    rank's blocks of larger leaves, or mirrors a tree that does
+    (`sharding.placement_of` on the process state's mesh: the params
+    `Accelerator.prepare` cut, a copy of them, their gradients), a
+    block's squares are summed over its line, so every rank of the line
+    gets the whole arrays' sum, as the reference takes it over global
+    arrays; every other leaf counts once."""
+    from .sharding.planner import leaves_with_path, placement_of
+    from .state import mesh_or_state
+    from .utils import operations as ops
+
+    mesh = mesh_or_state(None)
+    placement = placement_of(tree, mesh)
+    if placement is None:
+        return sum(torch.sum(torch.square(leaf.float()))
+                   for leaf in tree_leaves(tree))
+    total, lines = 0, {}
+    for (_, leaf), spec in zip(leaves_with_path(tree), placement):
+        sq = torch.sum(torch.square(leaf.float()))
+        if spec is None:
+            total = total + sq
+        else:
+            axes = tuple(spec.axes())
+            lines[axes] = lines.get(axes, 0) + sq
+    for axes, part in lines.items():
+        total = total + ops.axis_all_reduce(part, mesh.group_over(axes))
+    return total
+
+
 def global_norm(tree: Any) -> torch.Tensor:
-    """sqrt of the sum of every leaf's squares, in f32 (optax's)."""
-    return torch.sqrt(sum(torch.sum(torch.square(leaf.float()))
-                          for leaf in tree_leaves(tree)))
+    """sqrt of the sum of every leaf's squares, in f32 (optax's), a
+    block's squares taken over its line (`sum_of_squares`)."""
+    return torch.sqrt(sum_of_squares(tree))
 
 
 def clip_by_global_norm(tree: Any, max_norm: float) -> tuple[Any, Any]:

@@ -25,7 +25,8 @@ Ulysses and of the expert-parallel MoE dispatch, and the entry and exit
 of a schedule that takes and returns tensors every rank of the line
 holds whole (`parallel/`). `axis_ppermute` (point to point along the
 axis's line, `lax.ppermute`'s counterpart) and `axis_broadcast` are the
-pipeline schedules' (`parallel/pipeline.py`). They take the same
+pipeline schedules' (`parallel/pipeline.py`); `axis_mean`, also
+differentiable, is a global-batch statistic over a batch line. They take the same
 transport: host copies under gloo (point to point and the broadcast
 move each tensor as its bytes, so every dtype goes), the device under
 NCCL (no card run has reached the NCCL
@@ -33,8 +34,9 @@ branch: one H100 holds one NCCL rank).
 
 `all_reduce_mean_` averages a list of tensors in place in flat buckets
 (one `all_reduce` a bucket of up to `_BUCKET_ELEMENTS` elements of one
-dtype, a leaf split across buckets where it is larger): the train
-step's gradient all-reduce. `all_reduce_max_` takes the elementwise max
+dtype, a leaf split across buckets where it is larger), over the world
+or a group: the train step's gradient all-reduce over the batch line
+(`state.ProcessMesh.data_line`). `all_reduce_max_` takes the elementwise max
 of a list in one `all_reduce`: the fp8 amaxes.
 """
 
@@ -183,33 +185,39 @@ def _to_transport(x, group=None) -> tuple[torch.Tensor, Callable]:
     return t.contiguous(), back
 
 
-def _gather_one(x):
-    t, back = _to_transport(x)
+def _gather_one(x, group=None):
+    t, back = _to_transport(x, group)
     if t.dim() == 0:
         t = t.reshape(1)
-    parts = [torch.empty_like(t) for _ in range(_world())]
-    torch.distributed.all_gather(parts, t)
+    n = _world() if group is None else torch.distributed.get_world_size(
+        group)
+    parts = [torch.empty_like(t) for _ in range(n)]
+    torch.distributed.all_gather(parts, t, group=group)
     return back(torch.cat(parts, dim=0))
 
 
-def gather(tensor):
+def gather(tensor, group=None):
     """Each leaf concatenated along dim 0 across processes (a 0-d leaf
     becomes one row a process); every process gets the result. Leaves
     must have one shape on every process (`pad_across_processes`
-    first)."""
+    first). `group` gathers over its processes alone, in its rank order
+    (default: the world)."""
     if PartialStateDebug.enabled():
         verify_operation(tensor, "gather")
     if _world() == 1:
         return tensor
-    return recursively_apply(_gather_one, tensor)
+    return recursively_apply(_gather_one, tensor, group)
 
 
-def gather_object(obj: Any) -> list[Any]:
-    """The list of every process's `obj` (picklable), in rank order."""
+def gather_object(obj: Any, group=None) -> list[Any]:
+    """The list of every process's `obj` (picklable), in rank order
+    (of `group`'s processes alone, where given)."""
     if _world() == 1:
         return [obj]
-    out: list[Any] = [None] * _world()
-    torch.distributed.all_gather_object(out, obj)
+    n = _world() if group is None else torch.distributed.get_world_size(
+        group)
+    out: list[Any] = [None] * n
+    torch.distributed.all_gather_object(out, obj, group=group)
     return out
 
 
@@ -297,9 +305,9 @@ _BUCKET_ELEMENTS = 1 << 26
 _HOST_BUCKETS: dict[tuple, torch.Tensor] = {}
 
 
-def _bucket_buffer(dtype: torch.dtype, numel: int,
-                   device: torch.device) -> torch.Tensor:
-    if not _on_host():
+def _bucket_buffer(dtype: torch.dtype, numel: int, device: torch.device,
+                   group=None) -> torch.Tensor:
+    if not _on_host(group):
         return torch.empty(numel, dtype=dtype, device=device)
     key = (dtype, numel)
     buf = _HOST_BUCKETS.get(key)
@@ -311,38 +319,40 @@ def _bucket_buffer(dtype: torch.dtype, numel: int,
 
 
 @torch.no_grad()
-def all_reduce_mean_(tensors: list[torch.Tensor]) -> None:
-    """Replace each tensor (contiguous) by its mean across processes, in
-    place: the leaves of one dtype are packed into flat buckets of up to
-    `_BUCKET_ELEMENTS` elements, one `all_reduce` (sum) a bucket, then
-    divided by the world size on their device. Every process gets the
-    same bits. Under gloo the bucket lives in host memory (pinned when a
-    card is present); under NCCL on this process's device. With one
-    process, nothing happens."""
-    world = _world()
+def all_reduce_mean_(tensors: list[torch.Tensor], group=None) -> None:
+    """Replace each tensor (contiguous) by its mean over `group`'s
+    processes (default: the world), in place: the leaves of one dtype
+    are packed into flat buckets of up to `_BUCKET_ELEMENTS` elements,
+    one `all_reduce` (sum) a bucket, then divided by the group's size on
+    their device. Every process of the group gets the same bits. Under
+    gloo the bucket lives in host memory (pinned when a card is
+    present); under NCCL on this process's device. With one process,
+    nothing happens."""
+    world = _world() if group is None else \
+        torch.distributed.get_world_size(group)
     if world == 1:
         return
     by_dtype: dict[torch.dtype, list[torch.Tensor]] = {}
     for t in tensors:
         by_dtype.setdefault(t.dtype, []).append(t)
-    for dtype, group in by_dtype.items():
-        total = sum(t.numel() for t in group)
+    for dtype, same in by_dtype.items():
+        total = sum(t.numel() for t in same)
         size = min(_BUCKET_ELEMENTS, total)
         if size == 0:
             continue
-        buf = _bucket_buffer(dtype, size, group[0].device)
+        buf = _bucket_buffer(dtype, size, same[0].device, group)
         pieces: list[tuple[torch.Tensor, int]] = []
         fill = 0
 
         def flush():
             nonlocal fill
-            torch.distributed.all_reduce(buf[:fill])
+            torch.distributed.all_reduce(buf[:fill], group=group)
             for view, off in pieces:
                 view.copy_(buf[off:off + view.numel()], non_blocking=True)
             pieces.clear()
             fill = 0
 
-        for t in group:
+        for t in same:
             flat = t.view(-1)
             start = 0
             while start < flat.numel():
@@ -356,7 +366,7 @@ def all_reduce_mean_(tensors: list[torch.Tensor]) -> None:
                     flush()
         if fill:
             flush()
-        for t in group:
+        for t in same:
             t.div_(world)
 
 
@@ -594,6 +604,31 @@ def axis_gather(tensor: torch.Tensor, dim: int, group) -> torch.Tensor:
     if group is None:
         return tensor
     return _AxisGather.apply(tensor, dim, group)
+
+
+class _AxisMean(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, tensor, group):
+        ctx.group = group
+        n = torch.distributed.get_world_size(group)
+        return axis_all_reduce(tensor, group) / n
+
+    @staticmethod
+    def backward(ctx, grad):
+        n = torch.distributed.get_world_size(ctx.group)
+        return axis_all_reduce(grad.contiguous(), ctx.group) / n, None
+
+
+def axis_mean(tensor: torch.Tensor, group) -> torch.Tensor:
+    """The mean of `tensor` over the ranks of `group`, differentiable: a
+    statistic of the global batch that each rank of a batch line forms
+    from its own rows. The gradient is the mean of the ranks'
+    gradients, so the line's average of the ranks' parameter gradients
+    (the train step's) is the gradient of the global statistic, as the
+    reference's GSPMD gives it. A None group is a line of one."""
+    if group is None:
+        return tensor
+    return _AxisMean.apply(tensor.contiguous(), group)
 
 
 def pad_input_tensors(tensor, batch_size: int, num_processes: int,

@@ -25,16 +25,18 @@ import numpy as np
 import torch
 
 from ..models.decode import _mix32_int, stream_key
-from ..state import PartialState
+from ..state import PartialState, data_line
 from .dataclasses import RNGType
 
 
 def set_seed(seed: int, device_specific: bool = False) -> int:
     """Seed Python, numpy and torch (every device's generator with it)
-    and return the seed; `device_specific=True` offsets it by the process
-    index first."""
+    and return the seed; `device_specific=True` offsets it first by the
+    process's index on its batch line (`state.data_line`: the process
+    index on a mesh of `data` alone), so the ranks of one `stage`, `seq`
+    or `expert` line, which share their rows, draw alike."""
     if device_specific:
-        seed += PartialState.process_index
+        seed += data_line().index
     _py_random.seed(seed)
     np.random.seed(seed % (2**32))
     torch.manual_seed(seed)
@@ -60,9 +62,10 @@ def fold_in_step(key, step: int) -> tuple[int, int]:
 
 def fold_in_process(key, process_index: int | None = None
                     ) -> tuple[int, int]:
-    """The key of one process under `key` (default: this process)."""
+    """The key of one process under `key` (default: this process's
+    index on its batch line, as `set_seed`'s offset)."""
     if process_index is None:
-        process_index = PartialState.process_index
+        process_index = data_line().index
     return _fold_in(key, int(process_index))
 
 

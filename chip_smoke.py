@@ -5132,10 +5132,10 @@ def phase_dp_train(kernel_rows):
 
 
 # part (a): f32 at full width, the exactness gate; part (b): bf16. Cut
-# from 4 and 32 layers to make room for phase context_parallel: no gate
-# of either part depends on the depth
+# from 4 and 32 layers to make room for phases context_parallel and
+# cp_train (b: 16 then 4): no gate of either part depends on the depth
 TP_LAYERS_A = 2
-TP_LAYERS_B = 16
+TP_LAYERS_B = 4
 TP_PARAM_SHARE = (0.49, 0.52)   # a rank's parameter bytes / the whole
 TP_LOGITS_REL_L2 = 0.1          # bf16 at depth: two correct paths drift
                                 # 0.03-0.05 (ROADMAP.md parity hazards)
@@ -5231,9 +5231,10 @@ def phase_pod_tp():
     return {"a": a, "b": b}
 
 
-# (b)'s depth, cut from 32 to make room for phase context_parallel: its
-# gates (logits, K1a launches a rank, half the layer bytes) follow it
-PP_LAYERS_B = 16
+# (b)'s depth, cut from 32 (16, then 8) to make room for phases
+# context_parallel and cp_train: its gates (logits, K1a launches a rank,
+# half the layer bytes) follow it
+PP_LAYERS_B = 8
 PP_A_REL_L2 = 1e-4      # (a) f32: products in another order only
 PP_B_REL_L2 = 0.1       # (b) bf16 at depth (ROADMAP.md parity hazards)
 PP_C_LOSS_RTOL = 1e-4   # (c) the same per-micro losses summed in f32
@@ -5543,6 +5544,349 @@ def phase_context_parallel(kernel_rows):
     return parts
 
 
+# phase cp_train: (e) llama3-8B width on a `seq` axis of 2 through the
+# ring, (f) Mixtral-8x7B width on an `expert` axis of 2, experts as blocks
+CPT_LAYERS = 2
+CPT_SEQ = 4096           # 2048 tokens a rank on the `seq` axis
+CPT_STEPS = 3
+CPT_MOE_LAYERS = 1
+CPT_MOE_SEQ = 2048
+CPT_MOE_STEPS = 2
+CPT_MOE_CAPACITY = 4.0   # E / k: the a2a dispatch drops nothing
+CPT_LR = 3e-4            # the script's adamw
+# step 1's update on a strided sample, rank 0 against one process: the
+# share of elements more than lr apart (AdamW's first update is about
+# +-lr an element, so those moved the other way) and the share more than
+# lr / 100 apart. Both bf16 paths round their gradients apart (the ring
+# folds its chunks in another order; the a2a sums an expert's rows in
+# another order), so an element whose gradient is near zero can flip;
+# the phase also reads the same step on other rows, the fault of a
+# loader that sharded over the world, which the limits must reject
+CPT_UPDATE_FLIP_MAX = 2e-2
+CPT_UPDATE_OFF_MAX = 1e-1
+# each step's pre-clip norm (as the clip took it) against one process's
+# same step, relative: AdamW's update hardly moves with the clip's
+# factor, so this is the gate that sees a norm over the wrong tensors.
+# (e): the ring's rounding compounds while the model learns its one row
+# (loss 12.6, 0.26, 0.0074), so step 3's small norm read 1.6e-2 off in
+# run BD (steps 1-2: 0.0, 2.4e-4); (f): the a2a that drops nothing sums
+# as the sort does (0.0, 3.2e-5), and the norm of a rank's own gradients
+# alone (a clip that left out the expert blocks' line), the planted
+# fault it must reject, read 2.6e-2. Each step's loss is held to
+# CP_LOSS_RTOL of max(|loss|, 1 nat): a loss near 0 to 1e-3 nats (BD's
+# (e) steps 2-3: 4.1e-4, 1.5e-4 nats)
+CPT_NORM_RTOL = {"e": 5e-2, "f": 1e-2}
+CPT_TIMEOUT_S = 480
+
+
+def _cpt_reference(family, layers, seq, capacity, sample_tree, runs):
+    """One process's steps (bf16, clip 1.0, adamw(CPT_LR)) from the
+    script's seeded weights, for each (seed, steps) of `runs` on the
+    script's batch from that seed: each step's loss and pre-clip norm
+    (`clip_norms`), step 1's update on `sample_tree(params)` (the
+    script's strided sample), step 1's time and the flash launches, a
+    dict per run. The state is built anew from the seed for each run."""
+    import torch
+
+    from accelerate_tpu_torch.accelerator import Accelerator
+    from accelerate_tpu_torch.optimizers import adamw
+    from accelerate_tpu_torch.state import PartialState
+    from accelerate_tpu_torch.test_utils.scripts import train_llama_cp as sc
+    from accelerate_tpu_torch.training import TrainState
+
+    PartialState._reset_state()
+    acc = Accelerator(mixed_precision="bf16", gradient_clipping=1.0)
+    fam, cfg = sc.model_config(family, False, layers, None, capacity)
+    if family == "llama":
+        # the same backend as the ranks': off a `seq` axis the ring is
+        # `flash_attention`
+        import dataclasses
+
+        cfg = dataclasses.replace(cfg, attention_backend="ring")
+    step = acc.train_step(lambda p, b: fam.causal_lm_loss(cfg, p, b))
+    out = []
+    for seed, steps in runs:
+        state = acc.prepare(TrainState.create(
+            apply_fn=None, params=fam.init_params(cfg, 0, device=acc.device),
+            tx=adamw(CPT_LR)))
+        batch = {"input_ids": sc.batch_ids(cfg.vocab_size, 1, seq, seed)}
+        counters = sc.flash_counters()
+        for fn in counters.values():
+            fn.launches = 0
+        before = sc.update_sample(sample_tree(state.params))
+        losses, norms, local = [], [], []
+        with sc.clip_norms(norms, local):
+            for i in range(steps):
+                t0 = time.perf_counter()
+                state, m = step(state, batch)
+                losses.append(float(m["loss"]))
+                if i == 0:
+                    ms = (time.perf_counter() - t0) * 1e3
+                    update = sc.update_sample(sample_tree(state.params)) \
+                        - before
+        out.append({"seed": seed, "loss": losses[0], "losses": losses,
+                    "norms": norms, "update": update,
+                    "step_ms": ms, "max_memory_allocated_gb":
+                    torch.cuda.max_memory_allocated() / 1e9,
+                    "launches": {n: fn.launches
+                                 for n, fn in counters.items()}})
+        del state, m
+        _drop()
+    del step, acc
+    PartialState._reset_state()
+    _drop()
+    return out
+
+
+def _cpt_world(launcher_args, script_args, update_sample):
+    """`train_llama_cp.py` launched as two processes (gloo, both on card
+    0) with the launcher's `launcher_args`; the launcher's exit code
+    checked; each rank's `CPT_RESULT`, and rank 0's step-1 update."""
+    import os
+
+    import numpy as np
+
+    script = os.path.join("accelerate_tpu_torch", "test_utils", "scripts",
+                          "train_llama_cp.py")
+    cmd = [sys.executable, "-m", "accelerate_tpu_torch.commands.launch",
+           "--num_processes", "2", *launcher_args, script, *script_args,
+           "--update-sample", update_sample]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True,
+                          timeout=CPT_TIMEOUT_S)
+    wall = time.perf_counter() - t0
+    rows = sorted((json.loads(line.split(" ", 1)[1])
+                   for line in proc.stdout.splitlines()
+                   if line.startswith("CPT_RESULT {")),
+                  key=lambda r: r["rank"])
+    if proc.returncode != 0 or len(rows) != 2:
+        raise AssertionError(
+            f"launch {launcher_args} exited {proc.returncode} with "
+            f"{len(rows)} result(s):\n{proc.stdout[-4000:]}\n"
+            f"{proc.stderr[-8000:]}")
+    return rows, np.load(update_sample), wall
+
+
+def _update_gap(update, ref, lr=CPT_LR) -> dict:
+    import numpy as np
+
+    gap = np.abs(update - ref)
+    return {"elements": int(gap.size),
+            "share_over_lr": float((gap > lr).mean()),
+            "share_over_lr_100": float((gap > lr / 100).mean()),
+            "max_abs_over_lr": float(gap.max() / lr)}
+
+
+def _cpt_gates(part, rows, ref, fault, want, failed, blocks) -> dict:
+    """The gates shared by (e) and (f): both ranks' losses, pre-clip
+    norms and digests equal at every step, finite; every step's loss
+    within CP_LOSS_RTOL (of max(|loss|, 1)) and pre-clip norm within
+    CPT_NORM_RTOL[part] of one process's same step, and step 1's update
+    within the CPT_UPDATE limits of one process's (where the other
+    rows' update must fall outside them); with `blocks` the ranks' own
+    gradients' norm outside the norm limit; each rank's flash launches
+    `want[rank]`."""
+    r0, r1 = rows
+    if r0["losses"] != r1["losses"] or r0["digests"] != r1["digests"] \
+            or r0["pre_clip_norms"] != r1["pre_clip_norms"]:
+        failed.append(f"({part}) the ranks' losses, norms or digests "
+                      f"differ: {r0['losses']} {r1['losses']} "
+                      f"{r0['pre_clip_norms']} {r1['pre_clip_norms']}")
+    if not all(math.isfinite(x) for x in r0["losses"]):
+        failed.append(f"({part}) non-finite loss: {r0['losses']}")
+    rel = abs(r0["losses"][0] - ref["loss"]) / abs(ref["loss"])
+    loss_gaps = [abs(a - b) / max(abs(b), 1.0)
+                 for a, b in zip(r0["losses"], ref["losses"])]
+    if len(r0["losses"]) != len(ref["losses"]) or \
+            max(loss_gaps) > CP_LOSS_RTOL:
+        failed.append(f"({part}) losses {r0['losses']} against one "
+                      f"process's {ref['losses']}")
+
+    def norm_rel(norm, i=0):
+        return abs(norm - ref["norms"][i]) / ref["norms"][i]
+
+    norm_rtol = CPT_NORM_RTOL[part]
+    norm_rels = [norm_rel(n, i) for i, n in enumerate(r0["pre_clip_norms"])]
+    if len(norm_rels) != len(ref["norms"]) or max(norm_rels) > norm_rtol:
+        failed.append(f"({part}) pre-clip norms {r0['pre_clip_norms']} "
+                      f"against one process's {ref['norms']}")
+    local_rel = max(norm_rel(r["local_norms"][0]) for r in rows)
+    if blocks and local_rel <= norm_rtol:
+        failed.append(f"({part}) a rank's own gradients' norm reads "
+                      f"{local_rel} off one process's, within the norm "
+                      "limit")
+    gap, fault_gap = ref["gap"], fault["gap"]
+
+    def within(g):
+        return (g["share_over_lr"] <= CPT_UPDATE_FLIP_MAX
+                and g["share_over_lr_100"] <= CPT_UPDATE_OFF_MAX)
+
+    if not within(gap):
+        failed.append(f"({part}) step 1's update off one process's: {gap}")
+    if within(fault_gap):
+        failed.append(f"({part}) the update on other rows reads "
+                      f"{fault_gap}, within the update limits")
+    for r in rows:
+        if r["launches"] != want[r["rank"]]:
+            failed.append(f"({part}) rank {r['rank']}: flash launches "
+                          f"{r['launches']}, expected {want[r['rank']]}")
+    return {"step1_loss_rel_diff": rel, "ref_loss": ref["loss"],
+            "loss_gaps": loss_gaps, "ref_losses": ref["losses"],
+            "pre_clip_norms": r0["pre_clip_norms"],
+            "ref_norms": ref["norms"], "norm_rel_diffs": norm_rels,
+            "own_gradients_norm_rel_diff": local_rel,
+            "other_rows_norm_rel_diff": norm_rel(fault["norms"][0]),
+            "other_rows_loss": fault["loss"], "update": gap,
+            "other_rows_update": fault_gap}
+
+
+def phase_cp_train(kernel_rows):
+    """Training on the `seq` and `expert` axes through the Accelerator,
+    `train_llama_cp.py` launched as two processes sharing card 0 over
+    gloo. (e) the launcher's `--context_parallel_mode ring
+    --context_parallel_degree 2` (mesh {data: 1, seq: 2}):
+    llama3-8B width at CPT_LAYERS layers with the ring backend, bf16,
+    clip 1.0, one row of CPT_SEQ + 1 tokens, CPT_STEPS steps. (f)
+    `--mesh_shape data=-1,expert=2`: Mixtral-8x7B width at
+    CPT_MOE_LAYERS layer, `moe_impl="a2a"` at a capacity that drops
+    nothing, each rank holding its [L, 4, ...] block of the experts and
+    their moments, one row of CPT_MOE_SEQ + 1 tokens, CPT_MOE_STEPS
+    steps. Before each launch, in this process and freed first, one
+    process's first step on the same seeded weights and batch, and on
+    other rows (the fault of a loader that sharded over the world).
+    The reference runs as many steps as the ranks on that batch, one on
+    the other rows. Gates: the launcher exits 0; both ranks' losses,
+    pre-clip norms and whole-model digests equal at every step; every
+    step's loss and pre-clip norm within CP_LOSS_RTOL (of max(|loss|,
+    1)) and CPT_NORM_RTOL of one process's same step, and step 1's
+    update within the CPT_UPDATE limits of one process's, and the other
+    rows' update outside them; in (f) the norm of a rank's own
+    gradients alone outside the norm limit; the flash launches of the
+    steps
+    L(r+1) a step on rank r for the ring (causal: a rank skips later
+    chunks) and L a step on each rank for Mixtral; in (f) the expert
+    leaves and moments [1, 4, ...] on each rank. Then K1a/b/c at each
+    shape the phase launched them at against their plain versions,
+    timed. The times are reported, not gated: two ranks share one card
+    through the host."""
+    import os
+    import tempfile
+
+    import torch
+
+    from accelerate_tpu_torch.models import mixtral
+    from accelerate_tpu_torch.sharding import plan_sharding, shard_pytree
+    from accelerate_tpu_torch.state import ProcessMesh
+
+    failed = []
+    names = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
+    with tempfile.TemporaryDirectory(prefix="cp_train_") as tmp:
+        ref_e, fault_e = _cpt_reference("llama", CPT_LAYERS, CPT_SEQ, 1.25,
+                                        lambda p: p,
+                                        ((0, CPT_STEPS), (1, 1)))
+        rows_e, update_e, wall_e = _cpt_world(
+            ["--context_parallel_mode", "ring",
+             "--context_parallel_degree", "2"],
+            ["--layers", str(CPT_LAYERS), "--seq_len", str(CPT_SEQ),
+             "--steps", str(CPT_STEPS), "--lr", str(CPT_LR)],
+            os.path.join(tmp, "update_e.npy"))
+        _drop()
+        mesh = ProcessMesh({"data": 1, "expert": 2})
+
+        def rank0_block(params):
+            # rank 0's leaves: its block of the experts, the rest whole
+            return shard_pytree(params, plan_sharding(params, mesh), rank=0)
+
+        ref_f, fault_f = _cpt_reference("mixtral", CPT_MOE_LAYERS,
+                                        CPT_MOE_SEQ, CPT_MOE_CAPACITY,
+                                        rank0_block,
+                                        ((0, CPT_MOE_STEPS), (1, 1)))
+        rows_f, update_f, wall_f = _cpt_world(
+            ["--mesh_shape", "data=-1,expert=2"],
+            ["--family", "mixtral", "--layers", str(CPT_MOE_LAYERS),
+             "--seq_len", str(CPT_MOE_SEQ), "--steps", str(CPT_MOE_STEPS),
+             "--lr", str(CPT_LR), "--capacity_factor",
+             str(CPT_MOE_CAPACITY)],
+            os.path.join(tmp, "update_f.npy"))
+    for ref, fault, update in ((ref_e, fault_e, update_e),
+                               (ref_f, fault_f, update_f)):
+        ref["gap"] = _update_gap(update, ref["update"])
+        fault["gap"] = _update_gap(fault["update"], ref["update"])
+    L, Lm = CPT_LAYERS, CPT_MOE_LAYERS
+    want_e = {r: {n: L * (r + 1) * CPT_STEPS for n in names} for r in (0, 1)}
+    want_f = {r: {n: Lm * CPT_MOE_STEPS for n in names} for r in (0, 1)}
+    gates_e = _cpt_gates("e", rows_e, ref_e, fault_e, want_e, failed,
+                         blocks=False)
+    gates_f = _cpt_gates("f", rows_f, ref_f, fault_f, want_f, failed,
+                         blocks=True)
+    cfg = mixtral.MixtralConfig.mixtral_8x7b(num_hidden_layers=Lm)
+    h, f, E = cfg.hidden_size, cfg.intermediate_size, cfg.num_local_experts
+    block = [Lm, E // 2, h, f]
+    want_shapes = {"gate_proj": block, "up_proj": block,
+                   "down_proj": [Lm, E // 2, f, h]}
+    for r in rows_f:
+        if r["expert_shapes"] != want_shapes or any(
+                r["moment_shapes"][k] != want_shapes for k in ("mu", "nu")):
+            failed.append(f"(f) rank {r['rank']}: experts "
+                          f"{r['expert_shapes']}, moments "
+                          f"{r['moment_shapes']}, expected {want_shapes}")
+    n_expert = Lm * E * 3 * h * f
+    n_whole = n_expert + (cfg.vocab_size * h * 2 + h + Lm * (
+        2 * h + h * E + 2 * h * h + 2 * h * (cfg.num_key_value_heads
+                                             * cfg.head_dim)))
+    n_rank = n_whole - n_expert // 2
+    reckoning = {"params_whole": n_whole, "params_rank": n_rank,
+                 "state_after_prepare_gb": {"rank": 12 * n_rank / 1e9,
+                                            "whole": 12 * n_whole / 1e9},
+                 "with_grads_gb": {"rank": 16 * n_rank / 1e9,
+                                   "whole": 16 * n_whole / 1e9},
+                 "note": "f32 params and two AdamW moments (12 B a param) "
+                         "after prepare; 16 B a param with the gradients"}
+    keys = ("losses", "step_ms", "launches", "memory_after_prepare_gb",
+            "max_memory_allocated_gb", "line", "mesh")
+    emit("cp_train", backend="gloo", ranks_share_one_card=True,
+         part_e={"config": "llama3_8b", "layers": L, "seq": CPT_SEQ,
+                 "steps": CPT_STEPS, "attention_backend": "ring",
+                 "launcher_wall_s": wall_e,
+                 **{k: [r[k] for r in rows_e] for k in keys},
+                 "digests_rank0": rows_e[0]["digests"],
+                 "reference": {k: v for k, v in ref_e.items()
+                               if k != "update"},
+                 **gates_e},
+         part_f={"config": "mixtral_8x7b", "layers": Lm,
+                 "seq": CPT_MOE_SEQ, "steps": CPT_MOE_STEPS,
+                 "moe_impl": "a2a", "capacity_factor": CPT_MOE_CAPACITY,
+                 "launcher_wall_s": wall_f,
+                 **{k: [r[k] for r in rows_f] for k in keys},
+                 "expert_shapes": rows_f[0]["expert_shapes"],
+                 "digests_rank0": rows_f[0]["digests"],
+                 "reference": {k: v for k, v in ref_f.items()
+                               if k != "update"},
+                 "memory_reckoning": reckoning, **gates_f},
+         tolerances={"loss_rtol": CP_LOSS_RTOL,
+                     "norm_rtol": CPT_NORM_RTOL,
+                     "update_flip_max": CPT_UPDATE_FLIP_MAX,
+                     "update_off_max": CPT_UPDATE_OFF_MAX},
+         note="two ranks share one card through the host (gloo): these "
+              "times are not sequence- or expert-parallel speed")
+    if failed:
+        raise AssertionError("; ".join(failed))
+    # the launches by shape: each ring rank runs its diagonal chunk
+    # (causal) once a layer a step, rank 1 its off-diagonal chunk too;
+    # Mixtral's attention is the whole sequence, causal, on each rank
+    diagonal = {n: L * CPT_STEPS * 2 for n in names}
+    off = {n: sum(r["launches"][n] for r in rows_e) - diagonal[n]
+           for n in names}
+    causal = {n: diagonal[n] + sum(r["launches"][n] for r in rows_f)
+              for n in names}
+    torch.cuda.reset_peak_memory_stats()
+    kernel_rows.extend(_flash_rows_at("cp_train", off, 1, CPT_SEQ // 2, 32,
+                                      128, causal=False))
+    kernel_rows.extend(_flash_rows_at("cp_train_causal", causal, 1,
+                                      CPT_SEQ // 2, 32, 128))
+    return {"e": rows_e, "f": rows_f}
+
+
 def _drop():
     """Free the device memory of a finished phase."""
     import gc
@@ -5590,6 +5934,8 @@ def main() -> int:
     _run(phase_pipeline, kernels)
     _drop()
     _run(phase_context_parallel, kernels)
+    _drop()
+    _run(phase_cp_train, kernels)
     _drop()
     _run(phase_gptj_engine, kernels)
     _drop()

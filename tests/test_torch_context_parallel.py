@@ -369,17 +369,43 @@ def test_context_parallel_plugin_and_env(world):
 
 
 def test_training_calls_refused_on_seq_and_expert_meshes(world):
-    """The training calls raise on a `seq` and on an `expert` mesh,
-    naming the training half of item 6b part 1 (the loaders and the
-    gradient average span the whole world)."""
-    for r in world["accelerator"]:
+    """The training calls, which raised on a `seq` and an `expert` mesh
+    until the loaders and the gradient average ran over the batch line,
+    now train there: `prepare` of a `TrainState`, an optimizer and a
+    loader, `train_step`, `compute_gradients` and `backward` run on
+    `{data: 2, seq: 2}` and `{data: 2, expert: 2}`, each rank's loader
+    gives its batch line's rows, and the loss, the grads and the update
+    are the global batch's on every rank."""
+    ranks = world["accelerator"]
+    for r in ranks:
         assert r["expert_mesh"] == {"data": 2, "expert": 2}
-        for key, axis in (("refused_seq", "seq"),
-                          ("refused_expert", "expert")):
-            for name, msg in r[key].items():
-                assert msg is not None and "training half" in msg and \
-                    "queue 1 item 6b" in msg and f"`{axis}` axis" in msg, \
-                    (key, name, msg)
+        for key in ("trained_seq", "trained_expert"):
+            _check_training_calls(r[key])
+    for key in ("trained_seq", "trained_expert"):
+        for r in ranks[1:]:
+            np.testing.assert_array_equal(r[key]["step_w"],
+                                          ranks[0][key]["step_w"])
+
+
+def _check_training_calls(r):
+    """A rank's `worlds._training_calls`: every call ran; its loader gave
+    its batch line's half of the global batch; the fused step's loss and
+    `compute_gradients`' loss and grads are the global batch's, and the
+    first AdamW update (lr 1e-3) follows the global gradient's sign."""
+    assert r["errors"] == {n: None for n in r["errors"]}, r["errors"]
+    x, y = r["global_x"].astype(np.float64), r["global_y"].astype(np.float64)
+    size, index = r["line"]
+    assert size == 2
+    np.testing.assert_array_equal(r["rows"][0]["x"],
+                                  r["global_x"][4 * index:4 * index + 4])
+    loss = np.mean(y ** 2)
+    grad = -(2 / y.size) * x.T @ y
+    np.testing.assert_allclose(r["step_loss"], loss, rtol=1e-6)
+    np.testing.assert_allclose(r["loss"], loss, rtol=1e-6)
+    np.testing.assert_allclose(r["grads"], grad, rtol=1e-5)
+    np.testing.assert_array_equal(r["buffer"], r["grads"])
+    np.testing.assert_allclose(r["step_w"], -1e-3 * np.sign(grad),
+                               rtol=1e-5)
 
 
 def test_context_parallel_plugin_like_jax():

@@ -17,7 +17,9 @@ ring's chunk pair (a causal and a non-causal K1a folded into the global
 output, K1b/K1c from the global LSE) and Ulysses' full-sequence
 attention at phase context_parallel's shapes against the plain
 versions, the ring and Ulysses backends in one process through the
-flash kernels, and that phase's two ranks at the tiny width.
+flash kernels, and that phase's two ranks at the tiny width; and a
+training step on a `seq` line of one, whose ring falls back to the
+flash kernels.
 
 Without a card every test here skips with a reason. The file imports
 neither jax nor the JAX package, so it also runs where those are not
@@ -1628,6 +1630,55 @@ def test_context_parallel_one_process_runs_the_kernels(cuda, backend):
     assert float(out[backend][0]) == float(out["flash"][0])
     for a, b in zip(out[backend][1], out["flash"][1]):
         assert torch.equal(a, b)
+
+
+def test_train_step_on_a_seq_line_of_one_runs_the_kernels(cuda):
+    """`Accelerator(context_parallel_plugin=ContextParallelPlugin(
+    seq_degree=1))` in one process: a `seq` line of one, where the ring
+    falls back to `flash_attention`. One fused bf16 `train_step` of
+    llama with `attention_backend="ring"` launches K1a, K1b and K1c once
+    a layer, and its loss and updated params equal the flash backend's
+    step from the same state, bit for bit."""
+    import dataclasses
+
+    from accelerate_tpu_torch.utils.dataclasses import ContextParallelPlugin
+
+    cfg = llama.LlamaConfig.tiny(hidden_size=256, num_attention_heads=2,
+                                 num_key_value_heads=1,
+                                 max_position_embeddings=2048,
+                                 attention_backend="ring")
+    init = params_to_numpy(llama.init_params(cfg, 0, device=cuda))
+    ids = np.random.default_rng(23).integers(0, cfg.vocab_size, (1, 2049))
+    PartialState._reset_state()
+    try:
+        acc = Accelerator(mixed_precision="bf16", gradient_clipping=1.0,
+                          context_parallel_plugin=ContextParallelPlugin(
+                              seq_degree=1))
+        assert acc.mesh.shape == {"data": 1, "seq": 1}
+        out = {}
+        for name, c in (("ring", cfg), ("flash", dataclasses.replace(
+                cfg, attention_backend="flash"))):
+            state = acc.prepare(TrainState.create(
+                apply_fn=None, params=params_from_numpy(init, device=cuda),
+                tx=to.adamw(1e-3)))
+            step = acc.train_step(
+                lambda p, b, c=c: llama.causal_lm_loss(c, p, b))
+            for fn in (tf.flash_forward, tf.flash_backward_dq,
+                       tf.flash_backward_dkv):
+                fn.launches = 0
+            state, m = step(state, {"input_ids": ids})
+            out[name] = (float(m["loss"]), params_to_numpy(state.params),
+                         (tf.flash_forward.launches,
+                          tf.flash_backward_dq.launches,
+                          tf.flash_backward_dkv.launches))
+    finally:
+        PartialState._reset_state()
+    L = cfg.num_hidden_layers
+    assert out["ring"][2] == (L, L, L), out["ring"][2]
+    assert out["ring"][0] == out["flash"][0]
+    for a, b in zip(to.tree_leaves(out["ring"][1]),
+                    to.tree_leaves(out["flash"][1])):
+        np.testing.assert_array_equal(a, b)
 
 
 def test_context_parallel_two_ranks_share_the_card(cuda):

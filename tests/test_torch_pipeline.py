@@ -545,11 +545,36 @@ def test_sharded_inference_model_fsdp_gathers_on_use(world):
         np.testing.assert_allclose(r["y"], want, atol=1e-5)
 
 
+def _check_training_calls(r):
+    """A rank's `worlds._training_calls`: every call ran; its loader gave
+    its batch line's half of the global batch; the fused step's loss and
+    `compute_gradients`' loss and grads are the global batch's, and the
+    first AdamW update (lr 1e-3) follows the global gradient's sign."""
+    assert r["errors"] == {n: None for n in r["errors"]}, r["errors"]
+    x, y = r["global_x"].astype(np.float64), r["global_y"].astype(np.float64)
+    size, index = r["line"]
+    assert size == 2
+    np.testing.assert_array_equal(r["rows"][0]["x"],
+                                  r["global_x"][4 * index:4 * index + 4])
+    loss = np.mean(y ** 2)
+    grad = -(2 / y.size) * x.T @ y
+    np.testing.assert_allclose(r["step_loss"], loss, rtol=1e-6)
+    np.testing.assert_allclose(r["loss"], loss, rtol=1e-6)
+    np.testing.assert_allclose(r["grads"], grad, rtol=1e-5)
+    np.testing.assert_array_equal(r["buffer"], r["grads"])
+    np.testing.assert_allclose(r["step_w"], -1e-3 * np.sign(grad),
+                               rtol=1e-5)
+
+
 def test_accelerator_data_by_stage_mesh(world):
     """`Accelerator(mesh_config=MeshConfig(axes={"data": 2, "stage":
     2}))` builds; its mesh reaches `prepare_pipeline` and the 1F1B
     schedule over each data replica's stage line (a subgroup); the
-    training calls raise, naming the training half of item 6b."""
+    training calls, which raised there until the loaders and the
+    gradient average ran over the batch line, now train with `stage` as
+    a replica axis: each rank's loader gives its batch line's rows and
+    the loss, grads and update are the global batch's (the `model`
+    axis still raises, naming item 6b)."""
     ranks = world["accelerator"]
     want = np.asarray(_j_tanh_affine_seq(_j(ACC_LAYERS), jnp.asarray(ACC_X)))
     loss_ref, grads_ref = jax.value_and_grad(
@@ -562,9 +587,9 @@ def test_accelerator_data_by_stage_mesh(world):
         assert r["stage_line"] == [rank - rank % 2, rank - rank % 2 + 1]
         np.testing.assert_allclose(r["y"], want, atol=1e-5)
         np.testing.assert_allclose(r["loss"], float(loss_ref), rtol=1e-5)
-        for name, msg in r["refused"].items():
-            assert msg is not None and "training half" in msg and \
-                "queue 1 item 6b" in msg, (name, msg)
+        _check_training_calls(r["trained"])
+        np.testing.assert_array_equal(r["trained"]["step_w"],
+                                      ranks[0]["trained"]["step_w"])
         assert r["params_prepared"]
         assert len(r["model_axis"]) == 4
         assert all(m is not None and "queue 1 item 6b" in m
