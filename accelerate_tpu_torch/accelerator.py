@@ -47,10 +47,11 @@ Data parallelism: launched as N processes (`python -m
 accelerate_tpu_torch.commands.launch --num_processes N script.py`, or
 torchrun), each process owns one device. `Accelerator.mesh` is the mesh
 over the processes (`state.ProcessMesh`): `mesh_config`, else the
-launcher's `--mesh_shape`, else the plugins' axes
-(`context_parallel_plugin`, or the launcher's
-`--context_parallel_{mode,degree}`: a `seq` axis, the rest on `data`),
-else every process on `data`. A rank's batch line
+launcher's `--mesh_shape`, else the plugins' axes (`fsdp_plugin`,
+`deepspeed_plugin`, `context_parallel_plugin`, or the launcher's
+`--zero_stage`, `--fsdp_sharding_strategy` and
+`--context_parallel_{mode,degree}`: `fsdp` or `seq` axes, the rest on
+`data`), else every process on `data`. A rank's batch line
 (`state.ProcessMesh.data_line`) is the ranks that share its `stage`,
 `seq` and `expert` coordinates: its loaders take its line's share of
 each global batch (the ranks of one `stage`, `seq` or `expert` line see
@@ -70,10 +71,19 @@ holds the same delayed-scaling metas. The average runs in flat buckets
 (`utils.operations.all_reduce_mean_`), one `all_reduce` a bucket.
 
 `prepare` places params, their optimizer state and accumulation buffer
-by the planner's plan (`sharding.plan_sharding` with the transformer
-rules, as the reference plans them): on these meshes only Mixtral's
-experts are cut, each rank keeping its [L, E/P, ...] block on the
-`expert` axis. `sharding.shard_pytree` records each such placement on
+by the planner's plan (`sharding.plan_sharding` with `sharding_rules`,
+the transformer rules by default, as the reference plans them), by the
+reference's ZeRO decision (`_plan_param_and_opt_sharding`): without a
+plugin, on these meshes only Mixtral's experts are cut, each rank
+keeping its [L, E/P, ...] block on the `expert` axis; under ZeRO-1/2
+(`DeepSpeedPlugin(zero_stage=1|2)`, `FullyShardedDataParallelPlugin(
+sharding_strategy="SHARD_GRAD_OP")`) the params stay whole and the
+AdamW moments and the accumulation buffer are each rank's block of
+every leaf the plan cuts on `fsdp` (`sharding.zero.ZeroLayout`): the
+fused step reduce-scatters the gradients into those blocks, clips and
+updates the blocks, and all-gathers the params whole, and the eager
+`opt.step()` takes its blocks of the whole, averaged gradients that
+`compute_gradients` returns. `sharding.shard_pytree` records each such placement on
 the mesh by the placed tree's paths and shapes (`sharding.placement_of`),
 so copies of the params and their gradients are known as blocks too:
 the global norm of the clip and the fp16 finite check counts each
@@ -81,9 +91,11 @@ block's squares once across its line (`training.global_norm`), and a
 params tree already placed is prepared as it is. A pipeline's stage
 blocks are not planned (the reference has no `stage` rule): a pipeline
 user prepares an optimizer over `parallel.stage_block`, which places
-them through `shard_pytree` as well. An `fsdp` or `model` axis above
-1 raises, naming queue 1 item 6b; so does a checkpoint of a state that
-holds blocks.
+them through `shard_pytree` as well. A checkpoint of a state that
+holds blocks gathers them whole (`checkpointing`). Parameter sharding
+(ZeRO-3, `FULL_SHARD`, `HYBRID_SHARD`, a bare `fsdp` mesh), offload and
+ZeRO beside a `stage`, `seq` or `expert` axis raise, naming queue 1
+item 6b, step 2b; the `model` axis and `megatron_lm_plugin`, step 2c.
 
 `kwargs_handlers` takes the reference's records: `AutocastKwargs`
 (`enabled=False` pins the compute to f32), `FP8RecipeKwargs` (its
@@ -149,7 +161,10 @@ from .optimizers import GradientTransformation, tree_leaves, tree_map
 from .scheduler import AcceleratedScheduler
 from .sharding import placement_of, plan_optimizer_sharding, \
     plan_sharding, shard_pytree, transformer_rules
-from .state import AcceleratorState, GradientState, data_line
+from .sharding.planner import leaves_with_path, whole_pytree
+from .sharding.zero import ZeroLayout
+from .state import STEP_2B, STEP_2C, AcceleratorState, GradientState, \
+    data_line
 from .telemetry.cost import CostTable, device_peaks, fence, \
     resolve_sample_every
 from .telemetry.export import start_metrics_server
@@ -158,13 +173,16 @@ from .telemetry.watchdog import StallWatchdog, resolve_stall_timeout
 from .training import DynamicLossScale, TrainState, cast_floating, \
     clone_tree, global_norm, sum_of_squares
 from .utils import operations as ops
-from .utils.constants import AXIS_DATA, CHECKPOINT_DIR_PREFIX, \
-    ENV_CP_DEGREE, ENV_CP_MODE, ENV_GRAD_ACCUM_STEPS
+from .utils.constants import AXIS_DATA, AXIS_FSDP, CHECKPOINT_DIR_PREFIX, \
+    ENV_CP_DEGREE, ENV_CP_MODE, ENV_FSDP_STRATEGY, ENV_GRAD_ACCUM_STEPS, \
+    ENV_ZERO_STAGE
 from .utils.dataclasses import (
     AutocastKwargs,
     ContextParallelPlugin,
     DataLoaderConfiguration,
+    DeepSpeedPlugin,
     FP8RecipeKwargs,
+    FullyShardedDataParallelPlugin,
     GradientAccumulationPlugin,
     InitProcessGroupKwargs,
     JitConfig,
@@ -176,22 +194,46 @@ from .utils.dataclasses import (
 from .utils.memory import release_memory
 from .utils.other import flatten_dict
 
-_ITEM_6B = "sharded-parallelism slice (ROADMAP.md, queue 1 item 6b)"
-
 # reference arguments the port does not carry yet: the value that means
 # "unused", and the slice that brings them
 _UNPORTED = {
-    "deepspeed_plugin": (None, _ITEM_6B),
-    "fsdp_plugin": (None, _ITEM_6B),
-    "megatron_lm_plugin": (None, _ITEM_6B),
-    "sharding_rules": (None, _ITEM_6B),
-    "strict": (None, "analysis slice"),
+    "megatron_lm_plugin": (None, STEP_2C),
+    "strict": (None, "the port's analysis slice"),
 }
 
 
 def _unported(what: str, slice_name: str) -> NotImplementedError:
     return NotImplementedError(
-        f"{what} is not ported yet: it arrives with the port's {slice_name}")
+        f"{what} is not ported yet: it arrives with {slice_name}")
+
+
+def _refuse_plugins(fsdp_plugin, deepspeed_plugin) -> None:
+    """Raise for a plugin choice the port does not train: one that
+    shards params (`zero_stage=3`, `FULL_SHARD`, `HYBRID_SHARD`) or
+    offloads (queue 1 item 6b, step 2b)."""
+    if fsdp_plugin is not None:
+        if not isinstance(fsdp_plugin, FullyShardedDataParallelPlugin):
+            raise TypeError(f"fsdp_plugin must be a FullyShardedDataParallel"
+                            f"Plugin, got {type(fsdp_plugin).__name__}")
+        if fsdp_plugin.shard_params:
+            raise _unported(
+                f"FullyShardedDataParallelPlugin(sharding_strategy="
+                f"{fsdp_plugin.sharding_strategy!r}) (parameter sharding)",
+                STEP_2B)
+        if fsdp_plugin.cpu_offload:
+            raise _unported(
+                "FullyShardedDataParallelPlugin(cpu_offload=True)", STEP_2B)
+    if deepspeed_plugin is not None:
+        if not isinstance(deepspeed_plugin, DeepSpeedPlugin):
+            raise TypeError(f"deepspeed_plugin must be a DeepSpeedPlugin, "
+                            f"got {type(deepspeed_plugin).__name__}")
+        if deepspeed_plugin.shard_params:
+            raise _unported(
+                f"DeepSpeedPlugin(zero_stage={deepspeed_plugin.zero_stage})"
+                " (parameter sharding)", STEP_2B)
+        for name in ("offload_optimizer_device", "offload_param_device"):
+            if getattr(deepspeed_plugin, name) is not None:
+                raise _unported(f"DeepSpeedPlugin({name}=...)", STEP_2B)
 
 
 def _all_reduce_metric(value, line):
@@ -323,6 +365,9 @@ class Accelerator:
                  split_batches: bool = False,
                  mesh_config: MeshConfig | None = None,
                  context_parallel_plugin: ContextParallelPlugin | None = None,
+                 deepspeed_plugin: DeepSpeedPlugin | None = None,
+                 fsdp_plugin: FullyShardedDataParallelPlugin | None = None,
+                 sharding_rules=None,
                  **unported: Any):
         for name, value in unported.items():
             if name not in _UNPORTED:
@@ -360,21 +405,44 @@ class Accelerator:
                 ("backend", self.init_handler.backend),
                 ("init_method", self.init_handler.init_method),
                 ("timeout", self.init_handler.timeout)) if v is not None}
-        # the launcher's --context_parallel_{mode,degree}, where the
-        # reference reads its ENV_CP_MODE/ENV_CP_DEGREE
+        # the launcher's --zero_stage, --fsdp_sharding_strategy and
+        # --context_parallel_{mode,degree}, where the reference reads its
+        # ENV_ZERO_STAGE, ENV_FSDP_STRATEGY and ENV_CP_MODE/ENV_CP_DEGREE;
+        # explicit plugins win
+        if deepspeed_plugin is None and os.environ.get(ENV_ZERO_STAGE):
+            deepspeed_plugin = DeepSpeedPlugin(
+                zero_stage=int(os.environ[ENV_ZERO_STAGE]))
+        if fsdp_plugin is None and os.environ.get(ENV_FSDP_STRATEGY):
+            fsdp_plugin = FullyShardedDataParallelPlugin(
+                sharding_strategy=os.environ[ENV_FSDP_STRATEGY])
         env_cp_mode = os.environ.get(ENV_CP_MODE)
         if context_parallel_plugin is None and env_cp_mode and \
                 env_cp_mode != "none":
             context_parallel_plugin = ContextParallelPlugin(
                 mode=env_cp_mode,
                 seq_degree=int(os.environ.get(ENV_CP_DEGREE, "2")))
+        _refuse_plugins(fsdp_plugin, deepspeed_plugin)
+        self.deepspeed_plugin = deepspeed_plugin
+        self.fsdp_plugin = fsdp_plugin
         self.context_parallel_plugin = context_parallel_plugin
+        # the ZeRO decision of `_plan_param_and_opt_sharding`, by plugin
+        # alone: without one a fsdp axis shards params (refused)
+        self._shard_params = True
+        if fsdp_plugin is not None:
+            self._shard_params = fsdp_plugin.shard_params
+        elif deepspeed_plugin is not None:
+            self._shard_params = deepspeed_plugin.shard_params
+        self._shard_opt = True
+        if deepspeed_plugin is not None:
+            self._shard_opt = deepspeed_plugin.shard_optimizer_state
         # mesh: explicit, then the launcher's --mesh_shape, then the
         # plugins' axes, then every process on `data` (AcceleratorState)
         self.state = AcceleratorState(
             mixed_precision=mixed_precision, cpu=cpu,
             mesh_config=mesh_config or MeshConfig.from_env()
-            or _plugin_mesh(context_parallel_plugin), **group_kwargs)
+            or _plugin_mesh(fsdp_plugin, deepspeed_plugin,
+                            context_parallel_plugin),
+            params_whole=not self._shard_params, **group_kwargs)
         # visible to parallel.context_attention without an Accelerator
         self.state.context_parallel_plugin = context_parallel_plugin
         # read by ops.fp8.resolve_history_len (the models' init_fp8_state)
@@ -393,7 +461,12 @@ class Accelerator:
         self.step_scheduler_with_optimizer = step_scheduler_with_optimizer
         # stored as the reference stores it: nothing reads its fields
         self.jit_config = jit_config or JitConfig()
+        self.sharding_rules = sharding_rules or transformer_rules()
+        if gradient_clipping is None and deepspeed_plugin is not None:
+            gradient_clipping = deepspeed_plugin.gradient_clipping
         self.gradient_clipping = gradient_clipping
+        # the ZeRO layout of each params tree the steps have met
+        self._zero_layouts: dict = {}
         self.project_configuration = project_config or ProjectConfiguration(
             project_dir=project_dir)
         if project_dir is not None and \
@@ -575,17 +648,58 @@ class Accelerator:
                 results[i] = self.prepare_data_loader(obj)
         return results[0] if len(results) == 1 else tuple(results)
 
+    def _plan_param_and_opt_sharding(self, params: Any) -> tuple[Any, Any]:
+        """(param plan, the moments' plan source) of `params` by the
+        plugins, the one place the ZeRO decision lives (the reference's
+        decision tree):
+
+        - FSDP `FULL_SHARD`/`HYBRID_SHARD`, ZeRO-3 or a bare `fsdp` mesh:
+          params shard (refused before this: queue 1 item 6b, step 2b);
+        - ZeRO-1/2 and `SHARD_GRAD_OP`: params whole, the moments (and
+          the accumulation buffer) planned as if params were cut on
+          `fsdp`;
+        - stage 0 (`shard_optimizer_state` False): both whole;
+        - no plugin: the planner's plan for both (on this port's meshes,
+          Mixtral's experts on `expert`)."""
+        param_plan = plan_sharding(params, self.mesh, self.sharding_rules,
+                                   shard_params=self._shard_params)
+        if not self._shard_opt:
+            opt_source = plan_sharding(params, self.mesh,
+                                       self.sharding_rules,
+                                       shard_params=False)
+        elif self._shard_params:
+            opt_source = param_plan
+        else:
+            opt_source = plan_sharding(params, self.mesh,
+                                       self.sharding_rules,
+                                       shard_params=True)
+        return param_plan, opt_source
+
+    def _zero_layout(self, params: Any) -> ZeroLayout | None:
+        """The ZeRO-1/2 layout of `params` (whole params, moments cut on
+        `fsdp`), or None where the plugins keep the moments whole, the
+        mesh has no `fsdp` axis above 1, or the plan cuts no leaf."""
+        if self._shard_params or not self._shard_opt or \
+                self.mesh.shape.get(AXIS_FSDP, 1) == 1:
+            return None
+        key = tuple((path, tuple(leaf.shape))
+                    for path, leaf in leaves_with_path(params))
+        if key not in self._zero_layouts:
+            layout = ZeroLayout(params, self._plan_param_and_opt_sharding(
+                params)[1], self.mesh)
+            self._zero_layouts[key] = layout if layout.cut else None
+        return self._zero_layouts[key]
+
     def _place(self, tree: Any, plan: Any = None, device=None) -> Any:
-        """`tree` placed by `plan` (default: the planner's plan of `tree`
-        over the mesh, `plan_sharding` with the transformer rules, as the
-        reference plans params): each leaf this rank's block of it
-        (`shard_pytree`), on `device` (default: where each leaf is). A
+        """`tree` placed by `plan` (default: the params' plan of `tree`,
+        `_plan_param_and_opt_sharding`): each leaf this rank's block of
+        it (`shard_pytree`), on `device` (default: where each leaf is). A
         tree that already holds blocks (`sharding.placement_of`: placed
         before, or a copy of such a tree) stays as it is."""
         if placement_of(tree, self.mesh) is not None:
             return tree
         if plan is None:
-            plan = plan_sharding(tree, self.mesh, transformer_rules())
+            plan = self._plan_param_and_opt_sharding(tree)[0]
         placed = shard_pytree(tree, plan, device=device)
         # where no leaf was cut or moved, the caller's own tree
         if all(a is b for a, b in zip(tree_leaves(placed),
@@ -596,8 +710,9 @@ class Accelerator:
     def prepare_params(self, params: Any) -> Any:
         """The params placed by the planner on the device (on this slice's
         meshes, Mixtral's experts as this rank's block on the `expert`
-        axis, every other leaf whole); with the Accelerator's
-        `device_placement=False`, the params as they were given."""
+        axis, every other leaf whole; under ZeRO-1/2 every leaf whole);
+        with the Accelerator's `device_placement=False`, the params as
+        they were given."""
         if not self.device_placement:
             return params
         return self._place(to_device(params, self.device,
@@ -618,30 +733,35 @@ class Accelerator:
         return model
 
     def prepare_train_state(self, ts: TrainState) -> TrainState:
-        """The state on the device, its params placed by the planner
-        (`prepare_params`) and its optimizer state and accumulation
-        buffer by the same plan (the moments of a block are blocks, the
-        step count stays whole); an fp16 loss scale where it has none."""
+        """The state on the device, its params placed by the params'
+        plan, its optimizer state by the moments' plan (the moments of a
+        block are blocks, the step count stays whole) and its
+        accumulation buffer like the moments (under ZeRO-1/2, params
+        whole and the moments and the buffer this rank's blocks on
+        `fsdp`); an fp16 loss scale where it has none. Each tree that
+        already holds blocks stays as it is; a state whose params do is
+        placed already."""
         dev = self.device
         loss_scale = ts.loss_scale
         if loss_scale is None and \
                 self.state.mixed_precision == PrecisionType.FP16:
             loss_scale = DynamicLossScale.create(device=dev)
-        # a state whose params already hold blocks is placed already
-        plan = None if placement_of(ts.params, self.mesh) is not None \
-            else plan_sharding(ts.params, self.mesh, transformer_rules())
+        param_plan = opt_source = None
+        if placement_of(ts.params, self.mesh) is None:
+            param_plan, opt_source = self._plan_param_and_opt_sharding(
+                ts.params)
 
         def place(tree, tree_plan=None):
             tree = to_device(tree, dev, non_blocking=False)
             return tree if tree_plan is None else self._place(tree, tree_plan)
 
         return dataclasses.replace(
-            ts, params=place(ts.params, plan),
-            opt_state=place(ts.opt_state, None if plan is None else
+            ts, params=place(ts.params, param_plan),
+            opt_state=place(ts.opt_state, None if opt_source is None else
                             plan_optimizer_sharding(ts.tx, ts.opt_state,
-                                                    plan, self.mesh)),
+                                                    opt_source, self.mesh)),
             grad_accum=place(ts.grad_accum,
-                             None if ts.grad_accum is None else plan),
+                             None if ts.grad_accum is None else opt_source),
             loss_scale=None if loss_scale is None else loss_scale.to(dev),
             fp8_state=place(ts.fp8_state))
 
@@ -651,14 +771,23 @@ class Accelerator:
         """An `AcceleratedOptimizer` over `tx`, bound to `params` placed
         by the planner where they are (an expert leaf cut to this rank's
         block, as `prepare_params` cuts it; params already prepared stay
-        as they are), its state initialised from them; recorded for
-        `backward`, the clips and checkpoints. The optimizer updates
-        `opt.params`. `device_placement` is taken for the reference's
-        signature: the optimizer moves nothing to the device itself."""
+        as they are), its state initialised from them and placed by the
+        moments' plan (under ZeRO-1/2 this rank's blocks on `fsdp`, with
+        the step's layout); recorded for `backward`, the clips and
+        checkpoints. The optimizer updates `opt.params`.
+        `device_placement` is taken for the reference's signature: the
+        optimizer moves nothing to the device itself."""
         _refuse_torch_object(tx)
+        opt_state = zero = None
         if params is not None:
             params = self._place(params)
-        opt = AcceleratedOptimizer(tx, params=params)
+            zero = self._zero_layout(params)
+            if zero is not None:
+                opt_state = tx.init(params)
+                opt_state = self._place(opt_state, plan_optimizer_sharding(
+                    tx, opt_state, zero.plan, self.mesh))
+        opt = AcceleratedOptimizer(tx, params=params, opt_state=opt_state,
+                                   zero=zero)
         self._optimizers.append(opt)
         return opt
 
@@ -1262,12 +1391,12 @@ class Accelerator:
 
     def get_state_dict(self, model, unwrap: bool = True):
         """The params (of a TrainState, or a params dict) as host
-        tensors, keys kept. Params that hold this rank's blocks raise
-        (`checkpointing.refuse_blocks`)."""
+        tensors, keys kept. Params that hold this rank's blocks are
+        gathered whole first (`sharding.whole_pytree`: every rank of the
+        mesh makes the call)."""
         if isinstance(model, TrainState):
             model = model.params
-        checkpointing.refuse_blocks("get_state_dict", [model])
-        return tree_map(lambda t: t.detach().to("cpu"), model)
+        return tree_map(lambda t: t.detach().to("cpu"), whole_pytree(model))
 
 
 def _copy_metas(dst, src) -> None:
@@ -1413,6 +1542,13 @@ class _TrainStep:
         if dtype == torch.bfloat16:
             batch = cast_floating(batch, dtype)
         line = acc._data_line()
+        zero = acc._zero_layout(state.params)
+        if zero is not None and placement_of(state.opt_state,
+                                             acc.mesh) is None:
+            raise ValueError(
+                "under ZeRO-1/2 the optimizer moments are each rank's "
+                "blocks on `fsdp`: prepare the state with "
+                "accelerator.prepare(TrainState.create(...)) first")
         # the fp8 casts happen inside the model's fp8_dense calls
         out, grads = _value_and_grad(
             self.loss_fn, state.params, batch, dtype,
@@ -1435,8 +1571,15 @@ class _TrainStep:
         # the global batch's gradient, before the clip, the finite check
         # and the update, so every process decides and updates alike: an
         # average over the batch line alone (every leaf's gradient is
-        # already its whole `stage`, `seq` or `expert` line's)
-        if line.size > 1:
+        # already its whole `stage`, `seq` or `expert` line's); under
+        # ZeRO-1/2 a reduce-scatter into this rank's blocks, the whole
+        # gradients freed bucket by bucket
+        if zero is not None:
+            leaves = tree_leaves(grads)
+            del grads
+            grads = zero.reduce_gradients(leaves, line)
+            del leaves
+        elif line.size > 1:
             ops.all_reduce_mean_(tree_leaves(grads), group=line.group)
         if use_scale:
             inv = 1.0 / state.loss_scale.scale
@@ -1454,7 +1597,7 @@ class _TrainStep:
             sync = (state.step + 1) % k == 0
             if sync:
                 g = self._clipped(state.grad_accum)
-                new_state = state.apply_gradients(g)
+                new_state = state.apply_gradients(g, zero=zero)
                 tree_map(lambda a: a.zero_(), state.grad_accum)
             else:
                 new_state = dataclasses.replace(state, step=state.step + 1)
@@ -1462,7 +1605,7 @@ class _TrainStep:
             sync = True
             g = self._clipped(grads)
             if not use_scale or bool(finite):
-                new_state = state.apply_gradients(g)
+                new_state = state.apply_gradients(g, zero=zero)
             else:
                 new_state = dataclasses.replace(state, step=state.step + 1)
         acc.gradient_state.sync_gradients = sync

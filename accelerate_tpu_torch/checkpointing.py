@@ -50,6 +50,16 @@ the main process's async writes exists. A load first drains this
 process's async writes and meets the others at a barrier, then every
 process reads the replicated files and its own RNG streams. A
 checkpoint written by one process loads as before.
+
+A state that holds this rank's blocks (`sharding.placement_of`: the
+moments of ZeRO-1/2, Mixtral's experts on an `expert` axis) saves and
+loads in the same format. On save every rank gathers each block leaf
+whole over its line (`sharding.whole_pytree`, on the calling thread,
+before an async save stages), and the main process writes the same
+files and keys as a one-process save. On load every rank reads the
+whole tensors and keeps its block by the live placement. So a
+checkpoint of blocks loads in one process, and a one-process checkpoint
+loads into blocks.
 """
 
 from __future__ import annotations
@@ -388,28 +398,35 @@ def _save_payloads(payloads: dict[str, dict], async_save: bool) -> None:
     _writer.submit(staged)
 
 
-def refuse_blocks(what: str, trees: list) -> None:
-    """Raise for `what`, a checkpoint of trees that hold a rank's blocks
-    (`sharding.holds_blocks`: Mixtral's experts on an `expert` axis, a
-    copy of them, their moments):
-    each rank would write only its own block, and the main process's
-    files would hold its block as the whole model. Sharded checkpoints
-    arrive with the port's queue 1 item 6b, step 2."""
-    from .sharding.planner import holds_blocks
+def _whole(payload: dict) -> dict:
+    """The payload with each of its trees that holds blocks gathered
+    whole (`sharding.whole_pytree`): a collective that every rank makes,
+    for the same payloads in the same order."""
+    from .sharding.planner import whole_pytree
 
-    if any(tree is not None and holds_blocks(tree) for tree in trees):
-        raise NotImplementedError(
-            f"{what} of a state that holds this rank's blocks of its "
-            "params (experts placed on an `expert` axis) arrives with "
-            "sharded checkpoints, step 2 of the port's queue 1 item 6b "
-            "(ROADMAP.md); a state without blocks (a `seq` or `stage` "
-            "mesh) saves as before")
+    return {k: whole_pytree(v) if isinstance(v, (dict, tuple)) else v
+            for k, v in payload.items()}
 
 
-def _held_trees(train_states, optimizers) -> list:
-    return [t for ts in train_states for t in (ts.params, ts.opt_state)] + \
-        [getattr(opt, name, None) for opt in optimizers
-         for name in ("params", "opt_state")]
+def _block_specs(payload: dict) -> dict:
+    """{id of a live leaf: (its spec, the mesh)} for each leaf of the
+    payload's trees that is this rank's block (`sharding.placement_of`
+    on the process state's mesh)."""
+    from .sharding.planner import leaves_with_path, placement_of
+    from .state import mesh_or_state
+
+    mesh = mesh_or_state(None)
+    out = {}
+    for tree in payload.values():
+        if not isinstance(tree, (dict, tuple)):
+            continue
+        placement = placement_of(tree, mesh)
+        if placement is None:
+            continue
+        for (_, leaf), spec in zip(leaves_with_path(tree), placement):
+            if spec is not None:
+                out[id(leaf)] = (spec, mesh)
+    return out
 
 
 def save_accelerator_state(
@@ -425,8 +442,8 @@ def save_accelerator_state(
     """Write a checkpoint into `output_dir` and commit it. With
     `async_save=True` the file writes overlap later steps; call
     `wait_for_checkpoints()` (or `load`) before relying on the files.
-    A state that holds blocks raises (`refuse_blocks`)."""
-    refuse_blocks("save_state", _held_trees(train_states, optimizers))
+    A state that holds blocks is gathered whole first (every rank takes
+    part)."""
     t0 = time.perf_counter()
     with span("checkpoint.save"):
         out = _save_accelerator_state(
@@ -474,10 +491,13 @@ def _save_accelerator_state(output_dir, train_states, optimizers,
     pending = _stager.stage(output_dir, step)
     payloads, small = {}, {}
     try:
-        for i, ts in enumerate(train_states if main else ()):
+        for i, ts in enumerate(train_states):
+            # every rank gathers its blocks; the main process writes
+            payload = _whole(_train_state_payload(ts))
+            if not main:
+                continue
             name = f"{MODEL_NAME}_{i}.safetensors"
-            payloads[os.path.join(output_dir, name)] = \
-                _train_state_payload(ts)
+            payloads[os.path.join(output_dir, name)] = payload
             pending.add(name)
             if ts.fp8_state is not None:
                 # a file of its own and the window's length beside it, so
@@ -489,9 +509,9 @@ def _save_accelerator_state(output_dir, train_states, optimizers,
                 small[f"{MODEL_NAME}_{i}_fp8.json"] = json.dumps({
                     "amax_history_len":
                         fp8_state_history_len(ts.fp8_state)}).encode()
-        for i, opt in enumerate(optimizers if main else ()):
-            payload = _optimizer_payload(opt)
-            if payload:
+        for i, opt in enumerate(optimizers):
+            payload = _whole(_optimizer_payload(opt))
+            if payload and main:
                 name = f"{OPTIMIZER_NAME}_{i}.safetensors"
                 payloads[os.path.join(output_dir, name)] = payload
                 pending.add(name)
@@ -541,9 +561,9 @@ def _save_accelerator_state(output_dir, train_states, optimizers,
     return output_dir
 
 
-def _check_file(path: str, live: dict) -> None:
+def _check_file(path: str, live: dict, shapes: dict | None = None) -> None:
     """The file must hold exactly `live`'s keys, each with its dtype and
-    shape."""
+    shape (`shapes[key]` where given, else the live tensor's)."""
     header, _ = st.read_header(path)
     saved = {k for k in header if k != "__metadata__"}
     if saved != set(live):
@@ -553,20 +573,34 @@ def _check_file(path: str, live: dict) -> None:
             f"{sorted(saved - set(live))}")
     for key, t in live.items():
         entry = header[key]
+        shape = list((shapes or {}).get(key, t.shape))
         if entry["dtype"] != st.dtype_name(t.dtype) or \
-                entry["shape"] != list(t.shape):
+                entry["shape"] != shape:
             raise ValueError(
                 f"{path}: {key!r} is {entry['dtype']}{entry['shape']} in the "
-                f"file, {st.dtype_name(t.dtype)}{list(t.shape)} in the state")
+                f"file, {st.dtype_name(t.dtype)}{shape} in the state")
 
 
 def _restore_into(path: str, payload: dict) -> dict:
     """Copy the file's tensors into the payload's live tensors in place
     (no leaf is rebound, so the optimizer and the caller keep seeing the
     same tensors); returns the host ints (the step) by key. The file must
-    hold exactly the payload's keys, each with the live dtype and shape."""
+    hold exactly the payload's keys, each with the live dtype and shape;
+    a live leaf that is this rank's block (`_block_specs`) takes its
+    block of the whole tensor in the file."""
+    from .sharding.planner import NamedSharding
+
     live = _flat_tensors(payload)
-    _check_file(path, live)
+    specs = _block_specs(payload)
+    blocks, shapes = {}, {}
+    for key, t in live.items():
+        found = specs.get(id(t))
+        if found is not None:
+            sharding = NamedSharding(found[1], found[0])
+            shapes[key] = sharding.whole_shape(t.shape)
+            blocks[key] = sharding.local_slices(
+                found[1].coords(found[1].rank), shapes[key])
+    _check_file(path, live, shapes)
     ints = {key for key, leaf in flatten_dict(payload).items()
             if isinstance(leaf, int)}
     out = {}
@@ -575,7 +609,8 @@ def _restore_into(path: str, payload: dict) -> dict:
             if key in ints:
                 out[key] = int(host)
             else:
-                live[key].copy_(host)
+                live[key].copy_(host[blocks[key]] if key in blocks
+                                else host)
     return out
 
 
@@ -641,9 +676,8 @@ def load_accelerator_state(
 ) -> dict:
     """Restore a checkpoint written by `save_accelerator_state`: each
     train state's and eager optimizer's tensors in place, the train
-    states' `step`, and the host objects. A state that holds blocks
-    raises (`refuse_blocks`)."""
-    refuse_blocks("load_state", _held_trees(train_states, optimizers))
+    states' `step`, and the host objects. A leaf that holds this
+    rank's block takes its block of the whole tensor on disk."""
     t0 = time.perf_counter()
     with span("checkpoint.restore"):
         out = _load_accelerator_state(
@@ -849,9 +883,12 @@ def save_model(
     """Write the params (a nested dict of tensors, on any device) as
     safetensors under `save_directory`, index-sharded above
     `max_shard_size`; `safe_serialization=False` pickles the flat dict of
-    host tensors to `model.pkl` instead. Params that hold blocks raise
-    (`refuse_blocks`)."""
-    refuse_blocks("save_model", [params])
+    host tensors to `model.pkl` instead. Params that hold blocks are
+    gathered whole first (`sharding.whole_pytree`; every rank takes
+    part)."""
+    from .sharding.planner import whole_pytree
+
+    params = whole_pytree(params)
     save_directory = _abspath(save_directory)
     os.makedirs(save_directory, exist_ok=True)
     if not PartialState.is_main_process:

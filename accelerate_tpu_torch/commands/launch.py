@@ -25,10 +25,18 @@ N`, the `seq` axis's size) reaches the children as
 `ACCELERATE_TORCH_CONTEXT_PARALLEL_{MODE,DEGREE}`, which the
 Accelerator reads; a degree without a mode is refused.
 
-Refused, with the slice that brings them: `--zero_stage`,
-`--fsdp_sharding_strategy` and a `--mesh_shape` with an `fsdp` or
-`model` axis above 1 (sharded training, queue 1 item 6b);
-`--tpu_name`, `--tpu_zone`, `--tpu_project` (pods, item 8d).
+`--zero_stage 0|1|2` and `--fsdp_sharding_strategy NO_SHARD|
+SHARD_GRAD_OP` reach the children as `ACCELERATE_TORCH_ZERO_STAGE` and
+`ACCELERATE_TORCH_FSDP_SHARDING_STRATEGY` (ZeRO-1/2: params whole, the
+optimizer moments cut on `fsdp`), and with one of them a `--mesh_shape`
+may hold an `fsdp` axis.
+
+Refused, with the step that brings them: `--zero_stage 3`,
+`--fsdp_sharding_strategy FULL_SHARD` or `HYBRID_SHARD`, and a
+`--mesh_shape` with an `fsdp` axis above 1 and no flag that keeps params
+whole (parameter sharding, queue 1 item 6b, step 2b); a `model` axis
+above 1 (tensor-parallel training, step 2c); `--tpu_name`,
+`--tpu_zone`, `--tpu_project` (pods, item 8d).
 `--num_virtual_devices` has no meaning here: each process owns one
 device.
 """
@@ -150,19 +158,31 @@ def check_supported(args: argparse.Namespace) -> None:
         raise LaunchRefused(
             "--context_parallel_degree needs --context_parallel_mode ring "
             "or ulysses (the degree is the `seq` axis of that mode)")
-    sharded = [f"--{n}" for n in ("zero_stage", "fsdp_sharding_strategy")
-               if getattr(args, n, None) is not None]
+    from ..state import STEP_2B, STEP_2C
+
+    zero = getattr(args, "zero_stage", None)
+    strategy = getattr(args, "fsdp_sharding_strategy", None)
+    if zero == 3:
+        raise LaunchRefused(
+            f"--zero_stage 3 (parameter sharding) arrives with {STEP_2B}; "
+            "--zero_stage 0, 1 or 2 runs")
+    if strategy in ("FULL_SHARD", "HYBRID_SHARD"):
+        raise LaunchRefused(
+            f"--fsdp_sharding_strategy {strategy} (parameter sharding) "
+            f"arrives with {STEP_2B}; NO_SHARD or SHARD_GRAD_OP runs")
     if args.mesh_shape:
         axes = parse_mesh_shape(args.mesh_shape)
-        if any(a not in ("data", "stage", "seq", "expert")
-               and s not in (0, 1) for a, s in axes.items()):
-            sharded.append(f"--mesh_shape {args.mesh_shape}")
-    if sharded:
-        raise LaunchRefused(
-            f"{', '.join(sharded)}: sharded training is not ported; it "
-            "arrives with the port's sharded-parallelism slice (ROADMAP.md, "
-            "queue 1 item 6b). The port runs data parallelism, pipeline "
-            "stages, and ring, Ulysses and expert parallelism.")
+        if axes.get("model", 1) not in (0, 1):
+            raise LaunchRefused(
+                f"--mesh_shape {args.mesh_shape}: a `model` axis "
+                f"(tensor-parallel training) arrives with {STEP_2C}")
+        if axes.get("fsdp", 1) not in (0, 1) and zero is None and \
+                strategy is None:
+            raise LaunchRefused(
+                f"--mesh_shape {args.mesh_shape}: an `fsdp` axis without "
+                "--zero_stage or --fsdp_sharding_strategy shards params, "
+                f"which arrives with {STEP_2B}; add --zero_stage 1 or 2 "
+                "(or --fsdp_sharding_strategy SHARD_GRAD_OP) for ZeRO")
 
 
 def _child_env(extra: dict[str, str]) -> dict[str, str]:

@@ -439,13 +439,32 @@ def causal_lm_loss_of(forward_fn, config, params: dict, batch: dict,
     return cross_entropy_loss(out, labels, mask)
 
 
+def masked_mean(total: torch.Tensor, count: torch.Tensor) -> torch.Tensor:
+    """`total / max(count, 1)` over the global batch, as the reference
+    divides a masked sum by the global array's count. On a batch line of
+    several ranks (`state.data_line`) the count is the line's (one
+    all-reduce of a scalar, with no gradient) and each rank divides its
+    own sum by `count_line / line_size`, so the line's average of the
+    ranks' losses and gradients (the train step's) is the global sum
+    over the global count; every rank of the line must make the call."""
+    from ..state import data_line
+    from ..utils import operations as ops
+
+    line = data_line()
+    if line.size > 1:
+        count = ops.axis_all_reduce(count.detach().float(), line.group)
+        return total / (torch.clamp(count, min=1) / line.size)
+    return total / torch.clamp(count, min=1)
+
+
 def cross_entropy_loss(logits: torch.Tensor, labels: torch.Tensor,
                        mask: torch.Tensor | None = None,
                        label_smoothing: float = 0.0) -> torch.Tensor:
-    """Mean token cross-entropy in f32."""
+    """Mean token cross-entropy in f32; with a mask, the masked sum over
+    the global batch's count of real tokens (`masked_mean`)."""
     nll = token_nll(logits, labels, label_smoothing)
     if mask is not None:
-        return torch.sum(nll * mask) / torch.clamp(torch.sum(mask), min=1)
+        return masked_mean(torch.sum(nll * mask), torch.sum(mask))
     return torch.mean(nll)
 
 

@@ -41,6 +41,7 @@ from .common import (  # noqa: F401  (_HeadF32, _split_bf16: tests)
     dot_product_attention,
     logits_f32,
     make_generator,
+    masked_mean,
     normal_init,
     rematted,
     repeat_kv,
@@ -457,7 +458,8 @@ def causal_lm_loss(config: LlamaConfig, params: dict, batch: dict,
                   attention_mask=attn_mask, return_hidden=True,
                   fp8_state=fp8_state)
     hidden, new_fp8 = out if fp8_state is not None else (out, None)
-    if mask is None:
+    masked = mask is not None
+    if not masked:
         mask = torch.ones((B, S), dtype=torch.float32, device=hidden.device)
 
     def body(h, lab, m):
@@ -474,7 +476,10 @@ def causal_lm_loss(config: LlamaConfig, params: dict, batch: dict,
                              use_reentrant=False)
         loss_sum = loss_sum + part
         count = count + n
-    loss = loss_sum / torch.clamp(count, min=1)
+    # a padded batch's mean over the global count; an unmasked one's
+    # count is the same on every rank
+    loss = masked_mean(loss_sum, count) if masked else \
+        loss_sum / torch.clamp(count, min=1)
     return loss if fp8_state is None else (loss, new_fp8)
 
 

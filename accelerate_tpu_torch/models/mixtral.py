@@ -21,7 +21,8 @@ load-balancing loss. `moe_impl` picks the dispatch, as in the reference:
 
 On an `expert` mesh a rank may hold its block of the experts ([L, E/P,
 ...], as `Accelerator.prepare` places them): "a2a" runs each rank's
-block, and "dense" and "sparse" gather the layer's blocks over the
+block (on the global batch's tokens, gathered over the batch line, so
+its drops are the reference's), and "dense" and "sparse" gather the layer's blocks over the
 `expert` line first (`_whole_experts`), so their values are exactly
 one process's. In a world of several processes the load-balancing
 loss takes the global batch's fractions in every forward, averaged over

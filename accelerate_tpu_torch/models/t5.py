@@ -31,6 +31,7 @@ from .common import (
     dense_maybe_fp8,
     logits_f32,
     make_generator,
+    masked_mean,
     normal_init,
     rms_norm,
     run_layers,
@@ -521,5 +522,5 @@ def seq2seq_loss(config: T5Config, params: dict, batch: dict,
         loss = torch.mean(nll)
     else:
         m = mask.float()
-        loss = torch.sum(nll * m) / torch.clamp(torch.sum(m), min=1)
+        loss = masked_mean(torch.sum(nll * m), torch.sum(m))
     return (loss, new_fp8) if fp8_state is not None else loss

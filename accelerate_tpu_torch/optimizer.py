@@ -16,6 +16,14 @@ buffer (the counterpart of torch's `.grad`). The update runs in place on
 the caller's params dict sees every step. Under fp16 a step whose
 gradients are not finite is skipped (`step_was_skipped`), as the
 reference skips it.
+
+Under ZeRO-1/2 (`zero`, the Accelerator's `sharding.zero.ZeroLayout`)
+the params stay whole and the optimizer state holds this rank's blocks
+on `fsdp`: the buffer holds the whole gradients the Accelerator has
+already averaged over the batch line (as the reference's eager
+gradients are global arrays), and `step` takes this rank's block of
+them, updates its slice of the params and all-gathers the params whole
+(`ZeroLayout.update_`), with no second reduce.
 """
 
 from __future__ import annotations
@@ -36,8 +44,9 @@ class AcceleratedOptimizer:
     docstring."""
 
     def __init__(self, tx: GradientTransformation, params: Any = None,
-                 opt_state: Any = None):
+                 opt_state: Any = None, zero=None):
         self.tx = tx
+        self.zero = zero
         self.gradient_state = GradientState()
         self.params = params
         if opt_state is None and params is not None:
@@ -87,6 +96,11 @@ class AcceleratedOptimizer:
                 "pass grads to step().")
         self._overflow = self._check_overflow(grads)
         if self._overflow:
+            return
+        if self.zero is not None:
+            self.opt_state = self.zero.update_(
+                self.tx, self.zero.blocks(grads), self.opt_state,
+                self.params)
             return
         updates, self.opt_state = self.tx.update(grads, self.opt_state,
                                                  self.params)

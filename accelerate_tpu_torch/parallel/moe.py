@@ -36,7 +36,10 @@ lead with the expert dim: either the whole E, of which each rank takes
 its block (its gradient then all-gathered), or this rank's E/P block,
 as `sharding.plan_sharding` places it (the leading E dim over
 `expert`), whose gradient stays this rank's. `expert_fn(params, xs)` is
-applied to one expert at a time (the reference's `vmap`).
+applied to one expert at a time (the reference's `vmap`). Where the
+mesh's batch line (`data`, `fsdp`) is longer than one, its ranks hold
+different rows: the a2a dispatch then gathers the line's tokens first
+and runs on the global batch, as the reference's does.
 """
 
 from __future__ import annotations
@@ -46,7 +49,7 @@ from typing import Callable
 
 import torch
 
-from ..state import line_group, mesh_or_state
+from ..state import PartialState, data_line, line_group, mesh_or_state
 from ..utils import operations as ops
 from ..utils.constants import AXIS_EXPERT
 from .pipeline import _tree_leaves, _tree_map, _tree_rebuild
@@ -265,8 +268,44 @@ def expert_parallel_moe_a2a(x: torch.Tensor, router_logits: torch.Tensor,
     capacity. `expert_aux` (needs `topk`) threads a pytree (e.g. fp8
     delayed scales) into `expert_fn(params, xs, aux) -> (out, aux_out)`;
     the aux_out leaves (per-call scalars such as amaxes) reduce by max
-    over the experts, then over the ranks, into extras["expert_aux"]."""
+    over the experts, then over the ranks, into extras["expert_aux"].
+
+    On a mesh whose batch line (`state.data_line`: the `data` and `fsdp`
+    ranks, which hold different rows) is longer than one, `x`, the
+    logits and `topk` are this rank's rows: they are all-gathered over
+    the line first, in the line's order (the global batch's rows), the
+    dispatch runs on the global tokens as the reference's `shard_map`
+    splits them over `expert` alone, and each rank keeps its own rows of
+    the output. So the capacity, the drops, the dropped fraction and
+    `expert_aux` are the global batch's, as the reference's; the
+    backward goes through the same gathers (each rank's rows get their
+    own outputs' gradient)."""
     mesh = mesh_or_state(mesh)
+    line = data_line(mesh) if mesh is not None and \
+        mesh.size == PartialState.num_processes else None
+    if line is not None and line.size > 1 and _axis(mesh, axis_name) > 1:
+        group, rows = line.group, x.shape[0]
+        if topk is not None:
+            topk = (ops.axis_gather(topk[0], 0, group),
+                    ops.axis_all_gather(topk[1].contiguous(), 0, group))
+        res = _expert_parallel_moe_a2a(
+            ops.axis_gather(x, 0, group),
+            ops.axis_gather(router_logits, 0, group), expert_params,
+            expert_fn, mesh, axis_name, capacity_factor, top_k, topk,
+            strict, return_stats, expert_aux)
+        mine = (lambda y: y.narrow(0, line.index * rows, rows))
+        return (mine(res[0]), res[1]) if isinstance(res, tuple) \
+            else mine(res)
+    return _expert_parallel_moe_a2a(
+        x, router_logits, expert_params, expert_fn, mesh, axis_name,
+        capacity_factor, top_k, topk, strict, return_stats, expert_aux)
+
+
+def _expert_parallel_moe_a2a(x, router_logits, expert_params, expert_fn,
+                             mesh, axis_name, capacity_factor, top_k, topk,
+                             strict, return_stats, expert_aux):
+    """`expert_parallel_moe_a2a` on tokens that every rank of the
+    `expert` line holds whole."""
     num_experts = router_logits.shape[-1]
     n_dev = _axis(mesh, axis_name)
     divisible = num_experts % n_dev == 0 and x.shape[0] % n_dev == 0
@@ -281,7 +320,7 @@ def expert_parallel_moe_a2a(x: torch.Tensor, router_logits: torch.Tensor,
             "compute, instead of all_to_all)")
         if strict:
             raise ValueError(msg)
-        warnings.warn(msg, MoEFallbackWarning, stacklevel=2)
+        warnings.warn(msg, MoEFallbackWarning, stacklevel=3)
     if expert_aux is not None and topk is None:
         raise ValueError("expert_aux requires precomputed `topk` routing")
     if n_dev == 1 or not divisible:

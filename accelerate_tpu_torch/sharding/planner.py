@@ -44,6 +44,8 @@ __all__ = [
     "shard_pytree",
     "placement_of",
     "holds_blocks",
+    "record_placement",
+    "whole_pytree",
     "describe_plan",
 ]
 
@@ -86,6 +88,17 @@ class NamedSharding:
             for a in (() if e is None else e if isinstance(e, tuple)
                       else (e,)):
                 out[dim] //= sizes[a]
+        return tuple(out)
+
+    def whole_shape(self, shape) -> tuple:
+        """The global shape of a leaf whose block has `shape` (the
+        inverse of `shard_shape`)."""
+        sizes = _axis_sizes(self.mesh)
+        out = list(shape)
+        for dim, e in enumerate(self.spec):
+            for a in (() if e is None else e if isinstance(e, tuple)
+                      else (e,)):
+                out[dim] *= sizes[a]
         return tuple(out)
 
     def local_slices(self, coords: dict[str, int], shape) -> tuple:
@@ -353,13 +366,39 @@ def shard_pytree(tree: Any, plan: Any, rank: int | None = None,
         return block
 
     placed = _zip_map(place, tree, plan)
-    if cut:
-        leaves = leaves_with_path(placed)
-        mesh = next(iter(cut.values())).mesh
-        _PLACEMENTS.setdefault(mesh, {})[_tree_key(leaves)] = tuple(
-            cut[id(leaf)].spec if id(leaf) in cut else None
-            for _, leaf in leaves)
+    _record(placed, cut)
     return placed
+
+
+def _record(placed, cut: dict) -> None:
+    """Record the placement of `placed`, whose leaves of id in `cut` are
+    blocks under that sharding."""
+    if not cut:
+        return
+    leaves = leaves_with_path(placed)
+    mesh = next(iter(cut.values())).mesh
+    _PLACEMENTS.setdefault(mesh, {})[_tree_key(leaves)] = tuple(
+        cut[id(leaf)].spec if id(leaf) in cut else None
+        for _, leaf in leaves)
+
+
+def record_placement(tree, plan) -> None:
+    """Record `plan` as the placement of `tree`, whose leaves are already
+    this rank's blocks under it (a tree cut by other means than
+    `shard_pytree`: the gradient blocks of ZeRO's reduce-scatter), so
+    `placement_of` knows it and its copies. Leaves whose spec cuts
+    nothing are whole."""
+    cut: dict = {}
+
+    def note(leaf, sharding):
+        if sharding is not None and sharding.spec.axes() and any(
+                _axis_sizes(sharding.mesh)[a] > 1
+                for a in sharding.spec.axes()):
+            cut[id(leaf)] = sharding
+        return leaf
+
+    _zip_map(note, tree, plan)
+    _record(tree, cut)
 
 
 # mesh -> {(path, shape) of every leaf: the spec of each leaf, None where
@@ -394,6 +433,37 @@ def placement_of(tree, mesh=None) -> tuple | None:
 def holds_blocks(tree, mesh=None) -> bool:
     """Whether `tree` holds blocks of larger leaves (`placement_of`)."""
     return placement_of(tree, mesh) is not None
+
+
+def whole_pytree(tree, mesh=None):
+    """`tree` with each block (`placement_of` on `mesh`, default the
+    process state's) all-gathered over its line into the whole leaf, and
+    every whole leaf as it is: a collective that every rank of the mesh
+    makes, leaf by leaf in `leaves_with_path` order. A tree that holds
+    no block comes back as it is."""
+    from ..state import mesh_or_state
+    from ..utils import operations as ops
+
+    mesh = mesh_or_state(mesh)
+    placement = placement_of(tree, mesh)
+    if placement is None:
+        return tree
+    specs = {id(leaf): spec for (_, leaf), spec in
+             zip(leaves_with_path(tree), placement)}
+    # gathered in leaves_with_path order, so every rank agrees
+    whole = {}
+    for _, leaf in leaves_with_path(tree):
+        spec, out = specs[id(leaf)], leaf
+        for dim, entry in enumerate(spec or ()):
+            axes = () if entry is None else entry \
+                if isinstance(entry, tuple) else (entry,)
+            # the minor axis first: a dim over several axes takes them
+            # major to minor (`NamedSharding.local_slices`)
+            for axis in reversed(axes):
+                out = ops.axis_all_gather(out.detach().contiguous(), dim,
+                                          mesh.group(axis))
+        whole[id(leaf)] = out
+    return _map_with_path(lambda _, leaf: whole[id(leaf)], tree)
 
 
 def describe_plan(plan: Any, max_rows: int = 120) -> str:

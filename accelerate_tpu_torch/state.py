@@ -41,8 +41,9 @@ import torch
 
 from .device import resolve_device
 from .utils.constants import (
-    AXIS_DATA,
     AXIS_EXPERT,
+    AXIS_FSDP,
+    AXIS_MODEL,
     AXIS_SEQ,
     AXIS_STAGE,
     BATCH_AXES,
@@ -61,9 +62,6 @@ from .utils.dataclasses import (
     resolve_mixed_precision,
 )
 from .utils.environment import get_int_from_env, parse_flag_from_env
-
-_ITEM_6B = ("the port's sharded-parallelism slice (ROADMAP.md, queue 1 "
-            "item 6b)")
 
 
 def _dist_live() -> bool:
@@ -347,22 +345,43 @@ def _pad_slice(seq, pad_to: int):
     return seq + seq[-1:] * (pad_to - n) if n else seq
 
 
-def _refuse_sharded(axes: dict[str, int]) -> None:
-    """Raise for an `fsdp` or `model` axis above size 1: their training
-    half (ZeRO/FSDP and Megatron placement through the Accelerator) is
-    not ported."""
-    for axis, size in axes.items():
-        if axis not in _TAKEN_AXES and size > 1:
-            raise NotImplementedError(
-                f"a mesh axis {axis!r} of size {size} (sharded "
-                f"parallelism) arrives with {_ITEM_6B}; the port runs data "
-                "parallelism over the `data` axis, pipeline stages over "
-                "`stage`, ring and Ulysses attention over `seq` and expert "
-                "parallelism over `expert`")
+STEP_2B = ("the port's sharded-parallelism slice (ROADMAP.md, queue 1 "
+           "item 6b, step 2b: FSDP/ZeRO-3 parameter sharding)")
+STEP_2C = ("the port's sharded-parallelism slice (ROADMAP.md, queue 1 "
+           "item 6b, step 2c: the `model` axis with Megatron)")
 
 
-# the axes the Accelerator takes
-_TAKEN_AXES = (AXIS_DATA, AXIS_STAGE, AXIS_SEQ, AXIS_EXPERT)
+def _refuse_sharded(axes: dict[str, int], params_whole: bool = False) -> None:
+    """Raise for a mesh the Accelerator does not train on: a `model` axis
+    above 1 (step 2c), and an `fsdp` axis above 1 unless the plan keeps
+    params whole (`params_whole`: ZeRO-1/2, `SHARD_GRAD_OP`, stage 0 or
+    `NO_SHARD`); a bare `fsdp` mesh shards params, as the reference
+    plans it (step 2b). ZeRO's `fsdp` axis beside a `stage`, `seq` or
+    `expert` axis above 1 raises too (step 2b). Sizes of -1 (fill) are
+    taken here: call it again on the resolved axes."""
+    if axes.get(AXIS_MODEL, 1) > 1:
+        raise NotImplementedError(
+            f"a mesh axis 'model' of size {axes[AXIS_MODEL]} (tensor-"
+            f"parallel training) arrives with {STEP_2C}; the port trains "
+            "over `data`, ZeRO-1/2 over `fsdp`, pipeline stages over "
+            "`stage`, ring and Ulysses attention over `seq` and expert "
+            "parallelism over `expert`")
+    fsdp = axes.get(AXIS_FSDP, 1)
+    if fsdp <= 1:
+        return
+    if not params_whole:
+        raise NotImplementedError(
+            f"a mesh axis 'fsdp' of size {fsdp} without a plugin that "
+            "keeps params whole shards params (the reference's plan), "
+            f"which arrives with {STEP_2B}; ZeRO-1/2 trains on it: "
+            "DeepSpeedPlugin(zero_stage=1 or 2) or FullyShardedDataParallel"
+            "Plugin(sharding_strategy=\"SHARD_GRAD_OP\")")
+    beside = {a: s for a, s in axes.items()
+              if a in (AXIS_STAGE, AXIS_SEQ, AXIS_EXPERT) and s > 1}
+    if beside:
+        raise NotImplementedError(
+            f"ZeRO on an 'fsdp' axis of size {fsdp} beside {beside} "
+            f"arrives with {STEP_2B}; ZeRO-1/2 trains on `data` x `fsdp`")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -404,7 +423,8 @@ class ProcessMesh:
     leaf already is).
 
     The Accelerator and the launcher take the `data`, `stage`, `seq`
-    and `expert` axes (`_refuse_sharded`); the serving mesh
+    and `expert` axes, and `fsdp` under ZeRO-1/2 (`_refuse_sharded`);
+    the serving mesh
     (`serving.pod.tensor_mesh`) is one `model` axis; `MeshConfig.build()`
     makes any mesh."""
 
@@ -571,7 +591,7 @@ class AcceleratorState:
 
     def __init__(self, mixed_precision: str | None = None, cpu: bool = False,
                  mesh_config: MeshConfig | None = None,
-                 **kwargs: Any) -> None:
+                 params_whole: bool = False, **kwargs: Any) -> None:
         self.__dict__ = self._shared_state
         if self.initialized:
             asked = mixed_precision
@@ -591,10 +611,11 @@ class AcceleratorState:
         if not isinstance(mesh_config, MeshConfig):
             raise TypeError(f"mesh_config must be a MeshConfig, got "
                             f"{type(mesh_config).__name__}")
-        _refuse_sharded(mesh_config.axes)
+        _refuse_sharded(mesh_config.axes, params_whole)
+        axes = mesh_config.resolved_axes(self.partial_state.num_processes)
+        _refuse_sharded(axes, params_whole)
         self.mesh_config = mesh_config
-        self.mesh = ProcessMesh(mesh_config.resolved_axes(
-            self.partial_state.num_processes))
+        self.mesh = ProcessMesh(axes)
         self.partial_state.set_mesh(self.mesh)
 
     @property

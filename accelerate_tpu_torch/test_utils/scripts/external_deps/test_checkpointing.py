@@ -3,6 +3,9 @@
 - train 4 steps, `save_state`, train 4 more: P_direct; a fresh run that
   `load_state`s and trains the same 4 lands on P_direct bit for bit (the
   optimizer moments and the step round-trip);
+- the same on a model whose weight the ZeRO plan cuts (a [64, 64]
+  matrix): under `--zero_stage 1|2` its moments are each rank's block,
+  gathered whole into the checkpoint and cut again on load;
 - `skip_first_batches` replays exactly the batches not yet seen;
 - `total_limit` keeps the newest checkpoints only.
 """
@@ -63,6 +66,59 @@ def check_save_resume_equivalence(tmpdir: str):
     assert direct["b"].tobytes() == resumed["b"].tobytes(), (direct, resumed)
 
 
+def _make_matrix_world():
+    import torch
+
+    from accelerate_tpu_torch.accelerator import Accelerator
+    from accelerate_tpu_torch.optimizers import adamw
+    from accelerate_tpu_torch.state import PartialState
+    from accelerate_tpu_torch.training import TrainState
+
+    PartialState._reset_state()
+    acc = Accelerator()
+    rng = np.random.default_rng(11)
+    w = rng.standard_normal((64, 64)).astype(np.float32) * 0.1
+    x = rng.standard_normal((64 * acc.num_processes, 64)).astype(np.float32)
+    y = (x @ rng.standard_normal((64, 64)).astype(np.float32)) * 0.1
+    loader = acc.prepare([{"x": x[i:i + 8], "y": y[i:i + 8]}
+                          for i in range(0, len(x), 8)])
+    ts = acc.prepare(TrainState.create(
+        apply_fn=None, params={"w": torch.from_numpy(w)}, tx=adamw(0.01)))
+
+    def loss(p, b):
+        return torch.mean((b["x"] @ p["w"] - b["y"]) ** 2)
+
+    return acc, loader, ts, acc.train_step(loss)
+
+
+def check_blocks_resume_equivalence(tmpdir: str) -> bool:
+    """`check_save_resume_equivalence` on the [64, 64] model; returns
+    whether its moments were this rank's blocks."""
+    from accelerate_tpu_torch.sharding import holds_blocks
+    from accelerate_tpu_torch.test_utils import host_values
+
+    ckpt = os.path.join(tmpdir, "matrix")
+    acc, loader, ts, step = _make_matrix_world()
+    it = iter(loader)
+    for _ in range(2):
+        ts, _ = step(ts, next(it))
+    acc.save_state(ckpt, state=ts)
+    for _ in range(2):
+        ts, _ = step(ts, next(it))
+    direct = host_values(ts.params)["w"]
+    blocks = holds_blocks(ts.opt_state)
+
+    acc2, loader2, ts2, step2 = _make_matrix_world()
+    acc2.load_state(ckpt, state=ts2)
+    it2 = iter(loader2)
+    for _ in range(2):
+        next(it2)
+    for _ in range(2):
+        ts2, _ = step2(ts2, next(it2))
+    assert direct.tobytes() == host_values(ts2.params)["w"].tobytes()
+    return blocks
+
+
 def check_skip_first_batches(tmpdir: str):
     from accelerate_tpu_torch.test_utils import host_values
 
@@ -102,6 +158,7 @@ def main() -> None:
             else [None, None, None])
     dirs = broadcast_object_list(dirs)
     check_save_resume_equivalence(dirs[0])
+    blocks = check_blocks_resume_equivalence(dirs[0])
     check_skip_first_batches(dirs[1])
     check_total_limit(dirs[2])
     state = PartialState()
@@ -110,7 +167,8 @@ def main() -> None:
         for d in dirs:
             shutil.rmtree(d, ignore_errors=True)
         print("test_checkpointing: ALL CHECKS PASSED "
-              f"({state.num_processes} process(es))")
+              f"({state.num_processes} process(es))"
+              + (", moments as blocks" if blocks else ""))
 
 
 if __name__ == "__main__":

@@ -12,8 +12,14 @@ its rows), and takes `--steps` fused steps (remat "dots"). Each then
 times the gradient all-reduce alone on a gradient-sized tree (CUDA
 events on a card), checks that its parameters equal process 0's bit for
 bit (broadcast leaf by leaf), and prints one line `DP_RESULT {json}`
-with its losses, step times, flash-kernel launches, peak memory and
-that check. A world of one process runs the whole batch, the baseline
+with its losses, step times, flash-kernel launches, its memory after
+`prepare` and at its peak, its optimizer moments' bytes beside those of
+whole moments, and that check. Launched with `--zero_stage 1|2` (or
+`--fsdp_sharding_strategy SHARD_GRAD_OP`), the Accelerator runs ZeRO on
+an `fsdp` axis of the processes: the moments are each rank's block, and
+in place of the all-reduce the script times the gradients'
+reduce-scatter and the params' all-gather alone
+(`utils.operations.reduce_scatter_mean_`, `all_gather_blocks_`). A world of one process runs the whole batch, the baseline
 the losses are held against. With `--update-sample PATH` process 0 also
 saves step 1's update (parameters after it minus before) at every
 leaf's elements `0, s, 2s, ...` (s = max(1, numel // 2**18)), as one
@@ -108,6 +114,13 @@ def main(argv: list[str] | None = None) -> dict:
     ids = np.random.default_rng(0).integers(
         0, cfg.vocab_size, (args.rows, args.seq)).astype(np.int32)
     (batch,) = list(acc.prepare([{"input_ids": ids}]))
+    prepared_gb = (torch.cuda.memory_allocated(dev) / 1e9
+                   if dev.type == "cuda" else None)
+    moments = [m for k in ("mu", "nu")
+               for m in tree_leaves(getattr(state.opt_state, k))]
+    moment_bytes = sum(m.numel() * m.element_size() for m in moments)
+    whole_moment_bytes = 2 * sum(p.numel() * 4
+                                 for p in tree_leaves(state.params))
     step = acc.train_step(lambda p, b: llama.causal_lm_loss(cfg, p, b))
     clock = _Clock(dev)
 
@@ -131,16 +144,39 @@ def main(argv: list[str] | None = None) -> dict:
     peak_gb = (torch.cuda.max_memory_allocated(dev) / 1e9
                if dev.type == "cuda" else None)
 
-    # the gradient all-reduce alone, on a tree of the gradients' shapes
     leaves = tree_leaves(state.params)
-    grads = [torch.ones_like(p) for p in leaves]
-    acc.wait_for_everyone()
-    t0 = clock.mark()
-    ops.all_reduce_mean_(grads)
-    t1 = clock.mark()
-    allreduce_ms = clock.ms(t0, t1)
-    grad_elems = sum(g.numel() for g in grads)
-    del grads
+    grad_elems = sum(p.numel() for p in leaves)
+    zero = acc._zero_layout(state.params)
+    collectives = {}
+    if zero is None:
+        # the gradient all-reduce alone, on a tree of the gradients' shapes
+        grads = [torch.ones_like(p) for p in leaves]
+        acc.wait_for_everyone()
+        t0 = clock.mark()
+        ops.all_reduce_mean_(grads)
+        t1 = clock.mark()
+        collectives["allreduce_ms"] = clock.ms(t0, t1)
+        del grads
+    else:
+        # ZeRO's pair alone: the cut leaves' gradients reduce-scattered
+        # into blocks, then the params' blocks all-gathered in place
+        cut = [i for i, d in enumerate(zero.dims) if d is not None]
+        dims = [zero.dims[i] for i in cut]
+        grads = [torch.ones_like(leaves[i]) for i in cut]
+        blocks = [g.narrow(d, 0, g.shape[d] // zero.size).clone()
+                  for g, d in zip(grads, dims)]
+        acc.wait_for_everyone()
+        t0 = clock.mark()
+        ops.reduce_scatter_mean_(grads, blocks, dims, zero.group)
+        t1 = clock.mark()
+        collectives["reduce_scatter_ms"] = clock.ms(t0, t1)
+        del grads, blocks
+        acc.wait_for_everyone()
+        t0 = clock.mark()
+        ops.all_gather_blocks_([leaves[i] for i in cut], dims, zero.group)
+        t1 = clock.mark()
+        collectives["all_gather_ms"] = clock.ms(t0, t1)
+        collectives["cut_elements"] = sum(leaves[i].numel() for i in cut)
 
     # the replicas: process 0's parameters, broadcast leaf by leaf
     identical = all(torch.equal(ops.broadcast(p.detach().clone(), 0), p)
@@ -150,7 +186,11 @@ def main(argv: list[str] | None = None) -> dict:
               "batch_rows": int(batch["input_ids"].shape[0]),
               "losses": losses, "step_ms": step_ms,
               "launches": launches, "max_memory_allocated_gb": peak_gb,
-              "allreduce_ms": allreduce_ms, "grad_elements": grad_elems,
+              "memory_after_prepare_gb": prepared_gb,
+              "moment_bytes": moment_bytes,
+              "whole_moment_bytes": whole_moment_bytes,
+              "zero": zero is not None, **collectives,
+              "grad_elements": grad_elems,
               "identical_to_rank0": identical,
               "mesh": acc.mesh.shape}
     # one write of the whole line: the ranks share the launcher's stdout

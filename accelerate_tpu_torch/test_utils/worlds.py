@@ -1191,7 +1191,10 @@ def _case_ep_mixtral(case, mesh):
     """Mixtral's logits and aux loss with `moe_impl="a2a"` on the process
     state's mesh (the whole expert stack, or each rank's block), with
     fp8 (`fp8`: the logits and the new moe metas' scales), and the
-    causal-LM loss's gradients on `loss_ids`."""
+    causal-LM loss's gradients on `loss_ids`. Where the mesh's batch line
+    is longer than one, each rank takes its line's share of the rows of
+    `ids` and `loss_ids`, as a loader gives them (`line`: its size,
+    index and ranks)."""
     import dataclasses
 
     from ..models import mixtral
@@ -1200,9 +1203,18 @@ def _case_ep_mixtral(case, mesh):
 
     cfg = mixtral.MixtralConfig(**case["config"])
     params = _tensors(case["params"])
-    ids = torch.from_numpy(np.asarray(case["ids"])).long()
+    line = mesh.data_line()
+
+    def rows(x):
+        x = torch.from_numpy(np.asarray(x)).long()
+        b = x.shape[0] // line.size
+        return x[line.index * b:(line.index + 1) * b]
+
+    ids = rows(case["ids"])
     PartialState().set_mesh(mesh)
-    out = {}
+    out = {"line": (line.size, line.index,
+                    tuple(mesh.line_ranks(line.axes)) if line.size > 1
+                    else (mesh.rank,))}
     try:
         with torch.no_grad():
             logits, aux = mixtral.forward(cfg, params, ids)
@@ -1227,7 +1239,7 @@ def _case_ep_mixtral(case, mesh):
                     for n in ("gate_proj", "up_proj", "down_proj")}
         leaves = {k: v.clone().requires_grad_()
                   for k, v in _flat(params).items()}
-        loss_ids = torch.from_numpy(np.asarray(case["loss_ids"])).long()
+        loss_ids = rows(case["loss_ids"])
         with torch.enable_grad():
             loss = mixtral.causal_lm_loss(cfg, _unflat(leaves),
                                           {"input_ids": loss_ids})
@@ -1266,22 +1278,11 @@ def expert_parallel_forms(out_dir: str, cases: list) -> None:
 
 def _whole_numpy(tree):
     """A params tree as host arrays, each block (`sharding.placement_of`)
-    gathered over its line into the whole leaf: a collective, called by
-    every rank of the mesh."""
-    from ..sharding.planner import leaves_with_path, placement_of
-    from ..state import mesh_or_state
-    from ..utils import operations as ops
+    gathered over its line into the whole leaf (`sharding.whole_pytree`):
+    a collective, called by every rank of the mesh."""
+    from ..sharding.planner import whole_pytree
 
-    mesh = mesh_or_state(None)
-    placement = placement_of(tree) or [None] * len(leaves_with_path(tree))
-    flat = {}
-    for (path, leaf), spec in zip(leaves_with_path(tree), placement):
-        leaf = leaf.detach()
-        for dim, entry in enumerate(spec or ()):
-            if entry is not None:
-                leaf = ops.axis_all_gather(leaf, dim, mesh.group(entry))
-        flat[path] = leaf.cpu().numpy()
-    return _unflat(flat)
+    return _numpy(whole_pytree(tree))
 
 
 def _train_loop(acc, state, loader, loss_fn, steps):
@@ -1303,6 +1304,36 @@ def _refusal(call):
     except NotImplementedError as e:
         return str(e)
     return None
+
+
+def _save_reload(acc, path, state=None) -> bool:
+    """`save_state` into `path` (of `state`, and the prepared eager
+    optimizers), then every saved tensor wiped in place and `load_state`
+    from `path`: whether each came back bit for bit (the blocks a rank
+    holds included)."""
+    from ..optimizers import tree_leaves
+    from ..training import clone_tree
+
+    trees = [] if state is None else [state.params, state.opt_state]
+    trees += [t for opt in acc._optimizers
+              for t in (opt.params, opt.opt_state) if t is not None]
+    acc.save_state(path, state=state)
+    saved = clone_tree(trees)
+    with torch.no_grad():
+        for leaf in tree_leaves(trees):
+            leaf.zero_()
+    acc.load_state(path, state=state)
+    return all(torch.equal(a, b) for a, b in zip(tree_leaves(trees),
+                                                tree_leaves(saved)))
+
+
+def _state_dict_is_whole(acc, state) -> bool:
+    """Whether `get_state_dict` gives the params whole (each block
+    gathered over its line), as `_whole_numpy` gathers them."""
+    got = {k: v.numpy() for k, v in _flat(acc.get_state_dict(state)).items()}
+    want = _flat(_whole_numpy(state.params))
+    return set(got) == set(want) and all(
+        np.array_equal(got[k], want[k]) for k in want)
 
 
 def _case_train_cp(case):
@@ -1341,7 +1372,9 @@ def _case_train_moe(case):
     """Mixtral on a `data` x `expert` mesh: the prepared state's expert
     blocks, the fused steps, the params gathered whole, one eager step's
     pre-clip norm, the forward on blocks against the forward on the
-    whole experts, and the checkpoint refusals."""
+    whole experts, and the checkpoints of the blocks (a save and reload
+    of the trained state, `get_state_dict`, an eager optimizer's save
+    and reload)."""
     from .. import optimizers
     from ..accelerator import Accelerator
     from ..models import mixtral
@@ -1386,13 +1419,12 @@ def _case_train_moe(case):
         with torch.no_grad():
             out["loss_blocks"] = float(loss_fn(state.params, batch))
             out["loss_whole"] = float(loss_fn(whole, batch))
-    out["save_state"] = _refusal(lambda: acc.save_state(
-        os.path.join(case["tmp"], f"ckpt{PartialState.process_index}"),
-        state=state))
-    out["get_state_dict"] = _refusal(lambda: acc.get_state_dict(state))
     state, out["losses"], out["rows"] = _train_loop(
         acc, state, loader, loss_fn, case["steps"])
     out["params"] = _whole_numpy(state.params)
+    out["saved"] = os.path.join(case["tmp"], f"moe_{case['name']}")
+    out["save_state"] = _save_reload(acc, out["saved"], state)
+    out["get_state_dict"] = _state_dict_is_whole(acc, state)
     if not fp8:
         # the eager path's pre-clip norm on fresh params
         params = acc.prepare(_tensors(case["params"]))
@@ -1402,8 +1434,8 @@ def _case_train_moe(case):
         acc.backward(grads)
         out["eager_loss"] = float(loss)
         out["pre_clip_norm"] = float(acc.clip_grad_norm_(max_norm=1.0))
-        out["optimizer_save"] = _refusal(lambda: acc.save_state(
-            os.path.join(case["tmp"], f"eager{PartialState.process_index}")))
+        out["optimizer_save"] = _save_reload(
+            acc, os.path.join(case["tmp"], f"eager_{case['name']}"))
     return out
 
 
@@ -1414,7 +1446,7 @@ def _case_train_moe_copies(case):
     clip's own return); then the global batch's pre-clip norm at a copy
     of the final params through `compute_gradients`, `backward` into an
     optimizer prepared without params, and `clip_grad_norm_`; and the
-    checkpoint refusals of the copied state."""
+    checkpoints of the copied state's blocks."""
     import dataclasses
     from unittest import mock
 
@@ -1465,11 +1497,51 @@ def _case_train_moe_copies(case):
             "copied": copied, "params": _whole_numpy(state.params),
             "no_params": opt.params is None,
             "pre_clip_norm": float(acc.clip_grad_norm_(max_norm=1.0)),
-            "save_state": _refusal(lambda: acc.save_state(
-                os.path.join(case["tmp"],
-                             f"copy{PartialState.process_index}"),
-                state=copy)),
-            "get_state_dict": _refusal(lambda: acc.get_state_dict(copy))}
+            "save_state": _save_reload(
+                acc, os.path.join(case["tmp"], "moe_copy"), copy),
+            "get_state_dict": _state_dict_is_whole(acc, copy)}
+
+
+def _case_train_padded(case):
+    """llama's fused step on a `data` x `stage` mesh over a padded batch
+    (`attention_mask`) whose batch lines hold different counts of real
+    tokens: each step's loss and pre-clip norm (the clip's own return),
+    and the params."""
+    from unittest import mock
+
+    from .. import accelerator as acc_mod
+    from .. import optimizers
+    from ..accelerator import Accelerator
+    from ..models import llama
+    from ..state import PartialState
+    from ..training import TrainState
+    from ..utils.dataclasses import DataLoaderConfiguration, MeshConfig
+
+    PartialState._reset_state()
+    acc = Accelerator(
+        cpu=True, gradient_clipping=1.0,
+        mesh_config=MeshConfig(axes=case["axes"]),
+        dataloader_config=DataLoaderConfiguration(split_batches=True))
+    cfg = llama.LlamaConfig.tiny()
+    state = acc.prepare(TrainState.create(
+        apply_fn=None, params=_tensors(case["params"]),
+        tx=optimizers.adamw(case["lr"])))
+    loader = acc.prepare([{"input_ids": case["ids"],
+                           "attention_mask": case["mask"]}])
+    norms = []
+    clip = acc_mod._clip_by_global_norm_
+
+    def recorded(*a, **kw):
+        norms.append(float(clip(*a, **kw)))
+        return norms[-1]
+
+    with mock.patch.object(acc_mod, "_clip_by_global_norm_", recorded):
+        state, losses, rows = _train_loop(
+            acc, state, loader, lambda p, b: llama.causal_lm_loss(cfg, p, b),
+            case["steps"])
+    return {"line": _line(acc), "losses": losses, "norms": norms,
+            "real_tokens": int(rows[0]["attention_mask"].sum()),
+            "params": _numpy(state.params)}
 
 
 def _case_train_moe_drop(case):
@@ -1587,6 +1659,7 @@ _TRAIN_CASES = {
     "moe": _case_train_moe,
     "moe_copies": _case_train_moe_copies,
     "moe_drop": _case_train_moe_drop,
+    "padded": _case_train_padded,
     "stage": _case_train_stage,
     "loader": _case_train_loader,
 }
@@ -1603,6 +1676,254 @@ def sharded_training_forms(out_dir: str, cases: list) -> None:
     out = {}
     for case in cases:
         out[case["name"]] = _TRAIN_CASES[case["kind"]](
+            dict(case, tmp=out_dir))
+    PartialState._reset_state()
+    PartialState(cpu=True)
+    _dump(out_dir, out)
+
+
+# -- ZeRO-1/2 on the `fsdp` axis ------------------------------------------------
+
+
+def _zero_accelerator(case):
+    """An Accelerator with the case's DeepSpeed stage, mesh, precision,
+    accumulation and clip, its loaders taking the source's batch as the
+    global batch."""
+    from ..accelerator import Accelerator
+    from ..state import PartialState
+    from ..utils.dataclasses import DataLoaderConfiguration, \
+        DeepSpeedPlugin, MeshConfig
+
+    PartialState._reset_state()
+    return Accelerator(
+        cpu=True, mixed_precision=case.get("mixed_precision", "no"),
+        gradient_clipping=case.get("clip"),
+        gradient_accumulation_steps=case.get("k", 1),
+        deepspeed_plugin=DeepSpeedPlugin(zero_stage=case["zero_stage"]),
+        mesh_config=MeshConfig(axes=case["axes"]),
+        dataloader_config=DataLoaderConfiguration(split_batches=True))
+
+
+def _zero_state(acc, case):
+    """The case's tiny llama `TrainState` through `prepare` (with the
+    case's fp16 loss scale, if any), and its loss function."""
+    import dataclasses
+
+    from .. import optimizers
+    from ..models import llama
+    from ..training import DynamicLossScale, TrainState
+
+    cfg = llama.LlamaConfig.tiny()
+    ts = TrainState.create(apply_fn=None, params=_tensors(case["params"]),
+                           tx=optimizers.adamw(case["lr"]),
+                           use_grad_accum_buffer=case.get("k", 1) > 1)
+    if "loss_scale" in case:
+        init, backoff = case["loss_scale"]
+        ts = dataclasses.replace(ts, loss_scale=DynamicLossScale(
+            scale=torch.tensor(init, dtype=torch.float32),
+            growth_tracker=torch.tensor(0, dtype=torch.int32),
+            backoff_factor=backoff))
+    return acc.prepare(ts), lambda p, b: llama.causal_lm_loss(cfg, p, b)
+
+
+def _moment_blocks(opt_state) -> dict:
+    """{path: mu and nu block} of an AdamW state, as host arrays."""
+    from ..sharding.planner import leaves_with_path
+
+    return {f"{k}/{path}": leaf.detach().numpy()
+            for k in ("mu", "nu")
+            for path, leaf in leaves_with_path(getattr(opt_state, k))}
+
+
+def _spied(names):
+    """A context that records each call of `utils.operations`' `names`
+    (the collective, its group's size, each tensor's element count), and
+    the list it records into."""
+    import contextlib
+    from unittest import mock
+
+    from ..utils import operations as ops
+
+    calls = []
+
+    def spy(name, fn):
+        def wrapped(tensors, *a, **kw):
+            group = kw.get("group", a[-1] if a else None)
+            size = torch.distributed.get_world_size(group) \
+                if group is not None else 1
+            calls.append((name, size, [int(t.numel()) for t in tensors
+                                       if t is not None]))
+            return fn(tensors, *a, **kw)
+        return wrapped
+
+    stack = contextlib.ExitStack()
+    for name in names:
+        stack.enter_context(mock.patch.object(
+            ops, name, spy(name, getattr(ops, name))))
+    return stack, calls
+
+
+def _case_zero_fused(case):
+    """The fused step under the case's ZeRO stage: `prepare`, each
+    step's loss and pre-clip norm (the clip's own return), the loss
+    scale after each step, the params (whole on every rank), this rank's
+    moment and buffer blocks, each leaf's cut dim, the collectives of
+    step 1 (`_spied`), and with `save` a `save_state` of the final state
+    into the case's directory with the moments gathered whole."""
+    from unittest import mock
+
+    from .. import accelerator as acc_mod
+    from ..sharding.planner import leaves_with_path, whole_pytree
+
+    acc = _zero_accelerator(case)
+    state, loss_fn = _zero_state(acc, case)
+    loader = acc.prepare([{"input_ids": ids} for ids in case["ids"]])
+    step = acc.train_step(loss_fn)
+    zero = acc._zero_layout(state.params)
+    out = {"mesh": dict(acc.mesh.shape), "line": _line(acc),
+           "fsdp": (acc.mesh.shape.get("fsdp", 1),
+                    acc.mesh.coords(acc.mesh.rank).get("fsdp", 0)),
+           "dims": None if zero is None else {
+               path: d for (path, _), d in
+               zip(leaves_with_path(state.params), _sorted_dims(
+                   state.params, zero.dims))},
+           "losses": [], "norms": [], "scales": [], "collectives": None}
+    clip = acc_mod._clip_by_global_norm_
+
+    def recorded(*a, **kw):
+        out["norms"].append(float(clip(*a, **kw)))
+        return out["norms"][-1]
+
+    with mock.patch.object(acc_mod, "_clip_by_global_norm_", recorded):
+        for _ in range(case["steps"]):
+            for batch in loader:
+                if out["collectives"] is None:
+                    stack, calls = _spied(("reduce_scatter_mean_",
+                                           "all_gather_blocks_",
+                                           "all_reduce_mean_"))
+                    with stack:
+                        state, m = step(state, batch)
+                    out["collectives"] = calls
+                else:
+                    state, m = step(state, batch)
+                out["losses"].append(float(m["loss"]))
+                if state.loss_scale is not None:
+                    out["scales"].append(float(state.loss_scale.scale))
+    out["params"] = _numpy(state.params)
+    out["moments"] = _moment_blocks(state.opt_state)
+    if state.grad_accum is not None:
+        out["buffer_shapes"] = {path: tuple(leaf.shape) for path, leaf in
+                                leaves_with_path(state.grad_accum)}
+    if case.get("save"):
+        path = os.path.join(case["tmp"], case["save"])
+        acc.save_state(path, state=state)
+        out["saved"] = path
+        out["whole_moments"] = _moment_blocks(whole_pytree(state.opt_state))
+        # the same directory back into a fresh prepared state
+        fresh, _ = _zero_state(acc, case)
+        acc.load_state(path, state=fresh)
+        out["reloaded"] = all(
+            torch.equal(a, b) for a, b in zip(
+                [leaf for _, leaf in leaves_with_path(
+                    (fresh.params, fresh.opt_state))],
+                [leaf for _, leaf in leaves_with_path(
+                    (state.params, state.opt_state))]))
+        out["state_dict"] = _numpy(acc.get_state_dict(state))
+    return out
+
+
+def _sorted_dims(params, dims):
+    """`dims` (in `tree_leaves` order) in `leaves_with_path` order."""
+    from ..optimizers import tree_leaves
+    from ..sharding.planner import leaves_with_path
+
+    by_id = {id(leaf): d for leaf, d in zip(tree_leaves(params), dims)}
+    return [by_id[id(leaf)] for _, leaf in leaves_with_path(params)]
+
+
+def _case_zero_eager(case):
+    """The eager loop under ZeRO: `prepare` the params (whole),
+    `prepare_optimizer` (its moments this rank's blocks), then each
+    step `compute_gradients`, `backward`, `clip_grad_norm_`,
+    `opt.step()`, `zero_grad()`."""
+    from .. import optimizers
+    from ..models import llama
+    from ..sharding.planner import leaves_with_path
+
+    acc = _zero_accelerator(case)
+    cfg = llama.LlamaConfig.tiny()
+    params = acc.prepare(_tensors(case["params"]))
+    opt = acc.prepare_optimizer(optimizers.adamw(case["lr"]), params=params)
+    dims = {path: d for (path, _), d in zip(
+        leaves_with_path(params), _sorted_dims(params, opt.zero.dims))}
+    loader = acc.prepare([{"input_ids": ids} for ids in case["ids"]])
+    losses, norms = [], []
+    for _ in range(case["steps"]):
+        for batch in loader:
+            with acc.accumulate():
+                loss, grads = acc.compute_gradients(
+                    lambda p, b: llama.causal_lm_loss(cfg, p, b),
+                    opt.params, batch)
+                acc.backward(grads)
+                norms.append(float(acc.clip_grad_norm_(max_norm=1.0)))
+                opt.step()
+                opt.zero_grad()
+            losses.append(float(loss))
+    return {"losses": losses, "norms": norms, "params": _numpy(opt.params),
+            "same_params": opt.params is params, "dims": dims,
+            "fsdp": (acc.mesh.shape["fsdp"], acc.mesh.axis_index("fsdp")),
+            "moments": _moment_blocks(opt.opt_state)}
+
+
+def _case_zero_resume(case):
+    """A one-process checkpoint (`case["checkpoint"]`) loaded into a
+    ZeRO state, then one more step: its loss and params."""
+    acc = _zero_accelerator(case)
+    state, loss_fn = _zero_state(acc, case)
+    acc.load_state(case["checkpoint"], state=state)
+    (batch,) = list(acc.prepare([{"input_ids": case["ids"][0]}]))
+    state, m = acc.train_step(loss_fn)(state, batch)
+    return {"loss": float(m["loss"]), "params": _numpy(state.params),
+            "step": state.step}
+
+
+def _case_zero_refusals(case):
+    """The Accelerator on meshes the world resolves: a bare `fsdp` mesh
+    (no plugin), and ZeRO beside a `seq` axis: each refusal's text."""
+    from ..accelerator import Accelerator
+    from ..state import PartialState
+    from ..utils.dataclasses import DeepSpeedPlugin, MeshConfig
+
+    out = {}
+    for name, kwargs in (
+            ("bare_fsdp", {"mesh_config": MeshConfig(axes={"fsdp": -1})}),
+            ("zero_beside_seq", {
+                "deepspeed_plugin": DeepSpeedPlugin(zero_stage=2),
+                "mesh_config": MeshConfig(axes={"fsdp": -1, "seq": 2})})):
+        PartialState._reset_state()
+        out[name] = _refusal(lambda: Accelerator(cpu=True, **kwargs))
+    return out
+
+
+_ZERO_CASES = {
+    "fused": _case_zero_fused,
+    "eager": _case_zero_eager,
+    "resume": _case_zero_resume,
+    "refusals": _case_zero_refusals,
+}
+
+
+def zero_forms(out_dir: str, cases: list) -> None:
+    """Run each ZeRO case on this rank and record what it gave. A case
+    is a dict: `name`, `kind` (a key of `_ZERO_CASES`) and its numpy
+    inputs; the Accelerator of each builds its own mesh over the
+    world."""
+    from ..state import PartialState
+
+    torch.set_num_threads(1)
+    out = {}
+    for case in cases:
+        out[case["name"]] = _ZERO_CASES[case["kind"]](
             dict(case, tmp=out_dir))
     PartialState._reset_state()
     PartialState(cpu=True)

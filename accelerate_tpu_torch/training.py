@@ -99,11 +99,18 @@ class TrainState:
                         if use_loss_scale else None),
             apply_fn=apply_fn, tx=tx, fp8_state=fp8_state)
 
-    def apply_gradients(self, grads: Any) -> "TrainState":
-        """One optimizer update: params and moments change in place."""
-        updates, new_opt_state = self.tx.update(grads, self.opt_state,
-                                                self.params)
-        apply_updates(self.params, updates)
+    def apply_gradients(self, grads: Any, zero=None) -> "TrainState":
+        """One optimizer update: params and moments change in place. With
+        `zero` (a `sharding.zero.ZeroLayout`), `grads` and the moments
+        are this rank's blocks and the params whole: the update runs on
+        the blocks and the params are all-gathered whole again."""
+        if zero is not None:
+            new_opt_state = zero.update_(self.tx, grads, self.opt_state,
+                                         self.params)
+        else:
+            updates, new_opt_state = self.tx.update(grads, self.opt_state,
+                                                    self.params)
+            apply_updates(self.params, updates)
         return dataclasses.replace(self, step=self.step + 1,
                                    opt_state=new_opt_state)
 

@@ -37,8 +37,7 @@ def gpu_peaks(name: str) -> tuple[float, float] | None:
 # store it for the reference's signature
 BATCH_AXES = ("data", "fsdp")
 
-# --- mesh axis names (the reference's): the port carries only `data`
-# across processes; the others arrive with sharded parallelism
+# --- mesh axis names (the reference's)
 AXIS_DATA = "data"
 AXIS_FSDP = "fsdp"
 AXIS_MODEL = "model"
@@ -70,3 +69,7 @@ ENV_CPU = ENV_PREFIX + "USE_CPU"
 # ENV_CP_MODE/ENV_CP_DEGREE), read by the Accelerator
 ENV_CP_MODE = ENV_PREFIX + "CONTEXT_PARALLEL_MODE"      # none|ring|ulysses
 ENV_CP_DEGREE = ENV_PREFIX + "CONTEXT_PARALLEL_DEGREE"  # seq-axis size
+# the launcher's --zero_stage and --fsdp_sharding_strategy (the
+# reference's ENV_ZERO_STAGE/ENV_FSDP_STRATEGY), read by the Accelerator
+ENV_ZERO_STAGE = ENV_PREFIX + "ZERO_STAGE"                 # 0-3
+ENV_FSDP_STRATEGY = ENV_PREFIX + "FSDP_SHARDING_STRATEGY"  # NO_SHARD|...

@@ -13,8 +13,8 @@ from dataclasses import dataclass, field
 from datetime import timedelta
 from typing import Any
 
-from .constants import AXIS_DATA, AXIS_SEQ, ENV_MESH_SHAPE, \
-    ENV_MIXED_PRECISION, MESH_AXES
+from .constants import AXIS_DATA, AXIS_EXPERT, AXIS_FSDP, AXIS_SEQ, \
+    ENV_MESH_SHAPE, ENV_MIXED_PRECISION, MESH_AXES
 from .environment import parse_mesh_shape
 
 
@@ -262,14 +262,92 @@ class ContextParallelPlugin(KwargsHandler):
         return {AXIS_SEQ: self.seq_degree}
 
 
+# the reference's `DCN_FILL`: a `data` axis that fills the slow-link
+# domains (HYBRID_SHARD's replicas); the port builds no mesh with it, as
+# HYBRID_SHARD shards params (queue 1 item 6b, step 2b)
+DCN_FILL = -2
+
+
+@dataclass
+class FullyShardedDataParallelPlugin(KwargsHandler):
+    """The reference's FSDP record, lowered to the `fsdp` mesh axis.
+    `SHARD_GRAD_OP` keeps params whole and cuts the optimizer moments
+    (ZeRO-1/2), `NO_SHARD` is data parallelism; `FULL_SHARD` and
+    `HYBRID_SHARD` shard params, which the Accelerator refuses until
+    queue 1 item 6b, step 2b (so does `cpu_offload`). Constructing any
+    of them works."""
+
+    sharding_strategy: str = "FULL_SHARD"  # FULL_SHARD|SHARD_GRAD_OP|NO_SHARD|HYBRID_SHARD
+    min_num_params: int = 0
+    activation_checkpointing: bool = False
+    cpu_offload: bool = False
+    state_dict_type: str = "SHARDED_STATE_DICT"
+    use_orig_params: bool = True
+    sync_module_states: bool = True
+
+    def to_mesh_axes(self) -> dict[str, int]:
+        if self.sharding_strategy == "NO_SHARD":
+            return {AXIS_DATA: -1}
+        if self.sharding_strategy == "HYBRID_SHARD":
+            return {AXIS_DATA: DCN_FILL, AXIS_FSDP: -1}
+        return {AXIS_FSDP: -1}
+
+    @property
+    def shard_params(self) -> bool:
+        return self.sharding_strategy in ("FULL_SHARD", "HYBRID_SHARD")
+
+    @property
+    def shard_optimizer_state(self) -> bool:
+        """True for every strategy, as the reference's plan takes it: the
+        moments follow the `fsdp` plan, and `NO_SHARD`'s mesh has no
+        `fsdp` axis to cut them on."""
+        return True
+
+
+@dataclass
+class DeepSpeedPlugin(KwargsHandler):
+    """The reference's DeepSpeed record, lowered to the mesh: stage 0 is
+    data parallelism over `data`; stages 1 and 2 keep params whole and
+    cut the optimizer moments (and the accumulation buffer) on `fsdp`;
+    stage 3 shards params, which the Accelerator refuses until queue 1
+    item 6b, step 2b (so do `offload_optimizer_device` and
+    `offload_param_device`). `gradient_clipping` is the Accelerator's
+    clip where it sets none. Constructing any of them works."""
+
+    zero_stage: int = 2
+    gradient_accumulation_steps: int | None = None
+    gradient_clipping: float | None = None
+    offload_optimizer_device: str | None = None
+    offload_param_device: str | None = None
+    zero3_init_flag: bool = False
+    moe_expert_parallel_size: int = 1
+
+    def to_mesh_axes(self) -> dict[str, int]:
+        axes: dict[str, int] = {}
+        if self.moe_expert_parallel_size > 1:
+            axes[AXIS_EXPERT] = self.moe_expert_parallel_size
+        axes[AXIS_FSDP if self.zero_stage > 0 else AXIS_DATA] = -1
+        return axes
+
+    @property
+    def shard_params(self) -> bool:
+        return self.zero_stage >= 3
+
+    @property
+    def shard_optimizer_state(self) -> bool:
+        return self.zero_stage >= 1
+
+
 @dataclass
 class MeshConfig:
     """A mesh request: {axis: size} over the world's processes (each owns
     one device), at most one size -1 ("fill with the remaining
     processes"). `build()` lays the world's processes out on it
     (`state.ProcessMesh`). The Accelerator takes the `data`, `stage`,
-    `seq` and `expert` axes: `fsdp` or `model` above 1 raises there
-    (their training half is queue 1 item 6b, part 1)."""
+    `seq` and `expert` axes, and `fsdp` where its plugins keep params
+    whole (ZeRO-1/2); a `model` axis above 1, or an `fsdp` axis that
+    would shard params, raises there (queue 1 item 6b, steps 2c and
+    2b)."""
 
     axes: dict[str, int] = field(default_factory=dict)
 

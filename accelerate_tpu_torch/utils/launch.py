@@ -21,6 +21,7 @@ from .constants import (
     ENV_CP_MODE,
     ENV_CPU,
     ENV_DEBUG_MODE,
+    ENV_FSDP_STRATEGY,
     ENV_GRAD_ACCUM_STEPS,
     ENV_LOCAL_RANK,
     ENV_LOCAL_WORLD_SIZE,
@@ -30,6 +31,7 @@ from .constants import (
     ENV_MIXED_PRECISION,
     ENV_RANK,
     ENV_WORLD_SIZE,
+    ENV_ZERO_STAGE,
 )
 
 
@@ -61,6 +63,12 @@ def prepare_launch_env(args: Any) -> dict[str, str]:
         env[ENV_DEBUG_MODE] = "1"
     if _flag(args, "cpu", False):
         env[ENV_CPU] = "1"
+    zero_stage = _flag(args, "zero_stage")
+    if zero_stage is not None:
+        env[ENV_ZERO_STAGE] = str(zero_stage)
+    fsdp_strategy = _flag(args, "fsdp_sharding_strategy")
+    if fsdp_strategy:
+        env[ENV_FSDP_STRATEGY] = str(fsdp_strategy)
     return env
 
 

@@ -37,7 +37,14 @@ branch: one H100 holds one NCCL rank).
 dtype, a leaf split across buckets where it is larger), over the world
 or a group: the train step's gradient all-reduce over the batch line
 (`state.ProcessMesh.data_line`). `all_reduce_max_` takes the elementwise max
-of a list in one `all_reduce`: the fp8 amaxes.
+of a list in one `all_reduce`: the fp8 amaxes. `reduce_scatter_mean_`
+and `all_gather_blocks_` are ZeRO-1/2's pair on the `fsdp` axis's group,
+in the same kind of buckets: each rank gets the mean of its block of
+every gradient, and every rank's updated block of a param is written
+into the whole param on every rank. Under gloo they run as one
+`reduce` and one `broadcast` a rank, which gloo moves faster than its
+own reduce-scatter and all-gather; under NCCL as `reduce_scatter` and
+`all_gather` (unrun: one H100 holds one NCCL rank).
 """
 
 from __future__ import annotations
@@ -384,6 +391,203 @@ def all_reduce_max_(tensors: list[torch.Tensor]) -> None:
     for x in tensors:
         x.copy_(out[off:off + x.numel()].view_as(x))
         off += x.numel()
+
+
+def _block_buckets(tensors: list, dims: list, n: int) -> list:
+    """The flat buckets of a blockwise collective over `n` ranks: for
+    each dtype in first-seen order, buckets of pieces `(i, row0, rows)`
+    (rows `row0:row0+rows` along the block's first dim of leaf `i`'s
+    blocks, each leaf cut into `n` blocks along `dims[i]`), each bucket
+    holding up to `_BUCKET_ELEMENTS // n` elements a rank (a row larger
+    than that is a bucket of its own). Returns [(dtype, share, pieces)],
+    `share` the elements a rank's part of the bucket holds."""
+    cap = max(1, _BUCKET_ELEMENTS // n)
+    by_dtype: dict[torch.dtype, list[int]] = {}
+    for i, t in enumerate(tensors):
+        by_dtype.setdefault(t.dtype, []).append(i)
+    out = []
+    for dtype, idx in by_dtype.items():
+        pieces, fill = [], 0
+        for i in idx:
+            t, d = tensors[i], dims[i]
+            if t.shape[d] % n:
+                raise ValueError(f"dim {d} of {tuple(t.shape)} does not "
+                                 f"split over {n} ranks")
+            block = list(t.shape)
+            block[d] //= n
+            rows, row = block[0], max(1, int(np.prod(block[1:])))
+            start = 0
+            while start < rows:
+                if fill and fill + row > cap:
+                    out.append((dtype, fill, pieces))
+                    pieces, fill = [], 0
+                take = min(rows - start, max(1, (cap - fill) // row))
+                pieces.append((i, start, take))
+                fill += take * row
+                start += take
+        if pieces:
+            out.append((dtype, fill, pieces))
+    return out
+
+
+def _widest(buckets: list) -> dict:
+    """The largest share of each dtype's buckets: one host buffer of
+    each size serves every bucket of the dtype."""
+    out: dict = {}
+    for dtype, share, _ in buckets:
+        out[dtype] = max(out.get(dtype, 0), share)
+    return out
+
+
+def _block_piece(t: torch.Tensor, dim: int, n: int, rank: int, row0: int,
+                 rows: int) -> torch.Tensor:
+    """Rows `row0:row0+rows` of rank `rank`'s block of `t` (a view)."""
+    b = t.shape[dim] // n
+    return t.narrow(dim, rank * b, b).narrow(0, row0, rows)
+
+
+def _finish_host_copies(tensors, group) -> None:
+    """Under gloo, wait for the non-blocking copies from a bucket's
+    pinned host buffer to the card, so the buffer may be written again."""
+    if not _on_host(group):
+        return
+    devices = {t.device for t in tensors if t is not None and t.is_cuda}
+    for dev in devices:
+        torch.cuda.current_stream(dev).synchronize()
+
+
+def _reduce_scatter_bucket(inp: torch.Tensor, n: int, share: int,
+                           group) -> torch.Tensor:
+    """The sum over `group` of this rank's share of `inp` (laid out rank
+    by rank, `share` elements each): under gloo one `reduce` to each
+    share's owner, in the group's order (gloo's reduce-scatter runs at
+    half their rate on the host), the result in `inp`'s own slice; under
+    NCCL one `reduce_scatter` into a new device buffer."""
+    r = torch.distributed.get_rank(group)
+    if _on_host(group):
+        for q in range(n):
+            torch.distributed.reduce(inp[q * share:(q + 1) * share],
+                                     dst=_axis_global_rank(group, q),
+                                     group=group)
+        return inp[r * share:(r + 1) * share]
+    out = torch.empty(share, dtype=inp.dtype, device=inp.device)
+    scatter = getattr(torch.distributed, "reduce_scatter_single", None) \
+        or torch.distributed.reduce_scatter_tensor
+    scatter(out, inp, group=group)
+    return out
+
+
+def _all_gather_bucket(out: torch.Tensor, n: int, share: int,
+                       group) -> None:
+    """Every rank's share of `out` (laid out rank by rank, `share`
+    elements each, this rank's own filled in) from its owner, in place:
+    under gloo one `broadcast` of its bytes from each owner, in the
+    group's order (gloo's all-gather runs at a quarter of their rate on
+    the host, and broadcasts no bf16);
+    under NCCL one `all_gather`."""
+    r = torch.distributed.get_rank(group)
+    if _on_host(group):
+        for q in range(n):
+            torch.distributed.broadcast(
+                _bytes(out[q * share:(q + 1) * share], True),
+                src=_axis_global_rank(group, q), group=group)
+        return
+    gather = getattr(torch.distributed, "all_gather_single", None) \
+        or torch.distributed.all_gather_into_tensor
+    gather(out, out[r * share:(r + 1) * share].clone(), group=group)
+
+
+@torch.no_grad()
+def reduce_scatter_mean_(tensors: list, blocks: list[torch.Tensor],
+                         dims: list[int], group) -> None:
+    """ZeRO's gradient reduce-scatter: each tensor of `tensors` (whole,
+    one shape on every rank of `group`) cuts into the group's `n` blocks
+    along `dims[i]`, one a rank in the group's order, and `blocks[i]`
+    (this rank's block's shape) gets the mean over the group of this
+    rank's block, in place. The leaves of one dtype are packed leaf by
+    leaf, in the list's order, into flat buckets (`_block_buckets`, up to
+    `_BUCKET_ELEMENTS` elements; a leaf larger than a bucket split along
+    its block's first dim) laid out rank by rank, one reduce-scatter a
+    bucket (`_reduce_scatter_bucket`). An entry of `tensors` is set to
+    None once its last piece is reduced, so a caller that holds no other
+    reference frees the whole gradients bucket by bucket. Under gloo the
+    buckets live in host memory (pinned when a card is present), under
+    NCCL on this process's device; every rank must make the call, with
+    the same shapes in the same order. A None group is a line of one:
+    each block is the whole tensor."""
+    if group is None:
+        for i, (t, b) in enumerate(zip(tensors, blocks)):
+            b.copy_(t)
+            tensors[i] = None
+        return
+    n = torch.distributed.get_world_size(group)
+    last = {}
+    buckets = _block_buckets(tensors, dims, n)
+    for k, (_, _, pieces) in enumerate(buckets):
+        for i, _, _ in pieces:
+            last[i] = k
+    widest = _widest(buckets)
+    for k, (dtype, share, pieces) in enumerate(buckets):
+        dev = tensors[pieces[0][0]].device
+        inp = _bucket_buffer(dtype, n * widest[dtype], dev, group)[
+            :n * share]
+        for q in range(n):
+            off = q * share
+            for i, row0, rows in pieces:
+                src = _block_piece(tensors[i], dims[i], n, q, row0, rows)
+                inp[off:off + src.numel()].view(src.shape).copy_(src)
+                off += src.numel()
+        out = _reduce_scatter_bucket(inp, n, share, group)
+        off = 0
+        for i, row0, rows in pieces:
+            dst = blocks[i].narrow(0, row0, rows)
+            dst.copy_(out[off:off + dst.numel()].view(dst.shape),
+                      non_blocking=True)
+            off += dst.numel()
+        _finish_host_copies([blocks[i] for i, _, _ in pieces], group)
+        for i, _, _ in pieces:
+            if last[i] == k:
+                tensors[i] = None
+    for b in blocks:
+        b.div_(n)
+
+
+@torch.no_grad()
+def all_gather_blocks_(tensors: list[torch.Tensor], dims: list[int],
+                       group) -> None:
+    """ZeRO's parameter all-gather, the inverse of `reduce_scatter_mean_`:
+    each tensor (whole) holds this rank's block along `dims[i]` up to
+    date, and every other rank's block of it is written in place from
+    that rank's, so every rank of `group` then holds the same whole
+    tensors bit for bit. The same buckets as `reduce_scatter_mean_`, one
+    all-gather a bucket (`_all_gather_bucket`). A None group is a line
+    of one."""
+    if group is None:
+        return
+    n = torch.distributed.get_world_size(group)
+    r = torch.distributed.get_rank(group)
+    buckets = _block_buckets(tensors, dims, n)
+    widest = _widest(buckets)
+    for dtype, share, pieces in buckets:
+        dev = tensors[pieces[0][0]].device
+        out = _bucket_buffer(dtype, n * widest[dtype], dev, group)[
+            :n * share]
+        off = r * share
+        for i, row0, rows in pieces:
+            src = _block_piece(tensors[i], dims[i], n, r, row0, rows)
+            out[off:off + src.numel()].view(src.shape).copy_(src)
+            off += src.numel()
+        _all_gather_bucket(out, n, share, group)
+        for q in range(n):
+            if q == r:
+                continue
+            off = q * share
+            for i, row0, rows in pieces:
+                dst = _block_piece(tensors[i], dims[i], n, q, row0, rows)
+                dst.copy_(out[off:off + dst.numel()].view(dst.shape),
+                          non_blocking=True)
+                off += dst.numel()
+        _finish_host_copies([tensors[i] for i, _, _ in pieces], group)
 
 
 # ---------------------------------------------------------------------------

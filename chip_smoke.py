@@ -186,6 +186,13 @@ script exits non-zero:
    process's within stated tolerances, 12/6/6 flash launches a rank;
    step times, the all-reduce's CUDA-event time and each rank's peak
    memory;
+9c. zero_train: ZeRO-2 through the launcher (`--zero_stage 2`, the mesh
+   `{fsdp: 2}`): the same two processes and batch with params whole and
+   the AdamW moments each rank's block; gates against dp_train's one
+   process as there, each rank's moment bytes half of whole moments',
+   12/6/6 flash launches a rank; each rank's memory after `prepare` and
+   at its peak beside dp_train's, the reduce-scatter and all-gather
+   alone;
 10. big_model: llama3-8B at full width and depth (bf16, random weights
    from a seed) written as a sharded safetensors checkpoint, planned
    for an 8 GiB card and 6 GiB of host memory, loaded onto the card,
@@ -5027,17 +5034,19 @@ DP_UPDATE_OFF_MAX = 5e-2
 DP_TIMEOUT_S = 420
 
 
-def _dp_world(n: int, update_sample: str) -> list:
+def _dp_world(n: int, update_sample: str, flags=()) -> list:
     """The bundled `train_llama_dp.py` as a user launches it:
-    `python -m accelerate_tpu_torch.commands.launch --num_processes n`,
-    the launcher's exit code checked; each rank's `DP_RESULT` line.
-    Process 0 saves its sample of step 1's update to `update_sample`."""
+    `python -m accelerate_tpu_torch.commands.launch --num_processes n`
+    with the launcher's `flags`, the launcher's exit code checked; each
+    rank's `DP_RESULT` line. Process 0 saves its sample of step 1's
+    update to `update_sample`."""
     import os
 
     script = os.path.join("accelerate_tpu_torch", "test_utils", "scripts",
                           "train_llama_dp.py")
     cmd = [sys.executable, "-m", "accelerate_tpu_torch.commands.launch",
-           "--num_processes", str(n), script, "--config", "llama3_8b",
+           "--num_processes", str(n), *flags, script, "--config",
+           "llama3_8b",
            "--layers", str(DP_LAYERS), "--steps", str(DP_STEPS),
            "--update-sample", update_sample]
     t0 = time.perf_counter()
@@ -5128,7 +5137,103 @@ def phase_dp_train(kernel_rows):
     launches = {n: sum(r["launches"][n] for r in two) for n in want}
     kernel_rows.extend(_flash_rows_at("dp_train", launches,
                                       1, 2048, 32, 128))
-    return {"world2": two, "world1": one}
+    return {"world2": two, "world1": one, "update1": u1}
+
+
+# a rank's moment bytes over those of whole moments: half, and the norm
+# scales the plan keeps whole (ZeRO on `fsdp` 2)
+ZERO_MOMENT_SHARE = (0.49, 0.52)
+
+
+def phase_zero_train(kernel_rows, dp):
+    """ZeRO-2 on the one card: `train_llama_dp.py` launched with
+    `--zero_stage 2` as two processes (gloo, both on card 0), the mesh
+    `{fsdp: 2}`: each rank trains llama3-8B width at 2 layers (bf16, clip
+    1.0, adamw(3e-4), remat "dots") on its [1, 2049] half of phase
+    train's batch for 3 steps with params whole and the AdamW moments its
+    block; phase dp_train's one-process run on the same seed and batch
+    is the reference (not run again). Gates: the launcher exits 0; both
+    ranks' params equal rank 0's bit for bit; the same losses on both
+    ranks; step 1's loss within DP_STEP1_RTOL of the one process's,
+    steps 2-3 within DP_EARLY_RTOL; step 1's update of rank 0 against
+    the one process's (DP_UPDATE_FLIP_MAX, DP_UPDATE_OFF_MAX); each
+    rank's moment bytes a ZERO_MOMENT_SHARE of whole moments'; K1a 12
+    and K1b/K1c 6 launches on each rank; then K1a/b/c at the path's
+    shape against their plain versions, timed. Reported, not gated: each
+    rank's memory after `prepare` and at its peak beside dp_train's, and
+    the reduce-scatter and all-gather alone."""
+    import os
+    import tempfile
+
+    import numpy as np
+
+    one, u1 = dp["world1"], dp["update1"]
+    with tempfile.TemporaryDirectory(prefix="zero_train_") as tmp:
+        path = os.path.join(tmp, "update_zero.npy")
+        two = _dp_world(2, path, flags=("--zero_stage", "2"))
+        u2 = np.load(path)
+    gap = np.abs(u2 - u1)
+    update = {"elements": int(gap.size),
+              "share_over_lr": float((gap > DP_LR).mean()),
+              "share_over_lr_100": float((gap > DP_LR / 100).mean()),
+              "max_abs_over_lr": float(gap.max() / DP_LR)}
+    rel = [abs(a - b) / abs(b)
+           for a, b in zip(two[0]["losses"], one["losses"])]
+    shares = [r["moment_bytes"] / r["whole_moment_bytes"] for r in two]
+    want = {"flash_fwd": 2 * DP_LAYERS * DP_STEPS,
+            "flash_bwd_dq": DP_LAYERS * DP_STEPS,
+            "flash_bwd_dkv": DP_LAYERS * DP_STEPS}
+    emit("zero_train", config="llama3_8b", layers=DP_LAYERS, steps=DP_STEPS,
+         zero_stage=2, global_batch=[2, 2049], backend=two[0]["backend"],
+         mesh=two[0]["mesh"], world2=two, loss_rel_diff=rel,
+         step1_rtol=DP_STEP1_RTOL, steps_2_3_rtol=DP_EARLY_RTOL,
+         step1_update=update, update_flip_max=DP_UPDATE_FLIP_MAX,
+         update_off_max=DP_UPDATE_OFF_MAX, moment_share=shares,
+         moment_share_band=ZERO_MOMENT_SHARE,
+         launches_per_rank_expected=want,
+         memory_after_prepare_gb={
+             "zero_train": [r["memory_after_prepare_gb"] for r in two],
+             "dp_train": [r["memory_after_prepare_gb"]
+                          for r in dp["world2"]]},
+         max_memory_allocated_gb={
+             "zero_train": [r["max_memory_allocated_gb"] for r in two],
+             "dp_train": [r["max_memory_allocated_gb"]
+                          for r in dp["world2"]]},
+         reduce_scatter_ms=[r["reduce_scatter_ms"] for r in two],
+         all_gather_ms=[r["all_gather_ms"] for r in two],
+         allreduce_ms_dp_train=[r["allreduce_ms"] for r in dp["world2"]],
+         step_ms_median=[float(sorted(r["step_ms"][1:])[
+             len(r["step_ms"][1:]) // 2]) for r in two])
+    failed = []
+    if not all(r["zero"] and r["mesh"] == {"fsdp": 2} for r in two):
+        failed.append(f"not ZeRO on fsdp 2: {[r['mesh'] for r in two]}")
+    if not all(r["identical_to_rank0"] for r in two):
+        failed.append("ranks' params differ from rank 0's")
+    if two[0]["losses"] != two[1]["losses"]:
+        failed.append(f"ranks' losses differ: {two[0]['losses']} "
+                      f"{two[1]['losses']}")
+    if not all(math.isfinite(x) for x in two[0]["losses"]):
+        failed.append(f"non-finite loss: {two[0]['losses']}")
+    if rel[0] > DP_STEP1_RTOL:
+        failed.append(f"step 1 loss {rel[0]} off one process's")
+    if any(x > DP_EARLY_RTOL for x in rel[1:3]):
+        failed.append(f"steps 2-3 losses off one process's: {rel}")
+    if update["share_over_lr"] > DP_UPDATE_FLIP_MAX or \
+            update["share_over_lr_100"] > DP_UPDATE_OFF_MAX:
+        failed.append(f"step 1's update off one process's: {update}")
+    lo, hi = ZERO_MOMENT_SHARE
+    if not all(lo < x < hi for x in shares):
+        failed.append(f"moment share {shares} outside {ZERO_MOMENT_SHARE}")
+    for r in two:
+        if r["launches"] != want:
+            failed.append(f"rank {r['rank']}: flash launches "
+                          f"{r['launches']}, expected {want}")
+    if failed:
+        raise AssertionError("; ".join(failed))
+    launches = {n: sum(r["launches"][n] for r in two) for n in want}
+    kernel_rows.extend(_flash_rows_at("zero_train", launches,
+                                      1, 2048, 32, 128))
+    return {"world2": two}
 
 
 # part (a): f32 at full width, the exactness gate; part (b): bf16. Cut
@@ -5957,7 +6062,10 @@ def main() -> int:
     _drop()
     _run(phase_mixtral_train, kernels)
     _drop()
-    _run(phase_dp_train, kernels)
+    dp = _run(phase_dp_train, kernels)
+    _drop()
+    _run(phase_zero_train, kernels, dp)
+    del dp
     _drop()
     _run(phase_big_model, kernels)
     emit("phase_walls", walls=_WALLS,

@@ -310,14 +310,23 @@ def test_mixtral_a2a_matches_jax_mixtral(world, mixtral_params, mesh):
     of 2, at the default capacity (per-source drops included): logits,
     aux loss, loss and every gradient == the JAX Mixtral's a2a on a mesh
     with the same `expert` size; with each rank's block of the experts
-    (the planner's) and with `sequence_parallel`, the same logits."""
+    (the planner's) and with `sequence_parallel`, the same logits. On
+    `{expert: 2, data: 2}` each batch line (the two `data` ranks of an
+    `expert` index) holds one row of the global batch: a rank's logits
+    are the JAX logits' rows, and the line's mean of the ranks' losses
+    and gradients is the JAX loss and gradient of the global batch."""
     axes, name = {"expert4": ({"expert": 4, "data": 2}, "mixtral"),
                   "expert2": ({"expert": 2, "data": 4}, "mixtral_e2")}[mesh]
     want = _jax_mixtral(mixtral_params, axes)
     flat = _flat(want["grads"])
     n = axes["expert"]
-    for r in world[name]:
-        np.testing.assert_allclose(r["logits"], want["logits"], atol=1e-4)
+    ranks = world[name]
+    for r in ranks:
+        size, index, line = r["line"]
+        b = want["logits"].shape[0] // size
+        np.testing.assert_allclose(r["logits"],
+                                   want["logits"][index * b:(index + 1) * b],
+                                   atol=1e-4)
         np.testing.assert_allclose(r["aux"], want["aux"], rtol=1e-5)
         np.testing.assert_allclose(r["logits_sharded"], r["logits"],
                                    atol=1e-6)
@@ -326,11 +335,15 @@ def test_mixtral_a2a_matches_jax_mixtral(world, mixtral_params, mesh):
                                      MIXTRAL["num_local_experts"] // n,
                                      MIXTRAL["hidden_size"],
                                      MIXTRAL["intermediate_size"])
-        np.testing.assert_allclose(r["loss"], want["loss"], rtol=1e-5)
+        # the batch line's mean: the train step's average over the line
+        np.testing.assert_allclose(
+            np.mean([ranks[q]["loss"] for q in line]), want["loss"],
+            rtol=1e-5)
         assert set(r["grads"]) == set(flat)
         for leaf, g in flat.items():
+            mean = np.mean([ranks[q]["grads"][leaf] for q in line], axis=0)
             scale = max(float(np.abs(g).max()), 1e-30)
-            assert np.abs(r["grads"][leaf] - g).max() <= 1e-4 * scale, leaf
+            assert np.abs(mean - g).max() <= 1e-4 * scale, leaf
 
 
 def test_mixtral_fp8_a2a_matches_jax(world, mixtral_params):

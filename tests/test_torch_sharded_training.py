@@ -19,9 +19,12 @@ Ulysses, `tests/test_models.py`'s expert-parallel and a2a Mixtral steps,
 `tests/test_quant_fp8.py`'s fp8 a2a step (the a2a routes at a capacity
 that drops nothing, see `MOE_CONFIGS`), and `pipeline_value_and_grad`
 with `optax.adamw` for the stage blocks. Every global batch holds 8
-rows, so no loader pads. At a capacity that drops tokens the two a2a
-dispatches differ by design (`test_a2a_dropping_capacity_groups_over_
-the_batch_line` pins how).
+rows, so no loader pads. Two cases hold the port to the reference's
+global batch where its ranks see different rows: a padded batch whose
+batch lines hold different counts of real tokens (the loss is the
+global masked sum over the global count), and the a2a dispatch at a
+capacity that drops tokens (it runs on the global batch's tokens, so
+it drops the reference's).
 
 Tolerances (f32 on both sides, the products in another order): losses
 rtol 1e-5, params after three AdamW steps atol 2e-5 (about 0.02 of an
@@ -57,7 +60,6 @@ LOSS_RTOL, PARAM_ATOL, NORM_RTOL = 1e-5, 2e-5, 1e-5
 FP8_LOSS_RTOL = 2e-3
 BLOCK_ATOL = 1e-5
 COPY_STEPS = 2
-ITEM_6B = "queue 1 item 6b"
 
 LLAMA_IDS = np.random.default_rng(0).integers(0, 256, (8, 33)).astype(
     np.int32)
@@ -76,6 +78,13 @@ MOE_CONFIGS = {"dense": {}, "sparse": {}, "a2a": {"capacity_factor": 2.0},
 # global batch and on each half (at the default 1.25 the global batch
 # drops nothing here)
 DROP_CONFIG = {"capacity_factor": 1.0}
+# a padded global batch: the first batch line's rows are all real, the
+# second line's rows end in 12, 20, 5 and 0 pads
+PAD_IDS = np.random.default_rng(9).integers(0, 256, (8, 33)).astype(
+    np.int32)
+PAD_MASK = np.ones((8, 33), np.int32)
+for _row, _pads in zip(range(4, 8), (12, 20, 5, 0)):
+    PAD_MASK[_row, 33 - _pads:] = 0
 DROP_X = np.random.default_rng(8).standard_normal((8, 17, 64)).astype(
     np.float32)
 H = 16
@@ -126,6 +135,9 @@ def _cases(weights):
         dict(moe, name="copies", kind="moe_copies", steps=COPY_STEPS),
         dict(name="a2a_drop", kind="moe_drop", axes={"data": 2, "expert": 2},
              params=weights["moe"], config=DROP_CONFIG, x=DROP_X),
+        dict(name="padded", kind="padded", axes={"data": 2, "stage": 2},
+             params=weights["llama"], ids=PAD_IDS, mask=PAD_MASK,
+             steps=STEPS, lr=LR),
         dict(name="stage", kind="stage", axes={"data": 2, "stage": 2},
              mlp=MLP, staged=STAGED, x=X, t=T, micro=4, steps=STEPS,
              lr=LR),
@@ -135,8 +147,9 @@ def _cases(weights):
 
 
 @pytest.fixture(scope="module")
-def world(weights):
+def world(weights, tmp_path_factory):
     ranks = run_world(sharded_training_forms, WORLD, (_cases(weights),),
+                      out_dir=str(tmp_path_factory.mktemp("sharded")),
                       timeout_s=WORLD_TIMEOUT_S)
     return {name: [r[name] for r in ranks] for name in ranks[0]
             if name != "log"}
@@ -255,10 +268,40 @@ def jax_moe_copies(weights):
 
 
 @pytest.fixture(scope="module")
+def jax_padded(weights):
+    """llama's fused step on `{data: 4, stage: 2}` over the padded global
+    batch: each step's loss, the pre-clip norm of the global batch's
+    gradient before it, and the params."""
+    try:
+        acc = _jax_accelerator(mesh_config=MeshConfig(
+            axes={"data": 4, "stage": 2}))
+        cfg = jl.LlamaConfig.tiny()
+
+        def loss_fn(p, b):
+            return jl.causal_lm_loss(cfg, p, b)
+
+        state = acc.prepare(JTrainState.create(
+            apply_fn=None, params=_j(weights["llama"]), tx=optax.adamw(LR)))
+        (batch,) = list(acc.prepare([{"input_ids": PAD_IDS,
+                                      "attention_mask": PAD_MASK}]))
+        step = acc.train_step(loss_fn)
+        out = {"losses": [], "norms": []}
+        for _ in range(STEPS):
+            _, grads = acc.compute_gradients(loss_fn, state.params, batch)
+            out["norms"].append(float(optax.global_norm(grads)))
+            state, m = step(state, batch)
+            out["losses"].append(float(m["loss"]))
+        out["params"] = _numpy(state.params)
+        return out
+    finally:
+        JPartialState._reset_state()
+
+
+@pytest.fixture(scope="module")
 def jax_moe_drop(weights):
     """Layer 0's a2a MoE block on `{data: 4, expert: 2}` at the dropping
-    capacity: on the whole of `DROP_X`, and on each half of its rows
-    alone, with each dispatch's dropped fraction."""
+    capacity on the whole of `DROP_X`, with its dispatch's dropped
+    fraction."""
     out, dropped = {}, []
     dispatch = jmoe.expert_parallel_moe_a2a
 
@@ -275,8 +318,7 @@ def jax_moe_drop(weights):
                                      weights["moe"]["layers"]["moe"])
         with mock.patch.object(jmoe, "expert_parallel_moe_a2a",
                                with_stats):
-            for name, x in (("whole", DROP_X), ("half0", DROP_X[:4]),
-                            ("half1", DROP_X[4:])):
+            for name, x in (("whole", DROP_X),):
                 y, aux, _ = jm.moe_block(cfg, moe, jnp.asarray(x))
                 out[name] = {"out": np.asarray(y), "aux": float(aux),
                              "dropped": dropped.pop()}
@@ -509,42 +551,79 @@ def test_copied_expert_blocks_clip_like_jax(world, jax_moe_copies):
                                rtol=LOSS_RTOL)
 
 
-def test_a2a_dropping_capacity_groups_over_the_batch_line(world,
-                                                         jax_moe_drop):
-    """At a capacity that drops tokens the port's a2a groups its sources
-    over each batch line, the reference's over the whole global batch,
-    so the two drop different tokens (an open difference: `PERF.md`
-    Open questions). Pinned here: each line's output and dropped
-    fraction equal the reference's on that line's rows alone, and
-    differ from its rows of the global batch's; the load-balancing loss
-    is the global batch's on both sides."""
-    want = jax_moe_drop
-    assert want["whole"]["dropped"] > 0
-    gaps = []
+def test_a2a_dropping_capacity_matches_jax_on_the_global_batch(
+        world, jax_moe_drop):
+    """At a capacity that drops tokens, each batch line's a2a block output
+    (its rows of the global batch) and the dropped fraction equal the
+    reference's on the global batch: the port gathers the line's tokens
+    and dispatches the global batch over `expert`, as the reference's
+    `shard_map` does; the load-balancing loss is the global batch's."""
+    want = jax_moe_drop["whole"]
+    assert want["dropped"] > 0
     for r in world["a2a_drop"]:
         size, index = r["line"]
         assert size == 2 and r["expert_shape"] == (2, 64, 128)
-        half = want[f"half{index}"]
-        np.testing.assert_allclose(r["out"], half["out"], rtol=0,
-                                   atol=BLOCK_ATOL)
-        np.testing.assert_allclose(r["dropped"], [half["dropped"]],
+        np.testing.assert_allclose(
+            r["out"], want["out"][4 * index:4 * index + 4], rtol=0,
+            atol=BLOCK_ATOL)
+        np.testing.assert_allclose(r["dropped"], [want["dropped"]],
                                    rtol=1e-6)
-        np.testing.assert_allclose(r["aux"], want["whole"]["aux"],
-                                   rtol=LOSS_RTOL)
-        rows = want["whole"]["out"][4 * index:4 * index + 4]
-        gaps.append(float(np.max(np.abs(r["out"] - rows))))
-    assert max(gaps) > 100 * BLOCK_ATOL, gaps
+        np.testing.assert_allclose(r["aux"], want["aux"], rtol=LOSS_RTOL)
+
+
+def test_padded_batch_loss_is_the_global_mean_like_jax(world, jax_padded):
+    """A padded batch on `{data: 2, stage: 2}` whose batch lines hold 132
+    and 95 real tokens (128 and 91 counted labels): each rank divides its masked sum by the line's
+    count over the line's size, so the losses, each step's pre-clip norm
+    and the params equal the JAX Accelerator's on the global batch
+    (`{data: 4, stage: 2}`), the global masked sum over the global
+    count."""
+    ranks = world["padded"]
+    assert sorted({r["real_tokens"] for r in ranks}) == [95, 132]
+    _same_losses(ranks)
+    np.testing.assert_allclose(ranks[0]["losses"], jax_padded["losses"],
+                               rtol=LOSS_RTOL)
+    for r in ranks:
+        np.testing.assert_allclose(r["norms"], jax_padded["norms"],
+                                   rtol=NORM_RTOL)
+        _close_params(r["params"], jax_padded["params"])
 
 
 @pytest.mark.parametrize("call", ["save_state", "get_state_dict",
                                   "optimizer_save"])
-def test_checkpoints_of_blocks_refused(world, call):
-    """A state or an optimizer that holds expert blocks is not saved: the
-    calls raise, naming item 6b's sharded checkpoints, for a copy of a
-    state after `train_step(donate=False)` too; the `stage` mesh's
-    state, which holds no block, saves."""
+def test_checkpoints_of_blocks_refused(world, weights, call):
+    """A state or an optimizer that holds expert blocks saves and loads:
+    every rank gathers its blocks whole
+    into the one-process format, and a reload cuts each rank's block
+    back out bit for bit, for a copy of a state after
+    `train_step(donate=False)` too; `get_state_dict` gives the whole
+    params; the dense case's checkpoint loads in one process, its
+    experts whole; the `stage` mesh's state, which holds no block, saves
+    as before."""
     for r in world["dense"] + (world["copies"] if call != "optimizer_save"
                                else []):
-        assert r[call] is not None and ITEM_6B in r[call], r[call]
+        assert r[call] is True, r[call]
     for r in world["stage"]:
         assert r["save_state"] is None
+    if call != "save_state":
+        return
+    from accelerate_tpu_torch import optimizers
+    from accelerate_tpu_torch.accelerator import Accelerator
+    from accelerate_tpu_torch.models.convert import params_from_numpy
+    from accelerate_tpu_torch.state import PartialState
+    from accelerate_tpu_torch.training import TrainState
+
+    PartialState._reset_state()
+    try:
+        acc = Accelerator(cpu=True)
+        state = acc.prepare(TrainState.create(
+            apply_fn=None,
+            params=params_from_numpy(weights["moe"], device="cpu"),
+            tx=optimizers.adamw(LR)))
+        acc.load_state(world["dense"][0]["saved"], state=state)
+    finally:
+        PartialState._reset_state()
+    got = jax.tree_util.tree_map(lambda t: t.numpy(), state.params)
+    _close_params(got, world["dense"][0]["params"])
+    experts = got["layers"]["moe"]["experts"]["gate_proj"]["kernel"]
+    assert experts.shape == (2, 4, 64, 128)

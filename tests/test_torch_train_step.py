@@ -35,8 +35,9 @@ from accelerate_tpu_torch.models import llama as tl
 from accelerate_tpu_torch.models.convert import params_from_numpy, \
     params_to_numpy
 from accelerate_tpu_torch.state import PartialState
-from accelerate_tpu_torch.utils.dataclasses import InitProcessGroupKwargs, \
-    JitConfig, MeshConfig
+from accelerate_tpu_torch.utils.dataclasses import \
+    FullyShardedDataParallelPlugin, InitProcessGroupKwargs, JitConfig, \
+    MeshConfig
 
 STEPS = 5
 LR = 3e-3
@@ -180,7 +181,8 @@ def test_accelerator_needs_a_gpu_unless_cpu_is_asked(monkeypatch):
 @pytest.mark.parametrize("kwargs", [
     # a mesh with an axis other than `data` is sharded parallelism (6b)
     {"mesh_config": MeshConfig(axes={"model": 2})},
-    {"fsdp_plugin": "a plugin"},
+    # FULL_SHARD (the plugin's default) shards params (6b, step 2b)
+    {"fsdp_plugin": FullyShardedDataParallelPlugin()},
     {"metrics_port": 0}, {"strict": "error"},
     # log_with is ported; a device-cost sampler beside it is too
     {"log_with": "jsonl", "cost_sample_every": 16},
